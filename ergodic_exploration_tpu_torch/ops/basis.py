@@ -1,0 +1,113 @@
+"""Cosine Fourier basis on the rectangular domain (port of
+``ergodic_exploration_tpu/ops/basis.py``), batched over leading axes.
+
+    F_k(p)   = cos(k1 a1 x) cos(k2 a2 y) / h_k,   a_i = pi / L_i
+    h_k      = sqrt(Lx Ly c(k1) c(k2)), c(0)=1, c(k>0)=1/2
+    Lambda_k = (1 + k1^2 + k2^2)^(-3/2)
+
+All matmuls here are float32 with TF32 off (the engine switches it off):
+reduced-precision inputs would eat the 1e-3 parity budget.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ergodic_exploration_tpu_torch.grid import rows
+
+
+def lambda_weights(K: int, device=None) -> torch.Tensor:
+    """Sobolev weights Lambda_k = (1 + ||k||^2)^(-3/2); (K, K)."""
+    k = torch.arange(K, dtype=torch.float32, device=device)
+    k2 = k[:, None] ** 2 + k[None, :] ** 2
+    return (1.0 + k2) ** -1.5
+
+
+def hk_norm(K: int, lengths: torch.Tensor) -> torch.Tensor:
+    """L2 normalization h_k; lengths (..., 2) -> (..., K, K)."""
+    c = torch.full((K,), 0.5, dtype=torch.float32, device=lengths.device)
+    c[0] = 1.0
+    area = (lengths[..., 0] * lengths[..., 1])[..., None, None]
+    return torch.sqrt(area * c[:, None] * c[None, :])
+
+
+class BasisTables(NamedTuple):
+    """Per-point separable cos/sin tables and angular frequencies."""
+
+    Cx: torch.Tensor  # (..., N, K)
+    Sx: torch.Tensor  # (..., N, K)
+    Cy: torch.Tensor  # (..., N, K)
+    Sy: torch.Tensor  # (..., N, K)
+    f1: torch.Tensor  # (..., K)
+    f2: torch.Tensor  # (..., K)
+
+
+def _angles(points, K, domain):
+    rel = points - rows(domain.origin)
+    a = math.pi / domain.lengths  # (..., 2)
+    k = torch.arange(K, dtype=points.dtype, device=points.device)
+    f1 = k * a[..., 0:1]
+    f2 = k * a[..., 1:2]
+    return rel[..., 0:1] * rows(f1), rel[..., 1:2] * rows(f2), f1, f2
+
+
+def tables(points, K: int, domain) -> BasisTables:
+    """cos/sin tables for points (..., N, 2) on ``domain`` (origin (..., 2))."""
+    ax, ay, f1, f2 = _angles(points, K, domain)
+    return BasisTables(torch.cos(ax), torch.sin(ax), torch.cos(ay), torch.sin(ay), f1, f2)
+
+
+def cos_tables(points, K: int, domain):
+    """(Cx, Cy) only — for coefficient reductions."""
+    ax, ay, _, _ = _angles(points, K, domain)
+    return torch.cos(ax), torch.cos(ay)
+
+
+def coefficients_cos(Cx, Cy, weights, hk):
+    """Weighted basis expectation from cos tables alone; (..., K, K)."""
+    wc = Cx * weights[..., None]
+    return torch.matmul(wc.transpose(-1, -2), Cy) / hk
+
+
+def coefficients(tbl: BasisTables, weights, hk):
+    """sum_n w_n F_k(p_n); (..., K, K)."""
+    return coefficients_cos(tbl.Cx, tbl.Cy, weights, hk)
+
+
+def fourier_basis_at(tbl: BasisTables, hk):
+    """Dense F_k per point: (..., N, K, K)."""
+    return (tbl.Cx[..., :, None] * tbl.Cy[..., None, :]) / hk[..., None, :, :]
+
+
+def dense_table(tbl: BasisTables, hk):
+    """Flattened dense basis table D[n, k1*K + k2] = F_k(p_n): (N, K^2)."""
+    N, K = tbl.Cx.shape[-2:]
+    return fourier_basis_at(tbl, hk).reshape(*tbl.Cx.shape[:-2], N, K * K)
+
+
+def coefficients_dense(phi_batch, D, K: int):
+    """(S, N) @ (N, K^2) -> (S, K, K) in float32."""
+    return torch.matmul(phi_batch, D).reshape(phi_batch.shape[0], K, K)
+
+
+def ergodic_metric(ck, phik, lam):
+    """E = sum_k Lambda_k (c_k - phi_k)^2 over the last two axes."""
+    d = ck - phik
+    return (lam * d * d).sum(dim=(-2, -1))
+
+
+def ergodic_gradient(tbl: BasisTables, ck, phik, lam, hk, M):
+    """dE/dp_m = (2/M) sum_k Lambda_k (c_k - phi_k) grad F_k(p_m); (..., N, 2).
+
+    ``M`` (...,) is the total state count behind c_k.
+    """
+    Wh = (lam * (ck - phik)) / hk  # (..., K, K)
+    scale = (2.0 / M)[..., None]
+    Px = torch.matmul(tbl.Cy, Wh.transpose(-1, -2))  # (..., N, K1)
+    ex = -scale * (tbl.Sx * rows(tbl.f1) * Px).sum(dim=-1)
+    Py = torch.matmul(tbl.Cx, Wh)  # (..., N, K2)
+    ey = -scale * (tbl.Sy * rows(tbl.f2) * Py).sum(dim=-1)
+    return torch.stack([ex, ey], dim=-1)

@@ -1,0 +1,123 @@
+"""Local map windows around each pose (port of
+``ergodic_exploration_tpu/ops/patch.py``).
+
+The JAX package builds patches and queries them with one-hot / hat-weight
+matmuls because TPU gathers are slow; a GPU gathers natively, so here the
+patch is a clamped gather and queries read the 2x2 (bilinear) or nearest
+cell directly. The index math is unchanged: half-even rounding of the patch
+start and of nearest-cell queries, fractional coordinates clamped to
+[0, P - 1.001], rows/columns outside the map clamped to its edge.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ergodic_exploration_tpu_torch.grid import rows
+from ergodic_exploration_tpu_torch.ops.distance import central_gradient
+
+
+def _gather2(a: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
+    """a[s, iy[s, q], ix[s, q]] for a (S, P, P) and indices (S, Q)."""
+    P = a.shape[-1]
+    return torch.gather(a.reshape(a.shape[0], -1), 1, iy * P + ix)
+
+
+class PatchField(NamedTuple):
+    """Per-scenario (P, P) windows of a distance field."""
+
+    dist: torch.Tensor  # (S, P, P) clearance, indexed [iy_local, ix_local]
+    grad: torch.Tensor  # (S, P, P, 2) clearance gradient
+    start: torch.Tensor  # (S, 2) int64 (ix, iy) of local cell (0, 0)
+    origin: torch.Tensor  # (S, 2) world origin of the parent field
+    resolution: torch.Tensor  # (S,)
+
+    @property
+    def size(self) -> int:
+        return self.dist.shape[-1]
+
+    def _local_frac(self, p: torch.Tensor) -> torch.Tensor:
+        """World points (S, Q, 2) -> fractional local cell coords, clamped."""
+        rel = (p - rows(self.origin)) / self.resolution[:, None, None] - 0.5
+        loc = rel - rows(self.start.to(rel.dtype))
+        return torch.clamp(loc, 0.0, self.size - 1.001)
+
+    def query(self, p: torch.Tensor):
+        """Bilinear clearance (S, Q) + gradient (S, Q, 2) at points (S, Q, 2):
+        hat weights max(0, 1 - |f - c|) on the 2x2 support, contracted over
+        rows first, then columns (the JAX hat-matmul order)."""
+        f = self._local_frac(p)
+        fx, fy = f[..., 0], f[..., 1]
+        x0 = torch.floor(fx)
+        y0 = torch.floor(fy)
+        wx0, wx1 = 1.0 - (fx - x0), 1.0 - ((x0 + 1.0) - fx)
+        wy0, wy1 = 1.0 - (fy - y0), 1.0 - ((y0 + 1.0) - fy)
+        ix, iy = x0.to(torch.int64), y0.to(torch.int64)
+
+        def interp(a):
+            c00 = _gather2(a, iy, ix)
+            c01 = _gather2(a, iy, ix + 1)
+            c10 = _gather2(a, iy + 1, ix)
+            c11 = _gather2(a, iy + 1, ix + 1)
+            return (wy0 * c00 + wy1 * c10) * wx0 + (wy0 * c01 + wy1 * c11) * wx1
+
+        dist = interp(self.dist)
+        grad = torch.stack([interp(self.grad[..., 0]), interp(self.grad[..., 1])], dim=-1)
+        return dist, grad
+
+    def center_crop(self, size: int) -> "PatchField":
+        """Static central (size, size) sub-window (clamped to the patch)."""
+        P = self.size
+        if size >= P:
+            return self
+        o = (P - size) // 2
+        return PatchField(
+            dist=self.dist[:, o:o + size, o:o + size],
+            grad=self.grad[:, o:o + size, o:o + size],
+            start=self.start + o,
+            origin=self.origin,
+            resolution=self.resolution,
+        )
+
+    def query_dist(self, p: torch.Tensor) -> torch.Tensor:
+        """Nearest-cell clearance (S, Q) at world points (S, Q, 2)."""
+        n = torch.round(self._local_frac(p)).to(torch.int64)
+        return _gather2(self.dist.contiguous(), n[..., 1], n[..., 0])
+
+
+def patch_start(dist_field, center: torch.Tensor, P: int) -> torch.Tensor:
+    """(S, 2) int64 (ix, iy) global index of local cell (0, 0) of the P x P
+    window around world points ``center`` (S, 2)."""
+    cf = (center - dist_field.origin) / dist_field.resolution[:, None] - 0.5
+    return torch.round(cf).to(torch.int64) - P // 2
+
+
+def gather_patch(d: torch.Tensor, start: torch.Tensor, P: int, origin: torch.Tensor,
+                 resolution: torch.Tensor) -> PatchField:
+    """(S, P, P) windows starting at ``start`` (S, 2) of maps ``d``
+    (S, H, W), or of one shared (H, W) map; rows and columns outside the map
+    clamp to its edge. The gradient is the patch's own central difference
+    (one-sided at the PATCH edges, FAR plateau zeroed), never the global
+    field's."""
+    h, w = d.shape[-2:]
+    S = start.shape[0]
+    ii = torch.arange(P, device=d.device)
+    ry = torch.clamp(start[:, 1:2] + ii, 0, h - 1)  # (S, P) global iy
+    cx = torch.clamp(start[:, 0:1] + ii, 0, w - 1)  # (S, P) global ix
+    flat = d.reshape(-1, h * w).expand(S, h * w)
+    pd = torch.gather(flat, 1, (ry[:, :, None] * w + cx[:, None, :]).reshape(S, P * P))
+    pd = pd.reshape(S, P, P)
+    gx, gy = central_gradient(pd, resolution)
+    return PatchField(dist=pd, grad=torch.stack([gx, gy], dim=-1), start=start,
+                      origin=origin, resolution=resolution)
+
+
+def extract_patch(dist_field, center: torch.Tensor, size: int) -> PatchField:
+    """(S, P, P) windows of a batched DistanceField around world points
+    ``center`` (S, 2); ``size`` is clamped to the map extent."""
+    h, w = dist_field.dist.shape[-2:]
+    P = min(size, h, w)
+    start = patch_start(dist_field, center, P)
+    return gather_patch(dist_field.dist, start, P, dist_field.origin, dist_field.resolution)

@@ -1,0 +1,516 @@
+"""K1, the fused replan kernel: one whole tick per scenario on the card.
+
+Port of ``ergodic_exploration_tpu/ops/solve_kernel.py`` (its Pallas kernel
+``fused_solve_safety``, built by ``_fused_call`` / ``_make_kernel``). In one
+launch sequence per tick, for every scenario:
+
+    GMM target refresh over the sample lattice (optional, J > 0)
+    -> P x P patch of the SHARED distance map + its own gradient
+    -> RK4 rollout -> cos/sin basis tables -> c_k and the metric
+    -> ergodic gradient -> boundary + obstacle barrier (bilinear queries)
+    -> backward co-state -> u = clip(-R^-1 B^T rho) -> ck_sum append
+    -> validation of u0 + the DWA sweep (nearest-cell crash probes).
+
+The CUDA source is ``csrc/solve_kernel.cu`` (its header comment says what
+bounds it on an H100 and what the design does about that). Beside it lives
+the plain PyTorch version, :func:`fused_solve_safety_plain`, with the same
+inputs and outputs, made from the ported basis / patch / barrier /
+collision / dwa functions; the CPU tests run it, ``chip_smoke.py`` holds
+the kernel against it on the card.
+
+Dispatch: :func:`fused_solve_safety` takes the plain version only for
+tensors that lie on the CPU. For CUDA tensors it launches the kernel or
+raises; there is no fallback.
+
+Variants not ported to CUDA yet raise ``NotImplementedError`` on a CUDA
+device (their plain versions run on the CPU): ``fused_solve`` (safety off)
+and ``map_h=0`` (per-scenario maps, ``shared_maps=False``). The JAX
+package's ``nb > 0`` variant (history cos tables inside the kernel) has no
+counterpart: every history mode reaches the kernel as precomputed sums.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ergodic_exploration_tpu_torch.grid import Domain
+from ergodic_exploration_tpu_torch.ops import basis
+from ergodic_exploration_tpu_torch.ops.patch import gather_patch, patch_start
+from ergodic_exploration_tpu_torch.ops.target import GaussianMixture, gmm_eval
+from ergodic_exploration_tpu_torch.utils import prng
+
+KMAX, HMAX, NUMAX = 16, 64, 4  # static bounds of the CUDA kernel
+LATTICE_CHUNK = 64  # lattice points per refresh step; N is padded to it
+PAD_POINT = 1.0e6  # pad points sit far away: phi underflows to exactly 0
+
+
+@dataclass(frozen=True)
+class SolveParams:
+    """Static parameters of the descent stage."""
+
+    H: int
+    K: int
+    nu: int
+    P: int  # patch cells
+    dt: float
+    gamma: float  # ergodic weight
+    beta: float  # barrier weight
+    b_eps: float
+    b_weight: float  # boundary barrier weight
+    o_weight: float  # obstacle barrier weight
+    b_radius: float
+    d_safe: float
+    d_min: float
+    r_diag: Tuple[float, ...]
+    u_min: Tuple[float, ...]
+    u_max: Tuple[float, ...]
+    map_h: int = 0  # shared map rows (0: per-scenario maps)
+    map_w: int = 0
+    J: int = 0  # GMM components refreshed in-kernel (0: phik is an input)
+    masked_refresh: bool = False  # free mask folded into the basis table
+
+
+@dataclass(frozen=True)
+class SafetyParams:
+    """Static parameters of the validation + DWA stage."""
+
+    nu: int
+    Pc: int  # cropped patch cells
+    b_radius: float
+    d_safe: float
+    val_dt: float
+    val_horizon: int
+    dwa_dt: float
+    dwa_horizon: int
+    samples: Tuple[int, int, int]
+    acc_lim: Tuple[float, float, float]
+    vel_lim: Tuple[float, float, float]
+    model: str  # "cart" | "omni": which twist / inverse-twist formulas
+    twist_k: Tuple[float, float]  # cart (r/2, r/b); omni (r/4, r/(4L))
+    finv: Tuple[float, float]  # inverse twist: cart (b/2, r); omni (L, r)
+    cost_space: str = "control"
+
+
+def _model_finv(model):
+    """Static constants of the models' twist, from_twist and B, as those
+    methods round them: K1 evaluates the models' own formulas so that its
+    rollout knots and safety probes match the plain version bit for bit."""
+    from ergodic_exploration_tpu_torch.models.cart import Cart
+    from ergodic_exploration_tpu_torch.models.omni import Omni
+
+    if isinstance(model, Cart):
+        r, b = model.wheel_radius, model.wheel_base
+        return "cart", (0.5 * r, r / b), (0.5 * b, r)
+    if isinstance(model, Omni):
+        r = model.wheel_radius
+        L = model.lx + model.ly
+        return "omni", (0.25 * r, 0.25 * r / L), (L, r)
+    raise TypeError(f"fused safety supports cart/omni, got {type(model)!r}")
+
+
+def params_from_config(cfg, P: int, map_hw=(0, 0), J: int = 0,
+                       masked: bool = False) -> SolveParams:
+    return SolveParams(
+        H=cfg.horizon, K=cfg.num_basis, nu=cfg.nu, P=P, dt=cfg.dt,
+        gamma=cfg.ergodic_weight, beta=cfg.barrier_weight, b_eps=cfg.barrier_eps,
+        b_weight=cfg.barrier_boundary_weight, o_weight=cfg.barrier_obstacle_weight,
+        b_radius=cfg.boundary_radius, d_safe=cfg.d_safe, d_min=0.03,
+        r_diag=tuple(cfg.r_diag), u_min=tuple(cfg.u_min), u_max=tuple(cfg.u_max),
+        map_h=map_hw[0], map_w=map_hw[1], J=J, masked_refresh=masked,
+    )
+
+
+def safety_params_from_config(cfg, crop_cells: int) -> SafetyParams:
+    from ergodic_exploration_tpu_torch.models import make_model
+
+    kind, twist_k, finv = _model_finv(make_model(cfg))
+    return SafetyParams(
+        nu=cfg.nu, Pc=crop_cells, b_radius=cfg.boundary_radius, d_safe=cfg.d_safe,
+        val_dt=cfg.val_dt, val_horizon=cfg.val_horizon, dwa_dt=cfg.dwa.dt,
+        dwa_horizon=cfg.dwa.horizon, samples=tuple(cfg.dwa.samples),
+        acc_lim=tuple(cfg.dwa.acc_lim), vel_lim=tuple(cfg.dwa.vel_lim),
+        model=kind, twist_k=twist_k, finv=finv, cost_space=cfg.dwa.cost_space,
+    )
+
+
+class Refresh(NamedTuple):
+    """Operands of the in-kernel GMM target refresh (J > 0)."""
+
+    gmm: GaussianMixture  # means (S, J, 2), covs (S, J, 2, 2), weights (S, J)
+    pts: torch.Tensor  # (Npad, 2) shared lattice, padded with PAD_POINT
+    D: torch.Tensor  # (Npad, K^2) dense basis table, mask folded, pad rows 0
+    mask_ck: torch.Tensor  # (K^2,) degenerate-target fallback
+    masked: bool  # free mask folded into D (renormalize by k = (0, 0))
+
+
+class K1Inputs(NamedTuple):
+    """Scenario-first operands of K1 (all float32 unless noted)."""
+
+    x: torch.Tensor  # (S, 3) poses
+    U: torch.Tensor  # (S, H, nu) warm-started controls
+    hist: torch.Tensor  # (S, K^2) history sums of F_k (divided by h_k)
+    nh: torch.Tensor  # (S,) history state count
+    phik: Optional[torch.Tensor]  # (S, K^2) targets, or None with ``refresh``
+    refresh: Optional[Refresh]
+    dist: torch.Tensor  # (mh, mw) shared distance map (or (S, H, W) maps)
+    pstart: torch.Tensor  # (S, 2) int (ix, iy) global cell of patch cell (0, 0)
+    porigin: torch.Tensor  # (S, 2) map origin
+    pres: torch.Tensor  # (S,) map resolution
+    dorigin: torch.Tensor  # (S, 2) domain origin
+    dlen: torch.Tensor  # (S, 2) domain lengths
+    cks: torch.Tensor  # (S, K^2) running basis sum
+    vb: torch.Tensor  # (S, 3) body twists (DWA window centres)
+
+
+class K1Outputs(NamedTuple):
+    U_new: torch.Tensor  # (S, H, nu)
+    metric: torch.Tensor  # (S,)
+    barrier: torch.Tensor  # (S,) mean barrier value along the horizon
+    ck_sum: torch.Tensor  # (S, K^2)
+    code: Optional[torch.Tensor]  # (S,) int32 validation code of u0
+    u_dwa: Optional[torch.Tensor]  # (S, nu)
+    feasible: Optional[torch.Tensor]  # (S,) int32
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def refresh_plain(r: Refresh, dlen: torch.Tensor) -> torch.Tensor:
+    """phi_k (S, K^2) from the GMM over the lattice: acc = phi @ D and
+    tot = sum(phi), then (masked) ck = acc / (h00 acc_00) or (unmasked)
+    ck = acc / tot, falling back to ``mask_ck`` for a target with no mass
+    (engine._phik_from_gmm_fn's shared-map fold, tot cancelled)."""
+    phi = gmm_eval(r.pts, r.gmm)  # (S, Npad)
+    tot = phi.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(phi, r.D)
+    if r.masked:
+        h00 = torch.sqrt(dlen[:, 0:1] * dlen[:, 1:2])
+        a00 = h00 * acc[:, 0:1]
+        ok = (tot > 1e-12) & (a00 / torch.clamp(tot, min=1e-12) > 1e-12)
+        ck = acc / torch.clamp(a00, min=1e-30)
+    else:
+        ok = tot > 1e-12
+        ck = acc / torch.clamp(tot, min=1e-12)
+    return torch.where(ok, ck, r.mask_ck)
+
+
+def fused_solve_safety_plain(cfg, inp: K1Inputs, enable_safety: bool = True) -> K1Outputs:
+    """K1's plain PyTorch version (same inputs and outputs as the kernel)."""
+    from ergodic_exploration_tpu_torch.controller import descent, safety
+    from ergodic_exploration_tpu_torch.models import make_model
+
+    model = make_model(cfg)
+    S = inp.x.shape[0]
+    K = cfg.num_basis
+    mh, mw = inp.dist.shape[-2:]
+    P = min(cfg.patch_cells, mh, mw)
+    phik = inp.phik if inp.refresh is None else refresh_plain(inp.refresh, inp.dlen)
+    patch = gather_patch(inp.dist, inp.pstart.to(torch.int64), P, inp.porigin, inp.pres)
+    domain = Domain(inp.dorigin, inp.dlen)
+    lam = basis.lambda_weights(K, device=inp.x.device)
+    hk = basis.hk_norm(K, inp.dlen)
+    U_new, metric, bcost = descent(cfg, model, inp.x, inp.U, inp.hist.view(S, K, K), inp.nh,
+                                   phik.view(S, K, K), domain, patch, lam, hk)
+    Cnx, Cny = basis.cos_tables(inp.x[:, None, :2], K, domain)
+    ck_sum = inp.cks + basis.coefficients_cos(Cnx, Cny, torch.ones_like(inp.x[:, :1]),
+                                              hk).view(S, K * K)
+    code = u_dwa = feasible = None
+    if enable_safety:
+        code, u_dwa, feas = safety(cfg, model, inp.x, inp.vb, U_new[:, 0], domain, patch)
+        feasible = feas.to(torch.int32)
+    return K1Outputs(U_new, metric, bcost, ck_sum, code, u_dwa, feasible)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: parameter block, buffers, build and launch
+# ---------------------------------------------------------------------------
+
+_F4 = ctypes.c_float * 4
+_F3 = ctypes.c_float * 3
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``struct K1Params`` in csrc/solve_kernel.cu. Float fields
+    hold the Python (double) constants rounded to float32, as PyTorch's
+    scalar ops round them."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "S", "H", "K", "nu", "P", "Pc", "J", "Npad", "map_h", "map_w", "masked", "model",
+        "cost_twist", "val_horizon", "dwa_horizon", "nvx", "nvy", "nw")] + [
+        (n, ctypes.c_float) for n in (
+            "dt", "half_dt", "dt6", "gamma", "beta", "b_eps", "b_weight", "b_weight2",
+            "o_weight", "o_weight_m2", "b_radius", "d_safe", "inv_d_safe", "d_min",
+            "patch_hi", "crop_hi", "tw_a", "tw_b", "inv_a", "inv_r", "val_dt", "dwa_dt",
+            "two_pi")] + [
+        ("r_inv", _F4), ("u_min", _F4), ("u_max", _F4), ("acc_dt", _F3), ("vel_lim", _F3)]
+
+
+_BUFFERS = ("x", "U", "hist", "nh", "phik", "means", "covs", "weights", "pts", "D",
+            "mask_ck", "dist", "pstart", "porigin", "pres", "dorigin", "dlen", "cks", "vb",
+            "U_new", "metric", "bcost", "ck_out", "code", "u_dwa", "feasible", "phik_buf")
+
+
+class _Buffers(ctypes.Structure):
+    """Mirror of ``struct K1Buffers``: device pointers."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
+
+
+def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int) -> _Params:
+    p = _Params()
+    ints = dict(S=S, H=sp.H, K=sp.K, nu=sp.nu, P=sp.P, Pc=sps.Pc, J=sp.J, Npad=Npad,
+                map_h=sp.map_h, map_w=sp.map_w, masked=int(sp.masked_refresh),
+                model=0 if sps.model == "cart" else 1,
+                cost_twist=int(sps.cost_space == "twist"), val_horizon=sps.val_horizon,
+                dwa_horizon=sps.dwa_horizon, nvx=sps.samples[0], nvy=sps.samples[1],
+                nw=sps.samples[2])
+    floats = dict(
+        dt=sp.dt, half_dt=0.5 * sp.dt, dt6=sp.dt / 6.0, gamma=sp.gamma, beta=sp.beta,
+        b_eps=sp.b_eps, b_weight=sp.b_weight, b_weight2=2.0 * sp.b_weight,
+        o_weight=sp.o_weight, o_weight_m2=-2.0 * sp.o_weight, b_radius=sp.b_radius,
+        d_safe=sp.d_safe, inv_d_safe=1.0 / sp.d_safe, d_min=sp.d_min,
+        patch_hi=sp.P - 1.001, crop_hi=sps.Pc - 1.001, tw_a=sps.twist_k[0],
+        tw_b=sps.twist_k[1], inv_a=sps.finv[0], inv_r=sps.finv[1], val_dt=sps.val_dt,
+        dwa_dt=sps.dwa_dt, two_pi=2.0 * math.pi)
+    for k, v in {**ints, **floats}.items():
+        setattr(p, k, v)
+    pad = (0.0,) * (NUMAX - sp.nu)
+    # 1 / float32(r), as ``1.0 / torch.tensor(cfg.r_diag)`` rounds it
+    p.r_inv = _F4(*(1.0 / float(ctypes.c_float(r).value) for r in sp.r_diag), *pad)
+    p.u_min = _F4(*sp.u_min, *pad)
+    p.u_max = _F4(*sp.u_max, *pad)
+    p.acc_dt = _F3(*(a * sps.dwa_dt for a in sps.acc_lim))
+    p.vel_lim = _F3(*sps.vel_lim)
+    return p
+
+
+class FusedSolveSafety:
+    """The K1 wrapper: builds ``csrc/solve_kernel.cu`` on first use and
+    counts its launches (``launches`` grows by one per kernel launch)."""
+
+    name = "fused_solve_safety"
+    source = "solve_kernel.cu"
+
+    def __init__(self):
+        self.launches = 0
+        self.built = None  # utils.cuda_build.Built once compiled
+
+    def build(self):
+        if self.built is None:
+            from ergodic_exploration_tpu_torch.utils.cuda_build import build
+
+            built = build("solve_kernel", self.source)
+            fn = built.lib.k1_fused_solve_safety
+            fn.argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(_Buffers), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self.built = built
+        return self.built
+
+    def __call__(self, cfg, inp: K1Inputs) -> K1Outputs:
+        if inp.dist.dim() != 2:
+            raise NotImplementedError(
+                "K1 variant map_h=0 (per-scenario maps, shared_maps=False) not ported "
+                "to CUDA yet")
+        dev = inp.x.device
+        S, H, nu = inp.U.shape
+        K = cfg.num_basis
+        if K > KMAX or H > HMAX or nu > NUMAX:
+            raise ValueError(f"K1 supports K <= {KMAX}, H <= {HMAX}, nu <= {NUMAX}")
+        mh, mw = inp.dist.shape
+        P = min(cfg.patch_cells, mh, mw)
+        r = inp.refresh
+        J = 0 if r is None else r.gmm.means.shape[1]
+        Npad = 0 if r is None else r.pts.shape[0]
+        if r is not None and Npad % LATTICE_CHUNK:
+            raise ValueError(f"lattice of {Npad} points is not padded to {LATTICE_CHUNK}")
+        sp = params_from_config(cfg, P, (mh, mw), J, bool(r is not None and r.masked))
+        sps = safety_params_from_config(cfg, min(cfg.safety_patch_cells, P))
+
+        f32, i32 = torch.float32, torch.int32
+        kw = dict(device=dev)
+        out = K1Outputs(
+            U_new=torch.empty((S, H, nu), dtype=f32, **kw),
+            metric=torch.empty((S,), dtype=f32, **kw),
+            barrier=torch.empty((S,), dtype=f32, **kw),
+            ck_sum=torch.empty((S, K * K), dtype=f32, **kw),
+            code=torch.empty((S,), dtype=i32, **kw),
+            u_dwa=torch.empty((S, nu), dtype=f32, **kw),
+            feasible=torch.empty((S,), dtype=i32, **kw),
+        )
+        phik_buf = torch.empty((S, K * K), dtype=f32, **kw) if r is not None else None
+        shapes = dict(x=(S, 3), U=(S, H, nu), hist=(S, K * K), nh=(S,), dist=(mh, mw),
+                      pstart=(S, 2), porigin=(S, 2), pres=(S,), dorigin=(S, 2),
+                      dlen=(S, 2), cks=(S, K * K), vb=(S, 3))
+        ops = {n: getattr(inp, n) for n in shapes}
+        if r is None:
+            shapes["phik"], ops["phik"] = (S, K * K), inp.phik
+        else:
+            shapes.update(means=(S, J, 2), covs=(S, J, 2, 2), weights=(S, J),
+                          pts=(Npad, 2), D=(Npad, K * K), mask_ck=(K * K,))
+            ops.update(means=r.gmm.means, covs=r.gmm.covs, weights=r.gmm.weights,
+                       pts=r.pts, D=r.D, mask_ck=r.mask_ck)
+        for n, shape in shapes.items():
+            t = ops[n]
+            want = i32 if n == "pstart" else f32
+            if (t.device != dev or t.dtype != want or tuple(t.shape) != shape
+                    or not t.is_contiguous()):
+                raise ValueError(f"K1 operand {n}: need contiguous {want} {shape} on {dev}, "
+                                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        ops.update(U_new=out.U_new, metric=out.metric, bcost=out.barrier, ck_out=out.ck_sum,
+                   code=out.code, u_dwa=out.u_dwa, feasible=out.feasible, phik_buf=phik_buf)
+        bufs = _Buffers(**{n: (t.data_ptr() if t is not None else None)
+                           for n, t in ops.items()})
+        fn = self.build().lib.k1_fused_solve_safety
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ctypes.byref(_c_params(sp, sps, S, Npad)), ctypes.byref(bufs), stream)
+        if err != 0:
+            raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+        self.launches += 1
+        return out
+
+
+K1 = FusedSolveSafety()
+
+
+def fused_solve_safety(cfg, inp: K1Inputs) -> K1Outputs:
+    """K1: the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors (raises for anything else)."""
+    if inp.x.device.type == "cpu":
+        return fused_solve_safety_plain(cfg, inp)
+    if inp.x.device.type != "cuda":
+        raise ValueError(f"K1 runs on CPU or CUDA tensors, got {inp.x.device}")
+    return K1(cfg, inp)
+
+
+def fused_solve(cfg, inp: K1Inputs) -> K1Outputs:
+    """K1 without the safety stage (``enable_safety=False``)."""
+    if inp.x.device.type != "cpu":
+        raise NotImplementedError(
+            "K1 variant fused_solve (enable_safety=False) not ported to CUDA yet")
+    return fused_solve_safety_plain(cfg, inp, enable_safety=False)
+
+
+# ---------------------------------------------------------------------------
+# the batched tick around K1
+# ---------------------------------------------------------------------------
+
+
+def refresh_operands(cfg, gmm: GaussianMixture, domain: Domain, free_mask) -> Refresh:
+    """Shared lattice, mask-folded dense basis table and fallback for the
+    in-kernel refresh; the lattice is padded to LATTICE_CHUNK with far-away
+    points whose D rows are zero."""
+    K = cfg.num_basis
+    pts = domain.sample_lattice(cfg.grid_samples)  # (N, 2)
+    N = pts.shape[0]
+    D = basis.dense_table(basis.tables(pts, K, domain), basis.hk_norm(K, domain.lengths))
+    masked = free_mask is not None
+    if masked:
+        m1 = free_mask[0] if free_mask.dim() == 2 else free_mask  # one shared mask
+        D = D * m1.to(D.dtype)[:, None]
+        mask_ck = D.sum(dim=0) / torch.clamp(m1.sum(), min=1.0)
+    else:
+        mask_ck = D.sum(dim=0) / float(N)
+    pad = (-N) % LATTICE_CHUNK
+    if pad:
+        pts = torch.cat([pts, torch.full((pad, 2), PAD_POINT, dtype=pts.dtype, device=pts.device)])
+        D = torch.cat([D, D.new_zeros((pad, D.shape[1]))])
+    g = GaussianMixture(*(t.contiguous() for t in gmm))
+    return Refresh(g, pts.contiguous(), D.contiguous(), mask_ck.contiguous(), masked)
+
+
+def _shared_draw_history(cfg, state, sub0, bdom, hk):
+    """Shared-draw compaction: ONE index draw for every scenario (they hold
+    the same key and tick together, so their counts are equal), gathered
+    from every buffer; the reduction is one batched (K, nb) @ (nb, K)
+    product. Returns (hist sums (S, K, K), n_hist (S,))."""
+    buf = state.buffer
+    nb, K = cfg.buffer_batch, cfg.num_basis
+    cap = buf.capacity
+    u = prng.uniform01(sub0, nb)  # (nb,)
+    n0 = torch.clamp(buf.count[0], min=1).to(u.dtype)
+    idx = torch.floor(u * n0).to(torch.int64)
+    s_buf = buf.states.index_select(2, idx).transpose(1, 2)  # (S, nb, 2)
+    n_hist = torch.where(buf.count > 0, float(nb), 0.0)
+    Cbx, Cby = basis.cos_tables(s_buf, K, bdom)
+    w = (n_hist > 0).to(torch.float32)[:, None, None]
+    return torch.bmm(Cbx.transpose(1, 2), Cby) * (w / hk), n_hist
+
+
+def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None):
+    """The batched glue ahead of K1: the RNG split, the history draw and
+    reduction, the orbit guard and the patch starts. Returns (K1Inputs,
+    the next keys (S, 2), orbiting (S,))."""
+    from ergodic_exploration_tpu_torch.controller import history_sums, orbit_guard
+
+    S = x.shape[0]
+    K = cfg.num_basis
+    bdom = world.domain  # (S, 2) leaves
+    hk = basis.hk_norm(K, bdom.lengths)
+
+    # RNG: under shared_history_draw every row holds the same key, so one
+    # split of row 0 is broadcast (bit-identical to per-row splits); the
+    # reads of row 0 stay on the device, no host sync per tick.
+    if cfg.shared_history_draw:
+        s2 = prng.split(state.rng[0])  # (2, 2)
+        rng, sub = s2[0].expand(S, 2).clone(), s2[1].expand(S, 2)
+    else:
+        keys = prng.split(state.rng)
+        rng, sub = keys[:, 0], keys[:, 1]
+
+    if cfg.shared_history_draw and cfg.history == "ring" and cfg.buffer_batch:
+        hist, n_hist = _shared_draw_history(cfg, state, sub[0], bdom, hk)
+    else:
+        hist, n_hist = history_sums(cfg, state, sub, bdom, hk)
+    orbiting = orbit_guard(cfg, state.buffer, x[:, :2])
+    U_warm = torch.where(orbiting[:, None, None], torch.zeros_like(state.U), state.U)
+
+    dist = world.dist
+    d = dist.dist[0] if cfg.shared_maps else dist.dist
+    P = min(cfg.patch_cells, *d.shape[-2:])
+    refresh = None
+    if gmm is not None:
+        if not cfg.shared_maps or domain is None or domain.origin.dim() != 1:
+            raise ValueError("in-kernel refresh needs cfg.shared_maps and an unbatched domain")
+        refresh = refresh_operands(cfg, gmm, domain, world.free_mask)
+    inp = K1Inputs(
+        x=x.contiguous(), U=U_warm.contiguous(), hist=hist.reshape(S, K * K).contiguous(),
+        nh=n_hist.contiguous(),
+        phik=None if refresh is not None else phik.reshape(S, K * K).contiguous(),
+        refresh=refresh, dist=d.contiguous(),
+        pstart=patch_start(dist, x[:, :2], P).to(torch.int32),
+        porigin=dist.origin.contiguous(), pres=dist.resolution.contiguous(),
+        dorigin=bdom.origin.contiguous(), dlen=bdom.lengths.contiguous(),
+        cks=state.ck_sum.reshape(S, K * K).contiguous(), vb=vb.contiguous(),
+    )
+    return inp, rng, orbiting
+
+
+def replan_batched_fused(cfg, model, state, x, vb, phik, world, gmm=None, domain=None):
+    """One batched replan tick with K1 as its core — the counterpart of the
+    JAX ``replan_batched_fused`` (same signature, scenario axis leading).
+
+    With ``gmm`` + an unbatched ``domain`` in place of ``phik`` (pass
+    phik=None; needs cfg.shared_maps) the GMM target refresh runs inside K1
+    too. Around the kernel: the glue of :func:`fused_tick_inputs` before
+    it, and after it the DWA select, the divergence guard, the warm-start
+    shift and the ring append.
+    """
+    from ergodic_exploration_tpu_torch.controller import finish_tick
+
+    S, K = x.shape[0], cfg.num_basis
+    inp, rng, orbiting = fused_tick_inputs(cfg, state, x, vb, phik, world, gmm, domain)
+    if cfg.enable_safety:
+        out = fused_solve_safety(cfg, inp)
+        safety_out = (out.code, out.u_dwa, out.feasible.to(torch.bool))
+    else:
+        out = fused_solve(cfg, inp)
+        safety_out = None
+    return finish_tick(cfg, state, x, out.U_new, out.U_new[:, 0], safety_out,
+                       out.ck_sum.view(S, K, K), rng, out.metric, out.barrier, orbiting)

@@ -1,0 +1,75 @@
+"""Build a CUDA source file of this package into a shared library and load it.
+
+Kernels are compiled on first use, by ``nvcc`` from the sources under
+``ergodic_exploration_tpu_torch/csrc``, into ``build/kernels/`` at the root
+of the checkout. The library name carries a hash of every source and header
+in ``csrc`` and of the flags, so an edited source or flag builds anew and an
+unchanged one is loaded from disk. The libraries have a plain C interface
+and are loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import NamedTuple, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# sm_90a: Hopper with its architecture-specific features. -fmad=false keeps
+# every multiply and add rounded separately, as PyTorch's elementwise ops
+# round them, so positions (and hence collision cells) agree bit for bit
+# with the plain versions. No --use_fast_math: sinf/cosf/expf stay the
+# accurate library versions PyTorch's own kernels use.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+
+
+class Built(NamedTuple):
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # compile time (0.0 when loaded from an earlier build)
+    log: str  # nvcc's output (register and shared-memory use per kernel)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cuda.exists():
+        return str(cuda)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build(name: str, source: str, flags: Sequence[str] = NVCC_FLAGS) -> Built:
+    """Compile ``csrc/<source>`` into ``build/kernels/<name>-<hash>.so``
+    (unless that file exists) and load it."""
+    h = hashlib.sha256("\0".join(flags).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    seconds, log = 0.0, ""
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *flags, "-o", tmp, str(CSRC / source)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)
+    return Built(ctypes.CDLL(str(out)), out, seconds, log)

@@ -1,0 +1,33 @@
+"""The port imports no JAX and nothing of the JAX package (an AST scan:
+``sys.modules`` cannot show it where jax is pre-imported)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+PKG = Path(__file__).resolve().parents[1] / "ergodic_exploration_tpu_torch"
+FILES = sorted(PKG.rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "ergodic_exploration_tpu")
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_package_has_the_slice_modules():
+    names = {p.relative_to(PKG).as_posix() for p in FILES}
+    for m in ("config.py", "grid.py", "controller.py", "engine.py", "ops/solve_kernel.py",
+              "utils/interop.py", "utils/prng.py", "utils/validation.py"):
+        assert m in names
+    assert (PKG / "csrc" / "solve_kernel.cu").exists()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(PKG).as_posix())
+def test_no_jax_import(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
