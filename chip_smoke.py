@@ -5,23 +5,55 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in the checkout, holds it
-against its plain PyTorch version on the card at the main path's shapes,
-then drives the main path — ``Engine.replan_refresh`` of
-``ergodic_exploration_tpu_torch`` at the bench configuration (cart, K=10,
-H=20, 100 x 100 lattice, shared map, shared history draw, safety on) — at
-S=4096 scenarios and at S=1, and checks what comes out. Any failed phase
-exits non-zero. Without a CUDA device it exits non-zero before printing any
-result. The last two lines are a JSON line describing each kernel of the
-path (launches in the main-path run, error against the plain version, times)
-and the result line ``{"ok": true, "device": {...}}``.
+It builds the port's CUDA libraries from the sources in the checkout (one
+``nvcc`` per source, started together), holds every kernel and variant
+against its plain PyTorch version on the card at the shapes its path gives
+it, drives each path of ``ergodic_exploration_tpu_torch`` through the
+engine's entry points, and checks what comes out. Any failed phase exits
+non-zero. Without a CUDA device it exits non-zero before printing any result.
+
+Phases:
+
+ 1  environment; 2  build (ptxas registers / spills of every kernel)
+ 3  K1 (shared map, J = 2 / J = 0) vs plain, S = 4096, after 120 ticks
+ 4  path A, the bench tick: ``Engine.replan_refresh`` (cart, K = 10, H = 20,
+    100 x 100 lattice, shared map, shared history draw, safety on) at
+    S = 4096 and at S = 1
+ 5  the engine on the card vs on the CPU, one bench tick, S = 64
+ 6  K2 vs plain: unmasked, masked, degenerate scenarios, S = 1 and S = 100
+ 7  path B, the quick-start loop at full width: S = 4096 scenarios with
+    distinct maps, ``warmup -> prepare_world -> phik_from_gmm (K2 masked) ->
+    explore (K1 on per-scenario maps, history sums in the kernel) ->
+    save/load_checkpoint -> explore``
+ 8  K1 on per-scenario maps (history as drawn positions and as sums),
+    ``fused_solve`` and ``fused_safety`` vs plain, on the state phase 7
+    reached (cart, S = 4096) and for omni at S = 512
+ 9  path C, the default configuration (eager controller step whose safety
+    stage is ``fused_safety``; K2 unmasked), S = 512, 10 ticks; both kernels
+    vs plain on this path's own inputs
+10  path D, the obstacle-free configuration with safety off
+    (``fused_solve``), S = 4096, 20 ticks, on one shared empty map (shared
+    history draw) and on per-scenario empty maps (per-scenario draws); each
+    variant vs plain on this path's own inputs
+11  ``explore`` on the card vs on the CPU, S = 64, distinct maps, 3 ticks
+
+Every path is driven with the launch counts set to 0 just before it and
+read just after. The last two lines are a JSON line describing each kernel
+variant that a path launched (launches on its path; error against the plain
+version, time, the plain version's time and the least time the card could
+take for the same work, all on that path's own inputs) and the result line
+``{"ok": true, "device": {...}}``. Comparisons at other shapes are printed
+and can fail the run, but do not enter that line.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -32,6 +64,7 @@ S_MAIN = 4096
 WARM_TICKS = 120  # history depth of the state the kernel is checked on
 TIMED_TICKS = 50
 LATENCY_TICKS = 200
+EXPLORE_TICKS = 100
 CODE_MISMATCH_LIMIT = 2  # scenarios whose code / feasible / u_dwa may differ
 
 # kernel vs plain tolerances (same inputs, same card): controls at the
@@ -39,6 +72,11 @@ CODE_MISMATCH_LIMIT = 2  # scenarios whose code / feasible / u_dwa may differ
 # ck_sum are float32 sums taken in another order (atol covers zeros)
 TOL = dict(U_new=dict(rtol=0.0, atol=5e-5), metric=dict(rtol=1e-5, atol=1e-7),
            barrier=dict(rtol=1e-5, atol=1e-7), ck_sum=dict(rtol=1e-5, atol=5e-6))
+K2_ATOL = 2e-5  # the JAX package's own budget for its K2 (tests/test_engine.py)
+
+# published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -46,11 +84,30 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# ---------------------------------------------------------------------------
+# cases, made from a seed with numpy
+# ---------------------------------------------------------------------------
+
+
+def _poses_and_gmm(S, rng, clear=None):
+    """Poses uniform in [0.5, 4.5]^2 x (-pi, pi) (redrawn while ``clear``
+    rejects them) and a two-component GMM per scenario (means uniform in
+    [1, 4], covariance 0.3 I)."""
+    xy = rng.uniform(0.5, 4.5, (S, 2))
+    for _ in range(64):
+        bad = np.zeros(S, bool) if clear is None else ~clear(xy)
+        if not bad.any():
+            break
+        xy[bad] = rng.uniform(0.5, 4.5, (int(bad.sum()), 2))
+    x0 = np.concatenate([xy, rng.uniform(-np.pi, np.pi, (S, 1))], axis=1).astype(np.float32)
+    means = rng.uniform(1.0, 4.0, (S, 2, 2)).astype(np.float32)
+    covs = np.tile((0.3 * np.eye(2, dtype=np.float32))[None, None], (S, 2, 1, 1))
+    return x0, (means, covs, np.ones((S, 2), np.float32))
+
+
 def bench_case(S: int, device, seed: int = 0):
-    """bench.py's build_case, in numpy: poses uniform in [0.5, 4.5]^2 x
-    (-pi, pi), a wall and a pillar on one shared 100 x 100 map of a 5 m
-    domain, a two-component GMM per scenario (means uniform in [1, 4],
-    covariance 0.3 I)."""
+    """bench.py's build_case, in numpy: one shared 100 x 100 map of a 5 m
+    domain with a wall and a pillar."""
     import torch
 
     from ergodic_exploration_tpu_torch.config import default_config
@@ -59,18 +116,54 @@ def bench_case(S: int, device, seed: int = 0):
 
     cfg = default_config("cart").replace(use_fused_solve=True, shared_maps=True,
                                          shared_history_draw=True)
-    rng = np.random.default_rng(seed)
-    x0 = np.concatenate([rng.uniform(0.5, 4.5, (S, 2)), rng.uniform(-np.pi, np.pi, (S, 1))],
-                        axis=1).astype(np.float32)
+    x0, gmm = _poses_and_gmm(S, np.random.default_rng(seed))
     data = np.zeros((100, 100), np.float32)
     data[45:50, 20:80] = 1.0
     data[70:78, 60:68] = 1.0
     grids = GridMap(torch.from_numpy(data).to(device).expand(S, 100, 100),
                     torch.zeros((S, 2), device=device), torch.full((S,), 0.05, device=device))
-    means = rng.uniform(1.0, 4.0, (S, 2, 2)).astype(np.float32)
-    covs = np.tile((0.3 * np.eye(2, dtype=np.float32))[None, None], (S, 2, 1, 1))
-    gmm = GaussianMixture.create(means, covs, np.ones((S, 2), np.float32), device=device)
-    return cfg, x0, grids, gmm, Domain.create(0.0, 0.0, 5.0, 5.0, device=device)
+    return (cfg, x0, grids, GaussianMixture.create(*gmm, device=device),
+            Domain.create(0.0, 0.0, 5.0, 5.0, device=device))
+
+
+def distinct_case(S: int, device, model: str = "cart", seed: int = 1, clearance=0.25,
+                  **overrides):
+    """S scenarios with DISTINCT 100 x 100 maps of a 5 m domain: a wall
+    (5 x 60 cells) and a pillar (8 x 8) at per-scenario positions, start
+    poses at least ``clearance`` m clear of both (the footprint radius is
+    0.2 m; None: anywhere, inside obstacles too), a two-component GMM each."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+
+    opts = dict(use_fused_solve=True, shared_maps=False, shared_history_draw=False)
+    opts.update(overrides)
+    cfg = default_config(model).replace(**opts)
+    rng = np.random.default_rng(seed)
+    wr, wc = rng.integers(10, 85, S), rng.integers(5, 35, S)
+    br, bc = rng.integers(5, 87, S), rng.integers(5, 87, S)  # the pillar's corner
+    data = np.zeros((S, 100, 100), np.float32)
+    for s in range(S):
+        data[s, wr[s]:wr[s] + 5, wc[s]:wc[s] + 60] = 1.0
+        data[s, br[s]:br[s] + 8, bc[s]:bc[s] + 8] = 1.0
+    rects = [(wc * 0.05, wr * 0.05, (wc + 60) * 0.05, (wr + 5) * 0.05),
+             (bc * 0.05, br * 0.05, (bc + 8) * 0.05, (br + 8) * 0.05)]
+
+    def clear(xy):
+        ok = np.ones(len(xy), bool)
+        for x_lo, y_lo, x_hi, y_hi in rects:
+            dx = np.maximum(np.maximum(x_lo - xy[:, 0], xy[:, 0] - x_hi), 0.0)
+            dy = np.maximum(np.maximum(y_lo - xy[:, 1], xy[:, 1] - y_hi), 0.0)
+            ok &= np.hypot(dx, dy) > clearance
+        return ok
+
+    x0, gmm = _poses_and_gmm(S, rng, clear if clearance is not None else None)
+    grids = GridMap(torch.from_numpy(data).to(device), torch.zeros((S, 2), device=device),
+                    torch.full((S,), 0.05, device=device))
+    return (cfg, x0, grids, GaussianMixture.create(*gmm, device=device),
+            Domain.create(0.0, 0.0, 5.0, 5.0, device=device))
 
 
 def advance(engine, sc, u):
@@ -91,6 +184,11 @@ def build_engine(S: int, device):
     return engine, sc, world, gmm, domain
 
 
+# ---------------------------------------------------------------------------
+# timing, comparing, counting
+# ---------------------------------------------------------------------------
+
+
 def events_ms(fn, reps: int) -> float:
     """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
     import torch
@@ -107,7 +205,8 @@ def events_ms(fn, reps: int) -> float:
 
 
 def compare(name: str, k, p) -> float:
-    """Kernel vs plain outputs; fails on a breach, returns max |U diff|."""
+    """K1 kernel vs plain outputs (with the safety outputs where the variant
+    has them); fails on a breach, returns max |U diff|."""
     import torch
 
     for field, tol in TOL.items():
@@ -121,17 +220,133 @@ def compare(name: str, k, p) -> float:
               f"(rtol {tol['rtol']}, atol {tol['atol']}), {len(bad)} outside")
         if bad:
             fail(f"{name}: {field} outside tolerance at flat indices {bad[:10]}")
-    mism = ((k.code != p.code) | (k.feasible != p.feasible) | (k.u_dwa != p.u_dwa).any(1))
+    if p.code is None:
+        if k.code is not None or k.u_dwa is not None or k.feasible is not None:
+            fail(f"{name}: safety outputs present with safety off")
+    else:
+        compare_safety(name, (k.code, k.u_dwa, k.feasible), (p.code, p.u_dwa, p.feasible))
+    return (k.U_new - p.U_new).abs().max().item()
+
+
+def compare_safety(name: str, k, p) -> float:
+    """(code, u_dwa, feasible) of kernel and plain: at most
+    CODE_MISMATCH_LIMIT scenarios may differ. Returns max |u_dwa diff| over
+    the agreeing scenarios."""
+    (kc, ku, kf), (pc, pu, pf) = k, p
+    mism = (kc != pc) | (kf != pf) | (ku != pu).any(1)
     idx = mism.nonzero().flatten().tolist()
     for i in idx[:20]:
-        print(f"  {name} mismatch at scenario {i}: code {k.code[i].item()} vs "
-              f"{p.code[i].item()}, feasible {k.feasible[i].item()} vs "
-              f"{p.feasible[i].item()}, u_dwa {k.u_dwa[i].tolist()} vs {p.u_dwa[i].tolist()}")
-    print(f"  {name} code/feasible/u_dwa: {len(idx)} of {k.code.shape[0]} scenarios differ "
-          f"(limit {CODE_MISMATCH_LIMIT}); DWA active in {(p.code >= 2).sum().item()}")
+        print(f"  {name} mismatch at scenario {i}: code {kc[i].item()} vs {pc[i].item()}, "
+              f"feasible {kf[i].item()} vs {pf[i].item()}, u_dwa {ku[i].tolist()} vs "
+              f"{pu[i].tolist()}")
+    print(f"  {name} code/feasible/u_dwa: {len(idx)} of {kc.shape[0]} scenarios differ "
+          f"(limit {CODE_MISMATCH_LIMIT}); DWA active in {(pc >= 2).sum().item()}")
     if len(idx) > CODE_MISMATCH_LIMIT:
         fail(f"{name}: {len(idx)} scenarios differ in code / feasible / u_dwa")
-    return (k.U_new - p.U_new).abs().max().item()
+    return (ku - pu).abs()[~mism].max().item() if (~mism).any() else 0.0
+
+
+def reset_counts() -> None:
+    from ergodic_exploration_tpu_torch.ops import gmm_kernel as gk
+    from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
+
+    sk.K1.reset_launches()
+    gk.K2.reset_launches()
+
+
+def read_counts() -> dict:
+    from ergodic_exploration_tpu_torch.ops import gmm_kernel as gk
+    from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
+
+    return {**sk.K1.launches, **gk.K2.launches}
+
+
+def expect_counts(path: str, got: dict, want: dict) -> None:
+    """Fail unless ``got`` has exactly the launches of ``want`` (variants not
+    named there must be 0)."""
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{path}: {name} launched {n} times, expected {want.get(name, 0)}; all: {got}")
+    print(f"{path}: launches {({k: v for k, v in got.items() if v})}")
+
+
+# ---------------------------------------------------------------------------
+# the least time the card could take (bytes moved once vs operations)
+# ---------------------------------------------------------------------------
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, what bounds it): the larger of operations over the float32 peak
+    and bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def refresh_work(S, N, KK, J, masked=False, n_degenerate=0):
+    """(flops, bytes) of the mixture-times-table reduction: per (scenario,
+    point) 2 K^2 for the contraction, 16 per component for the density (one
+    of them the exp), 1 for the mask; a degenerate scenario needs the
+    fallback's contraction too. Bytes: the mixtures, lattice, table, mask
+    and result once."""
+    flops = S * N * (2 * KK + 16 * J + int(masked)) + n_degenerate * 2 * N * KK
+    nbytes = 4 * (S * J * 7 + N * 2 + N * KK + (S * N if masked else 0) + S * KK)
+    return flops, nbytes
+
+
+def solve_work(cfg, S, P, safety: bool, dwa_probes: float = 0.0, map_cells: int = 0,
+               nb: int = 0):
+    """(flops, bytes) of K1's solve for S scenarios, counted from the loops
+    of csrc/solve_kernel.cu (a sin, cos, sqrt or pow counts as one
+    operation). ``dwa_probes``: crash probes the DWA sweep needs on this
+    run's data, summed over scenarios (a candidate stops at its first
+    crash). ``map_cells``: map cells read once (P^2 per scenario on
+    per-scenario maps, the whole map when it is shared). ``nb``: drawn
+    history positions summed in the kernel (0: the sums are an input)."""
+    H, K, nu = cfg.horizon, cfg.num_basis, cfg.nu
+    per = H * 51  # rollout: 6 sin/cos + ~45
+    per += H * (6 * K + 2 * K * K) + 16 * K * K  # c_k tables and sums; metric and Wh
+    per += H * (4 * K * K + 14 * K + 125)  # gradient contraction; walls; bilinear d and grad
+    per += H * (49 + 17 * nu)  # co-state step and the saturated update
+    per += 6 * K + 7 * K * K  # ck_sum append
+    per += nb * (7 * K + 2 * K * K) + (K * K if nb else 0)  # history tables and sums
+    flops = S * per
+    hist = 2 * nb if nb else K * K
+    nbytes = 4 * (S * (3 + H * nu + hist + K * K + 1 + K * K + 2 + 2 + 1 + 2 + 2 + 3) + map_cells
+                  + S * (H * nu + 2 + K * K))
+    if safety:
+        C = int(np.prod(cfg.dwa.samples))
+        flops += S * (cfg.val_horizon * 38 + C * 13 * nu) + dwa_probes * 38
+        nbytes += 4 * S * (2 + nu)
+    return flops, nbytes
+
+
+def safety_work(cfg, S, Pc, dwa_probes: float):
+    """(flops, bytes) of the standalone safety stage."""
+    C = int(np.prod(cfg.dwa.samples))
+    flops = S * (cfg.val_horizon * 38 + C * 13 * cfg.nu) + dwa_probes * 38
+    nbytes = 4 * S * (3 + 3 + cfg.nu + Pc * Pc + 2 + 2 + 1 + 2 + 2 + 2 + cfg.nu)
+    return flops, nbytes
+
+
+def dwa_probes_needed(cfg, model, x, vb, domain, crop) -> float:
+    """Crash probes the DWA sweep needs on these inputs: every candidate is
+    probed step by step until its first crash (or to the horizon)."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.ops.collision import CRASH, check_pose
+    from ergodic_exploration_tpu_torch.ops.dwa import candidate_twists
+    from ergodic_exploration_tpu_torch.ops.integrator import constant_twist_poses
+
+    dwa = cfg.dwa
+    tws = model.twist(model.from_twist(candidate_twists(vb, dwa)))
+    ts = dwa.dt * torch.arange(1, dwa.horizon + 1, dtype=torch.float32, device=x.device)
+    X = constant_twist_poses(x[:, None, :], tws, ts)  # (S, C, T, 3)
+    S, C, T, _ = X.shape
+    crash = check_pose(X[..., :2].reshape(S, C * T, 2), domain, crop, cfg.boundary_radius,
+                       cfg.d_safe).reshape(S, C, T) >= CRASH
+    first = torch.where(crash.any(-1), crash.to(torch.int32).argmax(-1) + 1,
+                        torch.full((S, C), T, device=x.device))
+    return float(first.sum().item())
 
 
 def main() -> int:
@@ -147,7 +362,28 @@ def main() -> int:
 def run(dev) -> int:
     import torch
 
+    import ergodic_exploration_tpu_torch.ops.gmm_kernel as gk
     import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain
+    from ergodic_exploration_tpu_torch.ops import basis
+    from ergodic_exploration_tpu_torch.ops.patch import extract_patch
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+    from ergodic_exploration_tpu_torch.utils import cuda_build
+
+    t_start = time.perf_counter()
+    kernels = {}  # name -> the entry of the kernels line
+
+    def entry(name, source, replaces, err, ms, plain_ms, work):
+        b_ms, by = bound(*work)
+        kernels[name] = {"name": name, "route": "cuda",
+                         "source": f"ergodic_exploration_tpu_torch/csrc/{source}",
+                         "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                         "library_ms": None}
+        print(f"{name}: {ms:.4f} ms/call, plain version {plain_ms:.4f} ms/call, bound "
+              f"{b_ms:.5f} ms by {by} {card}")
 
     # ---- 1. environment
     print("== 1. environment", flush=True)
@@ -158,9 +394,8 @@ def run(dev) -> int:
     card = f"[{card_line}]"
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    from ergodic_exploration_tpu_torch.utils.cuda_build import _nvcc
-
-    nvcc = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, check=True)
+    nvcc = subprocess.run([cuda_build._nvcc(), "--version"], capture_output=True, text=True,
+                          check=True)
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
     try:
         import triton
@@ -173,17 +408,22 @@ def run(dev) -> int:
     print(f"TF32: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    # ---- 2. build
+    # ---- 2. build: one nvcc per source, started together
     print("== 2. build", flush=True)
     t0 = time.perf_counter()
-    built = sk.K1.build()
-    print(f"K1 built in {time.perf_counter() - t0:.2f} s (nvcc {built.seconds:.2f} s) "
-          f"-> {built.path.relative_to(ROOT)}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for name, built in cuda_build.build_all().items():
+        print(f"{name}: nvcc {built.seconds:.2f} s -> {built.path.relative_to(ROOT)}")
+        fn = ""
+        for line in built.log.splitlines():
+            m = re.search(r"_Z\d+(k\d_[a-z]+)", line)
+            fn = m.group(1) if m else fn
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {fn}: {line.replace('ptxas info    :', '').strip()}")
+    sk.K1.build()
+    gk.K2.build()
+    print(f"both libraries built and loaded in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 3. K1 against its plain version at the main path's shapes
+    # ---- 3. K1 (shared map) against its plain version at path A's shapes
     print(f"== 3. K1 vs plain, S={S_MAIN}, state after {WARM_TICKS} ticks", flush=True)
     engine, sc, world, gmm, domain = build_engine(S_MAIN, dev)
     for _ in range(WARM_TICKS):
@@ -199,12 +439,19 @@ def run(dev) -> int:
         err = max(err, compare(name, k, p))
     k1_ms = events_ms(lambda: sk.K1(cfg, inp2), 20)
     plain_ms = events_ms(lambda: sk.fused_solve_safety_plain(cfg, inp2), 5)
-    print(f"K1 (J=2) {k1_ms:.4f} ms/call, plain version {plain_ms:.4f} ms/call at "
-          f"S={S_MAIN} {card}")
+    P = min(cfg.patch_cells, 100)
+    crop = extract_patch(world.dist, sc.x[:, :2], P).center_crop(cfg.safety_patch_cells)
+    probes = dwa_probes_needed(cfg, engine.model, sc.x, sc.vb, world.domain, crop)
+    KK = cfg.num_basis ** 2
+    rf, rb = refresh_work(S_MAIN, int(np.prod(cfg.grid_samples)), KK, 2)  # unpadded lattice
+    sf, sb = solve_work(cfg, S_MAIN, P, True, probes, map_cells=100 * 100)
+    entry("fused_solve_safety", "solve_kernel.cu",
+          "ergodic_exploration_tpu/ops/solve_kernel.py:602", err, k1_ms, plain_ms,
+          (rf + sf, rb + sb))
 
-    # ---- 4. the main path
-    print(f"== 4. main path: Engine.replan_refresh, S={S_MAIN}", flush=True)
-    del engine, sc, world, inp0, inp2, k, p
+    # ---- 4. path A: the bench tick
+    print(f"== 4. path A: Engine.replan_refresh, S={S_MAIN}", flush=True)
+    del engine, sc, world, inp0, inp2, k, p, crop
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     engine, sc, world, gmm, domain = build_engine(S_MAIN, dev)
@@ -215,7 +462,7 @@ def run(dev) -> int:
         sc, u, diag = engine.replan_refresh(sc, gmm, domain, world)
         sc = advance(engine, sc, u)
     torch.cuda.synchronize()
-    sk.K1.launches = 0
+    reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     diverged = torch.zeros(S_MAIN, dtype=torch.bool, device=dev)
@@ -230,16 +477,15 @@ def run(dev) -> int:
         metric.append(diag.ergodic_metric.mean())
     end.record()
     torch.cuda.synchronize()
-    launches = sk.K1.launches
+    counts = read_counts()
     ms = start.elapsed_time(end) / TIMED_TICKS
-    if launches != TIMED_TICKS:
-        fail(f"K1 launched {launches} times in {TIMED_TICKS} ticks")
+    expect_counts("path A", counts, {"fused_solve_safety": TIMED_TICKS})
+    kernels["fused_solve_safety"]["launches"] = counts["fused_solve_safety"]
     if u.shape != (S_MAIN, cfg.nu) or not bool(finite) or not torch.isfinite(sc.x).all():
-        fail("main path produced non-finite or mis-shaped outputs")
+        fail("path A produced non-finite or mis-shaped outputs")
     if diverged.any():
         fail(f"{int(diverged.sum())} scenarios diverged")
-    print(f"K1 launches {launches} in {TIMED_TICKS} ticks; all finite; none diverged")
-    print(f"tick (replan_refresh + pose advance): {ms:.4f} ms, "
+    print(f"all finite; none diverged; tick (replan_refresh + pose advance): {ms:.4f} ms, "
           f"{S_MAIN * 1e3 / ms:.1f} solves/s {card}")
     print(f"peak device memory over the ticks (world, state and temporaries) "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}")
@@ -264,7 +510,7 @@ def run(dev) -> int:
         sc, u, diag = engine.replan_refresh(sc, gmm, domain, world)
         sc = advance(engine, sc, u)
     torch.cuda.synchronize()
-    sk.K1.launches = 0
+    reset_counts()
     lat = []
     for _ in range(LATENCY_TICKS):
         t0 = time.perf_counter()
@@ -274,9 +520,7 @@ def run(dev) -> int:
         sc = advance(engine, sc, u)
         if bool(diag.diverged.any()) or not bool(torch.isfinite(u).all()):
             fail("S=1 tick diverged or produced non-finite controls")
-    if sk.K1.launches != LATENCY_TICKS:
-        fail(f"K1 launched {sk.K1.launches} times in {LATENCY_TICKS} S=1 ticks")
-    lat_launches = sk.K1.launches
+    expect_counts("path A, S=1", read_counts(), {"fused_solve_safety": LATENCY_TICKS})
     print(f"S=1 replan latency over {LATENCY_TICKS} ticks: p50 {np.percentile(lat, 50):.4f} ms, "
           f"p99 {np.percentile(lat, 99):.4f} ms (budget 100 ms) {card}")
 
@@ -295,13 +539,374 @@ def run(dev) -> int:
           f"DWA choice differs in {int((~same).sum())} (limit {CODE_MISMATCH_LIMIT})")
     if du > 5e-5 or int((~same).sum()) > CODE_MISMATCH_LIMIT:
         fail("the engine on the card disagrees with the engine on the CPU")
+    del engine, sc, world
 
-    print(json.dumps({"kernels": [{
-        "name": sk.K1.name, "route": "cuda",
-        "source": "ergodic_exploration_tpu_torch/csrc/solve_kernel.cu",
-        "replaces": "ergodic_exploration_tpu/ops/solve_kernel.py:602",
-        "launches": launches, "max_abs_err": err, "ms": k1_ms, "plain_ms": plain_ms,
-        "s1_launches": lat_launches}]}))
+    # ---- 6. K2 against its plain version
+    print(f"== 6. K2 vs plain, S={S_MAIN}, J=2, 100 x 100 lattice, K=10", flush=True)
+    cfg_b, x0_b, grids_b, gmm_b, domain = distinct_case(S_MAIN, dev)
+    eng_b = Engine(cfg_b)  # the default device: the card
+    if eng_b.device.type != "cuda":
+        fail("Engine(cfg) without a device argument is not on the card")
+    K = cfg_b.num_basis
+    pts = domain.sample_lattice(cfg_b.grid_samples)
+    D = basis.dense_table(basis.tables(pts, K, domain), basis.hk_norm(K, domain.lengths))
+    N = pts.shape[0]
+    free = (grids_b.occupancy_at(pts.expand(S_MAIN, N, 2)) < cfg_b.occupied_threshold).float()
+    g_ok = [t.contiguous() for t in gmm_b]
+    # degenerate batch: every 7th mixture far outside the domain (phi
+    # underflows: both fallbacks), every 11th scenario fully occupied
+    g_deg = [t.clone() for t in g_ok]
+    g_deg[0][::7] = 400.0
+    free_deg = free.clone()
+    free_deg[::11] = 0.0
+    k2_err = {}
+
+    def k2_check(name, g, mask):
+        k_out, p_out = gk.K2(*g, pts, D, mask), gk.phik_from_gmm_plain(*g, pts, D, mask)
+        torch.cuda.synchronize()
+        e = (k_out - p_out).abs().max().item()
+        S_ = g[0].shape[0]
+        print(f"  K2 {name} (S={S_}): max |kernel - plain| {e:.3e} (atol {K2_ATOL})")
+        if k_out.shape != (S_, K * K) or not torch.isfinite(k_out).all() or e > K2_ATOL:
+            fail(f"K2 {name}: outside tolerance, mis-shaped or non-finite")
+        key = "phik_from_gmm_masked" if mask is not None else "phik_from_gmm"
+        k2_err[key] = max(k2_err.get(key, 0.0), e)
+
+    k2_check("unmasked", g_ok, None)
+    k2_check("masked, distinct maps", g_ok, free)
+    k2_check("unmasked, degenerate mixtures", g_deg, None)
+    k2_check("masked, degenerate mixtures and occupied masks", g_deg, free_deg)
+    print(f"  degenerate batch: {len(range(0, S_MAIN, 7))} mixtures moved away, "
+          f"{len(range(0, S_MAIN, 11))} masks emptied")
+    for S_ in (1, 100):
+        k2_check("unmasked, ragged", [t[:S_].contiguous() for t in g_ok], None)
+        k2_check("masked, ragged", [t[:S_].contiguous() for t in g_deg],
+                 free_deg[:S_].contiguous())
+    K2_REPLACES = "ergodic_exploration_tpu/ops/pallas_kernels.py:121"
+    # path B gives K2 these mixtures and masks: the masked variant's entry
+    entry("phik_from_gmm_masked", "gmm_kernel.cu", K2_REPLACES, k2_err["phik_from_gmm_masked"],
+          events_ms(lambda: gk.K2(*g_ok, pts, D, free), 20),
+          events_ms(lambda: gk.phik_from_gmm_plain(*g_ok, pts, D, free), 5),
+          refresh_work(S_MAIN, N, K * K, 2, True))
+    b_ms, by = bound(*refresh_work(S_MAIN, N, K * K, 2))
+    print(f"  K2 unmasked at S={S_MAIN}: {events_ms(lambda: gk.K2(*g_ok, pts, D, None), 20):.4f} "
+          f"ms/call, plain version "
+          f"{events_ms(lambda: gk.phik_from_gmm_plain(*g_ok, pts, D, None), 5):.4f} ms/call, "
+          f"bound {b_ms:.5f} ms by {by} {card}")
+    s1 = [t[:1].contiguous() for t in g_ok]
+    print(f"  K2 at S=1: {events_ms(lambda: gk.K2(*s1, pts, D, None), 50):.4f} ms/call {card}")
+    del free, free_deg, g_deg, g_ok, s1
+    torch.cuda.empty_cache()
+
+    # ---- 7. path B: the quick-start loop at full width, distinct maps
+    print(f"== 7. path B: warmup -> prepare_world -> phik_from_gmm -> explore -> checkpoint, "
+          f"S={S_MAIN}, distinct maps", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    warm = eng_b.warmup(S_MAIN, domain, map_shape=(100, 100), gmm_components=2, n_ticks=(2,))
+    print(f"warmup stages (s): {warm}")
+    warm_counts = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    world_b = eng_b.prepare_world(grids_b)
+    torch.cuda.synchronize()
+    prep_ms = 1e3 * (time.perf_counter() - t0)
+    prep_peak = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    phik_b = eng_b.phik_from_gmm(gmm_b, domain, world_b)
+    torch.cuda.synchronize()
+    phik_ms = 1e3 * (time.perf_counter() - t0)
+    sc_b = eng_b.init_scenarios(x0_b)
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = eng_b.explore(sc_b, phik_b, world_b, n_ticks=EXPLORE_TICKS)
+    end.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ms_b = start.elapsed_time(end) / EXPLORE_TICKS
+    expect_counts("path B", counts, {"phik_from_gmm_masked": 1,
+                                     "fused_solve_safety_map_h0_nb": EXPLORE_TICKS})
+    print(f"  (warmup before it launched {({k: v for k, v in warm_counts.items() if v})})")
+    nu = cfg_b.nu
+    shapes_ok = (out.trajectory.shape == (EXPLORE_TICKS, S_MAIN, 3)
+                 and out.controls.shape == (EXPLORE_TICKS, S_MAIN, nu)
+                 and all(leaf.shape == (EXPLORE_TICKS, S_MAIN) for leaf in out.diag)
+                 and phik_b.shape == (S_MAIN, K, K))
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (out.trajectory, out.controls, out.ergodic_metric, out.diag.barrier_cost,
+                  phik_b, out.scenarios.state.U, out.scenarios.state.ck_sum))
+    if not shapes_ok or not finite:
+        fail("path B produced non-finite or mis-shaped outputs")
+    if out.diag.diverged.any():
+        fail(f"path B: {int(out.diag.diverged.sum())} scenario-ticks diverged")
+    m_first = out.ergodic_metric[:10].mean().item()
+    m_last = out.ergodic_metric[-10:].mean().item()
+    if not m_last < m_first:
+        fail(f"path B: ergodic metric did not fall ({m_first:.6f} -> {m_last:.6f})")
+    print(f"all finite; none diverged; mean ergodic metric {m_first:.6f} (first 10 ticks) -> "
+          f"{m_last:.6f} (last 10)")
+    print(f"explore tick (replan + pose advance): {ms_b:.4f} ms, "
+          f"{S_MAIN * 1e3 / ms_b:.1f} solves/s {card}")
+    print(f"prepare_world (EDT of {S_MAIN} distinct maps) {prep_ms:.1f} ms, peak device memory "
+          f"{prep_peak:.1f} MiB; phik_from_gmm {phik_ms:.2f} ms (host clock) {card}")
+    print(f"peak device memory over explore (world, state, outputs, temporaries) "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}")
+    print(f"DWA-active share {out.diag.dwa_active.float().mean().item():.4f}; collision codes "
+          f"0/1/2: {[int((out.diag.collision_code == c).sum()) for c in (0, 1, 2)]}")
+    from ergodic_exploration_tpu_torch.utils.metrics import summarize
+
+    print(f"summarize(out.diag): {json.dumps(summarize(out.diag, EXPLORE_TICKS * ms_b / 1e3))}")
+
+    # checkpoint: 10 more ticks from the loaded state equal 10 from memory
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        path = os.path.join(tmp, "run.npz")
+        eng_b.save_checkpoint(path, out.scenarios)
+        size = os.path.getsize(path)
+        loaded = eng_b.load_checkpoint(path)
+    a = eng_b.explore(out.scenarios, phik_b, world_b, 10)
+    b = eng_b.explore(loaded, phik_b, world_b, 10)
+    torch.cuda.synchronize()
+    if not (torch.equal(a.trajectory, b.trajectory) and torch.equal(a.controls, b.controls)
+            and torch.equal(a.scenarios.state.rng, b.scenarios.state.rng)):
+        fail("explore from the loaded checkpoint differs from explore from memory")
+    print(f"checkpoint ({size / 2**20:.1f} MiB) written, read back; 10 ticks from it equal "
+          f"10 ticks from memory bit for bit")
+    kernels["phik_from_gmm_masked"]["launches"] = counts["phik_from_gmm_masked"]
+
+    # ---- 8. K1's other variants against the plain version, on that state
+    print(f"== 8. K1 per-scenario maps / fused_solve / fused_safety vs plain, state after "
+          f"{EXPLORE_TICKS} ticks", flush=True)
+
+    def variants(tag, eng, sc, phik, world, reps):
+        """Compare K1 on per-scenario maps (safety on and off; the history as
+        drawn positions, as the path hands it over, and as sums) and the
+        standalone safety stage on (sc, world); returns per-variant (err, ms,
+        plain_ms, work)."""
+        from ergodic_exploration_tpu_torch.controller import drawn_history_sums
+
+        c = eng.config
+        S_ = sc.x.shape[0]
+        inp_nb, _, _ = sk.fused_tick_inputs(c, sc.state, sc.x, sc.vb, phik, world)
+        nb = inp_nb.hist.shape[1]
+        sums = drawn_history_sums(inp_nb.hist, inp_nb.nh, c.num_basis, world.domain,
+                                  basis.hk_norm(c.num_basis, world.domain.lengths))
+        inp_sums = inp_nb._replace(hist=sums.reshape(S_, -1).contiguous())
+        P_ = min(c.patch_cells, *world.dist.dist.shape[-2:])
+        Pc = min(c.safety_patch_cells, P_)
+        crop = extract_patch(world.dist, sc.x[:, :2], P_).center_crop(Pc)
+        probes = dwa_probes_needed(c, eng.model, sc.x, sc.vb, world.domain, crop)
+        res = {}
+        for name, safety, inp in (("fused_solve_safety_map_h0_nb", True, inp_nb),
+                                  ("fused_solve_map_h0_nb", False, inp_nb),
+                                  ("fused_solve_safety_map_h0", True, inp_sums),
+                                  ("fused_solve_map_h0", False, inp_sums)):
+            k = sk.K1(c, inp, enable_safety=safety)
+            p = sk.fused_solve_safety_plain(c, inp, enable_safety=safety)
+            torch.cuda.synchronize()
+            e = compare(f"{tag} {name}", k, p)
+            res[name] = (e, events_ms(lambda: sk.K1(c, inp, enable_safety=safety), reps),
+                         events_ms(lambda: sk.fused_solve_safety_plain(
+                             c, inp, enable_safety=safety), 3),
+                         solve_work(c, S_, P_, safety, probes if safety else 0.0,
+                                    map_cells=S_ * P_ * P_,
+                                    nb=nb if name.endswith("_nb") else 0))
+        args = (sc.x.contiguous(), sc.vb.contiguous(), p.U_new[:, 0].contiguous(),
+                crop.dist.contiguous(), crop.start.to(torch.int32), crop.origin.contiguous(),
+                crop.resolution.contiguous(), world.domain.origin.contiguous(),
+                world.domain.lengths.contiguous())
+        ks, ps = sk.K1.safety(c, *args), sk.fused_safety_plain(c, *args)
+        torch.cuda.synchronize()
+        e = compare_safety(f"{tag} fused_safety", ks, ps)
+        res["fused_safety"] = (e, events_ms(lambda: sk.K1.safety(c, *args), reps),
+                               events_ms(lambda: sk.fused_safety_plain(c, *args), 3),
+                               safety_work(c, S_, Pc, probes))
+        return res
+
+    def show(tag, res, S_):
+        for name, (e, k_ms, p_ms, work) in res.items():
+            b_ms, by = bound(*work)
+            print(f"{tag} {name}: {k_ms:.4f} ms/call, plain version {p_ms:.4f} ms/call, bound "
+                  f"{b_ms:.5f} ms by {by}, max err {e:.3e} at S={S_} {card}")
+
+    # path B launched the variant with per-scenario maps, safety on and the
+    # history summed in the kernel: its entry, on the state path B reached
+    PATH_B_VARIANT = "fused_solve_safety_map_h0_nb"
+    res = variants("cart", eng_b, out.scenarios, phik_b, world_b, 20)
+    entry(PATH_B_VARIANT, "solve_kernel.cu",
+          "ergodic_exploration_tpu/ops/solve_kernel.py:345", *res.pop(PATH_B_VARIANT))
+    kernels[PATH_B_VARIANT]["launches"] = counts[PATH_B_VARIANT]
+    show("cart", res, S_MAIN)
+    del out, a, b, loaded, world_b, phik_b, sc_b, grids_b
+    torch.cuda.empty_cache()
+
+    # starts anywhere (inside obstacles too), so that crash codes, the DWA
+    # choice and infeasible sweeps are compared as well
+    cfg_x, x0_x, grids_x, gmm_x, _ = distinct_case(S_MAIN, dev, seed=6, clearance=None)
+    eng_x = Engine(cfg_x)
+    world_x = eng_x.prepare_world(grids_x)
+    phik_x = eng_x.phik_from_gmm(gmm_x, domain, world_x)
+    out_x = eng_x.explore(eng_x.init_scenarios(x0_x), phik_x, world_x, 5)
+    variants("cart, starts anywhere", eng_x, out_x.scenarios, phik_x, world_x, 5)
+    del out_x, world_x, phik_x, grids_x, eng_x
+    torch.cuda.empty_cache()
+
+    S_OMNI = 512
+    cfg_o, x0_o, grids_o, gmm_o, _ = distinct_case(S_OMNI, dev, model="omni", seed=2)
+    eng_o = Engine(cfg_o)
+    world_o = eng_o.prepare_world(grids_o)
+    phik_o = eng_o.phik_from_gmm(gmm_o, domain, world_o)
+    out_o = eng_o.explore(eng_o.init_scenarios(x0_o), phik_o, world_o, EXPLORE_TICKS)
+    if out_o.diag.diverged.any() or not torch.isfinite(out_o.controls).all():
+        fail("omni explore diverged or produced non-finite controls")
+    res_o = variants(f"omni (nu={cfg_o.nu}, P={cfg_o.patch_cells}, S={S_OMNI})", eng_o,
+                     out_o.scenarios, phik_o, world_o, 20)
+    show("omni", res_o, S_OMNI)
+    del out_o, world_o, phik_o, grids_o, eng_o
+
+    # ---- 9. path C: the default configuration (eager step + fused_safety)
+    S_C, T_C = 512, 10
+    print(f"== 9. path C: default_config('cart'), S={S_C}, explore {T_C} ticks", flush=True)
+    cfg_c, x0_c, grids_c, gmm_c, _ = distinct_case(S_C, dev, seed=3, use_fused_solve=False)
+    if cfg_c != default_config("cart"):
+        fail("path C is not the default configuration")
+    eng_c = Engine(cfg_c)
+    reset_counts()
+    world_c = eng_c.prepare_world(grids_c)
+    phik_c = eng_c.phik_from_gmm(gmm_c, domain)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out_c = eng_c.explore(eng_c.init_scenarios(x0_c), phik_c, world_c, n_ticks=T_C)
+    end.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("path C", counts, {"phik_from_gmm": 1, "fused_safety": T_C})
+    if (out_c.diag.diverged.any() or not torch.isfinite(out_c.controls).all()
+            or not torch.isfinite(out_c.trajectory).all()
+            or out_c.controls.shape != (T_C, S_C, cfg_c.nu)):
+        fail("path C diverged or produced non-finite or mis-shaped outputs")
+    print(f"all finite; none diverged; eager tick {start.elapsed_time(end) / T_C:.4f} ms at "
+          f"S={S_C}; DWA-active share {out_c.diag.dwa_active.float().mean().item():.4f} {card}")
+    # both kernels against their plain versions on this path's own inputs
+    g_c = [t.contiguous() for t in gmm_c]
+    k_out, p_out = gk.K2(*g_c, pts, D, None), gk.phik_from_gmm_plain(*g_c, pts, D, None)
+    torch.cuda.synchronize()
+    e = (k_out - p_out).abs().max().item()
+    if e > K2_ATOL or (k_out.view(S_C, K, K) - phik_c).abs().max().item() > K2_ATOL:
+        fail(f"path C: K2 is {e:.3e} from its plain version (atol {K2_ATOL}) or differs from "
+             f"what phik_from_gmm returned")
+    entry("phik_from_gmm", "gmm_kernel.cu", K2_REPLACES, e,
+          events_ms(lambda: gk.K2(*g_c, pts, D, None), 20),
+          events_ms(lambda: gk.phik_from_gmm_plain(*g_c, pts, D, None), 5),
+          refresh_work(S_C, N, K * K, 2))
+    sc_c = out_c.scenarios
+    P_c = min(cfg_c.patch_cells, 100)
+    crop = extract_patch(world_c.dist, sc_c.x[:, :2], P_c).center_crop(cfg_c.safety_patch_cells)
+    args = (sc_c.x.contiguous(), sc_c.vb.contiguous(), sc_c.state.U[:, 0].contiguous(),
+            crop.dist.contiguous(), crop.start.to(torch.int32), crop.origin.contiguous(),
+            crop.resolution.contiguous(), world_c.domain.origin.contiguous(),
+            world_c.domain.lengths.contiguous())
+    ks, ps = sk.K1.safety(cfg_c, *args), sk.fused_safety_plain(cfg_c, *args)
+    torch.cuda.synchronize()
+    e = compare_safety("path C fused_safety", ks, ps)
+    probes = dwa_probes_needed(cfg_c, eng_c.model, sc_c.x, sc_c.vb, world_c.domain, crop)
+    entry("fused_safety", "solve_kernel.cu", "ergodic_exploration_tpu/ops/solve_kernel.py:1254",
+          e, events_ms(lambda: sk.K1.safety(cfg_c, *args), 20),
+          events_ms(lambda: sk.fused_safety_plain(cfg_c, *args), 3),
+          safety_work(cfg_c, S_C, crop.dist.shape[-1], probes))
+    kernels["fused_safety"]["launches"] = counts["fused_safety"]
+    kernels["phik_from_gmm"]["launches"] = counts["phik_from_gmm"]
+    del out_c, world_c, grids_c, sc_c, crop, args
+
+    # ---- 10. path D: empty world, one Gaussian, safety off (fused_solve)
+    T_D = 20
+    print(f"== 10. path D: empty world, safety off, S={S_MAIN}, {T_D} ticks", flush=True)
+    rng = np.random.default_rng(4)
+    x0_d = np.concatenate([rng.uniform(0.05, 4.95, (S_MAIN, 2)),
+                           rng.uniform(-np.pi, np.pi, (S_MAIN, 1))], axis=1).astype(np.float32)
+    # the target and the domain are made on the CPU, as a caller following
+    # the quick start would: the engine moves them to the card
+    gmm_d = GaussianMixture.create(np.full((S_MAIN, 1, 2), 2.5, np.float32),
+                                   np.tile((0.4 * np.eye(2, dtype=np.float32))[None, None],
+                                           (S_MAIN, 1, 1, 1)))
+    domain_d = Domain.create(0.0, 0.0, 5.0, 5.0)
+    # one shared empty map with one shared history draw (K1 takes the sums),
+    # then per-scenario empty maps with per-scenario draws (K1 sums them)
+    for shared, variant in ((True, "fused_solve"), (False, "fused_solve_map_h0_nb")):
+        cfg_d = default_config("cart").replace(use_fused_solve=True, enable_safety=False,
+                                               shared_maps=shared, shared_history_draw=shared)
+        eng_d = Engine(cfg_d)
+        reset_counts()
+        world_d = eng_d.empty_world(domain_d, S_MAIN)
+        phik_d = eng_d.phik_from_gmm(gmm_d, domain_d)
+        if phik_d.device.type != "cuda" or world_d.dist.dist.device.type != "cuda":
+            fail("path D: a target made on the CPU was not moved to the card")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out_d = eng_d.explore(eng_d.init_scenarios(x0_d), phik_d, world_d, n_ticks=T_D)
+        end.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"path D ({variant})", counts, {"phik_from_gmm": 1, variant: T_D})
+        if (out_d.diag.diverged.any() or not torch.isfinite(out_d.controls).all()
+                or not torch.isfinite(out_d.diag.barrier_cost).all()
+                or out_d.diag.dwa_active.any()):
+            fail(f"path D ({variant}): diverged, non-finite, or DWA active with safety off")
+        print(f"  all finite (barrier on the FAR plateau included: max "
+              f"{out_d.diag.barrier_cost.max().item():.4f}); tick "
+              f"{start.elapsed_time(end) / T_D:.4f} ms {card}")
+        # the variant against its plain version on the state this path reached
+        inp, _, _ = sk.fused_tick_inputs(cfg_d, out_d.scenarios.state, out_d.scenarios.x,
+                                         out_d.scenarios.vb, phik_d, world_d)
+        k = sk.K1(cfg_d, inp, enable_safety=False)
+        p = sk.fused_solve_safety_plain(cfg_d, inp, enable_safety=False)
+        torch.cuda.synchronize()
+        e = compare(variant, k, p)
+        P_d = inp.dist.shape[-1]  # the empty maps are 2 x 2 cells
+        entry(variant, "solve_kernel.cu", "ergodic_exploration_tpu/ops/solve_kernel.py:580", e,
+              events_ms(lambda: sk.K1(cfg_d, inp, enable_safety=False), 20),
+              events_ms(lambda: sk.fused_solve_safety_plain(cfg_d, inp, enable_safety=False), 3),
+              solve_work(cfg_d, S_MAIN, P_d, False,
+                         map_cells=P_d * P_d * (1 if shared else S_MAIN),
+                         nb=0 if shared else cfg_d.buffer_batch))
+        kernels[variant]["launches"] = counts[variant]
+        del out_d, world_d, inp, k, p
+
+    # ---- 11. explore on the card against explore on the CPU
+    print("== 11. explore on the card vs on the CPU, S=64, distinct maps, 3 ticks", flush=True)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        c, x0_, g_, gm_, dm_ = distinct_case(64, d, seed=5)
+        e_ = Engine(c, device=d)
+        w_ = e_.prepare_world(g_)
+        o_ = e_.explore(e_.init_scenarios(x0_), e_.phik_from_gmm(gm_, dm_, w_), w_, 3)
+        runs[d.type] = (o_.controls.cpu(), o_.trajectory.cpu(), o_.diag.dwa_active.cpu())
+    (u_d, x_d, a_d), (u_c, x_c, a_c) = runs[dev.type], runs["cpu"]
+    # a scenario counts from its first tick on while its DWA choice agrees
+    same = (a_d == a_c).cumprod(0).bool()
+    # Positions hold the parity budget (5e-5) at every tick; so do the
+    # controls of tick 1, which start from a common state. Later ticks start
+    # from states that differ by rounding, and the barrier's 1/d^2 terms
+    # amplify that in the controls (PERF.md, "Stiff barrier"): 1e-3 on
+    # controls of up to 6 rad/s, with the count above the budget printed.
+    u_tol = (5e-5, 1e-3, 1e-3)
+    for t in range(3):
+        du = (u_d[t] - u_c[t]).abs()[same[t]]
+        dx = (x_d[t] - x_c[t]).abs()[same[t]].max().item()
+        print(f"  tick {t + 1}: max |u_card - u_cpu| {du.max().item():.3e} (atol {u_tol[t]}; "
+              f"{int((du > 5e-5).any(-1).sum())} scenarios above 5e-5), max |x_card - x_cpu| "
+              f"{dx:.3e} (atol 5e-5) over {int(same[t].sum())} scenarios")
+        if du.max().item() > u_tol[t] or dx > 5e-5:
+            fail(f"explore on the card disagrees with explore on the CPU at tick {t + 1}")
+    if int((~same[-1]).sum()) > CODE_MISMATCH_LIMIT:
+        fail(f"DWA choice differs in {int((~same[-1]).sum())} scenarios")
+
+    missing = [k for k, v in kernels.items() if v["launches"] < 1]
+    if missing:
+        fail(f"kernels never launched on a driven path: {missing}")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(card_line)
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

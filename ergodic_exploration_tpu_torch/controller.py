@@ -7,7 +7,10 @@ c_k over [history || rollout], take the ergodic and barrier gradients at
 the knots, integrate the co-state backward, update u = sat(-R^-1 B^T rho),
 validate the emitted control and fall back to DWA on a predicted crash.
 The descent and safety stages are shared with the plain version of the
-fused kernel (ops/solve_kernel.py).
+fused kernel (ops/solve_kernel.py). In the eager :meth:`ErgodicController.step`
+the descent is batched PyTorch ops (the JAX package has no kernel there
+either); its safety stage goes through ``ops.solve_kernel.fused_safety``: the
+CUDA kernel for CUDA tensors, :func:`safety_on_crop` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ class World(NamedTuple):
     dist: DistanceField
     # (S, N) free-space weights at the phi sample lattice, or None
     free_mask: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def empty(domain: Domain, shape=(2, 2)) -> "World":
+        """Obstacle-free world over an unbatched ``domain``."""
+        return World(domain=domain, dist=DistanceField.empty(shape, origin=domain.origin))
 
 
 class ControllerState(NamedTuple):
@@ -86,13 +94,19 @@ def history_sums(cfg: EngineConfig, state: ControllerState, sub: torch.Tensor,
     buf = state.buffer
     if cfg.buffer_batch is not None:
         s_buf, n_hist = buf.sample_states(cfg.buffer_batch, sub)
-        Cbx, Cby = basis.cos_tables(s_buf, K, domain)
-        w_buf = (n_hist > 0).to(torch.float32)[:, None].expand(-1, s_buf.shape[1])
-    else:
-        Cbx, Cby = basis.cos_tables(buf.positions, K, domain)
-        w_buf = buf.sample_mask(None, sub)
-        n_hist = w_buf.sum(dim=-1)
-    return basis.coefficients_cos(Cbx, Cby, w_buf, hk), n_hist
+        return drawn_history_sums(s_buf, n_hist, K, domain, hk), n_hist
+    Cbx, Cby = basis.cos_tables(buf.positions, K, domain)
+    w_buf = buf.sample_mask(None, sub)
+    return basis.coefficients_cos(Cbx, Cby, w_buf, hk), w_buf.sum(dim=-1)
+
+
+def drawn_history_sums(s_buf: torch.Tensor, n_hist: torch.Tensor, K: int, domain: Domain,
+                       hk: torch.Tensor) -> torch.Tensor:
+    """Sum of F_k (S, K, K) over the positions drawn from the ring buffer,
+    ``s_buf`` (S, nb, 2); an empty buffer (``n_hist`` = 0) gives zeros."""
+    Cbx, Cby = basis.cos_tables(s_buf, K, domain)
+    w_buf = (n_hist > 0).to(torch.float32)[:, None].expand(-1, s_buf.shape[1])
+    return basis.coefficients_cos(Cbx, Cby, w_buf, hk)
 
 
 def descent(cfg: EngineConfig, model, x, U_warm, hist_sum, n_hist, phik, domain,
@@ -125,13 +139,19 @@ def descent(cfg: EngineConfig, model, x, U_warm, hist_sum, n_hist, phik, domain,
     return U_new, basis.ergodic_metric(ck, phik, lam), bval.mean(dim=-1)
 
 
-def safety(cfg: EngineConfig, model, x, vb, u0, domain, patch):
-    """Validation of u0 + the DWA fallback on the central crop of the patch.
+def safety_on_crop(cfg: EngineConfig, model, x, vb, u0, domain, crop):
+    """Validation of u0 + the DWA fallback on ``crop``, a PatchField whose
+    nearest-cell clearance is all they read.
     Returns (code (S,) int32, u_dwa (S, nu), feasible (S,) bool)."""
-    crop = patch.center_crop(cfg.safety_patch_cells)
     code = validate_control(model, x, u0, domain, crop, cfg)
     u_dwa, feasible = dwa_control(model, x, vb, u0, domain, crop, cfg)
     return code, u_dwa, feasible
+
+
+def safety(cfg: EngineConfig, model, x, vb, u0, domain, patch):
+    """:func:`safety_on_crop` on the central crop of the patch."""
+    return safety_on_crop(cfg, model, x, vb, u0, domain,
+                          patch.center_crop(cfg.safety_patch_cells))
 
 
 def finish_tick(cfg: EngineConfig, state: ControllerState, x, U_new, u0, safety_out,
@@ -229,7 +249,17 @@ class ErgodicController:
         U_new, metric, bcost = descent(cfg, model, x, U_warm, hist_sum, n_hist, phik,
                                        domain, patch, lam, hk)
         u0 = U_new[:, 0]
-        safety_out = safety(cfg, model, x, vb, u0, domain, patch) if cfg.enable_safety else None
+        safety_out = None
+        if cfg.enable_safety:
+            from ergodic_exploration_tpu_torch.ops.solve_kernel import fused_safety
+
+            crop = patch.center_crop(cfg.safety_patch_cells)
+            code, u_dwa, feas = fused_safety(
+                cfg, x.contiguous(), vb.contiguous(), u0.contiguous(), crop.dist.contiguous(),
+                crop.start.to(torch.int32), crop.origin.contiguous(),
+                crop.resolution.contiguous(), domain.origin.contiguous(),
+                domain.lengths.contiguous())
+            safety_out = (code, u_dwa, feas.to(torch.bool))
 
         # history: the running basis sum gains F_k at the ACTUAL current pose
         Cnx, Cny = basis.cos_tables(x[:, None, :2], K, domain)

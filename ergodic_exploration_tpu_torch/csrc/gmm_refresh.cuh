@@ -4,11 +4,16 @@
 // Pallas twice: inside K1 (ops/solve_kernel.py::_make_kernel, "in-kernel
 // target refresh") and as K2 (ops/pallas_kernels.py::phik_from_gmm_pallas).
 // For RT_S scenarios at once it evaluates each scenario's Gaussian mixture
-// at the Npad lattice points and accumulates
+// at the lattice points n_begin <= n < n_end and accumulates
 //
 //     acc[s, k] = sum_n phi_s(p_n) D[n, k]      tot[s] = sum_n phi_s(p_n)
 //
-// over RT_N-point chunks. Each chunk of the (Npad, K^2) table D is staged in
+// over RT_N-point chunks (K1 walks the whole padded lattice in one block; K2
+// splits it over a second grid dimension and adds the partial sums in a
+// finishing kernel). With a free mask (S, mask_n), phi_s(p_n) is multiplied
+// by mask[s, n] before both sums; points n >= mask_n (the lattice's padding)
+// count as masked out, so the caller need not pad the mask. Each chunk of the
+// (Npad, K^2) table D is staged in
 // shared memory once and reused by all RT_S scenarios of the block (read per
 // scenario, D would cost S * Npad * K^2 * 4 bytes of L2 traffic: 16 GB per
 // tick at S=4096, N=10,240, K=10). Each thread keeps a 4 x 4 register tile
@@ -40,13 +45,14 @@ __host__ __device__ inline size_t refresh_smem_floats(int KK, int J) {
 // acc_out (RT_S x KK, in shared memory, may alias the start of `sm`) and
 // tot_out (RT_S) receive the block's sums; rows of scenarios >= S are zero.
 // means (S, J, 2), covs (S, J, 2, 2), weights (S, J), pts (Npad, 2),
-// D (Npad, KK); Npad is a multiple of RT_N. Must be called by all
-// RT_THREADS threads of the block.
+// D (Npad, KK); n_begin and n_end are multiples of RT_N; mask (S, mask_n) or
+// nullptr. Must be called by all RT_THREADS threads of the block.
 __device__ inline void gmm_refresh_tile(
-    int s0, int S, int J, int KK, int Npad,
+    int s0, int S, int J, int KK, int n_begin, int n_end,
     const float* __restrict__ means, const float* __restrict__ covs,
     const float* __restrict__ weights, const float* __restrict__ pts,
-    const float* __restrict__ D, float* sm, float* acc_out, float* tot_out) {
+    const float* __restrict__ D, const float* __restrict__ mask, int mask_n,
+    float* sm, float* acc_out, float* tot_out) {
     const int tid = threadIdx.x;
     float* Ds = sm;                             // RT_N x KK
     float* phis = Ds + RT_N * KK;               // RT_S x (RT_N + 1), padded rows
@@ -87,7 +93,10 @@ __device__ inline void gmm_refresh_tile(
     const int n8 = tid % 8;           //      and its first point in the chunk
     __syncthreads();
 
-    for (int n0 = 0; n0 < Npad; n0 += RT_N) {
+    const bool live = s0 + sl < S;    // this thread's scenario row exists
+    const float* mrow = mask ? mask + (size_t)(s0 + sl) * mask_n : nullptr;
+
+    for (int n0 = n_begin; n0 < n_end; n0 += RT_N) {
         const float* Dsrc = D + (size_t)n0 * KK;
         for (int i = tid; i < RT_N * KK; i += RT_THREADS) Ds[i] = Dsrc[i];
         const float* g = gp + sl * J * GP;
@@ -103,6 +112,7 @@ __device__ inline void gmm_refresh_tile(
                 const float qf = (gj[4] * (dx * dx) - gj[3] * dx * dy + gj[2] * (dy * dy)) * gj[5];
                 phi = phi + gj[6] * expf(-0.5f * qf);
             }
+            if (mask) phi = phi * ((live && n0 + n < mask_n) ? mrow[n0 + n] : 0.0f);
             phis[sl * (RT_N + 1) + n] = phi;
             tot_part = tot_part + phi;
         }

@@ -1,25 +1,42 @@
 // K1 — the fused replan kernel (one whole tick per scenario) for NVIDIA Hopper.
 //
-// Replaces the TPU kernel ergodic_exploration_tpu/ops/solve_kernel.py::
-// fused_solve_safety (Pallas: _fused_call / _make_kernel, with _safety_geom,
-// _validate_u0 and _dwa_sweep), in its main-path variant: GMM target refresh
-// in the kernel (J > 0) or phi_k as an input (J = 0), the patch read from ONE
-// distance map shared by all scenarios, safety on. Built by nvcc for sm_90a
-// (utils/cuda_build.py) and called through the plain C entry point at the end
-// of this file from ops/solve_kernel.py.
+// Replaces the TPU kernels of ergodic_exploration_tpu/ops/solve_kernel.py:
+// fused_solve_safety and fused_solve (Pallas: _fused_call / _make_kernel, with
+// _safety_geom, _validate_u0 and _dwa_sweep) and the standalone fused_safety
+// (_make_safety_kernel / _safety_ops). Variants, all in this file:
+//   - GMM target refresh in the kernel (J > 0) or phi_k as an input (J = 0);
+//   - the patch read from ONE distance map shared by all scenarios
+//     (map_stride = 0) or from each scenario's own map (map_stride = mh * mw,
+//     the TPU kernel's map_h = 0 variant: there XLA cuts (P, P, S) patches and
+//     their gradients out with one-hot matmuls because Mosaic cannot gather;
+//     a GPU gathers, so the kernel reads the (S, mh, mw) maps directly with
+//     the same clamped index math);
+//   - safety on (fused_solve_safety) or off (fused_solve: k1_solve returns
+//     before its safety stage);
+//   - the history term of c_k given as (K, K) sums (nb = 0) or as the nb
+//     positions drawn from the ring buffer (the TPU kernel's nb > 0 variant):
+//     then their cos tables and the (K, K) sums of outer products are computed
+//     in k1_solve;
+//   - the safety stage alone on a (S, Pc, Pc) crop given as data (k1_safety).
+// Built by nvcc for sm_90a (utils/cuda_build.py) and called through the plain C
+// entry points at the end of this file from ops/solve_kernel.py.
 //
-// Two launches on the caller's stream:
+// Launches on the caller's stream:
 //   k1_refresh  (J > 0) phi_k of every scenario: the mixture over the padded
 //               lattice contracted with the basis table (gmm_refresh.cuh),
 //               normalized as ops/solve_kernel.py::refresh_plain does.
 //   k1_solve    one thread per scenario, everything else, in this order:
-//               RK4 rollout; cos/sin basis tables; c_k, metric and
+//               RK4 rollout; cos/sin basis tables; (nb > 0) the history
+//               sums over the drawn positions; c_k, metric and
 //               ergodic gradient; boundary + obstacle barrier with bilinear
 //               reads of the patch (values and the patch's own central-
 //               difference gradient, one-sided at the PATCH edges, FAR
 //               plateau zeroed); backward co-state; u = clip(-R^-1 B^T rho);
 //               ck_sum append; validation of u0 over val_horizon steps and
 //               the DWA sweep over every candidate and dwa_horizon steps.
+//   k1_safety   one thread per scenario: that last stage alone. The sweep
+//               (samples candidates x dwa_horizon probes, each independent)
+//               is the part a later change can spread over a warp.
 //
 // What it leaves behind from the TPU kernel: the scenario-on-lanes layout
 // (operands are scenario-first), the bf16 hi/mid/lo map split and one-hot
@@ -36,6 +53,12 @@
 // gives S/32 warps (128 at S=4096, about one per SM), each a long chain of
 // dependent float ops, sinf/cosf and map reads; its per-thread tables (Wh,
 // knots, gradients) live in shared memory rather than in spilled registers.
+// With nb > 0 the history adds nb * (2 K cosf + K^2 multiply-adds) to that
+// chain (at nb = 100, H = 20 five times the rollout's own c_k sums), in a
+// second per-thread K^2 table; its (S, nb, 2) operand is read once.
+// With per-scenario maps the scenarios share no cache lines (164 MB of maps at
+// S=4096, of which a tick touches about P^2 * 4 B = 2.3 KB per scenario), so
+// the map reads add DRAM latency to the same dependent chain.
 //
 // Rounding contract: built with -fmad=false, so each multiply and add rounds
 // on its own as in PyTorch's elementwise ops. The safety stage evaluates the
@@ -74,6 +97,9 @@ using namespace k1;
 struct K1Params {
     int S, H, K, nu, P, Pc, J, Npad, map_h, map_w, masked, model, cost_twist;
     int val_horizon, dwa_horizon, nvx, nvy, nw;
+    int map_stride;  // floats between two scenarios' maps (0: one shared map)
+    int safety;      // 0: k1_solve stops before validation + DWA (fused_solve)
+    int nb;          // > 0: hist holds (S, nb, 2) drawn positions, not (S, K^2) sums
     float dt, half_dt, dt6, gamma, beta, b_eps, b_weight, b_weight2, o_weight, o_weight_m2;
     float b_radius, d_safe, inv_d_safe, d_min, patch_hi, crop_hi, tw_a, tw_b, inv_a, inv_r;
     float val_dt, dwa_dt, two_pi;
@@ -104,8 +130,8 @@ __global__ void __launch_bounds__(RT_THREADS) k1_refresh(K1Params p, K1Buffers b
     const int s0 = blockIdx.x * RT_S;
     float* accs = sm;                       // RT_S x KK, reuses the staged-table space
     float* tot = sm + (size_t)RT_N * KK;    // RT_S, reuses the phi space
-    gmm_refresh_tile(s0, p.S, p.J, KK, p.Npad, b.means, b.covs, b.weights, b.pts, b.D,
-                     sm, accs, tot);
+    gmm_refresh_tile(s0, p.S, p.J, KK, 0, p.Npad, b.means, b.covs, b.weights, b.pts, b.D,
+                     nullptr, 0, sm, accs, tot);
     for (int i = threadIdx.x; i < RT_S * KK; i += RT_THREADS) {
         const int sl = i / KK, k = i % KK, s = s0 + sl;
         if (s >= p.S) continue;
@@ -271,6 +297,77 @@ __device__ __forceinline__ int pose_code(const Crop& g, float px, float py) {
 }
 
 // ---------------------------------------------------------------------------
+// safety stage: validation of u0 over val_horizon steps, then the DWA sweep
+// over every candidate and dwa_horizon steps (controller.py::safety)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void safety_stage(const K1Params& p, const Crop& g, const Pose0& pose,
+                                             const float* u0, const float* vb3, int* code_out,
+                                             float* u_dwa, int* feasible_out) {
+    const int nu = p.nu;
+    float vx0, vy0, w0;
+    model_twist(p, u0, &vx0, &vy0, &w0);
+    int code = 0;
+    for (int t = 1; t <= p.val_horizon; ++t) {
+        float px, py;
+        arc(pose, vx0, vy0, w0, p.val_dt * (float)t, &px, &py);
+        code = max(code, pose_code(g, px, py));
+    }
+    *code_out = code;
+
+    // candidate axes: lo + (hi - lo) * i / (n - 1) over the clipped window
+    const int nax[3] = {p.nvx, p.nvy, p.nw};
+    float lo[3], span[3];
+    for (int a = 0; a < 3; ++a) {
+        const float vb = vb3[a];
+        const float l = fminf(fmaxf(vb - p.acc_dt[a], -p.vel_lim[a]), p.vel_lim[a]);
+        const float h = fminf(fmaxf(vb + p.acc_dt[a], -p.vel_lim[a]), p.vel_lim[a]);
+        lo[a] = l;
+        span[a] = h - l;
+    }
+    float best = INFINITY, ubest[NUMAX] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int ia = 0; ia < nax[0]; ++ia)
+    for (int ib = 0; ib < nax[1]; ++ib)
+    for (int ic = 0; ic < nax[2]; ++ic) {
+        const int idx[3] = {ia, ib, ic};
+        float tw[3];
+        for (int a = 0; a < 3; ++a)
+            tw[a] = nax[a] == 1 ? 0.0f
+                                : lo[a] + span[a] * ((float)idx[a] / (float)(nax[a] - 1));
+        float uc[NUMAX];
+        model_from_twist(p, tw[0], tw[1], tw[2], uc);
+        float rvx, rvy, rw;
+        model_twist(p, uc, &rvx, &rvy, &rw);
+        bool crash = false;
+        for (int t = 1; t <= p.dwa_horizon && !crash; ++t) {
+            float px, py;
+            arc(pose, rvx, rvy, rw, p.dwa_dt * (float)t, &px, &py);
+            crash = pose_code(g, px, py) == 2;
+        }
+        float cost;
+        if (crash) {
+            cost = INFEASIBLE;
+        } else if (p.cost_twist) {
+            const float ex = rvx - vx0, ey = rvy - vy0, ew = rw - w0;
+            cost = ex * ex + ey * ey + ew * ew;
+        } else {
+            cost = 0.0f;
+            for (int i = 0; i < nu; ++i) {
+                const float du = uc[i] - u0[i];
+                cost = cost + du * du;
+            }
+        }
+        if (cost < best) {  // strict: the first candidate reaching the minimum wins
+            best = cost;
+            for (int i = 0; i < nu; ++i) ubest[i] = uc[i];
+        }
+    }
+    const bool feasible = best < INFEASIBLE;
+    for (int i = 0; i < nu; ++i) u_dwa[i] = feasible ? ubest[i] : 0.0f;
+    *feasible_out = feasible ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
 // solve
 // ---------------------------------------------------------------------------
 
@@ -283,17 +380,18 @@ __global__ void __launch_bounds__(SOLVE_THREADS) k1_solve(K1Params p, K1Buffers 
     // per-thread tables, strided by the block so a warp's accesses hit 32 banks
     auto SH = [&](int i) -> float& { return sm[i * SOLVE_THREADS + tid]; };
     const int WH = 0, KXo = KK, KYo = KK + H, KTHo = KK + 2 * H, G1o = KK + 3 * H,
-              G2o = KK + 4 * H;
+              G2o = KK + 4 * H, HSo = KK + 5 * H;  // HS (K^2) only with nb > 0
 
     const float x0 = b.x[s * 3 + 0], y0 = b.x[s * 3 + 1], th0 = b.x[s * 3 + 2];
     const float dox = b.dorigin[s * 2 + 0], doy = b.dorigin[s * 2 + 1];
     const float Lx = b.dlen[s * 2 + 0], Ly = b.dlen[s * 2 + 1];
     const float pox = b.porigin[s * 2 + 0], poy = b.porigin[s * 2 + 1];
     const float res = b.pres[s];
-    const MapView map{b.dist, p.map_h, p.map_w, b.pstart[s * 2 + 0], b.pstart[s * 2 + 1]};
+    const float* dmap = b.dist + (size_t)s * p.map_stride;
+    const MapView map{dmap, p.map_h, p.map_w, b.pstart[s * 2 + 0], b.pstart[s * 2 + 1]};
     const float* U = b.U + (size_t)s * H * nu;
     const float* phik = (p.J > 0 ? b.phik_buf : b.phik) + (size_t)s * KK;
-    const float* hist = b.hist + (size_t)s * KK;
+    const float* hist = b.hist + (size_t)s * (p.nb > 0 ? 2 * p.nb : KK);
 
     // ---- 1. RK4 rollout: knots x_0 .. x_{H-1} (ops/integrator.py rk4_step
     // on the model's f; k2 == k3 exactly since theta-dot is constant)
@@ -336,13 +434,35 @@ __global__ void __launch_bounds__(SOLVE_THREADS) k1_solve(K1Params p, K1Buffers 
             }
         }
     }
+    // history term from the nb drawn positions (controller.py
+    // drawn_history_sums): sum_j (cos_x[j, k1] w) cos_y[j, k2], w = 0 for an
+    // empty buffer, divided by h_k below
+    if (p.nb > 0) {
+        const float w = b.nh[s] > 0.0f ? 1.0f : 0.0f;
+        for (int k = 0; k < KK; ++k) SH(HSo + k) = 0.0f;
+        for (int j = 0; j < p.nb; ++j) {
+            basis_row(hist[2 * j + 0] - dox, ax, K, Cx, nullptr);
+            basis_row(hist[2 * j + 1] - doy, ay, K, Cy, nullptr);
+#pragma unroll
+            for (int k1 = 0; k1 < KMAX; ++k1) {
+                if (k1 >= K) break;
+                const float cw = Cx[k1] * w;
+#pragma unroll
+                for (int k2 = 0; k2 < KMAX; ++k2) {
+                    if (k2 >= K) break;
+                    SH(HSo + k1 * K + k2) += cw * Cy[k2];
+                }
+            }
+        }
+    }
     float metric = 0.0f;
     for (int k1 = 0; k1 < K; ++k1) {
         for (int k2 = 0; k2 < K; ++k2) {
             const int k = k1 * K + k2;
             const float hk = hk_norm(area, k1, k2);
             const float lam = powf(1.0f + (float)(k1 * k1) + (float)(k2 * k2), -1.5f);
-            const float ck = (hist[k] + SH(WH + k) / hk) / M;
+            const float hs = p.nb > 0 ? SH(HSo + k) / hk : hist[k];
+            const float ck = (hs + SH(WH + k) / hk) / M;
             const float dkk = ck - phik[k];
             metric = metric + lam * dkk * dkk;
             SH(WH + k) = lam * dkk / hk;
@@ -463,75 +583,43 @@ __global__ void __launch_bounds__(SOLVE_THREADS) k1_solve(K1Params p, K1Buffers 
     }
 
     // ---- 8. safety: validate u0, then the DWA sweep, on the central crop
+    if (!p.safety) return;
     const int o = (p.P - p.Pc) / 2;
     Crop g;
-    g.m = MapView{b.dist, p.map_h, p.map_w, map.sx + o, map.sy + o};
+    g.m = MapView{dmap, p.map_h, p.map_w, map.sx + o, map.sy + o};
     g.sxf = (float)(map.sx + o);
     g.syf = (float)(map.sy + o);
     g.pox = pox; g.poy = poy; g.res = res; g.dox = dox; g.doy = doy; g.Lx = Lx; g.Ly = Ly;
     g.hi = p.crop_hi; g.b_radius = p.b_radius; g.d_safe = p.d_safe;
     const Pose0 pose{x0, y0, cosf(th0), sinf(th0)};
+    safety_stage(p, g, pose, u0, b.vb + s * 3, b.code + s, b.u_dwa + (size_t)s * nu,
+                 b.feasible + s);
+}
 
-    float vx0, vy0, w0;
-    model_twist(p, u0, &vx0, &vy0, &w0);
-    int code = 0;
-    for (int t = 1; t <= p.val_horizon; ++t) {
-        float px, py;
-        arc(pose, vx0, vy0, w0, p.val_dt * (float)t, &px, &py);
-        code = max(code, pose_code(g, px, py));
-    }
-    b.code[s] = code;
+// ---------------------------------------------------------------------------
+// safety alone, on a crop given as data
+// ---------------------------------------------------------------------------
 
-    // candidate axes: lo + (hi - lo) * i / (n - 1) over the clipped window
-    const int nax[3] = {p.nvx, p.nvy, p.nw};
-    float lo[3], span[3];
-    for (int a = 0; a < 3; ++a) {
-        const float vb = b.vb[s * 3 + a];
-        const float l = fminf(fmaxf(vb - p.acc_dt[a], -p.vel_lim[a]), p.vel_lim[a]);
-        const float h = fminf(fmaxf(vb + p.acc_dt[a], -p.vel_lim[a]), p.vel_lim[a]);
-        lo[a] = l;
-        span[a] = h - l;
-    }
-    float best = INFINITY, ubest[NUMAX] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int ia = 0; ia < nax[0]; ++ia)
-    for (int ib = 0; ib < nax[1]; ++ib)
-    for (int ic = 0; ic < nax[2]; ++ic) {
-        const int idx[3] = {ia, ib, ic};
-        float tw[3];
-        for (int a = 0; a < 3; ++a)
-            tw[a] = nax[a] == 1 ? 0.0f
-                                : lo[a] + span[a] * ((float)idx[a] / (float)(nax[a] - 1));
-        float uc[NUMAX];
-        model_from_twist(p, tw[0], tw[1], tw[2], uc);
-        float rvx, rvy, rw;
-        model_twist(p, uc, &rvx, &rvy, &rw);
-        bool crash = false;
-        for (int t = 1; t <= p.dwa_horizon && !crash; ++t) {
-            float px, py;
-            arc(pose, rvx, rvy, rw, p.dwa_dt * (float)t, &px, &py);
-            crash = pose_code(g, px, py) == 2;
-        }
-        float cost;
-        if (crash) {
-            cost = INFEASIBLE;
-        } else if (p.cost_twist) {
-            const float ex = rvx - vx0, ey = rvy - vy0, ew = rw - w0;
-            cost = ex * ex + ey * ey + ew * ew;
-        } else {
-            cost = 0.0f;
-            for (int i = 0; i < nu; ++i) {
-                const float du = uc[i] - u0[i];
-                cost = cost + du * du;
-            }
-        }
-        if (cost < best) {  // strict: the first candidate reaching the minimum wins
-            best = cost;
-            for (int i = 0; i < nu; ++i) ubest[i] = uc[i];
-        }
-    }
-    const bool feasible = best < INFEASIBLE;
-    for (int i = 0; i < nu; ++i) b.u_dwa[(size_t)s * nu + i] = feasible ? ubest[i] : 0.0f;
-    b.feasible[s] = feasible ? 1 : 0;
+// Operands in K1Buffers: x, vb (S, 3); U holds u0 (S, nu); dist holds the
+// crops (S, Pc, Pc); pstart (S, 2) is the global cell of crop cell (0, 0).
+__global__ void __launch_bounds__(SOLVE_THREADS) k1_safety(K1Params p, K1Buffers b) {
+    const int s = blockIdx.x * SOLVE_THREADS + threadIdx.x;
+    if (s >= p.S) return;
+    const int nu = p.nu;
+    Crop g;
+    g.m = MapView{b.dist + (size_t)s * p.Pc * p.Pc, p.Pc, p.Pc, 0, 0};
+    g.sxf = (float)b.pstart[s * 2 + 0];
+    g.syf = (float)b.pstart[s * 2 + 1];
+    g.pox = b.porigin[s * 2 + 0]; g.poy = b.porigin[s * 2 + 1]; g.res = b.pres[s];
+    g.dox = b.dorigin[s * 2 + 0]; g.doy = b.dorigin[s * 2 + 1];
+    g.Lx = b.dlen[s * 2 + 0]; g.Ly = b.dlen[s * 2 + 1];
+    g.hi = p.crop_hi; g.b_radius = p.b_radius; g.d_safe = p.d_safe;
+    const float th0 = b.x[s * 3 + 2];
+    const Pose0 pose{b.x[s * 3 + 0], b.x[s * 3 + 1], cosf(th0), sinf(th0)};
+    float u0[NUMAX] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = 0; i < nu; ++i) u0[i] = b.U[(size_t)s * nu + i];
+    safety_stage(p, g, pose, u0, b.vb + s * 3, b.code + s, b.u_dwa + (size_t)s * nu,
+                 b.feasible + s);
 }
 
 // ---------------------------------------------------------------------------
@@ -549,15 +637,16 @@ static cudaError_t launch(const void* fn, dim3 grid, dim3 block, size_t smem, cu
     return cudaLaunchKernel(fn, grid, block, args, smem, st);
 }
 
-// Launch K1 for p->S scenarios on `stream`; returns the CUDA error code
-// (0 on success). Does not synchronize.
+// Launch K1 for p->S scenarios on `stream` (fused_solve_safety, or fused_solve
+// with p->safety = 0); returns the CUDA error code (0 on success). Does not
+// synchronize.
 extern "C" int k1_fused_solve_safety(const K1Params* params, const K1Buffers* buffers,
                                      void* stream) {
     K1Params p = *params;
     K1Buffers b = *buffers;
     cudaStream_t st = (cudaStream_t)stream;
     if (p.S <= 0) return 0;
-    if (p.K > KMAX || p.H > HMAX || p.nu > NUMAX) return (int)cudaErrorInvalidValue;
+    if (p.K > KMAX || p.H > HMAX || p.nu > NUMAX || p.nb < 0) return (int)cudaErrorInvalidValue;
     cudaError_t e;
     if (p.J > 0) {
         const size_t smem = refresh_smem_floats(p.K * p.K, p.J) * sizeof(float);
@@ -565,9 +654,24 @@ extern "C" int k1_fused_solve_safety(const K1Params* params, const K1Buffers* bu
                    smem, st, &p, &b);
         if (e != cudaSuccess) return (int)e;
     }
-    const size_t smem = (size_t)(p.K * p.K + 5 * p.H) * SOLVE_THREADS * sizeof(float);
+    const size_t smem = (size_t)(p.K * p.K * (p.nb > 0 ? 2 : 1) + 5 * p.H) * SOLVE_THREADS *
+                        sizeof(float);
     e = launch((const void*)k1_solve, dim3((p.S + SOLVE_THREADS - 1) / SOLVE_THREADS),
                dim3(SOLVE_THREADS), smem, st, &p, &b);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// Launch the standalone safety stage (fused_safety) for p->S scenarios on
+// `stream`; returns the CUDA error code (0 on success). Does not synchronize.
+extern "C" int k1_fused_safety(const K1Params* params, const K1Buffers* buffers, void* stream) {
+    K1Params p = *params;
+    K1Buffers b = *buffers;
+    if (p.S <= 0) return 0;
+    if (p.nu > NUMAX || p.Pc < 1) return (int)cudaErrorInvalidValue;
+    cudaError_t e = launch((const void*)k1_safety,
+                           dim3((p.S + SOLVE_THREADS - 1) / SOLVE_THREADS),
+                           dim3(SOLVE_THREADS), 0, (cudaStream_t)stream, &p, &b);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

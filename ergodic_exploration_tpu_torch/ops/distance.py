@@ -73,6 +73,20 @@ class DistanceField(NamedTuple):
     resolution: torch.Tensor  # (...)
 
     @staticmethod
+    def empty(shape, origin=None, resolution: float = 0.05) -> "DistanceField":
+        """Obstacle-free world: FAR distances, zero gradients."""
+        h, w = shape
+        dev = None if origin is None else origin.device
+        if origin is None:
+            origin = torch.zeros(2, dtype=torch.float32)
+        return DistanceField(
+            dist=torch.full((h, w), FAR, dtype=torch.float32, device=dev),
+            grad=torch.zeros((h, w, 2), dtype=torch.float32, device=dev),
+            origin=origin.to(torch.float32),
+            resolution=torch.tensor(resolution, dtype=torch.float32, device=dev),
+        )
+
+    @staticmethod
     def from_grid(grid, occupied_threshold: float = 0.65) -> "DistanceField":
         """EDT over the occupied mask + central-difference gradient; maps
         batch over leading axes."""

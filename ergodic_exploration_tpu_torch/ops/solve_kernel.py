@@ -1,11 +1,14 @@
 """K1, the fused replan kernel: one whole tick per scenario on the card.
 
-Port of ``ergodic_exploration_tpu/ops/solve_kernel.py`` (its Pallas kernel
-``fused_solve_safety``, built by ``_fused_call`` / ``_make_kernel``). In one
-launch sequence per tick, for every scenario:
+Port of ``ergodic_exploration_tpu/ops/solve_kernel.py`` (its Pallas kernels
+``fused_solve_safety`` / ``fused_solve``, built by ``_fused_call`` /
+``_make_kernel``, and the standalone ``fused_safety``). In one launch
+sequence per tick, for every scenario:
 
     GMM target refresh over the sample lattice (optional, J > 0)
-    -> P x P patch of the SHARED distance map + its own gradient
+    -> P x P patch of the distance map (one map shared by all scenarios, or
+       each scenario's own: the JAX kernel's ``map_h = 0`` variant) + the
+       patch's own gradient
     -> RK4 rollout -> cos/sin basis tables -> c_k and the metric
     -> ergodic gradient -> boundary + obstacle barrier (bilinear queries)
     -> backward co-state -> u = clip(-R^-1 B^T rho) -> ck_sum append
@@ -18,15 +21,19 @@ inputs and outputs, made from the ported basis / patch / barrier /
 collision / dwa functions; the CPU tests run it, ``chip_smoke.py`` holds
 the kernel against it on the card.
 
-Dispatch: :func:`fused_solve_safety` takes the plain version only for
-tensors that lie on the CPU. For CUDA tensors it launches the kernel or
-raises; there is no fallback.
+Dispatch: :func:`fused_solve_safety`, :func:`fused_solve` (the tick without
+validation + DWA) and :func:`fused_safety` (validation + DWA alone, on a
+crop given as data) take their plain versions only for tensors that lie on
+the CPU. For CUDA tensors they launch the kernel or raise; there is no
+fallback. ``K1.launches`` counts the launches of each variant.
 
-Variants not ported to CUDA yet raise ``NotImplementedError`` on a CUDA
-device (their plain versions run on the CPU): ``fused_solve`` (safety off)
-and ``map_h=0`` (per-scenario maps, ``shared_maps=False``). The JAX
-package's ``nb > 0`` variant (history cos tables inside the kernel) has no
-counterpart: every history mode reaches the kernel as precomputed sums.
+The history term of c_k reaches K1 in one of two forms, as in the JAX
+package: (K, K) sums computed ahead of the launch (shared history draw, full
+ring, accumulate), or the ``nb`` positions drawn from each scenario's ring
+buffer (``history="ring"`` with ``buffer_batch`` and per-scenario draws: the
+JAX kernel's ``nb > 0`` variant), whose cos tables and outer-product sums are
+then computed inside the kernel. Those launches count under the variant's
+name with ``_nb`` appended.
 """
 
 from __future__ import annotations
@@ -69,8 +76,9 @@ class SolveParams:
     r_diag: Tuple[float, ...]
     u_min: Tuple[float, ...]
     u_max: Tuple[float, ...]
-    map_h: int = 0  # shared map rows (0: per-scenario maps)
+    map_h: int = 0  # map rows
     map_w: int = 0
+    per_scenario_maps: bool = False  # (S, mh, mw) maps instead of one (mh, mw)
     J: int = 0  # GMM components refreshed in-kernel (0: phik is an input)
     masked_refresh: bool = False  # free mask folded into the basis table
 
@@ -114,14 +122,15 @@ def _model_finv(model):
 
 
 def params_from_config(cfg, P: int, map_hw=(0, 0), J: int = 0,
-                       masked: bool = False) -> SolveParams:
+                       masked: bool = False, per_scenario_maps: bool = False) -> SolveParams:
     return SolveParams(
         H=cfg.horizon, K=cfg.num_basis, nu=cfg.nu, P=P, dt=cfg.dt,
         gamma=cfg.ergodic_weight, beta=cfg.barrier_weight, b_eps=cfg.barrier_eps,
         b_weight=cfg.barrier_boundary_weight, o_weight=cfg.barrier_obstacle_weight,
         b_radius=cfg.boundary_radius, d_safe=cfg.d_safe, d_min=0.03,
         r_diag=tuple(cfg.r_diag), u_min=tuple(cfg.u_min), u_max=tuple(cfg.u_max),
-        map_h=map_hw[0], map_w=map_hw[1], J=J, masked_refresh=masked,
+        map_h=map_hw[0], map_w=map_hw[1], per_scenario_maps=per_scenario_maps, J=J,
+        masked_refresh=masked,
     )
 
 
@@ -153,7 +162,8 @@ class K1Inputs(NamedTuple):
 
     x: torch.Tensor  # (S, 3) poses
     U: torch.Tensor  # (S, H, nu) warm-started controls
-    hist: torch.Tensor  # (S, K^2) history sums of F_k (divided by h_k)
+    hist: torch.Tensor  # (S, K^2) history sums of F_k (divided by h_k), or the
+    #                     (S, nb, 2) drawn positions they are to be summed over
     nh: torch.Tensor  # (S,) history state count
     phik: Optional[torch.Tensor]  # (S, K^2) targets, or None with ``refresh``
     refresh: Optional[Refresh]
@@ -203,7 +213,7 @@ def refresh_plain(r: Refresh, dlen: torch.Tensor) -> torch.Tensor:
 
 def fused_solve_safety_plain(cfg, inp: K1Inputs, enable_safety: bool = True) -> K1Outputs:
     """K1's plain PyTorch version (same inputs and outputs as the kernel)."""
-    from ergodic_exploration_tpu_torch.controller import descent, safety
+    from ergodic_exploration_tpu_torch.controller import descent, drawn_history_sums, safety
     from ergodic_exploration_tpu_torch.models import make_model
 
     model = make_model(cfg)
@@ -216,7 +226,9 @@ def fused_solve_safety_plain(cfg, inp: K1Inputs, enable_safety: bool = True) -> 
     domain = Domain(inp.dorigin, inp.dlen)
     lam = basis.lambda_weights(K, device=inp.x.device)
     hk = basis.hk_norm(K, inp.dlen)
-    U_new, metric, bcost = descent(cfg, model, inp.x, inp.U, inp.hist.view(S, K, K), inp.nh,
+    hist = inp.hist.view(S, K, K) if inp.hist.dim() == 2 else drawn_history_sums(
+        inp.hist, inp.nh, K, domain, hk)
+    U_new, metric, bcost = descent(cfg, model, inp.x, inp.U, hist, inp.nh,
                                    phik.view(S, K, K), domain, patch, lam, hk)
     Cnx, Cny = basis.cos_tables(inp.x[:, None, :2], K, domain)
     ck_sum = inp.cks + basis.coefficients_cos(Cnx, Cny, torch.ones_like(inp.x[:, :1]),
@@ -226,6 +238,21 @@ def fused_solve_safety_plain(cfg, inp: K1Inputs, enable_safety: bool = True) -> 
         code, u_dwa, feas = safety(cfg, model, inp.x, inp.vb, U_new[:, 0], domain, patch)
         feasible = feas.to(torch.int32)
     return K1Outputs(U_new, metric, bcost, ck_sum, code, u_dwa, feasible)
+
+
+def fused_safety_plain(cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen):
+    """The standalone safety stage's plain version: ``controller.safety_on_crop``
+    on a :class:`PatchField` of the crop (S, Pc, Pc) given as data. Returns
+    (code (S,) int32, u_dwa (S, nu), feasible (S,) int32)."""
+    from ergodic_exploration_tpu_torch.controller import safety_on_crop
+    from ergodic_exploration_tpu_torch.models import make_model
+    from ergodic_exploration_tpu_torch.ops.patch import PatchField
+
+    field = PatchField(dist=crop, grad=None, start=pstart.to(torch.int64), origin=porigin,
+                       resolution=pres)
+    code, u_dwa, feas = safety_on_crop(cfg, make_model(cfg), x, vb, u0, Domain(dorigin, dlen),
+                                       field)
+    return code, u_dwa, feas.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +270,8 @@ class _Params(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "H", "K", "nu", "P", "Pc", "J", "Npad", "map_h", "map_w", "masked", "model",
-        "cost_twist", "val_horizon", "dwa_horizon", "nvx", "nvy", "nw")] + [
+        "cost_twist", "val_horizon", "dwa_horizon", "nvx", "nvy", "nw", "map_stride",
+        "safety", "nb")] + [
         (n, ctypes.c_float) for n in (
             "dt", "half_dt", "dt6", "gamma", "beta", "b_eps", "b_weight", "b_weight2",
             "o_weight", "o_weight_m2", "b_radius", "d_safe", "inv_d_safe", "d_min",
@@ -263,14 +291,17 @@ class _Buffers(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
 
 
-def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int) -> _Params:
+def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int,
+              safety: bool = True, nb: int = 0) -> _Params:
     p = _Params()
     ints = dict(S=S, H=sp.H, K=sp.K, nu=sp.nu, P=sp.P, Pc=sps.Pc, J=sp.J, Npad=Npad,
                 map_h=sp.map_h, map_w=sp.map_w, masked=int(sp.masked_refresh),
                 model=0 if sps.model == "cart" else 1,
                 cost_twist=int(sps.cost_space == "twist"), val_horizon=sps.val_horizon,
                 dwa_horizon=sps.dwa_horizon, nvx=sps.samples[0], nvy=sps.samples[1],
-                nw=sps.samples[2])
+                nw=sps.samples[2],
+                map_stride=sp.map_h * sp.map_w if sp.per_scenario_maps else 0,
+                safety=int(safety), nb=nb)
     floats = dict(
         dt=sp.dt, half_dt=0.5 * sp.dt, dt6=sp.dt / 6.0, gamma=sp.gamma, beta=sp.beta,
         b_eps=sp.b_eps, b_weight=sp.b_weight, b_weight2=2.0 * sp.b_weight,
@@ -291,46 +322,82 @@ def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int) -> _Params:
     return p
 
 
+def _check_operands(what: str, ops: dict, shapes: dict, dev) -> None:
+    """Raise unless every operand is a contiguous tensor of its shape and
+    type (int32 for ``pstart``, float32 otherwise) on ``dev``."""
+    for n, shape in shapes.items():
+        t = ops[n]
+        want = torch.int32 if n == "pstart" else torch.float32
+        if (t.device != dev or t.dtype != want or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{what} operand {n}: need contiguous {want} {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 class FusedSolveSafety:
     """The K1 wrapper: builds ``csrc/solve_kernel.cu`` on first use and
-    counts its launches (``launches`` grows by one per kernel launch)."""
+    counts its launches per variant (``launches[variant]`` grows by one per
+    launch of that variant, nowhere else)."""
 
-    name = "fused_solve_safety"
-    source = "solve_kernel.cu"
+    SOLVE_VARIANTS = ("fused_solve_safety", "fused_solve_safety_map_h0", "fused_solve",
+                      "fused_solve_map_h0")
+    VARIANTS = SOLVE_VARIANTS + tuple(v + "_nb" for v in SOLVE_VARIANTS) + ("fused_safety",)
 
     def __init__(self):
-        self.launches = 0
         self.built = None  # utils.cuda_build.Built once compiled
+        self.launches = {}
+        self.reset_launches()
+
+    def reset_launches(self) -> None:
+        self.launches = {v: 0 for v in self.VARIANTS}
 
     def build(self):
         if self.built is None:
-            from ergodic_exploration_tpu_torch.utils.cuda_build import build
+            from ergodic_exploration_tpu_torch.utils.cuda_build import LIBRARIES, build
 
-            built = build("solve_kernel", self.source)
-            fn = built.lib.k1_fused_solve_safety
-            fn.argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(_Buffers), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            built = build("solve_kernel", LIBRARIES["solve_kernel"])
+            for fn in (built.lib.k1_fused_solve_safety, built.lib.k1_fused_safety):
+                fn.argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(_Buffers),
+                               ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             self.built = built
         return self.built
 
-    def __call__(self, cfg, inp: K1Inputs) -> K1Outputs:
-        if inp.dist.dim() != 2:
-            raise NotImplementedError(
-                "K1 variant map_h=0 (per-scenario maps, shared_maps=False) not ported "
-                "to CUDA yet")
+    def _launch(self, fn_name: str, variant: str, params: _Params, ops: dict, dev) -> None:
+        bufs = _Buffers(**{n: (t.data_ptr() if t is not None else None)
+                           for n, t in ops.items()})
+        fn = getattr(self.build().lib, fn_name)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ctypes.byref(params), ctypes.byref(bufs), stream)
+        if err != 0:
+            raise RuntimeError(f"K1 {variant} launch failed: CUDA error {err}")
+        self.launches[variant] += 1
+
+    def __call__(self, cfg, inp: K1Inputs, enable_safety: bool = True) -> K1Outputs:
         dev = inp.x.device
+        if dev.type != "cuda":
+            raise ValueError(f"the K1 kernel takes CUDA tensors, got {dev}")
         S, H, nu = inp.U.shape
         K = cfg.num_basis
         if K > KMAX or H > HMAX or nu > NUMAX:
             raise ValueError(f"K1 supports K <= {KMAX}, H <= {HMAX}, nu <= {NUMAX}")
-        mh, mw = inp.dist.shape
+        per_scenario = inp.dist.dim() == 3
+        if inp.dist.dim() not in (2, 3):
+            raise ValueError(f"K1 dist: need (mh, mw) or (S, mh, mw), got "
+                             f"{tuple(inp.dist.shape)}")
+        if inp.hist.dim() not in (2, 3):
+            raise ValueError(f"K1 hist: need (S, K^2) sums or (S, nb, 2) drawn positions, got "
+                             f"{tuple(inp.hist.shape)}")
+        nb = inp.hist.shape[1] if inp.hist.dim() == 3 else 0
+        mh, mw = inp.dist.shape[-2:]
         P = min(cfg.patch_cells, mh, mw)
         r = inp.refresh
         J = 0 if r is None else r.gmm.means.shape[1]
         Npad = 0 if r is None else r.pts.shape[0]
         if r is not None and Npad % LATTICE_CHUNK:
             raise ValueError(f"lattice of {Npad} points is not padded to {LATTICE_CHUNK}")
-        sp = params_from_config(cfg, P, (mh, mw), J, bool(r is not None and r.masked))
+        sp = params_from_config(cfg, P, (mh, mw), J, bool(r is not None and r.masked),
+                                per_scenario)
         sps = safety_params_from_config(cfg, min(cfg.safety_patch_cells, P))
 
         f32, i32 = torch.float32, torch.int32
@@ -340,12 +407,13 @@ class FusedSolveSafety:
             metric=torch.empty((S,), dtype=f32, **kw),
             barrier=torch.empty((S,), dtype=f32, **kw),
             ck_sum=torch.empty((S, K * K), dtype=f32, **kw),
-            code=torch.empty((S,), dtype=i32, **kw),
-            u_dwa=torch.empty((S, nu), dtype=f32, **kw),
-            feasible=torch.empty((S,), dtype=i32, **kw),
+            code=torch.empty((S,), dtype=i32, **kw) if enable_safety else None,
+            u_dwa=torch.empty((S, nu), dtype=f32, **kw) if enable_safety else None,
+            feasible=torch.empty((S,), dtype=i32, **kw) if enable_safety else None,
         )
         phik_buf = torch.empty((S, K * K), dtype=f32, **kw) if r is not None else None
-        shapes = dict(x=(S, 3), U=(S, H, nu), hist=(S, K * K), nh=(S,), dist=(mh, mw),
+        shapes = dict(x=(S, 3), U=(S, H, nu), hist=(S, nb, 2) if nb else (S, K * K), nh=(S,),
+                      dist=(S, mh, mw) if per_scenario else (mh, mw),
                       pstart=(S, 2), porigin=(S, 2), pres=(S,), dorigin=(S, 2),
                       dlen=(S, 2), cks=(S, K * K), vb=(S, 3))
         ops = {n: getattr(inp, n) for n in shapes}
@@ -356,50 +424,90 @@ class FusedSolveSafety:
                           pts=(Npad, 2), D=(Npad, K * K), mask_ck=(K * K,))
             ops.update(means=r.gmm.means, covs=r.gmm.covs, weights=r.gmm.weights,
                        pts=r.pts, D=r.D, mask_ck=r.mask_ck)
-        for n, shape in shapes.items():
-            t = ops[n]
-            want = i32 if n == "pstart" else f32
-            if (t.device != dev or t.dtype != want or tuple(t.shape) != shape
-                    or not t.is_contiguous()):
-                raise ValueError(f"K1 operand {n}: need contiguous {want} {shape} on {dev}, "
-                                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        _check_operands("K1", ops, shapes, dev)
         ops.update(U_new=out.U_new, metric=out.metric, bcost=out.barrier, ck_out=out.ck_sum,
                    code=out.code, u_dwa=out.u_dwa, feasible=out.feasible, phik_buf=phik_buf)
-        bufs = _Buffers(**{n: (t.data_ptr() if t is not None else None)
-                           for n, t in ops.items()})
-        fn = self.build().lib.k1_fused_solve_safety
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.byref(_c_params(sp, sps, S, Npad)), ctypes.byref(bufs), stream)
-        if err != 0:
-            raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-        self.launches += 1
+        variant = ("fused_solve_safety" if enable_safety else "fused_solve") + (
+            "_map_h0" if per_scenario else "") + ("_nb" if nb else "")
+        self._launch("k1_fused_solve_safety", variant,
+                     _c_params(sp, sps, S, Npad, enable_safety, nb), ops, dev)
         return out
+
+    def safety(self, cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen):
+        """Launch the standalone safety kernel (``fused_safety``)."""
+        dev = x.device
+        if dev.type != "cuda":
+            raise ValueError(f"the fused_safety kernel takes CUDA tensors, got {dev}")
+        S, nu = u0.shape
+        Pc = crop.shape[-1]
+        if nu > NUMAX:
+            raise ValueError(f"fused_safety supports nu <= {NUMAX}")
+        shapes = dict(x=(S, 3), vb=(S, 3), U=(S, nu), dist=(S, Pc, Pc), pstart=(S, 2),
+                      porigin=(S, 2), pres=(S,), dorigin=(S, 2), dlen=(S, 2))
+        ops = dict(x=x, vb=vb, U=u0, dist=crop, pstart=pstart, porigin=porigin, pres=pres,
+                   dorigin=dorigin, dlen=dlen)
+        _check_operands("fused_safety", ops, shapes, dev)
+        code = torch.empty((S,), dtype=torch.int32, device=dev)
+        u_dwa = torch.empty((S, nu), dtype=torch.float32, device=dev)
+        feasible = torch.empty((S,), dtype=torch.int32, device=dev)
+        ops.update(code=code, u_dwa=u_dwa, feasible=feasible)
+        sp = params_from_config(cfg, Pc, (Pc, Pc), per_scenario_maps=True)
+        self._launch("k1_fused_safety", "fused_safety",
+                     _c_params(sp, safety_params_from_config(cfg, Pc), S, 0), ops, dev)
+        return code, u_dwa, feasible
 
 
 K1 = FusedSolveSafety()
 
 
+def _on_cpu(t: torch.Tensor, what: str) -> bool:
+    """True for a CPU tensor, False for a CUDA one; raises for any other."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, got {t.device}")
+    return t.device.type == "cpu"
+
+
 def fused_solve_safety(cfg, inp: K1Inputs) -> K1Outputs:
     """K1: the plain version for CPU tensors, the CUDA kernel for CUDA
     tensors (raises for anything else)."""
-    if inp.x.device.type == "cpu":
+    if _on_cpu(inp.x, "K1"):
         return fused_solve_safety_plain(cfg, inp)
-    if inp.x.device.type != "cuda":
-        raise ValueError(f"K1 runs on CPU or CUDA tensors, got {inp.x.device}")
     return K1(cfg, inp)
 
 
 def fused_solve(cfg, inp: K1Inputs) -> K1Outputs:
-    """K1 without the safety stage (``enable_safety=False``)."""
-    if inp.x.device.type != "cpu":
-        raise NotImplementedError(
-            "K1 variant fused_solve (enable_safety=False) not ported to CUDA yet")
-    return fused_solve_safety_plain(cfg, inp, enable_safety=False)
+    """K1 without the safety stage (``enable_safety=False``): ``code``,
+    ``u_dwa`` and ``feasible`` come back as None."""
+    if _on_cpu(inp.x, "K1 (fused_solve)"):
+        return fused_solve_safety_plain(cfg, inp, enable_safety=False)
+    return K1(cfg, inp, enable_safety=False)
+
+
+def fused_safety(cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen):
+    """Validation of u0 + the DWA sweep on a crop given as data: x, vb
+    (S, 3), u0 (S, nu), crop (S, Pc, Pc) clearance, pstart (S, 2) int32
+    global (ix, iy) of crop cell (0, 0), porigin / dorigin / dlen (S, 2),
+    pres (S,). Returns (code (S,) int32, u_dwa (S, nu), feasible (S,) int32).
+    The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if _on_cpu(x, "fused_safety"):
+        return fused_safety_plain(cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen)
+    return K1.safety(cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen)
 
 
 # ---------------------------------------------------------------------------
 # the batched tick around K1
 # ---------------------------------------------------------------------------
+
+
+def pad_lattice(pts: torch.Tensor, D: torch.Tensor):
+    """The lattice (N, 2) and its table (N, K^2) padded to LATTICE_CHUNK with
+    far-away points (phi underflows to exactly 0 there) and zero rows."""
+    pad = (-pts.shape[0]) % LATTICE_CHUNK
+    if pad:
+        pts = torch.cat([pts, torch.full((pad, 2), PAD_POINT, dtype=pts.dtype,
+                                         device=pts.device)])
+        D = torch.cat([D, D.new_zeros((pad, D.shape[1]))])
+    return pts.contiguous(), D.contiguous()
 
 
 def refresh_operands(cfg, gmm: GaussianMixture, domain: Domain, free_mask) -> Refresh:
@@ -417,12 +525,9 @@ def refresh_operands(cfg, gmm: GaussianMixture, domain: Domain, free_mask) -> Re
         mask_ck = D.sum(dim=0) / torch.clamp(m1.sum(), min=1.0)
     else:
         mask_ck = D.sum(dim=0) / float(N)
-    pad = (-N) % LATTICE_CHUNK
-    if pad:
-        pts = torch.cat([pts, torch.full((pad, 2), PAD_POINT, dtype=pts.dtype, device=pts.device)])
-        D = torch.cat([D, D.new_zeros((pad, D.shape[1]))])
+    pts, D = pad_lattice(pts, D)
     g = GaussianMixture(*(t.contiguous() for t in gmm))
-    return Refresh(g, pts.contiguous(), D.contiguous(), mask_ck.contiguous(), masked)
+    return Refresh(g, pts, D, mask_ck.contiguous(), masked)
 
 
 def _shared_draw_history(cfg, state, sub0, bdom, hk):
@@ -464,10 +569,17 @@ def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None):
         keys = prng.split(state.rng)
         rng, sub = keys[:, 0], keys[:, 1]
 
-    if cfg.shared_history_draw and cfg.history == "ring" and cfg.buffer_batch:
+    # history: one shared draw reduced to sums here; per-scenario draws
+    # handed to K1 as positions (it computes their tables and sums); the
+    # full ring and the accumulate mode as sums
+    if cfg.history == "ring" and cfg.buffer_batch and cfg.shared_history_draw:
         hist, n_hist = _shared_draw_history(cfg, state, sub[0], bdom, hk)
+        hist = hist.reshape(S, K * K)
+    elif cfg.history == "ring" and cfg.buffer_batch:
+        hist, n_hist = state.buffer.sample_states(cfg.buffer_batch, sub)  # (S, nb, 2)
     else:
         hist, n_hist = history_sums(cfg, state, sub, bdom, hk)
+        hist = hist.reshape(S, K * K)
     orbiting = orbit_guard(cfg, state.buffer, x[:, :2])
     U_warm = torch.where(orbiting[:, None, None], torch.zeros_like(state.U), state.U)
 
@@ -480,7 +592,7 @@ def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None):
             raise ValueError("in-kernel refresh needs cfg.shared_maps and an unbatched domain")
         refresh = refresh_operands(cfg, gmm, domain, world.free_mask)
     inp = K1Inputs(
-        x=x.contiguous(), U=U_warm.contiguous(), hist=hist.reshape(S, K * K).contiguous(),
+        x=x.contiguous(), U=U_warm.contiguous(), hist=hist.contiguous(),
         nh=n_hist.contiguous(),
         phik=None if refresh is not None else phik.reshape(S, K * K).contiguous(),
         refresh=refresh, dist=d.contiguous(),

@@ -6,7 +6,8 @@ of the checkout. The library name carries a hash of every source and header
 in ``csrc`` and of the flags, so an edited source or flag builds anew and an
 unchanged one is loaded from disk. The libraries have a plain C interface
 and are loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).
+seconds). :func:`build_all` compiles several sources at once, one ``nvcc``
+process each.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import NamedTuple, Sequence
+from typing import Dict, NamedTuple, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -73,3 +75,15 @@ def build(name: str, source: str, flags: Sequence[str] = NVCC_FLAGS) -> Built:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
         os.replace(tmp, out)
     return Built(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+# library name -> source file of every kernel library of the package
+LIBRARIES = {"solve_kernel": "solve_kernel.cu", "gmm_kernel": "gmm_kernel.cu"}
+
+
+def build_all() -> Dict[str, Built]:
+    """Build every library of ``LIBRARIES``, all ``nvcc`` processes started
+    together; returns name -> :class:`Built`."""
+    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
+        futures = {name: pool.submit(build, name, src) for name, src in LIBRARIES.items()}
+        return {name: f.result() for name, f in futures.items()}

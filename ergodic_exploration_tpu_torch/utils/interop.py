@@ -4,7 +4,8 @@ The JAX package's pytrees (``Scenarios``, ``World``, ``GaussianMixture``)
 converted leaf by leaf to numpy arrays (``jax.tree.map(np.asarray, tree)``)
 have the same field names as the port's NamedTuples, so these functions
 read them by attribute and need no JAX import. JAX keys are uint32 words;
-the port holds them as int64 (see utils/prng.py).
+the port holds them as int64 (see utils/prng.py). Tensors are made on
+the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,16 +18,18 @@ from ergodic_exploration_tpu_torch.grid import Domain
 from ergodic_exploration_tpu_torch.ops.buffer import RingBuffer
 from ergodic_exploration_tpu_torch.ops.distance import DistanceField
 from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+from ergodic_exploration_tpu_torch.utils.device import resolve_device
 
 
 def _t(a, device, dtype):
     return torch.as_tensor(np.array(a), device=device).to(dtype)
 
 
-def scenarios_from_numpy(sc, device="cpu"):
+def scenarios_from_numpy(sc, device=None):
     """JAX ``Scenarios`` (numpy leaves) -> the port's ``Scenarios``."""
     from ergodic_exploration_tpu_torch.engine import Scenarios
 
+    device = resolve_device(device)
     st = sc.state
     buf = st.buffer
     return Scenarios(
@@ -44,8 +47,9 @@ def scenarios_from_numpy(sc, device="cpu"):
     )
 
 
-def world_from_numpy(world, device="cpu") -> World:
+def world_from_numpy(world, device=None) -> World:
     """JAX ``World`` (numpy leaves) -> the port's ``World``."""
+    device = resolve_device(device)
     f = lambda a: _t(a, device, torch.float32)  # noqa: E731
     d = world.dist
     return World(
@@ -55,8 +59,9 @@ def world_from_numpy(world, device="cpu") -> World:
     )
 
 
-def gmm_from_numpy(gmm, device="cpu") -> GaussianMixture:
+def gmm_from_numpy(gmm, device=None) -> GaussianMixture:
     """JAX ``GaussianMixture`` (numpy leaves) -> the port's."""
+    device = resolve_device(device)
     return GaussianMixture(*(_t(a, device, torch.float32) for a in gmm))
 
 

@@ -61,7 +61,7 @@ class _Jax:
 class _Torch:
     def __init__(self, x0, data, gmm_np, sc=None):
         self.cfg = default_config("cart").replace(use_fused_solve=True, **OPTS)
-        self.eng = Engine(self.cfg)
+        self.eng = Engine(self.cfg, device="cpu")
         self.world = self.eng.prepare_world(GridMap(
             torch.from_numpy(data).expand(S, 60, 60), torch.zeros(S, 2), torch.full((S,), 0.05)))
         self.gmm = GaussianMixture.create(*gmm_np)
@@ -109,14 +109,14 @@ def runs():
     the JAX state after its tick 2 (carried over through interop)."""
     x0, data, gmm = _inputs()
     j, t = _Jax(x0, data, gmm), _Torch(x0, data, gmm)
-    sk.K1.launches = 0
+    sk.K1.reset_launches()
     ref, got, carried = [], [], []
     for i in range(4):
         ref.append(j.tick())
         got.append(t.tick())
         if i == 1:
             c = _Torch(x0, data, gmm, sc=interop.scenarios_from_numpy(
-                jax.tree.map(np.asarray, j.sc)))
+                jax.tree.map(np.asarray, j.sc), device="cpu"))
     for _ in range(2):
         carried.append(c.tick())
     return ref, got, carried
@@ -126,7 +126,7 @@ def runs():
 def test_slice_matches_jax_engine(runs, tick):
     ref, got, _ = runs
     _assert_tick_close(got[tick], ref[tick])
-    assert sk.K1.launches == 0  # CPU tensors: K1's plain version, no launch
+    assert sum(sk.K1.launches.values()) == 0  # CPU tensors: K1's plain version, no launch
 
 
 def test_orbit_guard_fires(runs):
@@ -149,7 +149,8 @@ def test_eager_controller_path_matches_fused(safety):
     ticks = []
     for fused in (True, False):
         t = _Torch(x0, data, gmm)
-        t.eng = Engine(t.cfg.replace(use_fused_solve=fused, enable_safety=safety))
+        t.eng = Engine(t.cfg.replace(use_fused_solve=fused, enable_safety=safety),
+                       device="cpu")
         ticks.append(t.tick())
     _assert_tick_close(*ticks)
     assert ticks[0][2].dwa_active.any() == safety
@@ -173,12 +174,12 @@ def test_phik_from_gmm_matches_jax(variant):
     x0, data, gmm = _inputs()
     jcfg = j_default_config("cart").replace(use_pallas=False, **OPTS)
     cfg = default_config("cart").replace(**OPTS)
-    je, te = JEngine(jcfg), Engine(cfg)
+    je, te = JEngine(jcfg), Engine(cfg, device="cpu")
     jg = jtarget.GaussianMixture.create(*gmm)
-    tg = interop.gmm_from_numpy(jax.tree.map(np.asarray, jg))
+    tg = interop.gmm_from_numpy(jax.tree.map(np.asarray, jg), device="cpu")
     jw = je.prepare_world(JGridMap(jnp.broadcast_to(jnp.asarray(data), (S, 60, 60)),
                                    jnp.zeros((S, 2)), jnp.full((S,), 0.05)))
-    tw = interop.world_from_numpy(jax.tree.map(np.asarray, jw))
+    tw = interop.world_from_numpy(jax.tree.map(np.asarray, jw), device="cpu")
     if variant == "per_scenario":
         jd, td = jw.domain, tw.domain
     else:
@@ -189,11 +190,31 @@ def test_phik_from_gmm_matches_jax(variant):
 
 
 def test_k2_route_raises_on_cuda_devices():
-    """phik_from_gmm with use_pallas needs K2, which is not ported: a CUDA
-    engine raises instead of taking the plain contraction."""
+    """The K2 kernel object takes CUDA tensors only: handed anything else it
+    raises and never returns the plain result; the dispatching wrapper takes
+    the plain version for CPU tensors alone."""
+    from ergodic_exploration_tpu_torch.ops import gmm_kernel as gk
+
     x0, data, gmm = _inputs()
-    cfg = default_config("cart").replace(use_pallas=True, **OPTS)
-    eng = Engine(cfg)
-    eng.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="K2"):
-        eng.phik_from_gmm(GaussianMixture.create(*gmm), Domain.create(0.0, 0.0, 3.0, 3.0))
+    g = GaussianMixture.create(*gmm)
+    pts, D = torch.zeros(900, 2), torch.zeros(900, 36)
+    gk.K2.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gk.K2(*g, pts, D)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        gk.phik_from_gmm(*(t.to("meta") for t in g), pts.to("meta"), D.to("meta"))
+    assert gk.phik_from_gmm(*g, pts, D).shape == (S, 36)
+    assert sum(gk.K2.launches.values()) == 0 and gk.K2.built is None
+
+
+def test_engine_default_device_is_cuda_or_an_error():
+    """Engine(cfg) is the CUDA device; without one it raises and builds no
+    CPU engine. The *_from_numpy functions of utils/interop.py likewise."""
+    if torch.cuda.is_available():
+        assert Engine(default_config("cart")).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(default_config("cart"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.gmm_from_numpy(_inputs()[2])
+    assert Engine(default_config("cart"), device="cpu").device.type == "cpu"

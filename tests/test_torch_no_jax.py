@@ -1,5 +1,6 @@
-"""The port imports no JAX and nothing of the JAX package (an AST scan:
-``sys.modules`` cannot show it where jax is pre-imported)."""
+"""The port and its smoke script import no JAX and nothing of the JAX
+package (an AST scan: ``sys.modules`` cannot show it where jax is
+pre-imported)."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,8 @@ from pathlib import Path
 import pytest
 
 PKG = Path(__file__).resolve().parents[1] / "ergodic_exploration_tpu_torch"
-FILES = sorted(PKG.rglob("*.py"))
+FILES = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py",
+                                      PKG.parent / "chip_profile.py"]
 FORBIDDEN = ("jax", "jaxlib", "ergodic_exploration_tpu")
 
 
@@ -20,14 +22,16 @@ def _imports(path):
 
 
 def test_package_has_the_slice_modules():
-    names = {p.relative_to(PKG).as_posix() for p in FILES}
+    names = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
     for m in ("config.py", "grid.py", "controller.py", "engine.py", "ops/solve_kernel.py",
-              "utils/interop.py", "utils/prng.py", "utils/validation.py"):
+              "utils/interop.py", "utils/prng.py", "utils/validation.py", "ops/gmm_kernel.py",
+              "utils/checkpoint.py", "utils/metrics.py", "utils/device.py"):
         assert m in names
-    assert (PKG / "csrc" / "solve_kernel.cu").exists()
+    for src in ("solve_kernel.cu", "gmm_kernel.cu", "gmm_refresh.cuh"):
+        assert (PKG / "csrc" / src).exists()
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(PKG).as_posix())
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(PKG if PKG in p.parents else PKG.parent).as_posix())
 def test_no_jax_import(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"

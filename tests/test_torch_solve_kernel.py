@@ -66,14 +66,14 @@ def one_tick():
     ref = jax.tree.map(np.asarray, (st, u, dg))
 
     cfg = default_config("cart").replace(use_fused_solve=True, **OPTS)
-    eng = Engine(cfg)
-    world = interop.world_from_numpy(jax.tree.map(np.asarray, jw))
-    sc = interop.scenarios_from_numpy(sc_np)
-    sk.K1.launches = 0
+    eng = Engine(cfg, device="cpu")
+    world = interop.world_from_numpy(jax.tree.map(np.asarray, jw), device="cpu")
+    sc = interop.scenarios_from_numpy(sc_np, device="cpu")
+    sk.K1.reset_launches()
     out = sk.replan_batched_fused(cfg, eng.model, sc.state, sc.x, sc.vb, None, world,
                                   gmm=GaussianMixture.create(means, covs, w),
                                   domain=Domain.create(0.0, 0.0, 3.0, 3.0))
-    return ref, interop.to_numpy(out), sk.K1.launches
+    return ref, interop.to_numpy(out), sum(sk.K1.launches.values())
 
 
 def test_fused_tick_matches_jax_kernel(one_tick):
@@ -90,10 +90,54 @@ def test_fused_tick_matches_jax_kernel(one_tick):
     np.testing.assert_array_equal(st.rng, st_r.rng.astype(np.int64))
 
 
+@pytest.mark.parametrize("shared_maps", [True, False], ids=["shared_map", "per_scenario_maps"])
+def test_per_scenario_history_draws_reach_k1_as_positions(shared_maps):
+    """Ring history with a sampled batch and per-scenario draws: the tick
+    hands K1 the (S, nb, 2) drawn positions, not their sums, as the JAX tick
+    hands them to its kernel (its ``nb > 0`` variant, here in interpret mode);
+    one tick from a warm state agrees within the budgets above."""
+    x0, data, means, covs, w = _case()
+    opts = dict(OPTS, shared_maps=shared_maps, shared_history_draw=False, buffer_batch=24)
+    jcfg = j_default_config("cart").replace(use_fused_solve=True, use_pallas=False, **opts)
+    je = JEngine(jcfg)
+    jw = je.prepare_world(JGridMap(jnp.broadcast_to(jnp.asarray(data), (S, 60, 60)),
+                                   jnp.zeros((S, 2)), jnp.full((S,), 0.05)))
+    warm = JEngine(jcfg.replace(use_fused_solve=False))
+    phik = warm.phik_from_gmm(jtarget.GaussianMixture.create(means, covs, w),
+                              JDomain.create(0.0, 0.0, 3.0, 3.0), jw)
+    jsc = je.init_scenarios(x0)
+    for _ in range(3):
+        jsc, _, _ = warm.replan(jsc, phik, jw)
+    st_r, u_r, dg_r = jax.tree.map(np.asarray, j_replan_fused(
+        jcfg, je.controller.model, jsc.state, jsc.x, jsc.vb, phik, jw))
+
+    cfg = default_config("cart").replace(use_fused_solve=True, **opts)
+    eng = Engine(cfg, device="cpu")
+    world = interop.world_from_numpy(jax.tree.map(np.asarray, jw), device="cpu")
+    sc = interop.scenarios_from_numpy(jax.tree.map(np.asarray, jsc), device="cpu")
+    tphik = torch.from_numpy(np.array(phik))
+    inp, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, tphik, world)
+    assert inp.hist.shape == (S, 24, 2) and inp.dist.dim() == (2 if shared_maps else 3)
+    assert (inp.nh == 24.0).all()
+    st, u, dg = interop.to_numpy(sk.replan_batched_fused(cfg, eng.model, sc.state, sc.x, sc.vb,
+                                                         tphik, world))
+    np.testing.assert_allclose(u, u_r, atol=5e-5)
+    np.testing.assert_allclose(st.U, st_r.U, atol=5e-5)
+    np.testing.assert_allclose(dg.ergodic_metric, dg_r.ergodic_metric, rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(dg.collision_code, dg_r.collision_code)
+    np.testing.assert_array_equal(dg.dwa_active, dg_r.dwa_active)
+    np.testing.assert_array_equal(st.rng, st_r.rng.astype(np.int64))
+    # the shared draw and the full ring still reach K1 as (S, K^2) sums
+    for other in (dict(shared_history_draw=True), dict(buffer_batch=None)):
+        c2 = cfg.replace(**other)
+        assert sk.fused_tick_inputs(c2, sc.state, sc.x, sc.vb, tphik, world)[0].hist.shape == (
+            S, cfg.num_basis ** 2)
+
+
 def test_launch_counter_stays_zero_on_cpu(one_tick):
     """CPU tensors go to the plain version: the kernel is never launched."""
     assert one_tick[2] == 0
-    assert sk.K1.launches == 0 and sk.K1.built is None
+    assert sum(sk.K1.launches.values()) == 0 and sk.K1.built is None
 
 
 def test_kernel_params_mirror_the_c_struct():
@@ -107,18 +151,27 @@ def test_kernel_params_mirror_the_c_struct():
     assert p.patch_hi == np.float32(40 - 1.001) and p.crop_hi == np.float32(16 - 1.001)
     assert p.tw_b == np.float32(0.25 * cfg.omni.wheel_radius / (cfg.omni.lx + cfg.omni.ly))
     assert list(p.r_inv) == [np.float32(1.0) / np.float32(0.001)] * 4
+    assert (p.safety, p.nb) == (1, 0) and sk._c_params(sp, sps, 7, 0, False, 24).nb == 24
     assert [f[0] for f in sk._Buffers._fields_] == list(sk._BUFFERS)
 
 
 def test_unported_variants_raise():
+    """Tensors that lie neither on the CPU nor on a CUDA device raise in
+    every variant's wrapper, and the kernel object itself refuses anything
+    but CUDA tensors: nothing carries on with the plain version unasked."""
     cfg = default_config("cart")
-    inp = sk.K1Inputs(*([torch.zeros(1, device="meta")] * len(sk.K1Inputs._fields)))
-    with pytest.raises(ValueError):
-        sk.fused_solve_safety(cfg, inp)
-    with pytest.raises(NotImplementedError):
-        sk.fused_solve(cfg, inp)
-    with pytest.raises(NotImplementedError):
-        sk.K1(cfg, inp._replace(dist=torch.zeros(2, 5, 5, device="meta")))
+    meta = torch.zeros(1, device="meta")
+    inp = sk.K1Inputs(*([meta] * len(sk.K1Inputs._fields)))
+    for fn in (sk.fused_solve_safety, sk.fused_solve):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fn(cfg, inp)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        sk.fused_safety(cfg, *([meta] * 9))
+    cpu = sk.K1Inputs(*([torch.zeros(1)] * len(sk.K1Inputs._fields)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.K1(cfg, cpu)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.K1.safety(cfg, *([torch.zeros(1)] * 9))
 
 
 def test_refresh_lattice_is_padded_to_the_chunk():
