@@ -36,6 +36,18 @@ Phases:
     history draw) and on per-scenario empty maps (per-scenario draws); each
     variant vs plain on this path's own inputs
 11  ``explore`` on the card vs on the CPU, S = 64, distinct maps, 3 ticks
+12  K3 vs plain and vs the dense path: S = 4096 beliefs of 100 x 100 cells that
+    differ per scenario, (r, fc) in (3, 3), (0, 3), (3, 0); S = 1, S = 100; a
+    40 x 40 map with a 23 x 23 lattice and K = 6; two launches bit for bit
+13  path E, the MI tick at full width: ``Engine.replan_refresh_mi(...,
+    sensor_radius_cells=3, domain=<shared>, use_mi_kernel=True)`` (K3, then K1
+    on the shared map) on beliefs that a disc sensor reveals between ticks,
+    S = 4096 and S = 1; the same tick with the dense path in K3's place; a
+    short run without the frontier mask
+14  path F, the mapping loop at full width: ``explore_mapping_fused`` (ray-cast
+    reveal -> dense MI target -> world rebuild -> 10 ticks of K1 on
+    per-scenario maps), S = 4096, 5 refreshes, two rooms and a pillar
+15  the MI tick (S = 64) and the mapping loop (S = 16) on the card vs on the CPU
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are a JSON line describing each kernel
@@ -73,6 +85,10 @@ CODE_MISMATCH_LIMIT = 2  # scenarios whose code / feasible / u_dwa may differ
 TOL = dict(U_new=dict(rtol=0.0, atol=5e-5), metric=dict(rtol=1e-5, atol=1e-7),
            barrier=dict(rtol=1e-5, atol=1e-7), ck_sum=dict(rtol=1e-5, atol=5e-6))
 K2_ATOL = 2e-5  # the JAX package's own budget for its K2 (tests/test_engine.py)
+K3_TOL = dict(rtol=2e-4, atol=2e-5)  # the JAX package's own for its K3 (tests/test_mi_kernel.py)
+MI_RADIUS = 3  # sensor_radius_cells of the MI tick
+MAP_REFRESHES, MAP_EVERY = 5, 10  # path F: refreshes and ticks per refresh
+REVEAL_PEAK_LIMIT = 8 * 2**30  # bytes reveal_raycast may hold at S_MAIN
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -166,6 +182,76 @@ def distinct_case(S: int, device, model: str = "cart", seed: int = 1, clearance=
             Domain.create(0.0, 0.0, 5.0, 5.0, device=device))
 
 
+def mi_beliefs(S: int, h: int, w: int, seed: int = 12) -> np.ndarray:
+    """(S, h, w) beliefs that differ per scenario: a known-free region of
+    per-scenario extent, the known part of a wall, a band of probabilities in
+    (0, 1) on both sides of the occupied threshold, every 97th scenario fully
+    unknown and every 101st fully occupied (S = 1: neither)."""
+    rng = np.random.default_rng(seed)
+    data = np.full((S, h, w), -1.0, np.float32)
+    ext = rng.integers(w // 10, w - w // 10, S)
+    known = np.arange(w)[None, :] < ext[:, None]  # (S, w)
+    data[np.broadcast_to(known[:, None, :], data.shape)] = 0.0
+    wall = np.zeros((h, w), bool)
+    wall[int(0.45 * h):int(0.5 * h), int(0.2 * w):int(0.8 * w)] = True
+    data[wall[None] & known[:, None, :]] = 1.0
+    r0 = rng.integers(0, h - 6, S)
+    for s in range(S):
+        c0 = min(int(ext[s]), w - 8)
+        data[s, r0[s]:r0[s] + 6, c0:c0 + 8] = rng.uniform(0.0, 1.0, (6, 8))
+    if S > 1:
+        data[96::97] = -1.0
+        data[100::101] = 1.0
+    return data
+
+
+def mi_case(S: int, device, **overrides):
+    """bench.py's build_case_mi, in numpy: the bench configuration, beliefs
+    of which the left 55 columns are known (free, and the known part of the
+    wall), the world prepared from them; beside it the true map that a sensor
+    reveals."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.engine import Engine
+
+    cfg, x0, truth, _, domain = bench_case(S, device)
+    cfg = cfg.replace(**overrides)
+    belief = np.full((100, 100), -1.0, np.float32)
+    belief[:, :55] = 0.0
+    belief[45:50, 20:55] = 1.0
+    grids = truth._replace(data=torch.from_numpy(belief).to(device).expand(S, 100, 100))
+    engine = Engine(cfg, device=device)
+    world = engine.prepare_world(grids)
+    return engine, engine.init_scenarios(x0), grids, truth, world, domain
+
+
+def mapping_case(S: int, device, seed: int = 14):
+    """tools/tpu_quality.py's build_truth, in numpy: outer walls, two rooms
+    with doorways and a pillar on a 5 m map of 100 x 100 cells; S start poses
+    at least 0.35 m clear of every occupied cell."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.grid import GridMap
+
+    data = np.zeros((100, 100), np.float32)
+    data[0, :] = data[-1, :] = data[:, 0] = data[:, -1] = 1.0  # outer walls
+    data[45:48, 0:64] = 1.0  # long wall, 1.3 m doorway on the right
+    data[45:48, 90:100] = 1.0
+    data[70:72, 32:100] = 1.0  # upper room divider, 1.6 m doorway on the left
+    data[20:28, 70:78] = 1.0  # pillar
+    occ = (np.argwhere(data > 0.5)[:, ::-1] + 0.5) * 0.05  # (n, 2) cell centres (x, y)
+
+    def clear(xy):
+        d = np.hypot(xy[:, None, 0] - occ[None, :, 0], xy[:, None, 1] - occ[None, :, 1])
+        return d.min(axis=1) > 0.35
+
+    x0, _ = _poses_and_gmm(S, np.random.default_rng(seed), clear)
+    truth = GridMap(torch.from_numpy(data).to(device).expand(S, 100, 100).contiguous(),
+                    torch.zeros((S, 2), device=device), torch.full((S,), 0.05, device=device))
+    return default_config("cart").replace(use_fused_solve=True), x0, truth, data
+
+
 def advance(engine, sc, u):
     """One dt of real motion through the port's rollout."""
     from ergodic_exploration_tpu_torch.ops.integrator import rollout
@@ -249,16 +335,19 @@ def compare_safety(name: str, k, p) -> float:
 def reset_counts() -> None:
     from ergodic_exploration_tpu_torch.ops import gmm_kernel as gk
     from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
+    from ergodic_exploration_tpu_torch.ops import mi_kernel as mk
 
     sk.K1.reset_launches()
     gk.K2.reset_launches()
+    mk.K3.reset_launches()
 
 
 def read_counts() -> dict:
     from ergodic_exploration_tpu_torch.ops import gmm_kernel as gk
+    from ergodic_exploration_tpu_torch.ops import mi_kernel as mk
     from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
 
-    return {**sk.K1.launches, **gk.K2.launches}
+    return {**sk.K1.launches, **gk.K2.launches, **mk.K3.launches}
 
 
 def expect_counts(path: str, got: dict, want: dict) -> None:
@@ -291,6 +380,18 @@ def refresh_work(S, N, KK, J, masked=False, n_degenerate=0):
     flops = S * N * (2 * KK + 16 * J + int(masked)) + n_degenerate * 2 * N * KK
     nbytes = 4 * (S * J * 7 + N * 2 + N * KK + (S * N if masked else 0) + S * KK)
     return flops, nbytes
+
+
+def mi_work(S, h, w, K, r, fc):
+    """(flops, bytes) of K3: per cell two logs and ~8 operations for the
+    entropy and the masks, two clamped sums of 2r+1 terms (and two integer
+    ones of 2fc+1 with the frontier mask), K multiply-adds of the x
+    contraction; per scenario h K^2 multiply-adds of the y contraction and
+    the normalization. Bytes: the beliefs, the tables and the result once."""
+    cells = h * w
+    per = cells * (10 + 2 * (2 * r + 1) + (2 * (2 * fc + 1) if fc else 0) + 2 * K)
+    per += 2 * h * K * K + 2 * K * K
+    return S * per, 4 * (S * cells + w * K + K * h + K * K + 1 + S * K * K)
 
 
 def solve_work(cfg, S, P, safety: bool, dwa_probes: float = 0.0, map_cells: int = 0,
@@ -363,11 +464,13 @@ def run(dev) -> int:
     import torch
 
     import ergodic_exploration_tpu_torch.ops.gmm_kernel as gk
+    import ergodic_exploration_tpu_torch.ops.mi_kernel as mk
     import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
     from ergodic_exploration_tpu_torch.config import default_config
     from ergodic_exploration_tpu_torch.engine import Engine
-    from ergodic_exploration_tpu_torch.grid import Domain
-    from ergodic_exploration_tpu_torch.ops import basis
+    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
+    from ergodic_exploration_tpu_torch.ops import basis, sensor
+    from ergodic_exploration_tpu_torch.ops.distance import DistanceField
     from ergodic_exploration_tpu_torch.ops.patch import extract_patch
     from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
     from ergodic_exploration_tpu_torch.utils import cuda_build
@@ -415,13 +518,14 @@ def run(dev) -> int:
         print(f"{name}: nvcc {built.seconds:.2f} s -> {built.path.relative_to(ROOT)}")
         fn = ""
         for line in built.log.splitlines():
-            m = re.search(r"_Z\d+(k\d_[a-z]+)", line)
+            m = re.search(r"_Z\d+(k\d_[a-z_]+)", line)
             fn = m.group(1) if m else fn
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {fn}: {line.replace('ptxas info    :', '').strip()}")
     sk.K1.build()
     gk.K2.build()
-    print(f"both libraries built and loaded in {time.perf_counter() - t0:.2f} s")
+    mk.K3.build()
+    print(f"all libraries built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. K1 (shared map) against its plain version at path A's shapes
     print(f"== 3. K1 vs plain, S={S_MAIN}, state after {WARM_TICKS} ticks", flush=True)
@@ -900,6 +1004,287 @@ def run(dev) -> int:
             fail(f"explore on the card disagrees with explore on the CPU at tick {t + 1}")
     if int((~same[-1]).sum()) > CODE_MISMATCH_LIMIT:
         fail(f"DWA choice differs in {int((~same[-1]).sum())} scenarios")
+
+    # ---- 12. K3 against its plain version and against the dense path
+    print(f"== 12. K3 vs plain and vs the dense path, S={S_MAIN}, 100 x 100 beliefs", flush=True)
+    K3_REPLACES = "ergodic_exploration_tpu/ops/mi_kernel.py:210"
+    fallbacks = {}
+
+    def k3_check(name, data, eng, dom, r):
+        """K3 on beliefs ``data`` against the plain version and the dense
+        path of ``eng`` (whose configuration gives K, the lattice, fc and the
+        threshold); two launches must give the same bits."""
+        c = eng.config
+        S_, h_, w_ = data.shape
+        g = GridMap(data, torch.zeros((S_, 2), device=dev), torch.full((S_,), 0.05, device=dev))
+        ops = mk.mi_operands(GridMap(g.data[0], g.origin[0], g.resolution[0]), dom, c.num_basis,
+                             c.grid_samples)
+        args = (ops, r, c.mi_frontier_cells, c.occupied_threshold)
+        k_out, k_again = mk.K3(data, *args), mk.K3(data, *args)
+        p_out = mk.phik_from_grid_plain(data, *args)
+        d_out = eng._phik_grid_batch_dense_fn(g, dom, r)
+        torch.cuda.synchronize()
+        n_fb = int((k_out == ops.fallback).all(dim=(1, 2)).sum())
+        fallbacks[name] = n_fb
+        errs = []
+        for what, ref in (("plain", p_out), ("dense path", d_out)):
+            err = (k_out - ref).abs()
+            bad = int((err > K3_TOL["atol"] + K3_TOL["rtol"] * ref.abs()).sum())
+            errs.append(err.max().item())
+            print(f"  K3 {name} (S={S_}, {h_} x {w_}, K={c.num_basis}, r={r}, "
+                  f"fc={c.mi_frontier_cells}): max |kernel - {what}| {errs[-1]:.3e} (rtol "
+                  f"{K3_TOL['rtol']}, atol {K3_TOL['atol']}), {bad} outside; {n_fb} scenarios "
+                  f"took the uniform fallback")
+            if k_out.shape != (S_, c.num_basis, c.num_basis) or bad \
+                    or not torch.isfinite(k_out).all():
+                fail(f"K3 {name}: outside tolerance of its {what}, mis-shaped or non-finite")
+        if not torch.equal(k_out, k_again):
+            fail(f"K3 {name}: two launches on the same inputs differ")
+        return errs[0]
+
+    dom5 = Domain.create(0.0, 0.0, 5.0, 5.0, device=dev)
+    eng_fc = {fc: Engine(default_config("cart").replace(mi_frontier_cells=fc)) for fc in (3, 0)}
+    beliefs = torch.from_numpy(mi_beliefs(S_MAIN, 100, 100)).to(dev)
+    for r, fc in ((3, 3), (0, 3), (3, 0)):
+        k3_check("distinct beliefs", beliefs, eng_fc[fc], dom5, r)
+    if not 0 < fallbacks["distinct beliefs"] < S_MAIN // 50:
+        fail("the degenerate scenarios did not take the fallback")
+    for S_ in (1, 100):
+        k3_check("ragged", beliefs[:S_].contiguous(), eng_fc[3], dom5, 3)
+    eng_small = Engine(default_config("cart").replace(num_basis=6, grid_samples=(23, 23)))
+    k3_check("small map", torch.from_numpy(mi_beliefs(64, 40, 40, seed=13)).to(dev), eng_small,
+             Domain.create(0.0, 0.0, 2.0, 2.0, device=dev), 2)
+    print("  two launches on the same inputs gave the same bits at every shape")
+    try:
+        mk.K3(torch.zeros((2, 200, 200), device=dev), mk.mi_operands(
+            GridMap(torch.zeros((200, 200), device=dev), torch.zeros(2, device=dev),
+                    torch.tensor(0.025, device=dev)), dom5, 10, (100, 100)), 3, 3)
+        fail("K3 took a 200 x 200 map that cannot fit a block's shared memory")
+    except ValueError as e:
+        print(f"  a 200 x 200 map is refused: {e}")
+    del beliefs, eng_fc, eng_small
+    torch.cuda.empty_cache()
+
+    # ---- 13. path E: the MI tick at full width
+    print(f"== 13. path E: Engine.replan_refresh_mi with K3, S={S_MAIN}", flush=True)
+    REVEAL_RANGE = 0.75  # m: the disc a scenario's sensor reveals around its pose each tick
+
+    def mi_ticks(engine, sc, belief, truth, world, dom, n, use_kernel, check=None):
+        """n ticks: reveal a disc around each pose, replan with the MI target
+        recomputed from the beliefs, advance the poses."""
+        for _ in range(n):
+            belief = sensor.reveal(belief, truth, sc.x, REVEAL_RANGE)
+            sc, u, diag = engine.replan_refresh_mi(sc, belief, world,
+                                                   sensor_radius_cells=MI_RADIUS, domain=dom,
+                                                   use_mi_kernel=use_kernel)
+            sc = advance(engine, sc, u)
+            if check is not None:
+                check(u, diag)
+        return sc, belief
+
+    engine, sc, belief, truth, world, domain = mi_case(S_MAIN, dev)
+    known0 = sensor.fraction_known(belief)
+    sc, belief = mi_ticks(engine, sc, belief, truth, world, domain, 5, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    diverged = torch.zeros(S_MAIN, dtype=torch.bool, device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    dwa = []
+
+    def check_e(u, diag):
+        nonlocal finite, diverged
+        diverged |= diag.diverged
+        finite &= torch.isfinite(u).all() & torch.isfinite(diag.ergodic_metric).all()
+        dwa.append(diag.dwa_active.float().mean())
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    sc, belief = mi_ticks(engine, sc, belief, truth, world, domain, TIMED_TICKS, True, check_e)
+    end.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ms_e = start.elapsed_time(end) / TIMED_TICKS
+    expect_counts("path E", counts, {"phik_from_grid_fc": TIMED_TICKS,
+                                     "fused_solve_safety": TIMED_TICKS})
+    if not bool(finite) or not torch.isfinite(sc.x).all() or diverged.any():
+        fail("path E diverged or produced non-finite outputs")
+    known1 = sensor.fraction_known(belief)
+    if not known1 > known0:
+        fail("path E: the beliefs did not evolve between ticks")
+    print(f"all finite; none diverged; beliefs known {known0.item():.4f} -> {known1.item():.4f}; "
+          f"MI tick (reveal + replan_refresh_mi + pose advance): {ms_e:.4f} ms, "
+          f"{S_MAIN * 1e3 / ms_e:.1f} solves/s {card}")
+    print(f"peak device memory over the ticks {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+          f"DWA-active share {torch.stack(dwa).mean().item():.4f} {card}")
+    # K3 on the beliefs this path reached: the entry of the kernels line
+    cfg = engine.config
+    ops = mk.mi_operands(GridMap(belief.data[0], belief.origin[0], belief.resolution[0]), domain,
+                         cfg.num_basis, cfg.grid_samples)
+    k3_args = (ops, MI_RADIUS, cfg.mi_frontier_cells, cfg.occupied_threshold)
+    err = k3_check("path E's beliefs", belief.data, engine, domain, MI_RADIUS)
+    entry("phik_from_grid_fc", "mi_kernel.cu", K3_REPLACES, err,
+          events_ms(lambda: mk.K3(belief.data, *k3_args), 20),
+          events_ms(lambda: mk.phik_from_grid_plain(belief.data, *k3_args), 5),
+          mi_work(S_MAIN, 100, 100, cfg.num_basis, MI_RADIUS, cfg.mi_frontier_cells))
+    kernels["phik_from_grid_fc"]["launches"] = counts["phik_from_grid_fc"]
+    dense_ms = events_ms(lambda: engine._phik_grid_batch_dense_fn(belief, domain, MI_RADIUS), 5)
+    print(f"  the dense path on the same beliefs (the stand-in a faster K3 is compared with, no "
+          f"library call): {dense_ms:.4f} ms/call {card}")
+    # the same tick with the dense path in K3's place
+    reset_counts()
+    start.record()
+    sc, belief = mi_ticks(engine, sc, belief, truth, world, domain, TIMED_TICKS, False)
+    end.record()
+    torch.cuda.synchronize()
+    expect_counts("path E, dense refresh", read_counts(), {"fused_solve_safety": TIMED_TICKS})
+    print(f"the same tick with use_mi_kernel=False (dense path): "
+          f"{start.elapsed_time(end) / TIMED_TICKS:.4f} ms vs {ms_e:.4f} ms with K3 {card}")
+    del engine, sc, belief, truth, world
+    torch.cuda.empty_cache()
+
+    # without the frontier mask (mi_frontier_cells=0): K3's other variant
+    T_NOFC = 10
+    engine, sc, belief, truth, world, domain = mi_case(S_MAIN, dev, mi_frontier_cells=0)
+    reset_counts()
+    sc, belief = mi_ticks(engine, sc, belief, truth, world, domain, T_NOFC, True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("path E, no frontier mask", counts, {"phik_from_grid_nofc": T_NOFC,
+                                                       "fused_solve_safety": T_NOFC})
+    if not torch.isfinite(sc.x).all():
+        fail("path E without the frontier mask produced non-finite poses")
+    k3_args = (ops, MI_RADIUS, 0, cfg.occupied_threshold)
+    err = k3_check("path E's beliefs, no frontier mask", belief.data, engine, domain, MI_RADIUS)
+    entry("phik_from_grid_nofc", "mi_kernel.cu", K3_REPLACES, err,
+          events_ms(lambda: mk.K3(belief.data, *k3_args), 20),
+          events_ms(lambda: mk.phik_from_grid_plain(belief.data, *k3_args), 5),
+          mi_work(S_MAIN, 100, 100, cfg.num_basis, MI_RADIUS, 0))
+    kernels["phik_from_grid_nofc"]["launches"] = counts["phik_from_grid_nofc"]
+    del engine, sc, belief, truth, world
+    torch.cuda.empty_cache()
+
+    # S=1: the single robot's MI tick latency (host clock, synchronized)
+    engine, sc, belief, truth, world, domain = mi_case(1, dev)
+    sc, belief = mi_ticks(engine, sc, belief, truth, world, domain, 5, True)
+    torch.cuda.synchronize()
+    reset_counts()
+    lat = []
+    for _ in range(LATENCY_TICKS):
+        t0 = time.perf_counter()
+        belief = sensor.reveal(belief, truth, sc.x, REVEAL_RANGE)
+        sc, u, diag = engine.replan_refresh_mi(sc, belief, world, sensor_radius_cells=MI_RADIUS,
+                                               domain=domain, use_mi_kernel=True)
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t0))
+        sc = advance(engine, sc, u)
+        if bool(diag.diverged.any()) or not bool(torch.isfinite(u).all()):
+            fail("S=1 MI tick diverged or produced non-finite controls")
+    expect_counts("path E, S=1", read_counts(), {"phik_from_grid_fc": LATENCY_TICKS,
+                                                 "fused_solve_safety": LATENCY_TICKS})
+    print(f"S=1 MI tick latency (reveal + replan_refresh_mi) over {LATENCY_TICKS} ticks: p50 "
+          f"{np.percentile(lat, 50):.4f} ms, p99 {np.percentile(lat, 99):.4f} ms (budget 100 ms) "
+          f"{card}")
+    del engine, sc, belief, truth, world
+
+    # ---- 14. path F: the mapping loop at full width
+    print(f"== 14. path F: explore_mapping_fused, S={S_MAIN}, {MAP_REFRESHES} refreshes of "
+          f"{MAP_EVERY} ticks, sensor range 1.5 m", flush=True)
+    cfg_f, x0_f, truth_f, truth_np = mapping_case(S_MAIN, dev)
+    eng_f = Engine(cfg_f)
+    sc_f = eng_f.init_scenarios(x0_f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start.record()
+    sc_f, belief_f, cov, traj, metric = eng_f.explore_mapping_fused(
+        sc_f, truth_f, n_refreshes=MAP_REFRESHES, refresh_every=MAP_EVERY, sensor_range=1.5)
+    end.record()
+    torch.cuda.synchronize()
+    ms_f = start.elapsed_time(end) / MAP_REFRESHES
+    peak_f = torch.cuda.max_memory_allocated()
+    expect_counts("path F", read_counts(),
+                  {"fused_solve_safety_map_h0_nb": MAP_REFRESHES * MAP_EVERY})
+    cov_l = cov.tolist()
+    print(f"coverage per refresh {[round(c, 4) for c in cov_l]}")
+    if (traj.shape != (MAP_REFRESHES, MAP_EVERY, S_MAIN, 3) or cov.shape != (MAP_REFRESHES,)
+            or metric.shape != (MAP_REFRESHES, MAP_EVERY, S_MAIN)
+            or not torch.isfinite(traj).all() or not torch.isfinite(metric).all()):
+        fail("path F produced non-finite or mis-shaped outputs")
+    if not all(b > a for a, b in zip(cov_l, cov_l[1:])) or cov_l[-1] - cov_l[0] < 0.02:
+        fail(f"path F: coverage did not rise by 0.02 over the refreshes: {cov_l}")
+    xy = traj[..., :2]
+    if not ((xy >= 0.0) & (xy <= 5.0)).all():
+        fail("path F: a pose left the domain")
+    known = belief_f.data != -1.0
+    if not torch.equal(belief_f.data[known], truth_f.data[known]):
+        fail("path F: a known cell of the final belief differs from the truth")
+    field = DistanceField.from_grid(GridMap(truth_f.data[0], truth_f.origin[0],
+                                            truth_f.resolution[0]))
+    cell = torch.clamp(torch.round(xy / 0.05 - 0.5).long(), 0, 99)
+    clearance = field.dist[cell[..., 1], cell[..., 0]]
+    print(f"all finite; every pose inside the domain; every known cell equals the truth; min "
+          f"clearance of the trajectories over the TRUE map {clearance.min().item():.3f} m "
+          f"(reported: the robots plan on their beliefs); share of poses under the 0.2 m "
+          f"footprint radius {(clearance < 0.2).float().mean().item():.5f}")
+    print(f"one refresh (reveal + MI target + world + {MAP_EVERY} ticks): {ms_f:.1f} ms; peak "
+          f"device memory over the loop {peak_f / 2**20:.1f} MiB {card}")
+    # the split of one refresh, each stage alone on the state the loop reached
+    win = sensor.raycast_window_cells(1.5, 0.05)
+    dom_f = Domain(truth_f.origin[0], truth_f.domain().lengths[0])
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_reveal = events_ms(lambda: sensor.reveal_raycast(
+        belief_f, truth_f, sc_f.x, 1.5, win, occupied_threshold=cfg_f.occupied_threshold), 2)
+    reveal_peak = torch.cuda.max_memory_allocated() - base
+    t_phik = events_ms(lambda: eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0), 3)
+    t_world = events_ms(lambda: eng_f._world_batched(belief_f, belief_f.domain()), 2)
+    phik_f = eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0)
+    world_f = eng_f._world_batched(belief_f, belief_f.domain())
+    t_ticks = events_ms(lambda: eng_f.explore(sc_f, phik_f, world_f, MAP_EVERY), 2)
+    print(f"  split: reveal_raycast {t_reveal:.1f} ms (its temporaries peak at "
+          f"{reveal_peak / 2**20:.1f} MiB), dense MI target {t_phik:.2f} ms, world rebuild "
+          f"{t_world:.1f} ms, {MAP_EVERY} ticks {t_ticks:.1f} ms {card}")
+    if reveal_peak > REVEAL_PEAK_LIMIT:
+        fail(f"reveal_raycast held {reveal_peak / 2**30:.2f} GiB at S={S_MAIN}")
+    del sc_f, belief_f, traj, metric, truth_f, phik_f, world_f, field, clearance, cell, xy, known
+    torch.cuda.empty_cache()
+
+    # ---- 15. the MI tick and the mapping loop on the card against the CPU
+    print("== 15. MI tick (S=64) and mapping loop (S=16) on the card vs on the CPU", flush=True)
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        e_, s_, b_, t_, w_, dm_ = mi_case(64, d)
+        b_ = sensor.reveal(b_, t_, s_.x, REVEAL_RANGE)
+        reset_counts()
+        _, u_, dg = e_.replan_refresh_mi(s_, b_, w_, sensor_radius_cells=MI_RADIUS, domain=dm_,
+                                         use_mi_kernel=True)
+        if read_counts()["phik_from_grid_fc"] != int(d.type == "cuda"):
+            fail(f"the MI tick on {d.type} launched K3 "
+                 f"{read_counts()['phik_from_grid_fc']} times")
+        runs[d.type] = (u_.cpu(), dg.dwa_active.cpu(), dg.collision_code.cpu())
+    (u_d, a_d, c_d), (u_c, a_c, c_c) = runs[dev.type], runs["cpu"]
+    same = (a_d == a_c) & (c_d == c_c)
+    du = (u_d - u_c).abs()[same].max().item()
+    print(f"  MI tick: max |u_card - u_cpu| {du:.3e} (atol 5e-5) over {int(same.sum())} "
+          f"scenarios; code or DWA choice differs in {int((~same).sum())} (limit "
+          f"{CODE_MISMATCH_LIMIT})")
+    if du > 5e-5 or int((~same).sum()) > CODE_MISMATCH_LIMIT:
+        fail("the MI tick on the card disagrees with the MI tick on the CPU")
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        c, x0_, t_, _ = mapping_case(16, d, seed=15)
+        e_ = Engine(c, device=d)
+        _, b_, cov_, _, _ = e_.explore_mapping_fused(e_.init_scenarios(x0_), t_, n_refreshes=2,
+                                                     refresh_every=5, sensor_range=1.5)
+        runs[d.type] = (b_.data.cpu(), cov_.cpu())
+    (b_d, cov_d), (b_c, cov_c) = runs[dev.type], runs["cpu"]
+    n_diff, dcov = int((b_d != b_c).sum()), (cov_d - cov_c).abs().max().item()
+    print(f"  mapping loop: {n_diff} of {b_d.numel()} belief cells differ (budget 0.1 %: atan2 "
+          f"and atan may differ in the last bit at a bin edge); max coverage difference "
+          f"{dcov:.2e} (limit 1e-3)")
+    if n_diff > 1e-3 * b_d.numel() or dcov > 1e-3:
+        fail("the mapping loop on the card disagrees with the mapping loop on the CPU")
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:

@@ -15,6 +15,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+UNKNOWN = -1.0  # belief value of a cell no sensor has seen
+
 
 def rows(v: torch.Tensor) -> torch.Tensor:
     """Per-map (..., 2) vector broadcast against points (..., N, 2)."""

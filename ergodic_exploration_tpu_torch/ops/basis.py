@@ -88,6 +88,30 @@ def dense_table(tbl: BasisTables, hk):
     return fourier_basis_at(tbl, hk).reshape(*tbl.Cx.shape[:-2], N, K * K)
 
 
+def axis_cos_tables(K: int, grid_samples, domain):
+    """Per-axis lattice cosine tables (cosx (nsx, K), cosy (nsy, K)) of the
+    separable lattice of ``Domain.sample_lattice`` on an unbatched domain:
+    the inputs of :func:`coefficients_separable`."""
+    nsx, nsy = grid_samples
+    dev = domain.lengths.device
+    k = torch.arange(K, dtype=torch.float32, device=dev)
+    fx = (torch.arange(nsx, dtype=torch.float32, device=dev) + 0.5) / nsx * domain.lengths[0]
+    fy = (torch.arange(nsy, dtype=torch.float32, device=dev) + 0.5) / nsy * domain.lengths[1]
+    cosx = torch.cos(fx[:, None] * (k * math.pi / domain.lengths[0])[None, :])
+    cosy = torch.cos(fy[:, None] * (k * math.pi / domain.lengths[1])[None, :])
+    return cosx, cosy
+
+
+def coefficients_separable(phi_grid, cosx, cosy, hk):
+    """Raw basis contraction on a separable lattice:
+    ck_raw[s, k1, k2] = sum_{ix, iy} phi[s, ix, iy] cosx[ix, k1] cosy[iy, k2] / hk,
+    as two small matmuls. ``phi_grid`` (S, nsx, nsy) is the x-major reshape
+    of the (S, N) lattice values; ``ck_raw[s, 0, 0] * hk[0, 0]`` is sum(phi)."""
+    A = torch.matmul(phi_grid, cosy)  # (S, nsx, K2)
+    ck = torch.matmul(cosx.transpose(-1, -2), A)  # (S, K1, K2)
+    return ck / hk
+
+
 def coefficients_dense(phi_batch, D, K: int):
     """(S, N) @ (N, K^2) -> (S, K, K) in float32."""
     return torch.matmul(phi_batch, D).reshape(phi_batch.shape[0], K, K)

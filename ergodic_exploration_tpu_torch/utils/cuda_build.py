@@ -78,7 +78,8 @@ def build(name: str, source: str, flags: Sequence[str] = NVCC_FLAGS) -> Built:
 
 
 # library name -> source file of every kernel library of the package
-LIBRARIES = {"solve_kernel": "solve_kernel.cu", "gmm_kernel": "gmm_kernel.cu"}
+LIBRARIES = {"solve_kernel": "solve_kernel.cu", "gmm_kernel": "gmm_kernel.cu",
+             "mi_kernel": "mi_kernel.cu"}
 
 
 def build_all() -> Dict[str, Built]:

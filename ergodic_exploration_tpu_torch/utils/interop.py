@@ -1,6 +1,7 @@
 """Carry state between the JAX package and the port, through numpy.
 
-The JAX package's pytrees (``Scenarios``, ``World``, ``GaussianMixture``)
+The JAX package's pytrees (``Scenarios``, ``World``, ``GaussianMixture``,
+``GridMap``)
 converted leaf by leaf to numpy arrays (``jax.tree.map(np.asarray, tree)``)
 have the same field names as the port's NamedTuples, so these functions
 read them by attribute and need no JAX import. JAX keys are uint32 words;
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from ergodic_exploration_tpu_torch.controller import ControllerState, World
-from ergodic_exploration_tpu_torch.grid import Domain
+from ergodic_exploration_tpu_torch.grid import Domain, GridMap
 from ergodic_exploration_tpu_torch.ops.buffer import RingBuffer
 from ergodic_exploration_tpu_torch.ops.distance import DistanceField
 from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
@@ -63,6 +64,12 @@ def gmm_from_numpy(gmm, device=None) -> GaussianMixture:
     """JAX ``GaussianMixture`` (numpy leaves) -> the port's."""
     device = resolve_device(device)
     return GaussianMixture(*(_t(a, device, torch.float32) for a in gmm))
+
+
+def grids_from_numpy(grids, device=None) -> GridMap:
+    """JAX ``GridMap`` (numpy leaves: data, origin, resolution) -> the port's."""
+    device = resolve_device(device)
+    return GridMap(*(_t(a, device, torch.float32) for a in grids))
 
 
 def to_numpy(tree):

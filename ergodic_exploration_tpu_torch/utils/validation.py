@@ -3,9 +3,11 @@
 
 ``cfg.shared_maps`` promises that every scenario holds the same map: K1
 reads every scenario's patch from row 0 of the distance field and the
-target refresh folds row 0's free mask into the basis table. A caller who
-breaks the promise would silently get scenario 0's physics everywhere, so
-these checks raise instead. Rows are compared on the tensors' device and
+target refresh folds row 0's free mask into the basis table. The MI refresh
+on a shared domain (dense path and K3) builds its sampling and cosine tables
+from scenario 0's grid geometry. A caller who breaks either promise would
+silently get scenario 0's physics everywhere, so these checks raise
+instead. Rows are compared on the tensors' device and
 only the list of offending rows comes back to the host. A check is made
 once per distinct set of tensors (map cadence, not tick cadence): callers
 pass a ``cache`` set, which the engine owns.
@@ -66,3 +68,10 @@ def check_shared_world(world, what: str = "world.dist", cache: Optional[set] = N
         {"dist": world.dist.dist, "origin": world.dist.origin,
          "resolution": world.dist.resolution, "free_mask": world.free_mask},
         what, cache)
+
+
+def check_shared_grid_geometry(grids, what: str = "grids", cache: Optional[set] = None) -> None:
+    """Dense MI refresh contract: all grids share origin, resolution and
+    shape (the sampling and cosine tables are built from scenario 0's
+    geometry). Map DATA may differ."""
+    check_rows_shared({"origin": grids.origin, "resolution": grids.resolution}, what, cache)

@@ -25,10 +25,15 @@ def test_package_has_the_slice_modules():
     names = {p.relative_to(PKG).as_posix() for p in FILES if PKG in p.parents}
     for m in ("config.py", "grid.py", "controller.py", "engine.py", "ops/solve_kernel.py",
               "utils/interop.py", "utils/prng.py", "utils/validation.py", "ops/gmm_kernel.py",
-              "utils/checkpoint.py", "utils/metrics.py", "utils/device.py"):
+              "utils/checkpoint.py", "utils/metrics.py", "utils/device.py", "ops/mi_kernel.py",
+              "ops/sensor.py", "ops/target.py", "ops/basis.py", "utils/cuda_build.py"):
         assert m in names
-    for src in ("solve_kernel.cu", "gmm_kernel.cu", "gmm_refresh.cuh"):
+    for src in ("solve_kernel.cu", "gmm_kernel.cu", "gmm_refresh.cuh", "mi_kernel.cu"):
         assert (PKG / "csrc" / src).exists()
+    from ergodic_exploration_tpu_torch.utils.cuda_build import CSRC, LIBRARIES
+
+    # every CUDA source is registered with the build, and nothing else is
+    assert sorted(LIBRARIES.values()) == sorted(p.name for p in CSRC.glob("*.cu"))
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(PKG if PKG in p.parents else PKG.parent).as_posix())
