@@ -15,7 +15,9 @@ non-zero. Without a CUDA device it exits non-zero before printing any result.
 Phases:
 
  1  environment; 2  build (ptxas registers / spills of every kernel)
- 3  K1 (shared map, J = 2 / J = 0) vs plain, S = 4096, after 120 ticks
+ 3  K1 (shared map, J = 2 / J = 0) vs plain, S = 4096, after 120 ticks; the
+    refresh (``k1_refresh`` + ``k1_finish``) and ``k1_solve`` timed apart at
+    S = 4096 and S = 1, the refresh alone vs plain
  4  path A, the bench tick: ``Engine.replan_refresh`` (cart, K = 10, H = 20,
     100 x 100 lattice, shared map, shared history draw, safety on) at
     S = 4096 and at S = 1
@@ -38,12 +40,14 @@ Phases:
 11  ``explore`` on the card vs on the CPU, S = 64, distinct maps, 3 ticks
 12  K3 vs plain and vs the dense path: S = 4096 beliefs of 100 x 100 cells that
     differ per scenario, (r, fc) in (3, 3), (0, 3), (3, 0); S = 1, S = 100; a
-    40 x 40 map with a 23 x 23 lattice and K = 6; two launches bit for bit
+    40 x 40 map with a 23 x 23 lattice and K = 6; 200 x 200 beliefs (S = 1024),
+    which take the row-band form; two launches bit for bit
 13  path E, the MI tick at full width: ``Engine.replan_refresh_mi(...,
     sensor_radius_cells=3, domain=<shared>, use_mi_kernel=True)`` (K3, then K1
     on the shared map) on beliefs that a disc sensor reveals between ticks,
     S = 4096 and S = 1; the same tick with the dense path in K3's place; a
-    short run without the frontier mask
+    short run without the frontier mask; a short run on 200 x 200 beliefs
+    (S = 1024), which launches the row-band form
 14  path F, the mapping loop at full width: ``explore_mapping_fused`` (ray-cast
     reveal -> dense MI target -> world rebuild -> 10 ticks of K1 on
     per-scenario maps), S = 4096, 5 refreshes, two rooms and a pillar
@@ -76,6 +80,7 @@ S_MAIN = 4096
 WARM_TICKS = 120  # history depth of the state the kernel is checked on
 TIMED_TICKS = 50
 LATENCY_TICKS = 200
+SPIN_MS = 20  # events_ms: the device spins this long while the host enqueues
 EXPLORE_TICKS = 100
 CODE_MISMATCH_LIMIT = 2  # scenarios whose code / feasible / u_dwa may differ
 
@@ -86,6 +91,8 @@ TOL = dict(U_new=dict(rtol=0.0, atol=5e-5), metric=dict(rtol=1e-5, atol=1e-7),
            barrier=dict(rtol=1e-5, atol=1e-7), ck_sum=dict(rtol=1e-5, atol=5e-6))
 K2_ATOL = 2e-5  # the JAX package's own budget for its K2 (tests/test_engine.py)
 K3_TOL = dict(rtol=2e-4, atol=2e-5)  # the JAX package's own for its K3 (tests/test_mi_kernel.py)
+REFRESH_ATOL = 2.2e-6  # the JAX package's own for its refresh (ops/pallas_kernels.py)
+S_BIG, CELLS_BIG, T_BIG = 1024, 200, 10  # the MI tick on maps that take K3's row-band form
 MI_RADIUS = 3  # sensor_radius_cells of the MI tick
 MAP_REFRESHES, MAP_EVERY = 5, 10  # path F: refreshes and ticks per refresh
 REVEAL_PEAK_LIMIT = 8 * 2**30  # bytes reveal_raycast may hold at S_MAIN
@@ -205,21 +212,32 @@ def mi_beliefs(S: int, h: int, w: int, seed: int = 12) -> np.ndarray:
     return data
 
 
-def mi_case(S: int, device, **overrides):
+def mi_case(S: int, device, cells: int = 100, **overrides):
     """bench.py's build_case_mi, in numpy: the bench configuration, beliefs
-    of which the left 55 columns are known (free, and the known part of the
-    wall), the world prepared from them; beside it the true map that a sensor
-    reveals."""
+    of which the left 55 % of the columns are known (free, and the known part
+    of the wall), the world prepared from them; beside it the true map that a
+    sensor reveals. ``cells`` = 100 is the bench's 5 m map; any other size is
+    the same picture (poses included) at 0.05 m a cell on a domain of
+    ``cells`` * 0.05 m."""
     import torch
 
     from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain
 
     cfg, x0, truth, _, domain = bench_case(S, device)
     cfg = cfg.replace(**overrides)
-    belief = np.full((100, 100), -1.0, np.float32)
-    belief[:, :55] = 0.0
-    belief[45:50, 20:55] = 1.0
-    grids = truth._replace(data=torch.from_numpy(belief).to(device).expand(S, 100, 100))
+    c = cells
+    if c != 100:
+        data = np.zeros((c, c), np.float32)
+        data[int(0.45 * c):int(0.5 * c), int(0.2 * c):int(0.8 * c)] = 1.0
+        data[int(0.7 * c):int(0.78 * c), int(0.6 * c):int(0.68 * c)] = 1.0
+        truth = truth._replace(data=torch.from_numpy(data).to(device).expand(S, c, c))
+        x0[:, :2] *= c / 100.0
+        domain = Domain.create(0.0, 0.0, 0.05 * c, 0.05 * c, device=device)
+    belief = np.full((c, c), -1.0, np.float32)
+    belief[:, :int(0.55 * c)] = 0.0
+    belief[int(0.45 * c):int(0.5 * c), int(0.2 * c):int(0.55 * c)] = 1.0
+    grids = truth._replace(data=torch.from_numpy(belief).to(device).expand(S, c, c))
     engine = Engine(cfg, device=device)
     world = engine.prepare_world(grids)
     return engine, engine.init_scenarios(x0), grids, truth, world, domain
@@ -276,12 +294,18 @@ def build_engine(S: int, device):
 
 
 def events_ms(fn, reps: int) -> float:
-    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events. The
+    device first spins for ~20 ms (SPIN_MS of its clock, 1.755 GHz where the
+    device properties do not give it), so that the host enqueues the calls
+    ahead of it and the events bracket device time even where a call's kernels
+    are shorter than its wrapper's Python."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 1_755_000)
+    torch.cuda._sleep(int(SPIN_MS * khz))
     start.record()
     for _ in range(reps):
         fn()
@@ -518,8 +542,8 @@ def run(dev) -> int:
         print(f"{name}: nvcc {built.seconds:.2f} s -> {built.path.relative_to(ROOT)}")
         fn = ""
         for line in built.log.splitlines():
-            m = re.search(r"_Z\d+(k\d_[a-z_]+)", line)
-            fn = m.group(1) if m else fn
+            m = re.search(r"_Z\d+(k\d_[a-z_]+)(?:ILi(\d)E)?", line)
+            fn = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else fn
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {fn}: {line.replace('ptxas info    :', '').strip()}")
     sk.K1.build()
@@ -543,10 +567,33 @@ def run(dev) -> int:
         err = max(err, compare(name, k, p))
     k1_ms = events_ms(lambda: sk.K1(cfg, inp2), 20)
     plain_ms = events_ms(lambda: sk.fused_solve_safety_plain(cfg, inp2), 5)
+
+    def refresh_and_solve(tag, inp_j2, inp_j0, reps):
+        """The refresh alone against its plain version (two launches bit for
+        bit), and the refresh and the solve timed apart."""
+        r = inp_j2.refresh
+        S_ = inp_j2.x.shape[0]
+        a, again = sk.K1.refresh(r, inp_j2.dlen), sk.K1.refresh(r, inp_j2.dlen)
+        ref = sk.refresh_plain(r, inp_j2.dlen)
+        torch.cuda.synchronize()
+        e = (a - ref).abs().max().item()
+        split = sk.lattice_split(S_, r.pts.shape[0] // sk.LATTICE_CHUNK,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+        r_ms = events_ms(lambda: sk.K1.refresh(r, inp_j2.dlen), reps)
+        s_ms = events_ms(lambda: sk.K1(cfg, inp_j0), reps)
+        rp_ms = events_ms(lambda: sk.refresh_plain(r, inp_j2.dlen), 5)
+        b_ms, by = bound(*refresh_work(S_, int(np.prod(cfg.grid_samples)), KK, 2))
+        print(f"{tag}: refresh (k1_refresh + k1_finish) {r_ms:.4f} ms, {split[0]} lattice splits "
+              f"of {split[1]} chunks, max |refresh - plain| {e:.3e} (atol {REFRESH_ATOL}), plain "
+              f"version {rp_ms:.4f} ms, bound {b_ms:.5f} ms by {by}; k1_solve {s_ms:.4f} ms {card}")
+        if e > REFRESH_ATOL or not torch.equal(a, again):
+            fail(f"{tag}: the refresh is outside tolerance or two launches differ")
+
+    KK = cfg.num_basis ** 2
+    refresh_and_solve(f"S={S_MAIN}", inp2, inp0, 20)
     P = min(cfg.patch_cells, 100)
     crop = extract_patch(world.dist, sc.x[:, :2], P).center_crop(cfg.safety_patch_cells)
     probes = dwa_probes_needed(cfg, engine.model, sc.x, sc.vb, world.domain, crop)
-    KK = cfg.num_basis ** 2
     rf, rb = refresh_work(S_MAIN, int(np.prod(cfg.grid_samples)), KK, 2)  # unpadded lattice
     sf, sb = solve_work(cfg, S_MAIN, P, True, probes, map_cells=100 * 100)
     entry("fused_solve_safety", "solve_kernel.cu",
@@ -627,6 +674,10 @@ def run(dev) -> int:
     expect_counts("path A, S=1", read_counts(), {"fused_solve_safety": LATENCY_TICKS})
     print(f"S=1 replan latency over {LATENCY_TICKS} ticks: p50 {np.percentile(lat, 50):.4f} ms, "
           f"p99 {np.percentile(lat, 99):.4f} ms (budget 100 ms) {card}")
+    inp2, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+    inp0 = inp2._replace(refresh=None, phik=sk.refresh_plain(inp2.refresh, inp2.dlen))
+    refresh_and_solve("S=1", inp2, inp0, 50)
+    del inp2, inp0
 
     # ---- 5. the engine on the card against the engine on the CPU (whose
     # K1 is the plain version), one tick from the same state, S=64
@@ -1055,13 +1106,19 @@ def run(dev) -> int:
     k3_check("small map", torch.from_numpy(mi_beliefs(64, 40, 40, seed=13)).to(dev), eng_small,
              Domain.create(0.0, 0.0, 2.0, 2.0, device=dev), 2)
     print("  two launches on the same inputs gave the same bits at every shape")
-    try:
-        mk.K3(torch.zeros((2, 200, 200), device=dev), mk.mi_operands(
-            GridMap(torch.zeros((200, 200), device=dev), torch.zeros(2, device=dev),
-                    torch.tensor(0.025, device=dev)), dom5, 10, (100, 100)), 3, 3)
-        fail("K3 took a 200 x 200 map that cannot fit a block's shared memory")
-    except ValueError as e:
-        print(f"  a 200 x 200 map is refused: {e}")
+    # 200 x 200 beliefs do not fit one block: the row-band form
+    dom_big = Domain.create(0.0, 0.0, 0.05 * CELLS_BIG, 0.05 * CELLS_BIG, device=dev)
+    beliefs_big = torch.from_numpy(mi_beliefs(S_BIG, CELLS_BIG, CELLS_BIG, seed=16)).to(dev)
+    reset_counts()
+    for r, fc, S_ in ((3, 3, S_BIG), (0, 3, 128), (3, 0, 128)):
+        bh, n_bands = mk.band_plan(CELLS_BIG, CELLS_BIG, 10, r, fc)
+        k3_check(f"row bands ({n_bands} of {bh} rows)", beliefs_big[:S_].contiguous(), eng_fc[fc],
+                 dom_big, r)
+    if not 0 < fallbacks[f"row bands ({n_bands} of {bh} rows)"] < 128:
+        fail("the degenerate scenarios of the banded case did not take the fallback")
+    expect_counts("phase 12, 200 x 200 beliefs", read_counts(),
+                  {"phik_from_grid_fc_banded": 4, "phik_from_grid_nofc_banded": 2})
+    del beliefs_big
     del beliefs, eng_fc, eng_small
     torch.cuda.empty_cache()
 
@@ -1161,6 +1218,33 @@ def run(dev) -> int:
           events_ms(lambda: mk.phik_from_grid_plain(belief.data, *k3_args), 5),
           mi_work(S_MAIN, 100, 100, cfg.num_basis, MI_RADIUS, 0))
     kernels["phik_from_grid_nofc"]["launches"] = counts["phik_from_grid_nofc"]
+    del engine, sc, belief, truth, world
+    torch.cuda.empty_cache()
+
+    # 200 x 200 beliefs (a 10 m map): K3 takes its row-band form
+    engine, sc, belief, truth, world, domain = mi_case(S_BIG, dev, cells=CELLS_BIG)
+    known0 = sensor.fraction_known(belief)
+    reset_counts()
+    start.record()
+    sc, belief = mi_ticks(engine, sc, belief, truth, world, domain, T_BIG, True)
+    end.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts(f"path E, {CELLS_BIG} x {CELLS_BIG} beliefs", counts,
+                  {"phik_from_grid_fc_banded": T_BIG, "fused_solve_safety": T_BIG})
+    if not torch.isfinite(sc.x).all() or not sensor.fraction_known(belief) > known0:
+        fail("path E on 200 x 200 beliefs: non-finite poses or beliefs that did not evolve")
+    print(f"all finite; MI tick on {CELLS_BIG} x {CELLS_BIG} beliefs at S={S_BIG}: "
+          f"{start.elapsed_time(end) / T_BIG:.4f} ms {card}")
+    ops_big = mk.mi_operands(GridMap(belief.data[0], belief.origin[0], belief.resolution[0]),
+                             domain, cfg.num_basis, cfg.grid_samples)
+    k3_args = (ops_big, MI_RADIUS, cfg.mi_frontier_cells, cfg.occupied_threshold)
+    err = k3_check("path E's 200 x 200 beliefs", belief.data, engine, domain, MI_RADIUS)
+    entry("phik_from_grid_fc_banded", "mi_kernel.cu", K3_REPLACES, err,
+          events_ms(lambda: mk.K3(belief.data, *k3_args), 20),
+          events_ms(lambda: mk.phik_from_grid_plain(belief.data, *k3_args), 5),
+          mi_work(S_BIG, CELLS_BIG, CELLS_BIG, cfg.num_basis, MI_RADIUS, cfg.mi_frontier_cells))
+    kernels["phik_from_grid_fc_banded"]["launches"] = counts["phik_from_grid_fc_banded"]
     del engine, sc, belief, truth, world
     torch.cuda.empty_cache()
 

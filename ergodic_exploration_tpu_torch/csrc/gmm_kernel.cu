@@ -12,21 +12,23 @@
 // ops/gmm_kernel.py.
 //
 // What bounds it on an H100: arithmetic. S * Npad * K^2 multiply-adds in
-// float32 outside the tensor cores (4.2 G at S=4096, Npad=10,240, K=10; exact
+// float32 outside the tensor cores (4.1 G at S=4096, Npad=10,048, K=10; exact
 // float32 is part of the parity budget, so TF32 is no option) plus
 // S * Npad * J expf; the bytes (D once, the mask once: 164 MB at that size)
 // take less time than the operations.
 //
 // What the design does about it:
-//   k2_partial  grid (scenario tiles of 32) x (lattice splits). A block runs
-//               gmm_refresh.cuh's tile over its part of the lattice: each
-//               64-point chunk of D is staged in shared memory once for 32
-//               scenarios, each thread holds a 4 x 4 register tile. The TPU
-//               kernel carries its sums across a sequential grid axis; here
-//               blocks run in no order, so every split writes its partial
-//               (acc, tot) to scratch. The split count is chosen by the
-//               wrapper so that small batches still fill the card (S=1 would
-//               otherwise be one block walking 160 chunks).
+//   k2_partial  grid (scenario tiles of 64) x (lattice splits). A block runs
+//               gmm_refresh.cuh's part over its share of the lattice (that
+//               header describes the tile: 8 x 4 register tiles fed by
+//               128-bit shared loads, the table staged by cp.async into two
+//               buffers, two blocks an SM). The TPU kernel carries its sums
+//               across a sequential grid axis; here blocks run in no order,
+//               so every split writes its partial (acc, tot) to scratch. The
+//               split count is chosen by the wrapper
+//               (ops/solve_kernel.py::lattice_split, shared with K1's
+//               refresh) so that small batches still fill the card (S=1 would
+//               otherwise be one block walking all 157 chunks of a 100 x 100 lattice).
 //   k2_finish   one block per scenario adds the partial sums in split order
 //               (no atomics: two runs give the same bits), normalizes, and
 //               computes the fallback ONLY for a scenario whose mass is
@@ -43,6 +45,7 @@
 #include <stdint.h>
 
 #include "gmm_refresh.cuh"
+#include "launch.cuh"
 
 using namespace k1;
 
@@ -59,23 +62,16 @@ struct K2Buffers {
     float *part_acc, *part_tot, *out;
 };
 
-__global__ void __launch_bounds__(RT_THREADS) k2_partial(K2Params p, K2Buffers b) {
-    extern __shared__ float sm[];
-    const int KK = p.KK;
-    const int s0 = blockIdx.x * RT_S;
+template <int TILES>
+__global__ void __launch_bounds__(RT_THREADS, TILES == 1 ? RT_MIN_BLOCKS : 1)
+k2_partial(K2Params p, K2Buffers b) {
+    extern __shared__ __align__(16) float sm[];
     const int sp = blockIdx.y;
     const int n_begin = sp * p.chunks_per_split * RT_N;
     const int n_end = min(p.Npad, n_begin + p.chunks_per_split * RT_N);
-    float* accs = sm;                       // RT_S x KK, reuses the staged-table space
-    float* tot = sm + (size_t)RT_N * KK;    // RT_S, reuses the phi space
-    gmm_refresh_tile(s0, p.S, p.J, KK, n_begin, n_end, b.means, b.covs, b.weights, b.pts,
-                     b.D, p.masked ? b.mask : nullptr, p.n_real, sm, accs, tot);
-    for (int i = threadIdx.x; i < RT_S * KK; i += RT_THREADS) {
-        const int s = s0 + i / KK;
-        if (s < p.S) b.part_acc[((size_t)sp * p.S + s) * KK + i % KK] = accs[i];
-    }
-    if (threadIdx.x < RT_S && s0 + threadIdx.x < p.S)
-        b.part_tot[(size_t)sp * p.S + s0 + threadIdx.x] = tot[threadIdx.x];
+    gmm_refresh_part<TILES>(blockIdx.x * RT_S, p.S, p.J, p.KK, n_begin, n_end, b.means, b.covs,
+                            b.weights, b.pts, b.D, p.masked ? b.mask : nullptr, p.n_real, sm,
+                            b.part_acc + (size_t)sp * p.S * p.KK, b.part_tot + (size_t)sp * p.S);
 }
 
 __global__ void __launch_bounds__(FIN_THREADS) k2_finish(K2Params p, K2Buffers b) {
@@ -120,21 +116,15 @@ extern "C" int k2_phik_from_gmm(const K2Params* params, const K2Buffers* buffers
     K2Buffers b = *buffers;
     cudaStream_t st = (cudaStream_t)stream;
     if (p.S <= 0) return 0;
-    if (p.KK > 4 * RT_TILES * RT_THREADS / (RT_S / 4) || p.J < 1 || p.Npad % RT_N ||
-        p.nsplit < 1 || p.nsplit * p.chunks_per_split * RT_N < p.Npad)
+    if (p.KK < 1 || refresh_tiles(p.KK) > 2 || p.J < 1 || p.Npad % RT_N || p.nsplit < 1 ||
+        p.nsplit > 65535 || p.nsplit * p.chunks_per_split * RT_N < p.Npad)
         return (int)cudaErrorInvalidValue;
     const size_t smem = refresh_smem_floats(p.KK, p.J) * sizeof(float);
-    cudaError_t e;
-    if (smem > 48 * 1024) {
-        e = cudaFuncSetAttribute((const void*)k2_partial,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    void* args[] = {&p, &b};
-    e = cudaLaunchKernel((const void*)k2_partial, dim3((p.S + RT_S - 1) / RT_S, p.nsplit),
-                         dim3(RT_THREADS), args, smem, st);
+    const dim3 grid((p.S + RT_S - 1) / RT_S, p.nsplit);
+    cudaError_t e = launch_kernel(refresh_tiles(p.KK) == 1 ? k2_partial<1> : k2_partial<2>, grid,
+                                  dim3(RT_THREADS), smem, st, p, b);
     if (e != cudaSuccess) return (int)e;
-    e = cudaLaunchKernel((const void*)k2_finish, dim3(p.S), dim3(FIN_THREADS), args, 0, st);
+    e = launch_kernel(k2_finish, dim3(p.S), dim3(FIN_THREADS), 0, st, p, b);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

@@ -1,25 +1,55 @@
-// GMM target refresh over a shared sample lattice, for a tile of scenarios.
+// GMM target refresh over a shared sample lattice, for a tile of scenarios
+// and a part of the lattice.
 //
 // Device half of the batched phi_k reduction that the JAX package runs in
 // Pallas twice: inside K1 (ops/solve_kernel.py::_make_kernel, "in-kernel
 // target refresh") and as K2 (ops/pallas_kernels.py::phik_from_gmm_pallas).
-// For RT_S scenarios at once it evaluates each scenario's Gaussian mixture
-// at the lattice points n_begin <= n < n_end and accumulates
+// One block evaluates the Gaussian mixtures of RT_S = 64 scenarios at the
+// lattice points n_begin <= n < n_end and accumulates
 //
 //     acc[s, k] = sum_n phi_s(p_n) D[n, k]      tot[s] = sum_n phi_s(p_n)
 //
-// over RT_N-point chunks (K1 walks the whole padded lattice in one block; K2
-// splits it over a second grid dimension and adds the partial sums in a
-// finishing kernel). With a free mask (S, mask_n), phi_s(p_n) is multiplied
-// by mask[s, n] before both sums; points n >= mask_n (the lattice's padding)
-// count as masked out, so the caller need not pad the mask. Each chunk of the
-// (Npad, K^2) table D is staged in
-// shared memory once and reused by all RT_S scenarios of the block (read per
-// scenario, D would cost S * Npad * K^2 * 4 bytes of L2 traffic: 16 GB per
-// tick at S=4096, N=10,240, K=10). Each thread keeps a 4 x 4 register tile
-// (4 scenarios x 4 coefficients); chunk partial sums are added to the running
-// totals once per chunk, which keeps the float32 rounding of the 10k-term
-// sums at the level of a blocked reduction.
+// over RT_N-point chunks, then writes both sums to the caller's scratch as
+// one part of the lattice split: K1 (k1_refresh) and K2 (k2_partial) launch
+// it over (scenario tiles) x (lattice splits) and add the parts in split
+// order in their own finishing kernels. With a free mask (S, mask_n),
+// phi_s(p_n) is multiplied by mask[s, n] before both sums; points n >= mask_n
+// (the lattice's padding) count as masked out, so the caller need not pad the
+// mask.
+//
+// What bounds it on an H100: float32 multiply-adds outside the tensor cores
+// (K^2 per scenario and point; exact float32 is part of the parity budget),
+// then the J expf per scenario and point. In practice the shared-memory pipe
+// is the scarce unit: a 128-bit shared load is served a quarter warp at a
+// time, and a scheduler issues one instruction a cycle, so every load or
+// index operation takes a multiply-add's slot. What the design does about it:
+//   - each thread holds an 8 x 4 register tile (8 scenarios x 4
+//     coefficients) fed by three 128-bit shared loads per lattice point: 32
+//     multiply-adds per 3 loads. phi is stored point-major and a tile's 8
+//     scenarios are two groups of 4 that lie 32 apart, so the 8 lanes of a
+//     quarter warp load 32 consecutive floats (every bank once); the rows of
+//     the table are padded to 4 floats and a quarter warp reads one address.
+//     At K^2 = 100 that is 8 x 25 = 200 tiles on 256 threads (7 of 8 warps
+//     issue); K^2 up to 256 takes two tiles a thread (the TILES = 2
+//     instantiation, one block an SM);
+//   - phi: a thread owns one scenario (lanes on neighbouring scenarios, so
+//     the store is conflict free) and 16 points of the chunk; a component's
+//     7 constants are read from shared memory once per chunk and held in
+//     registers while the 16 points take them, the point as one 64-bit load;
+//   - each chunk of the (Npad, K^2) table D is staged in shared memory once
+//     for all 64 scenarios (read per scenario, D would cost S * Npad * K^2 * 4
+//     bytes of L2 traffic: 16 GB per tick at S=4096, Npad=10,048, K=10), by
+//     cp.async into the second of two buffers while the current one is
+//     contracted;
+//   - 73 KB of shared memory a block at K = 10, J = 2 and 128 registers, no
+//     spills: two blocks share an SM (at three, 85 registers spill the tile:
+//     measured slower), so one block's phi phase overlaps the other's
+//     contraction;
+//   - scenario groups beyond the batch are skipped, so S = 1 costs one
+//     scenario's phi and 25 tiles per block.
+// Chunk partial sums are added to the running totals once per chunk, which
+// keeps the float32 rounding of the 10k-term sums at the level of a blocked
+// reduction.
 //
 // phi is computed with the exact expressions of ops/target.py::gmm_eval, so
 // with -fmad=false every phi value rounds as PyTorch's elementwise ops round
@@ -27,44 +57,105 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace k1 {
 
-constexpr int RT_S = 32;        // scenarios per block
-constexpr int RT_N = 64;        // lattice points per chunk (LATTICE_CHUNK in Python)
-constexpr int RT_THREADS = 256; // 32 scenarios x 8 threads for phi; 4x4 tiles for acc
-constexpr int RT_TILES = 2;     // accumulator tiles per thread: K^2 <= 256
-constexpr int GP = 7;           // per-component constants: mx, my, a, 2b, c, 1/det, norm
+constexpr int RT_S = 64;         // scenarios per block (TILE_S in Python)
+constexpr int RT_N = 64;         // lattice points per chunk (LATTICE_CHUNK in Python)
+constexpr int RT_THREADS = 256;  // RT_S scenarios x RT_THREADS / RT_S points for phi
+constexpr int RT_TS = 8, RT_TK = 4;  // the register tile: scenarios x coefficients (multiples of 4)
+constexpr int RT_SG = RT_S / RT_TS;  // scenario groups
+constexpr int RT_GS = 4 * RT_SG;         // scenarios between a tile's groups of 4 rows
+constexpr int RT_PS = RT_S + 4;  // floats between two points' phi rows (16-byte rows, and a
+                                 // transposed store of the mask conflicts 4 ways, not 32)
+constexpr int RT_MIN_BLOCKS = 2;  // blocks meant to share an SM (TILES = 1; BLOCKS_PER_SM in Python)
+constexpr int GP = 7;            // per-component constants: mx, my, a, 2b, c, 1/det, norm
 constexpr float TWO_PI_F = 6.28318530717958647692f;
+constexpr int RT_PQ = RT_THREADS / RT_S;  // phi: threads per scenario = stride of a thread's points
+constexpr int RT_PPT = RT_N / RT_PQ;      // phi: points per thread and chunk
+static_assert(RT_THREADS % RT_S == 0 && RT_N % RT_PQ == 0, "phi mapping");
+static_assert(RT_TS % 4 == 0 && RT_TK % 4 == 0 && RT_S % RT_TS == 0, "register tile");
 
-// Shared-memory floats used by gmm_refresh_tile for K^2 = KK and J components.
-__host__ __device__ inline size_t refresh_smem_floats(int KK, int J) {
-    return (size_t)RT_N * KK + (size_t)RT_S * (RT_N + 1) + (size_t)RT_S * J * GP + RT_THREADS;
+// Scenario (within the block) of row i of the register tiles of scenario
+// group sg: rows come in groups of 4, group g at g * RT_GS + 4 sg, so that the
+// 8 lanes of a quarter warp (sg = 0 .. 7) load 32 consecutive floats of a phi
+// row with one 128-bit load each: every bank once.
+__host__ __device__ inline int tile_row(int sg, int i) { return (i / 4) * RT_GS + 4 * sg + i % 4; }
+
+// K^2 padded to whole groups of RT_TK coefficients
+__host__ __device__ inline int refresh_kkp(int KK) { return (KK + RT_TK - 1) / RT_TK * RT_TK; }
+
+// Register tiles a thread needs for K^2 = KK.
+__host__ __device__ inline int refresh_tiles(int KK) {
+    return (RT_SG * (refresh_kkp(KK) / RT_TK) + RT_THREADS - 1) / RT_THREADS;
 }
 
-// acc_out (RT_S x KK, in shared memory, may alias the start of `sm`) and
-// tot_out (RT_S) receive the block's sums; rows of scenarios >= S are zero.
-// means (S, J, 2), covs (S, J, 2, 2), weights (S, J), pts (Npad, 2),
-// D (Npad, KK); n_begin and n_end are multiples of RT_N; mask (S, mask_n) or
-// nullptr. Must be called by all RT_THREADS threads of the block.
-__device__ inline void gmm_refresh_tile(
+// Shared-memory floats of one block for K^2 = KK and J components.
+__host__ __device__ inline size_t refresh_smem_floats(int KK, int J) {
+    return (size_t)2 * RT_N * refresh_kkp(KK) + (size_t)RT_N * RT_PS + (size_t)GP * J * RT_S +
+           RT_THREADS;
+}
+
+// Asynchronous copies global -> shared (cp.async), in groups.
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src));
+#else
+    for (int i = 0; i < 4; ++i) dst[i] = src[i];
+#endif
+}
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src));
+#else
+    *dst = *src;
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
+}
+
+// One block's part of the refresh: scenarios s0 .. s0 + RT_S, lattice points
+// n_begin .. n_end (multiples of RT_N). part_acc (S, KK) and part_tot (S)
+// are this lattice split's rows of the scratch; rows of scenarios >= S are
+// not written. means (S, J, 2), covs (S, J, 2, 2), weights (S, J),
+// pts (Npad, 2), D (Npad, KK); mask (S, mask_n) or nullptr. `sm` is 16-byte
+// aligned shared memory of refresh_smem_floats(KK, J) floats. Must be called
+// by all RT_THREADS threads of the block; TILES >= refresh_tiles(KK).
+template <int TILES>
+__device__ __forceinline__ void gmm_refresh_part(
     int s0, int S, int J, int KK, int n_begin, int n_end,
     const float* __restrict__ means, const float* __restrict__ covs,
     const float* __restrict__ weights, const float* __restrict__ pts,
     const float* __restrict__ D, const float* __restrict__ mask, int mask_n,
-    float* sm, float* acc_out, float* tot_out) {
+    float* sm, float* __restrict__ part_acc, float* __restrict__ part_tot) {
     const int tid = threadIdx.x;
-    float* Ds = sm;                             // RT_N x KK
-    float* phis = Ds + RT_N * KK;               // RT_S x (RT_N + 1), padded rows
-    float* gp = phis + RT_S * (RT_N + 1);       // RT_S x J x GP
-    float* tots = gp + RT_S * J * GP;           // RT_THREADS partial sums
+    const int KKp = refresh_kkp(KK), KG = KKp / RT_TK;
+    float* Ds = sm;                        // 2 buffers of RT_N x KKp
+    float* phis = Ds + 2 * RT_N * KKp;     // RT_N x RT_PS, point-major
+    float* gp = phis + RT_N * RT_PS;       // GP x J x RT_S, component-major
+    float* tots = gp + GP * J * RT_S;      // RT_THREADS partial sums
 
     // per-component constants, with gmm_eval's expressions
     for (int i = tid; i < RT_S * J; i += RT_THREADS) {
-        const int s = s0 + i / J;
-        float* g = gp + i * GP;
+        const int sl = i % RT_S, j = i / RT_S, s = s0 + sl;
+        float g[GP] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
         if (s < S) {
-            const size_t sj = (size_t)s * J + i % J;
+            const size_t sj = (size_t)s * J + j;
             const float a = covs[sj * 4 + 0], b = covs[sj * 4 + 1], c = covs[sj * 4 + 3];
             const float det = a * c - b * b;
             g[0] = means[sj * 2 + 0];
@@ -74,77 +165,128 @@ __device__ inline void gmm_refresh_tile(
             g[4] = c;
             g[5] = 1.0f / det;
             g[6] = weights[sj] / (TWO_PI_F * sqrtf(det));
-        } else {
-            for (int k = 0; k < GP; ++k) g[k] = 0.0f;
         }
+#pragma unroll
+        for (int k = 0; k < GP; ++k) gp[(j * GP + k) * RT_S + sl] = g[k];
     }
+    // the pad columns of both table buffers stay zero (the copies never touch them)
+    if (KKp != KK)
+        for (int i = tid; i < 2 * RT_N; i += RT_THREADS)
+            for (int k = KK; k < KKp; ++k) Ds[i * KKp + k] = 0.0f;
 
-    const int KG = (KK + 3) / 4;      // coefficient groups of 4
-    const int ntiles = (RT_S / 4) * KG;
-    float acc[RT_TILES][4][4];
+    // 16-byte copies where every row of the table starts on 16 bytes
+    const bool vec = (KK & 3) == 0 && (reinterpret_cast<uintptr_t>(D) & 15) == 0;
+    auto stage = [&](int n0, float* dst) {
+        const float* src = D + (size_t)n0 * KK;
+        if (vec) {
+            const int q4 = KK / 4;
+            for (int i = tid; i < RT_N * q4; i += RT_THREADS)
+                cp_async_16(dst + (i / q4) * KKp + 4 * (i % q4), src + 4 * i);
+        } else {
+            for (int i = tid; i < RT_N * KK; i += RT_THREADS)
+                cp_async_4(dst + (i / KK) * KKp + i % KK, src + i);
+        }
+        cp_async_commit();
+    };
+
+    float acc[TILES][RT_TS][RT_TK];
 #pragma unroll
-    for (int t = 0; t < RT_TILES; ++t)
+    for (int t = 0; t < TILES; ++t)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RT_TS; ++i)
 #pragma unroll
-            for (int k = 0; k < 4; ++k) acc[t][i][k] = 0.0f;
+            for (int k = 0; k < RT_TK; ++k) acc[t][i][k] = 0.0f;
     float tot_part = 0.0f;
-    const int sl = tid / 8;           // phi: scenario row of this thread
-    const int n8 = tid % 8;           //      and its first point in the chunk
+    const int sl = tid % RT_S;        // phi: scenario column of this thread
+    const int nq = tid / RT_S;        //      and its first point in the chunk
+    const bool live = s0 + sl < S;    // this thread's scenario exists
+
+    const int nchunks = (n_end - n_begin) / RT_N;
+    if (nchunks > 0) stage(n_begin, Ds);
     __syncthreads();
 
-    const bool live = s0 + sl < S;    // this thread's scenario row exists
-    const float* mrow = mask ? mask + (size_t)(s0 + sl) * mask_n : nullptr;
-
-    for (int n0 = n_begin; n0 < n_end; n0 += RT_N) {
-        const float* Dsrc = D + (size_t)n0 * KK;
-        for (int i = tid; i < RT_N * KK; i += RT_THREADS) Ds[i] = Dsrc[i];
-        const float* g = gp + sl * J * GP;
-        for (int q = 0; q < RT_N / 8; ++q) {
-            const int n = n8 + 8 * q;
-            const float px = pts[(size_t)(n0 + n) * 2 + 0];
-            const float py = pts[(size_t)(n0 + n) * 2 + 1];
-            float phi = 0.0f;
-            for (int j = 0; j < J; ++j) {
-                const float* gj = g + j * GP;
-                const float dx = px - gj[0];
-                const float dy = py - gj[1];
-                const float qf = (gj[4] * (dx * dx) - gj[3] * dx * dy + gj[2] * (dy * dy)) * gj[5];
-                phi = phi + gj[6] * expf(-0.5f * qf);
+    for (int c = 0; c < nchunks; ++c) {
+        const int n0 = n_begin + c * RT_N;
+        const float* Dc = Ds + (c & 1) * RT_N * KKp;
+        if (c + 1 < nchunks) stage(n0 + RT_N, Ds + ((c + 1) & 1) * RT_N * KKp);
+        if (mask) {  // the chunk's mask tile, read along the lattice, stored point-major
+            for (int i = tid; i < RT_S * RT_N; i += RT_THREADS) {
+                const int ms = i / RT_N, n = i % RT_N;
+                phis[n * RT_PS + ms] = (s0 + ms < S && n0 + n < mask_n)
+                                           ? mask[(size_t)(s0 + ms) * mask_n + n0 + n]
+                                           : 0.0f;
             }
-            if (mask) phi = phi * ((live && n0 + n < mask_n) ? mrow[n0 + n] : 0.0f);
-            phis[sl * (RT_N + 1) + n] = phi;
+            __syncthreads();
+        }
+        // phi of this thread's RT_PPT points: a component's constants are read
+        // once, then every point takes it (the sum over j stays in ascending j)
+        float phv[RT_PPT];
+#pragma unroll
+        for (int q = 0; q < RT_PPT; ++q) phv[q] = 0.0f;
+        if (live) {
+            const float2* pt2 = reinterpret_cast<const float2*>(pts) + n0 + nq;
+            for (int j = 0; j < J; ++j) {
+                const float* gj = gp + j * GP * RT_S + sl;
+                const float mx = gj[0 * RT_S], my = gj[1 * RT_S], ca = gj[2 * RT_S],
+                            cb2 = gj[3 * RT_S], cc = gj[4 * RT_S], idet = gj[5 * RT_S],
+                            nrm = gj[6 * RT_S];
+#pragma unroll
+                for (int q = 0; q < RT_PPT; ++q) {
+                    const float2 pt = pt2[RT_PQ * q];
+                    const float dx = pt.x - mx;
+                    const float dy = pt.y - my;
+                    const float qf = (cc * (dx * dx) - cb2 * dx * dy + ca * (dy * dy)) * idet;
+                    phv[q] = phv[q] + nrm * expf(-0.5f * qf);
+                }
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < RT_PPT; ++q) {
+            const int n = nq + RT_PQ * q;
+            float phi = phv[q];
+            if (mask) phi = phi * phis[n * RT_PS + sl];
+            phis[n * RT_PS + sl] = phi;
             tot_part = tot_part + phi;
         }
+        if (c + 1 < nchunks) cp_async_wait<1>();
+        else cp_async_wait<0>();
         __syncthreads();
 #pragma unroll
-        for (int t = 0; t < RT_TILES; ++t) {
+        for (int t = 0; t < TILES; ++t) {
             const int tile = tid + t * RT_THREADS;
-            if (tile < ntiles) {
-                const int sg = tile % 8, kg = tile / 8;
-                float part[4][4];
+            const int sg = tile % RT_SG, kg = tile / RT_SG;
+            if (kg < KG && s0 + sg * 4 < S) {
+                float part[RT_TS][RT_TK];  // this chunk's sums
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
+                for (int i = 0; i < RT_TS; ++i)
 #pragma unroll
-                    for (int k = 0; k < 4; ++k) part[i][k] = 0.0f;
+                    for (int k = 0; k < RT_TK; ++k) part[i][k] = 0.0f;
+                const float* pp = phis + sg * 4;
+                const float* dp = Dc + kg * RT_TK;
+#pragma unroll 4
                 for (int n = 0; n < RT_N; ++n) {
-                    float ph[4], dv[4];
+                    float ph[RT_TS], dv[RT_TK];
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) ph[i] = phis[(sg * 4 + i) * (RT_N + 1) + n];
-#pragma unroll
-                    for (int k = 0; k < 4; ++k) {
-                        const int kk = kg * 4 + k;
-                        dv[k] = kk < KK ? Ds[n * KK + kk] : 0.0f;
+                    for (int i = 0; i < RT_TS; i += 4) {
+                        const float4 v = *reinterpret_cast<const float4*>(
+                            pp + n * RT_PS + (i / 4) * RT_GS);
+                        ph[i] = v.x, ph[i + 1] = v.y, ph[i + 2] = v.z, ph[i + 3] = v.w;
                     }
 #pragma unroll
-                    for (int i = 0; i < 4; ++i)
+                    for (int k = 0; k < RT_TK; k += 4) {
+                        const float4 v = *reinterpret_cast<const float4*>(dp + n * KKp + k);
+                        dv[k] = v.x, dv[k + 1] = v.y, dv[k + 2] = v.z, dv[k + 3] = v.w;
+                    }
 #pragma unroll
-                        for (int k = 0; k < 4; ++k) part[i][k] = fmaf(ph[i], dv[k], part[i][k]);
+                    for (int i = 0; i < RT_TS; ++i)
+#pragma unroll
+                        for (int k = 0; k < RT_TK; ++k)
+                            part[i][k] = fmaf(ph[i], dv[k], part[i][k]);
                 }
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
+                for (int i = 0; i < RT_TS; ++i)
 #pragma unroll
-                    for (int k = 0; k < 4; ++k) acc[t][i][k] += part[i][k];
+                    for (int k = 0; k < RT_TK; ++k) acc[t][i][k] += part[i][k];
             }
         }
         __syncthreads();
@@ -152,26 +294,27 @@ __device__ inline void gmm_refresh_tile(
 
     tots[tid] = tot_part;
 #pragma unroll
-    for (int t = 0; t < RT_TILES; ++t) {
+    for (int t = 0; t < TILES; ++t) {
         const int tile = tid + t * RT_THREADS;
-        if (tile < ntiles) {
-            const int sg = tile % 8, kg = tile / 8;
+        const int sg = tile % RT_SG, kg = tile / RT_SG;
+        if (kg < KG) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < RT_TS; ++i) {
+                const int s = s0 + tile_row(sg, i);
 #pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    const int kk = kg * 4 + k;
-                    if (kk < KK) acc_out[(sg * 4 + i) * KK + kk] = acc[t][i][k];
+                for (int k = 0; k < RT_TK; ++k) {
+                    const int kk = kg * RT_TK + k;
+                    if (s < S && kk < KK) part_acc[(size_t)s * KK + kk] = acc[t][i][k];
                 }
+            }
         }
     }
     __syncthreads();
-    if (tid < RT_S) {
+    if (tid < RT_S && s0 + tid < S) {
         float tsum = 0.0f;
-        for (int l = 0; l < 8; ++l) tsum += tots[tid * 8 + l];
-        tot_out[tid] = tsum;
+        for (int l = 0; l < RT_THREADS / RT_S; ++l) tsum += tots[tid + l * RT_S];
+        part_tot[s0 + tid] = tsum;
     }
-    __syncthreads();
 }
 
 }  // namespace k1

@@ -42,9 +42,25 @@
 // cancel differently); the frontier count is an integer. Every output is
 // summed by one thread in a fixed order and nothing is atomic: two launches
 // give the same bits.
+//
+// A map whose planes do not fit one block (over ~22,800 cells at K = 10; the
+// TPU kernel shrinks its scenario chunk for these, _pick_sc) takes the
+// row-band form: k3_phik_band, grid (scenarios, bands). A block owns rows
+// [y0, y1) of one scenario and loads them with a halo of max(r, fc) rows on
+// each side, cut at the map's edges. It runs the same stages on its rows (the
+// box sums and the frontier count clamp at the MAP's edge, never at a band's:
+// the halo holds every row a band row's sums reach) and writes its
+// unnormalized (K, K) partial contraction to scratch (S, bands, K, K); the
+// partial mass is that partial's element (0, 0) times hk[0][0]. k3_finish, a
+// block per scenario, adds the partials in band order, normalizes and applies
+// the fallback: again no atomics, two launches give the same bits. The band
+// height is chosen by the wrapper (ops/mi_kernel.py::band_plan); a map that
+// fits one block keeps the single launch of k3_phik_grid.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 constexpr int K3_THREADS = 512;
 constexpr int K3_MAX_SMEM = 232448;  // dynamic shared memory a block can have on sm_90
@@ -52,6 +68,7 @@ constexpr int K3_MAX_SMEM = 232448;  // dynamic shared memory a block can have o
 // Mirror of ops/mi_kernel.py::_Params (same field order).
 struct K3Params {
     int S, h, w, K, r, fc;
+    int bh, n_bands;  // band height and count of the row-band form (n_bands = 0: whole map)
     float thr, eps;
 };
 
@@ -59,29 +76,39 @@ struct K3Params {
 struct K3Buffers {
     const float *data, *cxA, *cyA, *fallback, *hk00;
     float* out;
+    float* part;  // (S, n_bands, K, K) partial contractions of the row-band form
 };
 
-// Bytes of dynamic shared memory for one (h, w) map and K basis functions;
-// mirrored by ops/mi_kernel.py::smem_bytes.
-__host__ __device__ inline size_t k3_smem_bytes(int h, int w, int K) {
-    const size_t cells = (size_t)h * w;
-    return sizeof(float) * (2 * cells + (size_t)w * K + (size_t)K * h) + 2 * cells;
+// Bytes of dynamic shared memory of a block that holds `nl` rows of a w-wide
+// map (its band with the halo) and contracts `bh` of them; the whole map is
+// nl = bh = h. Mirrored by ops/mi_kernel.py::smem_bytes.
+__host__ __device__ inline size_t k3_smem_bytes(int nl, int bh, int w, int K) {
+    const size_t cells = (size_t)nl * w;
+    return sizeof(float) * (2 * cells + (size_t)w * K + (size_t)K * bh) + 2 * cells;
 }
 
 __device__ __forceinline__ int clampi(int v, int hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
 
-__global__ void __launch_bounds__(K3_THREADS, 2) k3_phik_grid(K3Params p, K3Buffers b) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
+// Stages A-E for rows [y0, y1) of scenario s. BANDED: the block holds rows
+// [a0, a1) = the band with its halo and writes the partial contraction to
+// `raw_out` in device memory; else it holds the whole map and leaves raw in
+// the first K * K floats of shared memory. Called by all threads of the block.
+template <bool BANDED>
+__device__ __forceinline__ void k3_rows(const K3Params& p, const K3Buffers& b, int s, int y0,
+                                        int y1, unsigned char* smem_raw, float* raw_out) {
     const int h = p.h, w = p.w, K = p.K, r = p.r, fc = p.fc;
-    const int cells = h * w;
+    const int m = r > fc ? r : fc;
+    const int a0 = BANDED ? max(0, y0 - m) : 0;
+    const int a1 = BANDED ? min(h, y1 + m) : h;
+    const int bh = y1 - y0, cells = (a1 - a0) * w;
     float* E = reinterpret_cast<float*>(smem_raw);  // entropy, then vals, then raw
-    float* T = E + cells;                           // x sums, then w1 (h, K)
+    float* T = E + cells;                           // x sums, then w1 (bh, K)
     float* cxA = T + cells;                         // (w, K)
-    float* cyA = cxA + w * K;                       // (K, h)
-    uint8_t* flags = reinterpret_cast<uint8_t*>(cyA + K * h);
+    float* cyA = cxA + w * K;                       // (K, bh): columns y0 .. y1 of the table
+    uint8_t* flags = reinterpret_cast<uint8_t*>(cyA + K * bh);
     uint8_t* cnt1 = flags + cells;                  // x-direction known-free counts
     const int tid = threadIdx.x;
-    const float* map = b.data + (size_t)blockIdx.x * cells;
+    const float* map = b.data + ((size_t)s * h + a0) * w;
 
     // A. entropy and the two masks of every cell; the tables
     for (int idx = tid; idx < cells; idx += K3_THREADS) {
@@ -93,7 +120,7 @@ __global__ void __launch_bounds__(K3_THREADS, 2) k3_phik_grid(K3Params p, K3Buff
         flags[idx] = (uint8_t)((is_free ? 1 : 0) | ((is_free && v >= 0.0f) ? 2 : 0));
     }
     for (int i = tid; i < w * K; i += K3_THREADS) cxA[i] = b.cxA[i];
-    for (int i = tid; i < K * h; i += K3_THREADS) cyA[i] = b.cyA[i];
+    for (int i = tid; i < K * bh; i += K3_THREADS) cyA[i] = b.cyA[(i / bh) * h + y0 + i % bh];
     __syncthreads();
 
     // B. sums along x, edge-clamped, ascending index order
@@ -112,15 +139,17 @@ __global__ void __launch_bounds__(K3_THREADS, 2) k3_phik_grid(K3Params p, K3Buff
     }
     __syncthreads();
 
-    // C. sums along y, the frontier and free masks: vals into E
-    for (int idx = tid; idx < cells; idx += K3_THREADS) {
-        const int i = idx / w, j = idx - i * w;
+    // C. sums along y (clamped at the map's edge), the frontier and free
+    // masks: vals of rows y0 .. y1 into E
+    for (int o = tid; o < bh * w; o += K3_THREADS) {
+        const int i = y0 + o / w, j = o % w;
+        const int idx = (i - a0) * w + j;
         float t = 0.0f;
-        for (int k = i - r; k <= i + r; ++k) t += T[clampi(k, h - 1) * w + j];
+        for (int k = i - r; k <= i + r; ++k) t += T[(clampi(k, h - 1) - a0) * w + j];
         bool keep = (flags[idx] & 1) != 0;
         if (fc > 0) {
             int c = 0;
-            for (int k = i - fc; k <= i + fc; ++k) c += cnt1[clampi(k, h - 1) * w + j];
+            for (int k = i - fc; k <= i + fc; ++k) c += cnt1[(clampi(k, h - 1) - a0) * w + j];
             keep = keep && c > 0;
         }
         E[idx] = fmaxf(keep ? t : 0.0f, 0.0f);
@@ -128,50 +157,92 @@ __global__ void __launch_bounds__(K3_THREADS, 2) k3_phik_grid(K3Params p, K3Buff
     __syncthreads();
 
     // D. contraction along x: w1[i][k1] = sum_j vals[i][j] cxA[j][k1], into T
-    for (int o = tid; o < h * K; o += K3_THREADS) {
+    for (int o = tid; o < bh * K; o += K3_THREADS) {
         const int i = o / K, k1 = o - i * K;
-        const float* row = E + i * w;
+        const float* row = E + (y0 - a0 + i) * w;
         float acc = 0.0f;
         for (int j = 0; j < w; ++j) acc += row[j] * cxA[j * K + k1];
         T[o] = acc;
     }
     __syncthreads();
 
-    // E. contraction along y: raw[k1][k2] = sum_i cyA[k2][i] w1[i][k1], into E
+    // E. contraction along y: raw[k1][k2] = sum_i cyA[k2][i] w1[i][k1]
     for (int o = tid; o < K * K; o += K3_THREADS) {
         const int k1 = o / K, k2 = o - k1 * K;
-        const float* crow = cyA + k2 * h;
+        const float* crow = cyA + k2 * bh;
         float acc = 0.0f;
-        for (int i = 0; i < h; ++i) acc += crow[i] * T[i * K + k1];
-        E[o] = acc;
+        for (int i = 0; i < bh; ++i) acc += crow[i] * T[i * K + k1];
+        if (BANDED) raw_out[o] = acc;
+        else E[o] = acc;
     }
-    __syncthreads();
-
-    // F. normalize by the target's mass, or fall back to the uniform target
-    const float total = E[0] * b.hk00[0];
-    float* out = b.out + (size_t)blockIdx.x * K * K;
-    for (int o = tid; o < K * K; o += K3_THREADS)
-        out[o] = total > 1e-12f ? E[o] / fmaxf(total, 1e-12f) : b.fallback[o];
 }
 
-// Launch K3 for p->S scenarios on `stream`; returns the CUDA error code
-// (0 on success). Does not synchronize.
+// F. normalize by the target's mass, or fall back to the uniform target
+__device__ __forceinline__ float k3_normalize(const K3Buffers& b, float raw, float raw00, int o) {
+    const float total = raw00 * b.hk00[0];
+    return total > 1e-12f ? raw / fmaxf(total, 1e-12f) : b.fallback[o];
+}
+
+__global__ void __launch_bounds__(K3_THREADS, 2) k3_phik_grid(K3Params p, K3Buffers b) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    k3_rows<false>(p, b, blockIdx.x, 0, p.h, smem_raw, nullptr);
+    __syncthreads();
+    const float* raw = reinterpret_cast<const float*>(smem_raw);
+    float* out = b.out + (size_t)blockIdx.x * p.K * p.K;
+    for (int o = threadIdx.x; o < p.K * p.K; o += K3_THREADS)
+        out[o] = k3_normalize(b, raw[o], raw[0], o);
+}
+
+__global__ void __launch_bounds__(K3_THREADS) k3_phik_band(K3Params p, K3Buffers b) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int s = blockIdx.x, band = blockIdx.y;
+    const int y0 = band * p.bh, y1 = min(p.h, y0 + p.bh);
+    k3_rows<true>(p, b, s, y0, y1, smem_raw,
+                  b.part + ((size_t)s * p.n_bands + band) * p.K * p.K);
+}
+
+__global__ void __launch_bounds__(128) k3_finish(K3Params p, K3Buffers b) {
+    const int KK = p.K * p.K;
+    const float* part = b.part + (size_t)blockIdx.x * p.n_bands * KK;
+    float raw00 = 0.0f;
+    for (int band = 0; band < p.n_bands; ++band) raw00 += part[band * KK];
+    for (int o = threadIdx.x; o < KK; o += 128) {
+        float raw = 0.0f;
+        for (int band = 0; band < p.n_bands; ++band) raw += part[band * KK + o];
+        b.out[(size_t)blockIdx.x * KK + o] = k3_normalize(b, raw, raw00, o);
+    }
+}
+
+// Launch K3 for p->S scenarios on `stream`: the whole-map kernel when
+// p->n_bands = 0, else the row-band kernel and its finish. Returns the CUDA
+// error code (0 on success). Does not synchronize.
 extern "C" int k3_phik_from_grid(const K3Params* params, const K3Buffers* buffers,
                                  void* stream) {
     K3Params p = *params;
     K3Buffers b = *buffers;
+    cudaStream_t st = (cudaStream_t)stream;
     if (p.S <= 0) return 0;
-    const size_t smem = k3_smem_bytes(p.h, p.w, p.K);
-    // K <= min(h, w) keeps w1 (h, K) and raw (K, K) inside one plane; counts fit a byte
-    if (p.h < 1 || p.w < 1 || p.K < 1 || p.K > p.w || p.K > p.h || p.r < 0 || p.fc < 0 ||
-        2 * p.fc + 1 > 255 || smem > (size_t)K3_MAX_SMEM)
+    // counts fit a byte; the whole-map form keeps raw (K, K) and w1 (h, K) inside one plane
+    if (p.h < 1 || p.w < 1 || p.K < 1 || p.K > p.w || p.r < 0 || p.fc < 0 ||
+        2 * p.fc + 1 > 255 || p.n_bands < 0)
         return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute((const void*)k3_phik_grid,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    void* args[] = {&p, &b};
-    e = cudaLaunchKernel((const void*)k3_phik_grid, dim3(p.S), dim3(K3_THREADS), args, smem,
-                         (cudaStream_t)stream);
+    cudaError_t e;
+    if (p.n_bands == 0) {
+        const size_t smem = k3_smem_bytes(p.h, p.h, p.w, p.K);
+        if (p.K > p.h || smem > (size_t)K3_MAX_SMEM) return (int)cudaErrorInvalidValue;
+        e = launch_kernel(k3_phik_grid, dim3(p.S), dim3(K3_THREADS), smem, st, p, b);
+    } else {
+        const int m = p.r > p.fc ? p.r : p.fc;
+        const int nl = p.bh + 2 * m < p.h ? p.bh + 2 * m : p.h;
+        const size_t smem = k3_smem_bytes(nl, p.bh, p.w, p.K);
+        if (p.bh < 1 || (size_t)p.bh * p.n_bands < (size_t)p.h ||
+            (size_t)p.bh * (p.n_bands - 1) >= (size_t)p.h || p.n_bands > 65535 ||
+            smem > (size_t)K3_MAX_SMEM)
+            return (int)cudaErrorInvalidValue;
+        e = launch_kernel(k3_phik_band, dim3(p.S, p.n_bands), dim3(K3_THREADS), smem, st, p, b);
+        if (e != cudaSuccess) return (int)e;
+        e = launch_kernel(k3_finish, dim3(p.S), dim3(128), 0, st, p, b);
+    }
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

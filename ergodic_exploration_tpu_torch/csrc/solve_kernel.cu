@@ -22,21 +22,57 @@
 // entry points at the end of this file from ops/solve_kernel.py.
 //
 // Launches on the caller's stream:
-//   k1_refresh  (J > 0) phi_k of every scenario: the mixture over the padded
-//               lattice contracted with the basis table (gmm_refresh.cuh),
-//               normalized as ops/solve_kernel.py::refresh_plain does.
-//   k1_solve    one thread per scenario, everything else, in this order:
-//               RK4 rollout; cos/sin basis tables; (nb > 0) the history
-//               sums over the drawn positions; c_k, metric and
-//               ergodic gradient; boundary + obstacle barrier with bilinear
-//               reads of the patch (values and the patch's own central-
-//               difference gradient, one-sided at the PATCH edges, FAR
-//               plateau zeroed); backward co-state; u = clip(-R^-1 B^T rho);
-//               ck_sum append; validation of u0 over val_horizon steps and
-//               the DWA sweep over every candidate and dwa_horizon steps.
-//   k1_safety   one thread per scenario: that last stage alone. The sweep
-//               (samples candidates x dwa_horizon probes, each independent)
-//               is the part a later change can spread over a warp.
+//   k1_refresh  (J > 0) grid (scenario tiles of 64) x (lattice splits): a
+//               block contracts its share of the padded lattice with the
+//               basis table (gmm_refresh.cuh) and writes its partial
+//               (acc, tot) to the wrapper's scratch. The splits are chosen
+//               as K2's are (ops/solve_kernel.py::lattice_split), so S = 1 is
+//               a block per chunk (157 at a 100 x 100 lattice), not one block
+//               walking them all.
+//   k1_finish   (J > 0) a block per scenario adds the partials in split
+//               order (no atomics: two launches give the same bits) and
+//               normalizes as ops/solve_kernel.py::refresh_plain does (the
+//               masked normalizer h00 acc_00, the precomputed fallback). It
+//               is a launch of its own, not the head of k1_solve: one warp
+//               would add 157 partials for each of its 4 coefficients a lane
+//               at S = 1, and k1_solve keeps one form for J = 0 and J > 0.
+//   k1_solve    ONE WARP PER SCENARIO, SOLVE_WARPS warps a block, everything
+//               else, in this order: RK4 rollout; cos/sin basis tables;
+//               (nb > 0) the history sums over the drawn positions; c_k,
+//               metric and ergodic gradient; boundary + obstacle barrier with
+//               bilinear reads of the patch (values and the patch's own
+//               central-difference gradient, one-sided at the PATCH edges,
+//               FAR plateau zeroed); backward co-state; u = clip(-R^-1 B^T
+//               rho); ck_sum append; validation of u0 over val_horizon steps
+//               and the DWA sweep over every candidate and dwa_horizon steps.
+//   k1_safety   one warp per scenario: that last stage alone.
+//
+// How a warp divides a scenario. Independent values go to the lanes, and
+// only true recurrences stay serial on lane 0:
+//   - twists, the RK4 stage angles' sin/cos and the position increments: a
+//     lane per step; the heading and position recurrences (one add and a
+//     wrap per step) on lane 0;
+//   - the cos/sin tables of the H knots (and, 32 at a time, of the nb drawn
+//     positions): a lane per (knot, k) pair, into shared memory;
+//   - c_k, the history sums, metric terms, Wh and the ck_sum append: a lane
+//     owns the coefficients k = lane, lane + 32, ... and adds over t, then
+//     over j, in ascending order; the metric's sum over k is lane 0's, in
+//     ascending k;
+//   - the gradient's two contractions: a lane per (knot, k1) pair; then a
+//     lane per knot for the sum over k1, the walls, the bilinear reads and
+//     the patch gradient (on per-scenario maps a warp reads one scenario's
+//     patch, so its reads share cache lines);
+//   - the co-state recurrence on lane 0, then u = clip(-R^-1 B^T rho) a lane
+//     per (step, control) pair, written with neighbouring lanes on
+//     neighbouring addresses;
+//   - validation: a lane per probe, a warp maximum. DWA sweep: a lane per
+//     candidate (lane, lane + 32, ...), each walking its dwa_horizon probes
+//     (as many lane-rounds as spreading the probes would take, and a
+//     candidate's crash stays in its lane); the winner is the smallest
+//     (cost, candidate index) pair of a warp reduction, which is the first
+//     candidate that reaches the minimum, as the plain version's argmin.
+// Every expression is the one-thread-per-scenario kernel's, and every sum
+// keeps its order, so the outputs keep their bits.
 //
 // What it leaves behind from the TPU kernel: the scenario-on-lanes layout
 // (operands are scenario-first), the bf16 hi/mid/lo map split and one-hot
@@ -46,19 +82,19 @@
 // by the config contract) and lazy_dwa (the sweep always runs).
 //
 // What bounds it on an H100: the refresh does K^2 * Npad multiply-adds and
-// J * Npad expf per scenario (4.2 G multiply-adds at S=4096, N=10,240, K=10):
-// arithmetic fed from shared memory, with each staged chunk of the basis
-// table reused by 32 scenarios (read per scenario it would be ~16 GB of L2
-// traffic per tick). The solve is latency bound: one thread per scenario
-// gives S/32 warps (128 at S=4096, about one per SM), each a long chain of
-// dependent float ops, sinf/cosf and map reads; its per-thread tables (Wh,
-// knots, gradients) live in shared memory rather than in spilled registers.
-// With nb > 0 the history adds nb * (2 K cosf + K^2 multiply-adds) to that
-// chain (at nb = 100, H = 20 five times the rollout's own c_k sums), in a
-// second per-thread K^2 table; its (S, nb, 2) operand is read once.
-// With per-scenario maps the scenarios share no cache lines (164 MB of maps at
-// S=4096, of which a tick touches about P^2 * 4 B = 2.3 KB per scenario), so
-// the map reads add DRAM latency to the same dependent chain.
+// J * Npad expf per scenario (4.1 G multiply-adds at S=4096, Npad=10,048, K=10):
+// float32 arithmetic fed from shared memory, bound by the shared-memory pipe
+// (gmm_refresh.cuh). The solve is bound by instruction issue: at S = 4096
+// an SM holds 20 warps (SOLVE_WARPS = 4 a block, 8 measured no faster; ptxas
+// gives k1_solve 96 registers, 32 bytes of stack and no spills, and a warp
+// 6.6 KB of shared memory at K = 10, H = 20: 122 KB a block at the limits
+// K = 16, H = 64 with nb > 0), which hide each other's latencies; what remains is the
+// count of warp instructions a scenario needs: the accurate sinf / cosf of
+// the tables (4 K H + 2 K nb values over 32 lanes), the K^2 (H + nb)
+// multiply-adds of c_k over 32 lanes, and the serial stretches (heading,
+// position and co-state recurrences, the metric's K^2 ordered adds), which
+// one lane runs while 31 idle. k1_safety: 64 registers, no shared memory.
+// k1_refresh: 128 registers, no spills, two blocks an SM.
 //
 // Rounding contract: built with -fmad=false, so each multiply and add rounds
 // on its own as in PyTorch's elementwise ops. The safety stage evaluates the
@@ -74,20 +110,40 @@
 // for bit and only the order of the c_k, metric and gradient sums differs.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "gmm_refresh.cuh"
+#include "launch.cuh"
 
 namespace k1 {
 
 constexpr int KMAX = 16;   // num_basis
 constexpr int HMAX = 64;   // horizon
 constexpr int NUMAX = 4;   // controls
-constexpr int SOLVE_THREADS = 32;
+constexpr int SOLVE_WARPS = 4;  // warps (scenarios) per block of k1_solve / k1_safety
+constexpr int HIST_CHUNK = 32;      // drawn positions whose cos tables are held at a time
+constexpr int SERIES = 18;          // per-step arrays of a warp (see k1_solve)
+constexpr int FIN_THREADS = 128;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float FAR = 1.0e6f;
 constexpr float INFEASIBLE = 1.0e9f;
+
+// floats of scratch a warp of k1_solve needs: the larger of the two gradient
+// contractions (2 H K), the metric terms (K^2) and a chunk of history tables
+__host__ __device__ inline int solve_scratch_floats(int K, int H, int nb) {
+    int n = 2 * H * K > K * K ? 2 * H * K : K * K;
+    if (nb > 0 && 2 * K * HIST_CHUNK > n) n = 2 * K * HIST_CHUNK;
+    return n;
+}
+
+// floats of shared memory one warp (one scenario) of k1_solve uses
+__host__ __device__ inline int solve_warp_floats(int K, int H, int nb) {
+    return K * K * (nb > 0 ? 2 : 1) + 4 * H * K + solve_scratch_floats(K, H, nb) + SERIES * H +
+           NUMAX;
+}
 
 }  // namespace k1
 
@@ -100,6 +156,7 @@ struct K1Params {
     int map_stride;  // floats between two scenarios' maps (0: one shared map)
     int safety;      // 0: k1_solve stops before validation + DWA (fused_solve)
     int nb;          // > 0: hist holds (S, nb, 2) drawn positions, not (S, K^2) sums
+    int nsplit, chunks_per_split;  // lattice splits of the refresh (J > 0)
     float dt, half_dt, dt6, gamma, beta, b_eps, b_weight, b_weight2, o_weight, o_weight_m2;
     float b_radius, d_safe, inv_d_safe, d_min, patch_hi, crop_hi, tw_a, tw_b, inv_a, inv_r;
     float val_dt, dwa_dt, two_pi;
@@ -118,29 +175,42 @@ struct K1Buffers {
     float* u_dwa;
     int* feasible;
     float* phik_buf;
+    float *part_acc, *part_tot;  // (nsplit, S, K^2), (nsplit, S) partial sums of the refresh
 };
 
 // ---------------------------------------------------------------------------
 // refresh
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(RT_THREADS) k1_refresh(K1Params p, K1Buffers b) {
-    extern __shared__ float sm[];
+template <int TILES>
+__global__ void __launch_bounds__(RT_THREADS, TILES == 1 ? RT_MIN_BLOCKS : 1)
+k1_refresh(K1Params p, K1Buffers b) {
+    extern __shared__ __align__(16) float rsm[];
     const int KK = p.K * p.K;
-    const int s0 = blockIdx.x * RT_S;
-    float* accs = sm;                       // RT_S x KK, reuses the staged-table space
-    float* tot = sm + (size_t)RT_N * KK;    // RT_S, reuses the phi space
-    gmm_refresh_tile(s0, p.S, p.J, KK, 0, p.Npad, b.means, b.covs, b.weights, b.pts, b.D,
-                     nullptr, 0, sm, accs, tot);
-    for (int i = threadIdx.x; i < RT_S * KK; i += RT_THREADS) {
-        const int sl = i / KK, k = i % KK, s = s0 + sl;
-        if (s >= p.S) continue;
-        const float t = tot[sl], a = accs[i];
+    const int sp = blockIdx.y;
+    const int n_begin = sp * p.chunks_per_split * RT_N;
+    const int n_end = min(p.Npad, n_begin + p.chunks_per_split * RT_N);
+    gmm_refresh_part<TILES>(blockIdx.x * RT_S, p.S, p.J, KK, n_begin, n_end, b.means, b.covs,
+                            b.weights, b.pts, b.D, nullptr, 0, rsm,
+                            b.part_acc + (size_t)sp * p.S * KK, b.part_tot + (size_t)sp * p.S);
+}
+
+__global__ void __launch_bounds__(FIN_THREADS) k1_finish(K1Params p, K1Buffers b) {
+    const int s = blockIdx.x;
+    const int KK = p.K * p.K;
+    float t = 0.0f, a0 = 0.0f;
+    for (int sp = 0; sp < p.nsplit; ++sp) {
+        t += b.part_tot[(size_t)sp * p.S + s];
+        a0 += b.part_acc[((size_t)sp * p.S + s) * KK];
+    }
+    for (int k = threadIdx.x; k < KK; k += FIN_THREADS) {
+        float a = 0.0f;
+        for (int sp = 0; sp < p.nsplit; ++sp) a += b.part_acc[((size_t)sp * p.S + s) * KK + k];
         float out;
         if (p.masked) {
             // ck = acc / (h00 acc_00): the free-mask fold's normalizer
             const float h00 = sqrtf(b.dlen[s * 2 + 0] * b.dlen[s * 2 + 1]);
-            const float a00 = h00 * accs[sl * KK];
+            const float a00 = h00 * a0;
             const bool ok = (t > 1e-12f) && (a00 / fmaxf(t, 1e-12f) > 1e-12f);
             out = ok ? a / fmaxf(a00, 1e-30f) : b.mask_ck[k];
         } else {
@@ -159,18 +229,6 @@ __device__ __forceinline__ float wrap_angle(float th, float two_pi) {
     float m = fmodf(PI_F - th, two_pi);
     if (m != 0.0f && ((m < 0.0f) != (two_pi < 0.0f))) m += two_pi;
     return PI_F - m;
-}
-
-// cos and sin of k * ang_k for k < K, ang_k = rel * (k * a): the direct
-// tables of ops/basis.py::tables (a = (1 / L) * pi, as PyTorch rounds pi / L)
-__device__ __forceinline__ void basis_row(float rel, float a, int K, float* C, float* Sn) {
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-        if (k >= K) break;
-        const float ang = rel * ((float)k * a);
-        C[k] = cosf(ang);
-        if (Sn) Sn[k] = sinf(ang);
-    }
 }
 
 // h_k = sqrt(Lx Ly c(k1) c(k2)), c(0) = 1, c(k > 0) = 1/2 (ops/basis.py hk_norm)
@@ -237,24 +295,25 @@ __device__ __forceinline__ void model_from_twist(const K1Params& p, float vx, fl
     }
 }
 
-// rows of the model's B (df/du) at heading cos c, sin sn, as models' B() rounds them
-__device__ __forceinline__ void model_B(const K1Params& p, float c, float sn, float* B0,
-                                        float* B1, float* B2) {
+// column i of the model's B (df/du) at heading cos c, sin sn, as models' B() rounds it
+__device__ __forceinline__ void model_B_col(const K1Params& p, float c, float sn, int i, float* b0,
+                                            float* b1, float* b2) {
     if (p.model == 0) {  // cart: (r/2) (cos, sin) per wheel, then -+ r/b
-        B0[0] = B0[1] = p.tw_a * c;
-        B1[0] = B1[1] = p.tw_a * sn;
-        B2[0] = -p.tw_b;
-        B2[1] = p.tw_b;
-    } else {  // omni: c sx - s sy, s sx + c sy, sw with sx = +-r/4 ...
-        const float sx[4] = {1.0f, 1.0f, 1.0f, 1.0f}, sy[4] = {-1.0f, 1.0f, 1.0f, -1.0f},
-                    sw[4] = {-1.0f, 1.0f, -1.0f, 1.0f};
-        for (int i = 0; i < 4; ++i) {
-            const float ax = p.tw_a * sx[i], ay = p.tw_a * sy[i];
-            B0[i] = c * ax - sn * ay;
-            B1[i] = sn * ax + c * ay;
-            B2[i] = p.tw_b * sw[i];
-        }
+        *b0 = p.tw_a * c;
+        *b1 = p.tw_a * sn;
+        *b2 = i == 0 ? -p.tw_b : p.tw_b;
+    } else {  // omni: c sx - s sy, s sx + c sy, sw with sx = r/4, sy, sw = +-
+        const float sy = (i == 0 || i == 3) ? -1.0f : 1.0f, sw = (i == 0 || i == 2) ? -1.0f : 1.0f;
+        const float ax = p.tw_a * 1.0f, ay = p.tw_a * sy;
+        *b0 = c * ax - sn * ay;
+        *b1 = sn * ax + c * ay;
+        *b2 = p.tw_b * sw;
     }
+}
+
+// a[i] of a 4-array held in the parameter block or in registers
+__device__ __forceinline__ float pick4(const float* a, int i) {
+    return i == 0 ? a[0] : (i == 1 ? a[1] : (i == 2 ? a[2] : a[3]));
 }
 
 struct Pose0 {
@@ -301,23 +360,40 @@ __device__ __forceinline__ int pose_code(const Crop& g, float px, float py) {
 // over every candidate and dwa_horizon steps (controller.py::safety)
 // ---------------------------------------------------------------------------
 
+// twist and controls of candidate c = (ia * nvy + ib) * nw + ic: each axis is
+// lo + (hi - lo) * i / (n - 1) over the clipped window, through the model's
+// from_twist and back through twist, as ops/dwa.py rounds them
+__device__ __forceinline__ void dwa_candidate(const K1Params& p, const float* lo, const float* span,
+                                              int c, float* uc, float* rvx, float* rvy,
+                                              float* rw) {
+    const int nax[3] = {p.nvx, p.nvy, p.nw};
+    const int idx[3] = {c / (p.nvy * p.nw), (c / p.nw) % p.nvy, c % p.nw};
+    float tw[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+        tw[a] = nax[a] == 1 ? 0.0f : lo[a] + span[a] * ((float)idx[a] / (float)(nax[a] - 1));
+    model_from_twist(p, tw[0], tw[1], tw[2], uc);
+    model_twist(p, uc, rvx, rvy, rw);
+}
+
+// Called by all 32 lanes of the scenario's warp with the same arguments
+// (u0: the nu controls to validate, zeros beyond nu); lane 0 and lanes < nu
+// write the outputs.
 __device__ __forceinline__ void safety_stage(const K1Params& p, const Crop& g, const Pose0& pose,
-                                             const float* u0, const float* vb3, int* code_out,
-                                             float* u_dwa, int* feasible_out) {
-    const int nu = p.nu;
+                                             const float* u0, const float* vb3, int lane,
+                                             int* code_out, float* u_dwa, int* feasible_out) {
     float vx0, vy0, w0;
     model_twist(p, u0, &vx0, &vy0, &w0);
     int code = 0;
-    for (int t = 1; t <= p.val_horizon; ++t) {
+    for (int t = 1 + lane; t <= p.val_horizon; t += 32) {
         float px, py;
         arc(pose, vx0, vy0, w0, p.val_dt * (float)t, &px, &py);
         code = max(code, pose_code(g, px, py));
     }
-    *code_out = code;
+    for (int o = 16; o > 0; o >>= 1) code = max(code, __shfl_xor_sync(FULL, code, o));
 
-    // candidate axes: lo + (hi - lo) * i / (n - 1) over the clipped window
-    const int nax[3] = {p.nvx, p.nvy, p.nw};
     float lo[3], span[3];
+#pragma unroll
     for (int a = 0; a < 3; ++a) {
         const float vb = vb3[a];
         const float l = fminf(fmaxf(vb - p.acc_dt[a], -p.vel_lim[a]), p.vel_lim[a]);
@@ -325,19 +401,13 @@ __device__ __forceinline__ void safety_stage(const K1Params& p, const Crop& g, c
         lo[a] = l;
         span[a] = h - l;
     }
-    float best = INFINITY, ubest[NUMAX] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int ia = 0; ia < nax[0]; ++ia)
-    for (int ib = 0; ib < nax[1]; ++ib)
-    for (int ic = 0; ic < nax[2]; ++ic) {
-        const int idx[3] = {ia, ib, ic};
-        float tw[3];
-        for (int a = 0; a < 3; ++a)
-            tw[a] = nax[a] == 1 ? 0.0f
-                                : lo[a] + span[a] * ((float)idx[a] / (float)(nax[a] - 1));
-        float uc[NUMAX];
-        model_from_twist(p, tw[0], tw[1], tw[2], uc);
+    const int C = p.nvx * p.nvy * p.nw;
+    float best = INFINITY;
+    int bidx = INT_MAX;
+    for (int c = lane; c < C; c += 32) {
+        float uc[NUMAX] = {0.0f, 0.0f, 0.0f, 0.0f};
         float rvx, rvy, rw;
-        model_twist(p, uc, &rvx, &rvy, &rw);
+        dwa_candidate(p, lo, span, c, uc, &rvx, &rvy, &rw);
         bool crash = false;
         for (int t = 1; t <= p.dwa_horizon && !crash; ++t) {
             float px, py;
@@ -352,35 +422,65 @@ __device__ __forceinline__ void safety_stage(const K1Params& p, const Crop& g, c
             cost = ex * ex + ey * ey + ew * ew;
         } else {
             cost = 0.0f;
-            for (int i = 0; i < nu; ++i) {
-                const float du = uc[i] - u0[i];
-                cost = cost + du * du;
+#pragma unroll
+            for (int i = 0; i < NUMAX; ++i) {
+                if (i < p.nu) {
+                    const float du = uc[i] - u0[i];
+                    cost = cost + du * du;
+                }
             }
         }
-        if (cost < best) {  // strict: the first candidate reaching the minimum wins
+        if (cost < best) {  // strict: the lane's first candidate reaching its minimum
             best = cost;
-            for (int i = 0; i < nu; ++i) ubest[i] = uc[i];
+            bidx = c;
+        }
+    }
+    // the smallest (cost, index) pair: the first candidate reaching the minimum
+    for (int o = 16; o > 0; o >>= 1) {
+        const float ob = __shfl_xor_sync(FULL, best, o);
+        const int oi = __shfl_xor_sync(FULL, bidx, o);
+        if (ob < best || (ob == best && oi < bidx)) {
+            best = ob;
+            bidx = oi;
         }
     }
     const bool feasible = best < INFEASIBLE;
-    for (int i = 0; i < nu; ++i) u_dwa[i] = feasible ? ubest[i] : 0.0f;
-    *feasible_out = feasible ? 1 : 0;
+    if (lane == 0) {
+        *code_out = code;
+        *feasible_out = feasible ? 1 : 0;
+    }
+    if (lane < p.nu) {
+        float uc[NUMAX] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float rvx, rvy, rw;
+        dwa_candidate(p, lo, span, feasible ? bidx : 0, uc, &rvx, &rvy, &rw);
+        u_dwa[lane] = feasible ? pick4(uc, lane) : 0.0f;
+    }
 }
 
 // ---------------------------------------------------------------------------
 // solve
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(SOLVE_THREADS) k1_solve(K1Params p, K1Buffers b) {
+__global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_solve(K1Params p, K1Buffers b) {
     extern __shared__ float sm[];
-    const int tid = threadIdx.x;
-    const int s = blockIdx.x * SOLVE_THREADS + tid;
-    if (s >= p.S) return;
-    const int H = p.H, K = p.K, KK = K * K, nu = p.nu;
-    // per-thread tables, strided by the block so a warp's accesses hit 32 banks
-    auto SH = [&](int i) -> float& { return sm[i * SOLVE_THREADS + tid]; };
-    const int WH = 0, KXo = KK, KYo = KK + H, KTHo = KK + 2 * H, G1o = KK + 3 * H,
-              G2o = KK + 4 * H, HSo = KK + 5 * H;  // HS (K^2) only with nb > 0
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int s = blockIdx.x * SOLVE_WARPS + warp;
+    if (s >= p.S) return;  // a whole warp: the block has no barrier
+    const int H = p.H, K = p.K, KK = K * K, HK = H * K, nu = p.nu;
+
+    // this warp's tables
+    float* WH = sm + (size_t)warp * solve_warp_floats(K, H, p.nb);  // Lambda (c - phi) / h
+    float* HS = WH + KK;                                 // history sums (nb > 0 only)
+    float* CXT = HS + (p.nb > 0 ? KK : 0);               // cos, sin tables of the knots (H, K)
+    float* CYT = CXT + HK;
+    float* SXT = CYT + HK;
+    float* SYT = SXT + HK;
+    float* SCR = SYT + HK;  // history tables, then metric terms, then the contractions
+    float* KX = SCR + solve_scratch_floats(K, H, p.nb);  // SERIES arrays of H
+    float *KY = KX + H, *KTH = KY + H, *CT = KTH + H, *ST = CT + H, *VX = ST + H, *VY = VX + H,
+          *WW = VY + H, *DX = WW + H, *DY = DX + H, *A13 = DY + H, *A23 = A13 + H, *G1 = A23 + H,
+          *G2 = G1 + H, *BV = G2 + H, *R1 = BV + H, *R2 = R1 + H, *R3 = R2 + H;
+    float* U0 = R3 + H;  // NUMAX
 
     const float x0 = b.x[s * 3 + 0], y0 = b.x[s * 3 + 1], th0 = b.x[s * 3 + 2];
     const float dox = b.dorigin[s * 2 + 0], doy = b.dorigin[s * 2 + 1];
@@ -395,104 +495,133 @@ __global__ void __launch_bounds__(SOLVE_THREADS) k1_solve(K1Params p, K1Buffers 
 
     // ---- 1. RK4 rollout: knots x_0 .. x_{H-1} (ops/integrator.py rk4_step
     // on the model's f; k2 == k3 exactly since theta-dot is constant)
-    {
-        float px = x0, py = y0, th = th0;
+    for (int t = lane; t < H; t += 32) model_twist(p, U + t * nu, VX + t, VY + t, WW + t);
+    if (lane < NUMAX) U0[lane] = 0.0f;
+    __syncwarp();
+    if (lane == 0) {  // the heading recurrence
+        float th = th0;
         for (int t = 0; t < H; ++t) {
-            float vx, vy, w;
-            model_twist(p, U + t * nu, &vx, &vy, &w);
-            SH(KXo + t) = px;
-            SH(KYo + t) = py;
-            SH(KTHo + t) = th;
-            const float c1 = cosf(th), s1 = sinf(th);
-            const float a2 = th + p.half_dt * w, a4 = th + p.dt * w;
-            const float c2 = cosf(a2), s2 = sinf(a2), c4 = cosf(a4), s4 = sinf(a4);
-            const float d1x = vx * c1 - vy * s1, d1y = vx * s1 + vy * c1;
-            const float d2x = vx * c2 - vy * s2, d2y = vx * s2 + vy * c2;
-            const float d4x = vx * c4 - vy * s4, d4y = vx * s4 + vy * c4;
-            px = px + p.dt6 * (d1x + 2.0f * d2x + 2.0f * d2x + d4x);
-            py = py + p.dt6 * (d1y + 2.0f * d2y + 2.0f * d2y + d4y);
+            const float w = WW[t];
+            KTH[t] = th;
             th = wrap_angle(th + p.dt6 * (w + 2.0f * w + 2.0f * w + w), p.two_pi);
         }
     }
-
-    // ---- 2-3. c_k over [history || rollout], metric, Wh = Lambda (c - phi) / h
-    const float ax = (1.0f / Lx) * PI_F, ay = (1.0f / Ly) * PI_F;
-    const float area = Lx * Ly;
-    const float M = b.nh[s] + (float)H;
-    float Cx[KMAX], Sx[KMAX], Cy[KMAX], Sy[KMAX];
-    for (int k = 0; k < KK; ++k) SH(WH + k) = 0.0f;
-    for (int t = 0; t < H; ++t) {
-        basis_row(SH(KXo + t) - dox, ax, K, Cx, nullptr);
-        basis_row(SH(KYo + t) - doy, ay, K, Cy, nullptr);
-#pragma unroll
-        for (int k1 = 0; k1 < KMAX; ++k1) {
-            if (k1 >= K) break;
-#pragma unroll
-            for (int k2 = 0; k2 < KMAX; ++k2) {
-                if (k2 >= K) break;
-                SH(WH + k1 * K + k2) += Cx[k1] * Cy[k2];
-            }
+    __syncwarp();
+    for (int t = lane; t < H; t += 32) {  // the stages' sin/cos and the position increments
+        const float th = KTH[t], vx = VX[t], vy = VY[t], w = WW[t];
+        const float c1 = cosf(th), s1 = sinf(th);
+        const float a2 = th + p.half_dt * w, a4 = th + p.dt * w;
+        const float c2 = cosf(a2), s2 = sinf(a2), c4 = cosf(a4), s4 = sinf(a4);
+        const float d1x = vx * c1 - vy * s1, d1y = vx * s1 + vy * c1;
+        const float d2x = vx * c2 - vy * s2, d2y = vx * s2 + vy * c2;
+        const float d4x = vx * c4 - vy * s4, d4y = vx * s4 + vy * c4;
+        DX[t] = p.dt6 * (d1x + 2.0f * d2x + 2.0f * d2x + d4x);
+        DY[t] = p.dt6 * (d1y + 2.0f * d2y + 2.0f * d2y + d4y);
+        CT[t] = c1;
+        ST[t] = s1;
+        A13[t] = -vx * s1 - vy * c1;  // the model's A^T rows at the knot (co-state)
+        A23[t] = vx * c1 - vy * s1;
+    }
+    __syncwarp();
+    if (lane == 0) {  // the position recurrence
+        float px = x0, py = y0;
+        for (int t = 0; t < H; ++t) {
+            KX[t] = px;
+            KY[t] = py;
+            px = px + DX[t];
+            py = py + DY[t];
         }
+    }
+    __syncwarp();
+
+    // ---- 2. cos / sin tables of the knots: cos(rel * (k * a)), the direct
+    // tables of ops/basis.py::tables (a = (1 / L) * pi, as PyTorch rounds pi / L)
+    const float ax = (1.0f / Lx) * PI_F, ay = (1.0f / Ly) * PI_F;
+    for (int i = lane; i < HK; i += 32) {
+        const int t = i / K, k = i - t * K;
+        const float angx = (KX[t] - dox) * ((float)k * ax);
+        const float angy = (KY[t] - doy) * ((float)k * ay);
+        CXT[i] = cosf(angx);
+        SXT[i] = sinf(angx);
+        CYT[i] = cosf(angy);
+        SYT[i] = sinf(angy);
     }
     // history term from the nb drawn positions (controller.py
     // drawn_history_sums): sum_j (cos_x[j, k1] w) cos_y[j, k2], w = 0 for an
-    // empty buffer, divided by h_k below
+    // empty buffer, divided by h_k below; HIST_CHUNK positions' tables at a time
     if (p.nb > 0) {
-        const float w = b.nh[s] > 0.0f ? 1.0f : 0.0f;
-        for (int k = 0; k < KK; ++k) SH(HSo + k) = 0.0f;
-        for (int j = 0; j < p.nb; ++j) {
-            basis_row(hist[2 * j + 0] - dox, ax, K, Cx, nullptr);
-            basis_row(hist[2 * j + 1] - doy, ay, K, Cy, nullptr);
-#pragma unroll
-            for (int k1 = 0; k1 < KMAX; ++k1) {
-                if (k1 >= K) break;
-                const float cw = Cx[k1] * w;
-#pragma unroll
-                for (int k2 = 0; k2 < KMAX; ++k2) {
-                    if (k2 >= K) break;
-                    SH(HSo + k1 * K + k2) += cw * Cy[k2];
-                }
+        const float wgt = b.nh[s] > 0.0f ? 1.0f : 0.0f;
+        float* HCX = SCR;
+        float* HCY = SCR + K * HIST_CHUNK;
+        for (int k = lane; k < KK; k += 32) HS[k] = 0.0f;
+        for (int j0 = 0; j0 < p.nb; j0 += HIST_CHUNK) {
+            const int cnt = min(HIST_CHUNK, p.nb - j0);
+            for (int i = lane; i < cnt * K; i += 32) {
+                const int j = i / K, k = i - j * K;
+                HCX[i] = cosf((hist[2 * (j0 + j) + 0] - dox) * ((float)k * ax));
+                HCY[i] = cosf((hist[2 * (j0 + j) + 1] - doy) * ((float)k * ay));
             }
+            __syncwarp();
+            for (int k = lane; k < KK; k += 32) {
+                const int k1 = k / K, k2 = k - k1 * K;
+                float acc = HS[k];
+                for (int j = 0; j < cnt; ++j) acc = acc + (HCX[j * K + k1] * wgt) * HCY[j * K + k2];
+                HS[k] = acc;
+            }
+            __syncwarp();
         }
     }
-    float metric = 0.0f;
-    for (int k1 = 0; k1 < K; ++k1) {
-        for (int k2 = 0; k2 < K; ++k2) {
-            const int k = k1 * K + k2;
-            const float hk = hk_norm(area, k1, k2);
-            const float lam = powf(1.0f + (float)(k1 * k1) + (float)(k2 * k2), -1.5f);
-            const float hs = p.nb > 0 ? SH(HSo + k) / hk : hist[k];
-            const float ck = (hs + SH(WH + k) / hk) / M;
-            const float dkk = ck - phik[k];
-            metric = metric + lam * dkk * dkk;
-            SH(WH + k) = lam * dkk / hk;
-        }
+    __syncwarp();
+
+    // ---- 3. c_k over [history || rollout], metric terms, Wh = Lambda (c - phi) / h,
+    // and the running basis-sum append at the current pose (knot 0)
+    const float area = Lx * Ly;
+    const float M = b.nh[s] + (float)H;
+    for (int k = lane; k < KK; k += 32) {
+        const int k1 = k / K, k2 = k - k1 * K;
+        float acc = 0.0f;
+        for (int t = 0; t < H; ++t) acc = acc + CXT[t * K + k1] * CYT[t * K + k2];
+        const float hk = hk_norm(area, k1, k2);
+        const float lam = powf(1.0f + (float)(k1 * k1) + (float)(k2 * k2), -1.5f);
+        const float hs = p.nb > 0 ? HS[k] / hk : hist[k];
+        const float ck = (hs + acc / hk) / M;
+        const float dkk = ck - phik[k];
+        SCR[k] = lam * dkk * dkk;
+        WH[k] = lam * dkk / hk;
+        b.ck_out[(size_t)s * KK + k] = b.cks[(size_t)s * KK + k] + CXT[k1] * CYT[k2] / hk;
     }
-    b.metric[s] = metric;
+    __syncwarp();
+    if (lane == 0) {  // the metric: the terms in ascending k
+        float metric = 0.0f;
+        for (int k = 0; k < KK; ++k) metric = metric + SCR[k];
+        b.metric[s] = metric;
+    }
+    __syncwarp();
 
     // ---- 4-5. ergodic gradient + barrier at each knot
+    float* P1 = SCR;       // (Cy @ Wh^T)[t, k1]
+    float* P2 = SCR + HK;  // (Cx @ Wh)[t, k1]
+    for (int i = lane; i < HK; i += 32) {
+        const int t = i / K, k1 = i - t * K;
+        float p1 = 0.0f, p2 = 0.0f;
+        for (int k2 = 0; k2 < K; ++k2) {
+            p1 = p1 + CYT[t * K + k2] * WH[k1 * K + k2];
+            p2 = p2 + CXT[t * K + k2] * WH[k2 * K + k1];
+        }
+        P1[i] = p1;
+        P2[i] = p2;
+    }
+    __syncwarp();
     const float lox = dox + p.b_eps, hix = dox + Lx - p.b_eps;
     const float loy = doy + p.b_eps, hiy = doy + Ly - p.b_eps;
     const float sxf = (float)map.sx, syf = (float)map.sy;
     const float scale = (1.0f / M) * 2.0f;
-    float bsum = 0.0f;
-    for (int t = 0; t < H; ++t) {
-        const float kx = SH(KXo + t), ky = SH(KYo + t);
-        basis_row(kx - dox, ax, K, Cx, Sx);
-        basis_row(ky - doy, ay, K, Cy, Sy);
+    for (int t = lane; t < H; t += 32) {
+        const float kx = KX[t], ky = KY[t];
         float ex = 0.0f, ey = 0.0f;
-#pragma unroll
-        for (int k1 = 0; k1 < KMAX; ++k1) {
-            if (k1 >= K) break;
-            float p1 = 0.0f, p2 = 0.0f;
-#pragma unroll
-            for (int k2 = 0; k2 < KMAX; ++k2) {
-                if (k2 >= K) break;
-                p1 = p1 + Cy[k2] * SH(WH + k1 * K + k2);  // (Cy @ Wh^T)[k1]
-                p2 = p2 + Cx[k2] * SH(WH + k2 * K + k1);  // (Cx @ Wh)[k1]
-            }
-            ex = ex + Sx[k1] * ((float)k1 * ax) * p1;
-            ey = ey + Sy[k1] * ((float)k1 * ay) * p2;
+        for (int k1 = 0; k1 < K; ++k1) {
+            ex = ex + SXT[t * K + k1] * ((float)k1 * ax) * P1[t * K + k1];
+            ey = ey + SYT[t * K + k1] * ((float)k1 * ay) * P2[t * K + k1];
         }
         ex = -scale * ex;
         ey = -scale * ey;
@@ -529,60 +658,49 @@ __global__ void __launch_bounds__(SOLVE_THREADS) k1_solve(K1Params p, K1Buffers 
             bgx = bgx + dvdd * gvx;
             bgy = bgy + dvdd * gvy;
         }
-        bsum = bsum + bval;
-        SH(G1o + t) = p.gamma * ex + p.beta * bgx;
-        SH(G2o + t) = p.gamma * ey + p.beta * bgy;
+        BV[t] = bval;
+        G1[t] = p.gamma * ex + p.beta * bgx;
+        G2[t] = p.gamma * ey + p.beta * bgy;
     }
-    b.bcost[s] = bsum / (float)H;
+    __syncwarp();
 
     // ---- 6. backward co-state (ops/integrator.py costate_rk4_step with the
     // model's A: A^T rho = (0, 0, a13 r1 + a23 r2), so k1 = k2 = k3 = k4 = g
     // for r1, r2 and k2 == k3 for r3) + u = clip(-(B^T rho) / r)
-    float u0[NUMAX] = {0.0f, 0.0f, 0.0f, 0.0f};
-    {
+    if (lane == 0) {
+        float bsum = 0.0f;
+        for (int t = 0; t < H; ++t) bsum = bsum + BV[t];
+        b.bcost[s] = bsum / (float)H;
         float r1 = 0.0f, r2 = 0.0f, r3 = 0.0f;
-        float* Un = b.U_new + (size_t)s * H * nu;
         for (int t = H - 1; t >= 0; --t) {
-            float vx, vy, w;
-            model_twist(p, U + t * nu, &vx, &vy, &w);
-            const float th = SH(KTHo + t);
-            const float c = cosf(th), sn = sinf(th);
-            const float a13 = -vx * sn - vy * c;
-            const float a23 = vx * c - vy * sn;
-            const float j1 = SH(G1o + t), j2 = SH(G2o + t);
+            const float a13 = A13[t], a23 = A23[t];
+            const float j1 = G1[t], j2 = G2[t];
             const float k1 = a13 * r1 + a23 * r2;
             const float k2 = a13 * (r1 + p.half_dt * j1) + a23 * (r2 + p.half_dt * j2);
             const float k4 = a13 * (r1 + p.dt * j1) + a23 * (r2 + p.dt * j2);
             r1 = r1 + p.dt6 * (j1 + 2.0f * j1 + 2.0f * j1 + j1);
             r2 = r2 + p.dt6 * (j2 + 2.0f * j2 + 2.0f * j2 + j2);
             r3 = r3 + p.dt6 * (k1 + 2.0f * k2 + 2.0f * k2 + k4);
-            float B0[NUMAX], B1[NUMAX], B2[NUMAX];
-            model_B(p, c, sn, B0, B1, B2);
-            for (int i = 0; i < nu; ++i) {
-                const float bt = B0[i] * r1 + B1[i] * r2 + B2[i] * r3;
-                const float un = fminf(fmaxf(-bt * p.r_inv[i], p.u_min[i]), p.u_max[i]);
-                Un[t * nu + i] = un;
-                if (t == 0) u0[i] = un;
-            }
+            R1[t] = r1;
+            R2[t] = r2;
+            R3[t] = r3;
         }
     }
-
-    // ---- 7. running basis-sum append at the current pose
-    basis_row(x0 - dox, ax, K, Cx, nullptr);
-    basis_row(y0 - doy, ay, K, Cy, nullptr);
-#pragma unroll
-    for (int k1 = 0; k1 < KMAX; ++k1) {
-        if (k1 >= K) break;
-#pragma unroll
-        for (int k2 = 0; k2 < KMAX; ++k2) {
-            if (k2 >= K) break;
-            const int k = k1 * K + k2;
-            b.ck_out[(size_t)s * KK + k] =
-                b.cks[(size_t)s * KK + k] + Cx[k1] * Cy[k2] / hk_norm(area, k1, k2);
-        }
+    __syncwarp();
+    float* Un = b.U_new + (size_t)s * H * nu;
+    for (int i = lane; i < H * nu; i += 32) {
+        const int t = i / nu, c = i - t * nu;
+        float b0, b1, b2;
+        model_B_col(p, CT[t], ST[t], c, &b0, &b1, &b2);
+        const float bt = b0 * R1[t] + b1 * R2[t] + b2 * R3[t];
+        const float un = fminf(fmaxf(-bt * pick4(p.r_inv, c), pick4(p.u_min, c)),
+                               pick4(p.u_max, c));
+        Un[i] = un;
+        if (t == 0) U0[c] = un;
     }
+    __syncwarp();
 
-    // ---- 8. safety: validate u0, then the DWA sweep, on the central crop
+    // ---- 7. safety: validate u0, then the DWA sweep, on the central crop
     if (!p.safety) return;
     const int o = (p.P - p.Pc) / 2;
     Crop g;
@@ -592,7 +710,8 @@ __global__ void __launch_bounds__(SOLVE_THREADS) k1_solve(K1Params p, K1Buffers 
     g.pox = pox; g.poy = poy; g.res = res; g.dox = dox; g.doy = doy; g.Lx = Lx; g.Ly = Ly;
     g.hi = p.crop_hi; g.b_radius = p.b_radius; g.d_safe = p.d_safe;
     const Pose0 pose{x0, y0, cosf(th0), sinf(th0)};
-    safety_stage(p, g, pose, u0, b.vb + s * 3, b.code + s, b.u_dwa + (size_t)s * nu,
+    const float u0[NUMAX] = {U0[0], U0[1], U0[2], U0[3]};
+    safety_stage(p, g, pose, u0, b.vb + s * 3, lane, b.code + s, b.u_dwa + (size_t)s * nu,
                  b.feasible + s);
 }
 
@@ -602,9 +721,10 @@ __global__ void __launch_bounds__(SOLVE_THREADS) k1_solve(K1Params p, K1Buffers 
 
 // Operands in K1Buffers: x, vb (S, 3); U holds u0 (S, nu); dist holds the
 // crops (S, Pc, Pc); pstart (S, 2) is the global cell of crop cell (0, 0).
-__global__ void __launch_bounds__(SOLVE_THREADS) k1_safety(K1Params p, K1Buffers b) {
-    const int s = blockIdx.x * SOLVE_THREADS + threadIdx.x;
-    if (s >= p.S) return;
+__global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_safety(K1Params p, K1Buffers b) {
+    const int lane = threadIdx.x & 31;
+    const int s = blockIdx.x * SOLVE_WARPS + (threadIdx.x >> 5);
+    if (s >= p.S) return;  // a whole warp
     const int nu = p.nu;
     Crop g;
     g.m = MapView{b.dist + (size_t)s * p.Pc * p.Pc, p.Pc, p.Pc, 0, 0};
@@ -617,24 +737,30 @@ __global__ void __launch_bounds__(SOLVE_THREADS) k1_safety(K1Params p, K1Buffers
     const float th0 = b.x[s * 3 + 2];
     const Pose0 pose{b.x[s * 3 + 0], b.x[s * 3 + 1], cosf(th0), sinf(th0)};
     float u0[NUMAX] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int i = 0; i < nu; ++i) u0[i] = b.U[(size_t)s * nu + i];
-    safety_stage(p, g, pose, u0, b.vb + s * 3, b.code + s, b.u_dwa + (size_t)s * nu,
+#pragma unroll
+    for (int i = 0; i < NUMAX; ++i)
+        if (i < nu) u0[i] = b.U[(size_t)s * nu + i];
+    safety_stage(p, g, pose, u0, b.vb + s * 3, lane, b.code + s, b.u_dwa + (size_t)s * nu,
                  b.feasible + s);
 }
 
 // ---------------------------------------------------------------------------
-// entry point
+// entry points
 // ---------------------------------------------------------------------------
 
-static cudaError_t launch(const void* fn, dim3 grid, dim3 block, size_t smem, cudaStream_t st,
-                          K1Params* p, K1Buffers* b) {
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
-        if (e != cudaSuccess) return e;
-    }
-    void* args[] = {p, b};
-    return cudaLaunchKernel(fn, grid, block, args, smem, st);
+// k1_refresh + k1_finish for p.S scenarios: phik_buf (S, K^2) from the mixtures.
+static cudaError_t launch_refresh(K1Params& p, K1Buffers& b, cudaStream_t st) {
+    const int KK = p.K * p.K;
+    if (p.K > KMAX || refresh_tiles(KK) > 2 || p.J < 1 || p.Npad % RT_N || p.nsplit < 1 ||
+        p.nsplit > 65535 ||
+        p.nsplit * p.chunks_per_split * RT_N < p.Npad)
+        return cudaErrorInvalidValue;
+    const size_t smem = refresh_smem_floats(KK, p.J) * sizeof(float);
+    const dim3 grid((p.S + RT_S - 1) / RT_S, p.nsplit);
+    cudaError_t e = launch_kernel(refresh_tiles(KK) == 1 ? k1_refresh<1> : k1_refresh<2>, grid,
+                                  dim3(RT_THREADS), smem, st, p, b);
+    if (e != cudaSuccess) return e;
+    return launch_kernel(k1_finish, dim3(p.S), dim3(FIN_THREADS), 0, st, p, b);
 }
 
 // Launch K1 for p->S scenarios on `stream` (fused_solve_safety, or fused_solve
@@ -649,15 +775,24 @@ extern "C" int k1_fused_solve_safety(const K1Params* params, const K1Buffers* bu
     if (p.K > KMAX || p.H > HMAX || p.nu > NUMAX || p.nb < 0) return (int)cudaErrorInvalidValue;
     cudaError_t e;
     if (p.J > 0) {
-        const size_t smem = refresh_smem_floats(p.K * p.K, p.J) * sizeof(float);
-        e = launch((const void*)k1_refresh, dim3((p.S + RT_S - 1) / RT_S), dim3(RT_THREADS),
-                   smem, st, &p, &b);
+        e = launch_refresh(p, b, st);
         if (e != cudaSuccess) return (int)e;
     }
-    const size_t smem = (size_t)(p.K * p.K * (p.nb > 0 ? 2 : 1) + 5 * p.H) * SOLVE_THREADS *
-                        sizeof(float);
-    e = launch((const void*)k1_solve, dim3((p.S + SOLVE_THREADS - 1) / SOLVE_THREADS),
-               dim3(SOLVE_THREADS), smem, st, &p, &b);
+    const size_t smem = (size_t)SOLVE_WARPS * solve_warp_floats(p.K, p.H, p.nb) * sizeof(float);
+    e = launch_kernel(k1_solve, dim3((p.S + SOLVE_WARPS - 1) / SOLVE_WARPS),
+                      dim3(32 * SOLVE_WARPS), smem, st, p, b);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// Launch the refresh alone (k1_refresh + k1_finish): phik_buf (S, K^2) from
+// the mixtures, for timing and checking it apart from k1_solve. Returns the
+// CUDA error code (0 on success). Does not synchronize.
+extern "C" int k1_refresh_phik(const K1Params* params, const K1Buffers* buffers, void* stream) {
+    K1Params p = *params;
+    K1Buffers b = *buffers;
+    if (p.S <= 0) return 0;
+    cudaError_t e = launch_refresh(p, b, (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
@@ -669,9 +804,8 @@ extern "C" int k1_fused_safety(const K1Params* params, const K1Buffers* buffers,
     K1Buffers b = *buffers;
     if (p.S <= 0) return 0;
     if (p.nu > NUMAX || p.Pc < 1) return (int)cudaErrorInvalidValue;
-    cudaError_t e = launch((const void*)k1_safety,
-                           dim3((p.S + SOLVE_THREADS - 1) / SOLVE_THREADS),
-                           dim3(SOLVE_THREADS), 0, (cudaStream_t)stream, &p, &b);
+    cudaError_t e = launch_kernel(k1_safety, dim3((p.S + SOLVE_WARPS - 1) / SOLVE_WARPS),
+                                  dim3(32 * SOLVE_WARPS), 0, (cudaStream_t)stream, p, b);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

@@ -33,12 +33,11 @@ from typing import Optional
 import torch
 
 from ergodic_exploration_tpu_torch.ops.solve_kernel import (
-    LATTICE_CHUNK, _check_operands, _on_cpu, pad_lattice)
+    LATTICE_CHUNK, _check_operands, _on_cpu, _require_cuda, _sm_count, _stream_of, lattice_split,
+    pad_lattice)
 from ergodic_exploration_tpu_torch.ops.target import GaussianMixture, gmm_eval
 
-TILE_S = 32  # scenarios per block (RT_S in csrc/gmm_refresh.cuh)
 KK_MAX = 256  # K^2 the register tiles of the kernel cover
-WAVES = 2  # lattice splits are chosen so that the grid holds >= WAVES blocks per SM
 
 
 def phik_from_gmm_plain(means, covs, weights, pts, D, free_mask=None) -> torch.Tensor:
@@ -73,17 +72,6 @@ class _Buffers(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
 
 
-def lattice_split(S: int, n_chunks: int, sm_count: int):
-    """(number of lattice splits, chunks per split) of K2's grid: enough
-    splits that ceil(S / TILE_S) * splits blocks cover the card WAVES times
-    (one scenario would otherwise be one block walking every chunk), never
-    more than one split per chunk."""
-    tiles = -(-S // TILE_S)
-    want = max(1, min(n_chunks, -(-WAVES * sm_count // tiles)))
-    per = -(-n_chunks // want)
-    return -(-n_chunks // per), per
-
-
 class PhikFromGmm:
     """The K2 wrapper: builds ``csrc/gmm_kernel.cu`` on first use and counts
     its launches per variant (``launches[variant]`` grows by one per launch
@@ -112,8 +100,7 @@ class PhikFromGmm:
 
     def __call__(self, means, covs, weights, pts, D, free_mask=None) -> torch.Tensor:
         dev = means.device
-        if dev.type != "cuda":
-            raise ValueError(f"the K2 kernel takes CUDA tensors, got {dev}")
+        _require_cuda(dev, "K2 kernel")
         S, J = weights.shape
         N, KK = D.shape
         if KK > KK_MAX or J < 1:
@@ -127,16 +114,15 @@ class PhikFromGmm:
         # the mask is not padded: the kernel treats points >= N as masked out
         ops["pts"], ops["D"] = pad_lattice(pts, D)
         Npad = ops["pts"].shape[0]
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        nsplit, per = lattice_split(S, Npad // LATTICE_CHUNK, sms)
+        nsplit, per = lattice_split(S, Npad // LATTICE_CHUNK, _sm_count(dev))
         out = torch.empty((S, KK), dtype=torch.float32, device=dev)
         ops.update(part_acc=torch.empty((nsplit, S, KK), dtype=torch.float32, device=dev),
                    part_tot=torch.empty((nsplit, S), dtype=torch.float32, device=dev), out=out)
         params = _Params(S=S, J=J, KK=KK, Npad=Npad, n_real=N, nsplit=nsplit,
                          chunks_per_split=per, masked=int(free_mask is not None))
         bufs = _Buffers(**{n: t.data_ptr() for n, t in ops.items()})
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = self.build().lib.k2_phik_from_gmm(ctypes.byref(params), ctypes.byref(bufs), stream)
+        err = self.build().lib.k2_phik_from_gmm(ctypes.byref(params), ctypes.byref(bufs),
+                                                _stream_of(dev))
         variant = "phik_from_gmm_masked" if free_mask is not None else "phik_from_gmm"
         if err != 0:
             raise RuntimeError(f"K2 {variant} launch failed: CUDA error {err}")

@@ -19,28 +19,34 @@ once per (grid geometry, domain, K, lattice).
 
 The CUDA source is ``csrc/mi_kernel.cu`` (its header says what bounds it on
 an H100 and what the design does about that): one block per scenario, the
-whole pipeline in shared memory. Beside it lives the plain PyTorch version,
+whole pipeline in shared memory; a map too large for one block is cut into
+row bands with a halo (:func:`band_plan`), one block per band, and a
+finishing kernel adds the bands' partial contractions in order. Beside it
+lives the plain PyTorch version,
 :func:`phik_from_grid_plain`, with the same inputs and outputs; the CPU tests
 run it, ``chip_smoke.py`` holds the kernel against it on the card.
 
 Dispatch: :func:`phik_from_grid` takes the plain version only for tensors
 that lie on the CPU. For CUDA tensors it launches the kernel or raises; there
 is no fallback. ``K3.launches`` counts the launches with and without the
-frontier mask.
+frontier mask, whole-map and row-band form apart.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from functools import lru_cache
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ergodic_exploration_tpu_torch.ops import basis
 from ergodic_exploration_tpu_torch.ops import target as target_ops
-from ergodic_exploration_tpu_torch.ops.solve_kernel import _check_operands, _on_cpu
+from ergodic_exploration_tpu_torch.ops.solve_kernel import (
+    _check_operands, _on_cpu, _require_cuda, _stream_of)
 
 MAX_SMEM = 232448  # dynamic shared memory one block can have on sm_90 (227 KB)
+PAIR_SMEM = 115712  # what each of two blocks on one SM can have (228 KB, 1 KB reserved a block)
 
 
 class MiOperands(NamedTuple):
@@ -106,11 +112,11 @@ def phik_from_grid_plain(data, ops: MiOperands, sensor_radius_cells: int = 0,
 class _Params(ctypes.Structure):
     """Mirror of ``struct K3Params`` in csrc/mi_kernel.cu."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("S", "h", "w", "K", "r", "fc")] + [
+    _fields_ = [(n, ctypes.c_int) for n in ("S", "h", "w", "K", "r", "fc", "bh", "n_bands")] + [
         (n, ctypes.c_float) for n in ("thr", "eps")]
 
 
-_BUFFERS = ("data", "cxA", "cyA", "fallback", "hk00", "out")
+_BUFFERS = ("data", "cxA", "cyA", "fallback", "hk00", "out", "part")
 
 
 class _Buffers(ctypes.Structure):
@@ -119,18 +125,49 @@ class _Buffers(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
 
 
-def smem_bytes(h: int, w: int, K: int) -> int:
-    """Dynamic shared memory of one block (``k3_smem_bytes`` in the source):
-    two float planes, the two tables, two byte planes."""
-    return 4 * (2 * h * w + w * K + K * h) + 2 * h * w
+def smem_bytes(rows: int, w: int, K: int, band_rows: int = None) -> int:
+    """Dynamic shared memory of a block that holds ``rows`` rows of a w-wide
+    map and contracts ``band_rows`` of them (all of them when None: the whole
+    map); ``k3_smem_bytes`` in the source: two float planes, the two tables,
+    two byte planes."""
+    bh = rows if band_rows is None else band_rows
+    return 4 * (2 * rows * w + w * K + K * bh) + 2 * rows * w
+
+
+@lru_cache(maxsize=None)
+def band_plan(h: int, w: int, K: int, r: int, fc: int,
+              max_smem: int = MAX_SMEM) -> Tuple[int, int]:
+    """(band height, number of bands) of K3's launch for an (h, w) map:
+    ``(h, 0)`` when the whole map fits one block (the single launch), else
+    row bands of equal height (the last may be shorter) that cover [0, h)
+    once. A band's block holds its rows and a halo of max(r, fc) rows on each
+    side. Bands are sized so that two blocks share an SM unless the halo
+    would then be over half of a band; raises ``ValueError`` when not even
+    one row with its halo fits ``max_smem``."""
+    if smem_bytes(h, w, K) <= max_smem:
+        return h, 0
+    m = max(r, fc)
+    for limit in (min(PAIR_SMEM, max_smem), max_smem):
+        # bytes of a band: 10 w (bh + 2 m) + 4 w K + 4 K bh  <=  limit
+        bh = min(h, (limit - 20 * m * w - 4 * w * K) // (10 * w + 4 * K))
+        if bh >= max(1, 4 * m) or (limit == max_smem and bh >= 1):
+            n_bands = -(-h // bh)
+            return -(-h // n_bands), n_bands
+    raise ValueError(
+        f"K3 keeps a row band of the ({h}, {w}) map with a halo of max(r, fc) = {m} rows on "
+        f"each side in a block's shared memory: one row needs "
+        f"{smem_bytes(min(h, 1 + 2 * m), w, K, 1)} bytes, over the {max_smem}-byte limit of a "
+        f"block on this architecture")
 
 
 class PhikFromGrid:
     """The K3 wrapper: builds ``csrc/mi_kernel.cu`` on first use and counts
     its launches per variant (``launches[variant]`` grows by one per launch
-    of that variant, nowhere else)."""
+    of that variant, nowhere else; the row-band form counts under the
+    variant's name with ``_banded`` appended)."""
 
-    VARIANTS = ("phik_from_grid_fc", "phik_from_grid_nofc")
+    VARIANTS = ("phik_from_grid_fc", "phik_from_grid_nofc", "phik_from_grid_fc_banded",
+                "phik_from_grid_nofc_banded")
 
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
@@ -163,24 +200,21 @@ class PhikFromGrid:
         if not 1 <= K <= min(h, w) or r < 0 or not 0 <= fc <= 127:
             raise ValueError(f"K3 supports 1 <= K <= min(h, w), r >= 0 and 0 <= fc <= 127, got "
                              f"K={K}, (h, w)=({h}, {w}), r={r}, fc={fc}")
-        need = smem_bytes(h, w, K)
-        if need > MAX_SMEM:
-            raise ValueError(
-                f"K3 keeps one ({h}, {w}) map in a block's shared memory: {need} bytes, over "
-                f"the {MAX_SMEM}-byte limit of a block on this architecture")
+        bh, n_bands = band_plan(h, w, K, r, fc)
         tensors = dict(data=data, cxA=ops.cxA, cyA=ops.cyA, fallback=ops.fallback,
                        hk00=ops.hk00)
         _check_operands("K3", tensors, dict(data=(S, h, w), cxA=(w, K), cyA=(K, h),
                                             fallback=(K, K), hk00=(1,)), dev)
-        if dev.type != "cuda":
-            raise ValueError(f"the K3 kernel takes CUDA tensors, got {dev}")
+        _require_cuda(dev, "K3 kernel")
         tensors["out"] = out = torch.empty((S, K, K), dtype=torch.float32, device=dev)
-        params = _Params(S=S, h=h, w=w, K=K, r=r, fc=fc, thr=occupied_threshold, eps=eps)
+        tensors["part"] = torch.empty((S, n_bands, K, K), dtype=torch.float32, device=dev)
+        params = _Params(S=S, h=h, w=w, K=K, r=r, fc=fc, bh=bh, n_bands=n_bands,
+                         thr=occupied_threshold, eps=eps)
         bufs = _Buffers(**{n: t.data_ptr() for n, t in tensors.items()})
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = self.build().lib.k3_phik_from_grid(ctypes.byref(params), ctypes.byref(bufs),
-                                                 stream)
-        variant = "phik_from_grid_fc" if fc > 0 else "phik_from_grid_nofc"
+                                                 _stream_of(dev))
+        variant = ("phik_from_grid_fc" if fc > 0 else "phik_from_grid_nofc") + (
+            "_banded" if n_bands else "")
         if err != 0:
             raise RuntimeError(f"K3 {variant} launch failed: CUDA error {err}")
         self.launches[variant] += 1

@@ -53,6 +53,9 @@ from ergodic_exploration_tpu_torch.utils import prng
 
 KMAX, HMAX, NUMAX = 16, 64, 4  # static bounds of the CUDA kernel
 LATTICE_CHUNK = 64  # lattice points per refresh step; N is padded to it
+TILE_S = 64  # scenarios per block of the refresh (RT_S in csrc/gmm_refresh.cuh)
+BLOCKS_PER_SM = 2  # blocks of the refresh that share an SM (its registers and shared memory)
+MAX_RUN = 32  # most chunks one block of the refresh adds up before its sums go to scratch
 PAD_POINT = 1.0e6  # pad points sit far away: phi underflows to exactly 0
 
 
@@ -271,7 +274,7 @@ class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "H", "K", "nu", "P", "Pc", "J", "Npad", "map_h", "map_w", "masked", "model",
         "cost_twist", "val_horizon", "dwa_horizon", "nvx", "nvy", "nw", "map_stride",
-        "safety", "nb")] + [
+        "safety", "nb", "nsplit", "chunks_per_split")] + [
         (n, ctypes.c_float) for n in (
             "dt", "half_dt", "dt6", "gamma", "beta", "b_eps", "b_weight", "b_weight2",
             "o_weight", "o_weight_m2", "b_radius", "d_safe", "inv_d_safe", "d_min",
@@ -282,7 +285,8 @@ class _Params(ctypes.Structure):
 
 _BUFFERS = ("x", "U", "hist", "nh", "phik", "means", "covs", "weights", "pts", "D",
             "mask_ck", "dist", "pstart", "porigin", "pres", "dorigin", "dlen", "cks", "vb",
-            "U_new", "metric", "bcost", "ck_out", "code", "u_dwa", "feasible", "phik_buf")
+            "U_new", "metric", "bcost", "ck_out", "code", "u_dwa", "feasible", "phik_buf",
+            "part_acc", "part_tot")
 
 
 class _Buffers(ctypes.Structure):
@@ -291,8 +295,25 @@ class _Buffers(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
 
 
+def lattice_split(S: int, n_chunks: int, sm_count: int):
+    """(number of lattice splits, chunks per split) of the refresh's grid, for
+    K1's refresh and for K2. The grid is ceil(S / TILE_S) scenario tiles x
+    splits blocks, of which BLOCKS_PER_SM * sm_count run at a time: the
+    splits fill whole rounds of those (one scenario would otherwise be one
+    block walking every chunk, and a round that is partly filled costs a whole
+    one), with at most MAX_RUN chunks a split and one split per chunk."""
+    tiles = -(-S // TILE_S)
+    slots = BLOCKS_PER_SM * sm_count
+    least = -(-n_chunks // MAX_RUN)  # splits that MAX_RUN asks for
+    rounds = max(1, -(-least * tiles // slots))
+    want = max(1, min(n_chunks, max(least, rounds * slots // tiles)))
+    per = -(-n_chunks // want)
+    return -(-n_chunks // per), per
+
+
 def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int,
-              safety: bool = True, nb: int = 0) -> _Params:
+              safety: bool = True, nb: int = 0, split=(1, 0)) -> _Params:
+    """``split``: (lattice splits, chunks per split) of the refresh's grid."""
     p = _Params()
     ints = dict(S=S, H=sp.H, K=sp.K, nu=sp.nu, P=sp.P, Pc=sps.Pc, J=sp.J, Npad=Npad,
                 map_h=sp.map_h, map_w=sp.map_w, masked=int(sp.masked_refresh),
@@ -301,7 +322,8 @@ def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int,
                 dwa_horizon=sps.dwa_horizon, nvx=sps.samples[0], nvy=sps.samples[1],
                 nw=sps.samples[2],
                 map_stride=sp.map_h * sp.map_w if sp.per_scenario_maps else 0,
-                safety=int(safety), nb=nb)
+                safety=int(safety), nb=nb, nsplit=split[0],
+                chunks_per_split=split[1])
     floats = dict(
         dt=sp.dt, half_dt=0.5 * sp.dt, dt6=sp.dt / 6.0, gamma=sp.gamma, beta=sp.beta,
         b_eps=sp.b_eps, b_weight=sp.b_weight, b_weight2=2.0 * sp.b_weight,
@@ -334,6 +356,22 @@ def _check_operands(what: str, ops: dict, shapes: dict, dev) -> None:
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _require_cuda(dev, what: str) -> None:
+    """Raise unless ``dev`` is a CUDA device: a kernel launches nowhere else."""
+    if dev.type != "cuda":
+        raise ValueError(f"the {what} takes CUDA tensors, got {dev}")
+
+
+def _sm_count(dev) -> int:
+    """Streaming multiprocessors of the CUDA device ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _stream_of(dev) -> int:
+    """Handle of PyTorch's current stream on the CUDA device ``dev``."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 class FusedSolveSafety:
     """The K1 wrapper: builds ``csrc/solve_kernel.cu`` on first use and
     counts its launches per variant (``launches[variant]`` grows by one per
@@ -346,37 +384,85 @@ class FusedSolveSafety:
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
         self.launches = {}
+        self._scratch = {}  # (device, nsplit, S, K^2) -> the refresh's partial sums
         self.reset_launches()
 
     def reset_launches(self) -> None:
         self.launches = {v: 0 for v in self.VARIANTS}
+
+    def refresh_scratch(self, dev, nsplit: int, S: int, KK: int):
+        """(part_acc (nsplit, S, K^2), part_tot (nsplit, S)): scratch of the
+        split refresh, allocated once per shape and reused by every later
+        launch (launches on one stream run in order; callers that launch K1
+        from several streams at once need a wrapper each)."""
+        key = (dev, nsplit, S, KK)
+        if key not in self._scratch:
+            self._scratch[key] = (
+                torch.empty((nsplit, S, KK), dtype=torch.float32, device=dev),
+                torch.empty((nsplit, S), dtype=torch.float32, device=dev))
+        return self._scratch[key]
 
     def build(self):
         if self.built is None:
             from ergodic_exploration_tpu_torch.utils.cuda_build import LIBRARIES, build
 
             built = build("solve_kernel", LIBRARIES["solve_kernel"])
-            for fn in (built.lib.k1_fused_solve_safety, built.lib.k1_fused_safety):
+            for fn in (built.lib.k1_fused_solve_safety, built.lib.k1_fused_safety,
+                       built.lib.k1_refresh_phik):
                 fn.argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(_Buffers),
                                ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             self.built = built
         return self.built
 
-    def _launch(self, fn_name: str, variant: str, params: _Params, ops: dict, dev) -> None:
+    def _launch(self, fn_name: str, variant: Optional[str], params: _Params, ops: dict,
+                dev) -> None:
+        """Call the library's ``fn_name``; a launch of a variant is counted."""
         bufs = _Buffers(**{n: (t.data_ptr() if t is not None else None)
                            for n, t in ops.items()})
         fn = getattr(self.build().lib, fn_name)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.byref(params), ctypes.byref(bufs), stream)
+        err = fn(ctypes.byref(params), ctypes.byref(bufs), _stream_of(dev))
         if err != 0:
-            raise RuntimeError(f"K1 {variant} launch failed: CUDA error {err}")
-        self.launches[variant] += 1
+            raise RuntimeError(f"K1 {variant or fn_name} launch failed: CUDA error {err}")
+        if variant is not None:
+            self.launches[variant] += 1
+
+    def _refresh_operands(self, r: Refresh, dlen, K: int, dev):
+        """Checked operands of the refresh with its scratch, and the
+        (splits, chunks per split) of its grid."""
+        S, J = r.gmm.weights.shape
+        Npad = r.pts.shape[0]
+        if Npad % LATTICE_CHUNK:
+            raise ValueError(f"lattice of {Npad} points is not padded to {LATTICE_CHUNK}")
+        ops = dict(means=r.gmm.means, covs=r.gmm.covs, weights=r.gmm.weights, pts=r.pts, D=r.D,
+                   mask_ck=r.mask_ck, dlen=dlen)
+        _check_operands("K1", ops, dict(means=(S, J, 2), covs=(S, J, 2, 2), weights=(S, J),
+                                        pts=(Npad, 2), D=(Npad, K * K), mask_ck=(K * K,),
+                                        dlen=(S, 2)), dev)
+        split = lattice_split(S, Npad // LATTICE_CHUNK, _sm_count(dev))
+        ops["part_acc"], ops["part_tot"] = self.refresh_scratch(dev, split[0], S, K * K)
+        return ops, split
+
+    def refresh(self, r: Refresh, dlen: torch.Tensor) -> torch.Tensor:
+        """The in-kernel refresh alone (``k1_refresh`` + ``k1_finish``):
+        phi_k (S, K^2) as :func:`refresh_plain` defines it. Not a variant of
+        the tick: it exists to time and check the refresh apart from the
+        solve, and is not counted as a launch."""
+        dev = dlen.device
+        _require_cuda(dev, "K1 refresh")
+        KK = r.D.shape[1]
+        K = math.isqrt(KK)
+        ops, split = self._refresh_operands(r, dlen, K, dev)
+        S, J = r.gmm.weights.shape
+        ops["phik_buf"] = out = torch.empty((S, KK), dtype=torch.float32, device=dev)
+        p = _Params(S=S, K=K, J=J, Npad=r.pts.shape[0], masked=int(r.masked), nsplit=split[0],
+                    chunks_per_split=split[1])
+        self._launch("k1_refresh_phik", None, p, ops, dev)
+        return out
 
     def __call__(self, cfg, inp: K1Inputs, enable_safety: bool = True) -> K1Outputs:
         dev = inp.x.device
-        if dev.type != "cuda":
-            raise ValueError(f"the K1 kernel takes CUDA tensors, got {dev}")
+        _require_cuda(dev, "K1 kernel")
         S, H, nu = inp.U.shape
         K = cfg.num_basis
         if K > KMAX or H > HMAX or nu > NUMAX:
@@ -394,8 +480,6 @@ class FusedSolveSafety:
         r = inp.refresh
         J = 0 if r is None else r.gmm.means.shape[1]
         Npad = 0 if r is None else r.pts.shape[0]
-        if r is not None and Npad % LATTICE_CHUNK:
-            raise ValueError(f"lattice of {Npad} points is not padded to {LATTICE_CHUNK}")
         sp = params_from_config(cfg, P, (mh, mw), J, bool(r is not None and r.masked),
                                 per_scenario)
         sps = safety_params_from_config(cfg, min(cfg.safety_patch_cells, P))
@@ -417,27 +501,25 @@ class FusedSolveSafety:
                       pstart=(S, 2), porigin=(S, 2), pres=(S,), dorigin=(S, 2),
                       dlen=(S, 2), cks=(S, K * K), vb=(S, 3))
         ops = {n: getattr(inp, n) for n in shapes}
+        split = (1, 0)
         if r is None:
             shapes["phik"], ops["phik"] = (S, K * K), inp.phik
-        else:
-            shapes.update(means=(S, J, 2), covs=(S, J, 2, 2), weights=(S, J),
-                          pts=(Npad, 2), D=(Npad, K * K), mask_ck=(K * K,))
-            ops.update(means=r.gmm.means, covs=r.gmm.covs, weights=r.gmm.weights,
-                       pts=r.pts, D=r.D, mask_ck=r.mask_ck)
         _check_operands("K1", ops, shapes, dev)
+        if r is not None:
+            r_ops, split = self._refresh_operands(r, inp.dlen, K, dev)
+            ops.update(r_ops)
         ops.update(U_new=out.U_new, metric=out.metric, bcost=out.barrier, ck_out=out.ck_sum,
                    code=out.code, u_dwa=out.u_dwa, feasible=out.feasible, phik_buf=phik_buf)
         variant = ("fused_solve_safety" if enable_safety else "fused_solve") + (
             "_map_h0" if per_scenario else "") + ("_nb" if nb else "")
         self._launch("k1_fused_solve_safety", variant,
-                     _c_params(sp, sps, S, Npad, enable_safety, nb), ops, dev)
+                     _c_params(sp, sps, S, Npad, enable_safety, nb, split), ops, dev)
         return out
 
     def safety(self, cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen):
         """Launch the standalone safety kernel (``fused_safety``)."""
         dev = x.device
-        if dev.type != "cuda":
-            raise ValueError(f"the fused_safety kernel takes CUDA tensors, got {dev}")
+        _require_cuda(dev, "fused_safety kernel")
         S, nu = u0.shape
         Pc = crop.shape[-1]
         if nu > NUMAX:

@@ -155,12 +155,14 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
         mk.K3(data.transpose(1, 2), ops, 2, 3)
     with pytest.raises(ValueError, match="fc <= 127"):
         mk.K3(data, ops, 2, 200)
-    # a 200 x 200 map does not fit one block's shared memory: the limit is named
-    assert mk.smem_bytes(100, 100, 10) == 108000 and mk.smem_bytes(200, 200, 10) > mk.MAX_SMEM
-    big = torch.zeros(1, 200, 200)
-    big_ops = ops._replace(cxA=torch.zeros(200, K), cyA=torch.zeros(K, 200))
-    with pytest.raises(ValueError, match=f"{mk.MAX_SMEM}-byte limit"):
-        mk.K3(big, big_ops, 2, 3)
+    # what no band plan can hold is still refused, and the limit is named: one
+    # row of a 6000-wide map with its halo of 3 rows a side is over a block's memory
+    assert mk.smem_bytes(100, 100, 10) == 108000
+    assert mk.smem_bytes(7, 6000, K, 1) > mk.MAX_SMEM
+    wide = torch.zeros(1, 40, 6000)
+    wide_ops = ops._replace(cxA=torch.zeros(6000, K), cyA=torch.zeros(K, 40))
+    with pytest.raises(ValueError, match=f"halo.*{mk.MAX_SMEM}-byte limit"):
+        mk.K3(wide, wide_ops, 2, 3)
     # well-formed CPU operands: the kernel object still never runs the plain version
     mk.K3.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -181,10 +183,13 @@ def test_k3_raises_when_its_library_cannot_be_built():
 
 
 def test_k3_params_mirror_the_c_struct():
-    assert [f[0] for f in mk._Params._fields_] == ["S", "h", "w", "K", "r", "fc", "thr", "eps"]
+    assert [f[0] for f in mk._Params._fields_] == ["S", "h", "w", "K", "r", "fc", "bh", "n_bands",
+                                                    "thr", "eps"]
     assert [f[0] for f in mk._Buffers._fields_] == list(mk._BUFFERS)
     src = (mk.__file__.replace("ops/mi_kernel.py", "csrc/mi_kernel.cu"))
     text = open(src).read()
     assert "int S, h, w, K, r, fc;" in text and "float thr, eps;" in text
+    assert "int bh, n_bands;" in text and "float* part;" in text
+    assert text.index("int bh, n_bands;") < text.index("float thr, eps;")
     assert "const float *data, *cxA, *cyA, *fallback, *hk00;" in text
     assert f"K3_MAX_SMEM = {mk.MAX_SMEM}" in text

@@ -152,7 +152,16 @@ def test_kernel_params_mirror_the_c_struct():
     assert p.tw_b == np.float32(0.25 * cfg.omni.wheel_radius / (cfg.omni.lx + cfg.omni.ly))
     assert list(p.r_inv) == [np.float32(1.0) / np.float32(0.001)] * 4
     assert (p.safety, p.nb) == (1, 0) and sk._c_params(sp, sps, 7, 0, False, 24).nb == 24
+    assert (p.nsplit, p.chunks_per_split) == (1, 0)
+    q = sk._c_params(sp, sps, 7, 10240, split=(6, 27))
+    assert (q.nsplit, q.chunks_per_split) == (6, 27)
     assert [f[0] for f in sk._Buffers._fields_] == list(sk._BUFFERS)
+    # the struct in the source lists the same fields in the same order
+    src = open(sk.__file__.replace("ops/solve_kernel.py", "csrc/solve_kernel.cu")).read()
+    body = src[src.index("struct K1Params {"):src.index("// Mirror of ops/solve_kernel.py::_Buffers")]
+    import re
+    names = re.findall(r"\b([A-Za-z_][A-Za-z_0-9]*)(?:\[\d\])?\s*[,;]", re.sub(r"//.*", "", body))
+    assert names == [f[0] for f in sk._Params._fields_]
 
 
 def test_unported_variants_raise():
@@ -187,3 +196,160 @@ def test_refresh_lattice_is_padded_to_the_chunk():
     assert (r.D[:100] == 0).all()
     phik = sk.refresh_plain(r, torch.full((2, 2), 3.0)).view(2, 6, 6)
     assert torch.isfinite(phik).all()
+
+
+# ---------------------------------------------------------------------------
+# the refresh's lattice split and ordered finish; the DWA winner rule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S_,want", [(1, (157, 1)), (100, (79, 2)), (4096, (8, 20))])
+def test_lattice_split_is_shared_by_k1_and_k2(S_, want):
+    """One function chooses the split for K1's refresh and for K2 (157 chunks:
+    the 100 x 100 lattice; 132 SMs): whole rounds of the blocks that run at a
+    time, at most MAX_RUN chunks a split, never more splits than chunks."""
+    from ergodic_exploration_tpu_torch.ops import gmm_kernel as gk
+
+    assert gk.lattice_split is sk.lattice_split
+    nsplit, per = sk.lattice_split(S_, 157, 132)
+    assert (nsplit, per) == want
+    assert (nsplit - 1) * per < 157 <= nsplit * per and per <= sk.MAX_RUN
+    blocks, slots = -(-S_ // sk.TILE_S) * nsplit, sk.BLOCKS_PER_SM * 132
+    if S_ == 4096:  # two rounds of the blocks that run at a time, the second 94 % full
+        assert 1.9 * slots < blocks <= 2 * slots
+    else:  # a small batch is spread over the card in one round
+        assert slots / 2 < blocks <= slots
+
+
+def test_refresh_scratch_is_allocated_once_per_shape():
+    k1 = sk.FusedSolveSafety()
+    cpu = torch.device("cpu")
+    acc, tot = k1.refresh_scratch(cpu, 8, 4096, 100)
+    assert acc.shape == (8, 4096, 100) and tot.shape == (8, 4096)
+    assert acc.dtype == tot.dtype == torch.float32
+    again = k1.refresh_scratch(cpu, 8, 4096, 100)
+    assert again[0] is acc and again[1] is tot  # not per tick
+    assert k1.refresh_scratch(cpu, 157, 1, 100)[0].shape == (157, 1, 100)
+
+
+def _refresh_split_and_finish(r, dlen, split):
+    """The refresh as k1_refresh + k1_finish compute it, in plain PyTorch:
+    (acc, tot) per lattice split, added in split order, then K1's epilogue."""
+    from ergodic_exploration_tpu_torch.ops.target import gmm_eval
+
+    nsplit, per = split
+    phi = gmm_eval(r.pts, r.gmm)  # (S, Npad)
+    acc = torch.zeros(phi.shape[0], r.D.shape[1])
+    tot = torch.zeros(phi.shape[0])
+    for sp in range(nsplit):
+        lo, hi = sp * per * sk.LATTICE_CHUNK, min(r.pts.shape[0], (sp + 1) * per * sk.LATTICE_CHUNK)
+        acc = acc + torch.matmul(phi[:, lo:hi], r.D[lo:hi])
+        tot = tot + phi[:, lo:hi].sum(dim=-1)
+    t = tot[:, None]
+    if r.masked:
+        h00 = torch.sqrt(dlen[:, 0:1] * dlen[:, 1:2])
+        a00 = h00 * acc[:, 0:1]
+        ok = (t > 1e-12) & (a00 / torch.clamp(t, min=1e-12) > 1e-12)
+        ck = acc / torch.clamp(a00, min=1e-30)
+    else:
+        ok = t > 1e-12
+        ck = acc / torch.clamp(t, min=1e-12)
+    return torch.where(ok, ck, r.mask_ck)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("S_", [1, 5])
+def test_split_and_finish_of_the_refresh_equals_refresh_plain(masked, S_):
+    """2.2e-6: the JAX package's own budget for its refresh; the sums are
+    the plain version's, cut at the split boundaries."""
+    rng = np.random.default_rng(11)
+    cfg = default_config("cart").replace(grid_samples=(50, 40), num_basis=6)
+    dom = Domain.create(0.0, 0.0, 3.0, 3.0)
+    means = rng.uniform(0.5, 2.5, (S_, 2, 2)).astype(np.float32)
+    means[S_ - 1] = 400.0  # a mixture with no mass on the lattice: the fallback
+    g = GaussianMixture.create(
+        means, np.tile((0.2 * np.eye(2, dtype=np.float32))[None, None], (S_, 2, 1, 1)))
+    mask = torch.from_numpy((rng.uniform(0, 1, 2000) > 0.3).astype(np.float32)) if masked else None
+    r = sk.refresh_operands(cfg, g, dom, mask)
+    dlen = torch.full((S_, 2), 3.0)
+    ref = sk.refresh_plain(r, dlen)
+    n_chunks = r.pts.shape[0] // sk.LATTICE_CHUNK
+    for split in (sk.lattice_split(S_, n_chunks, 132), (3, 11), (1, n_chunks)):
+        got = _refresh_split_and_finish(r, dlen, split)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0.0, atol=2.2e-6)
+        np.testing.assert_array_equal(got[S_ - 1].numpy(), r.mask_ck.numpy())
+
+
+def _warp_winner(cost):
+    """The DWA pick as a warp of k1_solve makes it: lane l scans candidates
+    l, l + 32, ... in ascending order with a strict <, then a butterfly
+    reduction keeps the smaller (cost, index) pair. Returns (index, cost)."""
+    best, bidx = [float("inf")] * 32, [2**31 - 1] * 32
+    for lane in range(32):
+        for c in range(lane, len(cost), 32):
+            if cost[c] < best[lane]:
+                best[lane], bidx[lane] = cost[c], c
+    o = 16
+    while o:
+        nb_, ni_ = list(best), list(bidx)
+        for lane in range(32):
+            ob, oi = best[lane ^ o], bidx[lane ^ o]
+            if ob < best[lane] or (ob == best[lane] and oi < bidx[lane]):
+                nb_[lane], ni_[lane] = ob, oi
+        best, bidx, o = nb_, ni_, o // 2
+    assert len(set(bidx)) == 1  # every lane ends with the same winner
+    return bidx[0], best[0]
+
+
+@pytest.mark.parametrize("model_name", ["cart", "omni"])
+def test_smallest_cost_index_pair_is_the_plain_versions_pick(model_name):
+    """Many candidates tie (n_vy = 1 repeats twists, a zero twist makes the
+    window symmetric, a start inside an obstacle makes every candidate
+    INFEASIBLE): the (cost, index) minimum is the first index reaching the
+    minimum, which is what ``torch.argmin`` and so ``fused_safety_plain`` pick."""
+    from ergodic_exploration_tpu_torch.grid import GridMap
+    from ergodic_exploration_tpu_torch.ops import dwa as dwa_ops
+    from ergodic_exploration_tpu_torch.ops.collision import CRASH, check_trajectory
+    from ergodic_exploration_tpu_torch.ops.integrator import constant_twist_poses
+    from ergodic_exploration_tpu_torch.ops.patch import extract_patch
+
+    S_ = 12
+    rng = np.random.default_rng(17)
+    cfg = default_config(model_name)
+    eng = Engine(cfg, device="cpu")
+    data = np.zeros((60, 60), np.float32)
+    data[28:32, 12:48] = 1.0
+    world = eng.prepare_world(GridMap(torch.from_numpy(data).expand(S_, 60, 60).contiguous(),
+                                      torch.zeros(S_, 2), torch.full((S_,), 0.05)))
+    x = np.stack([rng.uniform(0.8, 2.2, S_), 1.4 - rng.uniform(0.22, 0.7, S_),
+                  np.pi / 2 + rng.uniform(-0.6, 0.6, S_)], 1).astype(np.float32)
+    x[-2:, 1] = 1.5  # inside the wall
+    x = torch.from_numpy(x)
+    u0 = torch.full((S_, cfg.nu), 4.0) * torch.from_numpy(
+        rng.uniform(0.3, 1.0, (S_, 1)).astype(np.float32))
+    vb = eng.model.twist(u0) * 0.5
+    vb[::3] = 0.0
+    crop = extract_patch(world.dist, x[:, :2], min(cfg.patch_cells, 60)).center_crop(
+        cfg.safety_patch_cells)
+    _, u_plain, feas_plain = sk.fused_safety_plain(
+        cfg, x, vb, u0, crop.dist, crop.start.to(torch.int32), crop.origin, crop.resolution,
+        world.domain.origin, world.domain.lengths)
+    # the candidates' costs, as ops/dwa.py::dwa_control computes them
+    us = eng.model.from_twist(dwa_ops.candidate_twists(vb, cfg.dwa))
+    tws = eng.model.twist(us)
+    ts = cfg.dwa.dt * torch.arange(1, cfg.dwa.horizon + 1, dtype=torch.float32)
+    X = constant_twist_poses(x[:, None, :], tws, ts)
+    codes = check_trajectory(X[..., :2], world.domain, crop, cfg.boundary_radius, cfg.d_safe)
+    cost = ((us - u0[:, None, :]) ** 2).sum(dim=-1)
+    cost = torch.where(codes >= CRASH, torch.full_like(cost, dwa_ops.INFEASIBLE_COST), cost)
+    ties = 0
+    for s in range(S_):
+        row = cost[s].tolist()
+        idx, c = _warp_winner(row)
+        assert idx == int(torch.argmin(cost[s])) and c == min(row)
+        ties += row.count(c) > 1
+        feasible = c < dwa_ops.INFEASIBLE_COST
+        assert feasible == bool(feas_plain[s])
+        want = us[s, idx] if feasible else torch.zeros(cfg.nu)
+        np.testing.assert_array_equal(u_plain[s].numpy(), want.numpy())
+    assert ties >= 2 and not bool(feas_plain[-1])  # ties were there to be broken
