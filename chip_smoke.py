@@ -40,14 +40,17 @@ Phases:
 11  ``explore`` on the card vs on the CPU, S = 64, distinct maps, 3 ticks
 12  K3 vs plain and vs the dense path: S = 4096 beliefs of 100 x 100 cells that
     differ per scenario, (r, fc) in (3, 3), (0, 3), (3, 0); S = 1, S = 100; a
-    40 x 40 map with a 23 x 23 lattice and K = 6; 200 x 200 beliefs (S = 1024),
-    which take the row-band form; two launches bit for bit
+    40 x 40 map with a 23 x 23 lattice and K = 6; maps the TPU kernel takes
+    that K3 once refused: 8 x 8 beliefs with K = 10, a 40 x 40 map with
+    fc = 200, K = 20 with r = 5; 200 x 200 beliefs (S = 1024), which take the
+    row-band form; two launches bit for bit
 13  path E, the MI tick at full width: ``Engine.replan_refresh_mi(...,
     sensor_radius_cells=3, domain=<shared>, use_mi_kernel=True)`` (K3, then K1
     on the shared map) on beliefs that a disc sensor reveals between ticks,
-    S = 4096 and S = 1; the same tick with the dense path in K3's place; a
-    short run without the frontier mask; a short run on 200 x 200 beliefs
-    (S = 1024), which launches the row-band form
+    S = 4096 and S = 1; K3 alone at S = 1 and on S = 4096 continuous beliefs
+    (every cell uniform in (0, 1)); the same tick with the dense path in K3's
+    place; a short run without the frontier mask; a short run on 200 x 200
+    beliefs (S = 1024), which launches the row-band form
 14  path F, the mapping loop at full width: ``explore_mapping_fused`` (ray-cast
     reveal -> dense MI target -> world rebuild -> 10 ticks of K1 on
     per-scenario maps), S = 4096, 5 refreshes, two rooms and a pillar
@@ -1105,8 +1108,17 @@ def run(dev) -> int:
     eng_small = Engine(default_config("cart").replace(num_basis=6, grid_samples=(23, 23)))
     k3_check("small map", torch.from_numpy(mi_beliefs(64, 40, 40, seed=13)).to(dev), eng_small,
              Domain.create(0.0, 0.0, 2.0, 2.0, device=dev), 2)
+    # maps the TPU kernel takes (K <= 128, any fc) that K3 refused before
+    for (h_, K_, ns_, r_, fc_) in ((8, 10, (10, 10), 1, 3), (40, 6, (23, 23), 2, 200),
+                                   (40, 20, (23, 23), 5, 3)):
+        eng_r = Engine(default_config("cart").replace(num_basis=K_, grid_samples=ns_,
+                                                      mi_frontier_cells=fc_))
+        k3_check("once refused", torch.from_numpy(
+            mi_beliefs(64, h_, h_, seed=18)).to(dev), eng_r,
+            Domain.create(0.0, 0.0, 0.05 * h_, 0.05 * h_, device=dev), r_)
+    del eng_r
     print("  two launches on the same inputs gave the same bits at every shape")
-    # 200 x 200 beliefs do not fit one block: the row-band form
+    # 200 x 200 beliefs are over what each of four blocks an SM can hold: the row-band form
     dom_big = Domain.create(0.0, 0.0, 0.05 * CELLS_BIG, 0.05 * CELLS_BIG, device=dev)
     beliefs_big = torch.from_numpy(mi_beliefs(S_BIG, CELLS_BIG, CELLS_BIG, seed=16)).to(dev)
     reset_counts()
@@ -1185,6 +1197,19 @@ def run(dev) -> int:
           events_ms(lambda: mk.phik_from_grid_plain(belief.data, *k3_args), 5),
           mi_work(S_MAIN, 100, 100, cfg.num_basis, MI_RADIUS, cfg.mi_frontier_cells))
     kernels["phik_from_grid_fc"]["launches"] = counts["phik_from_grid_fc"]
+    one = belief.data[:1].clone()  # a copy: a view would keep all S_MAIN maps alive
+    print(f"  K3 at S=1 on this path's beliefs: {events_ms(lambda: mk.K3(one, *k3_args), 200):.4f} "
+          f"ms/call {card}")
+    del one
+    # continuous beliefs: no cell at -1, 0 or 1, every entropy through the logs
+    cont = torch.from_numpy(np.random.default_rng(17).uniform(
+        0.0, 1.0, (S_MAIN, 100, 100)).astype(np.float32)).to(dev)
+    err_c = k3_check("continuous beliefs", cont, engine, domain, MI_RADIUS)
+    print(f"  K3 on continuous beliefs at S={S_MAIN}: "
+          f"{events_ms(lambda: mk.K3(cont, *k3_args), 20):.4f} ms/call against "
+          f"{kernels['phik_from_grid_fc']['ms']:.4f} on path E's (max |kernel - plain| "
+          f"{err_c:.3e}) {card}")
+    del cont
     dense_ms = events_ms(lambda: engine._phik_grid_batch_dense_fn(belief, domain, MI_RADIUS), 5)
     print(f"  the dense path on the same beliefs (the stand-in a faster K3 is compared with, no "
           f"library call): {dense_ms:.4f} ms/call {card}")

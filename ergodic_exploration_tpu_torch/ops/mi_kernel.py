@@ -19,10 +19,13 @@ once per (grid geometry, domain, K, lattice).
 
 The CUDA source is ``csrc/mi_kernel.cu`` (its header says what bounds it on
 an H100 and what the design does about that): one block per scenario, the
-whole pipeline in shared memory; a map too large for one block is cut into
-row bands with a halo (:func:`band_plan`), one block per band, and a
-finishing kernel adds the bands' partial contractions in order. Beside it
-lives the plain PyTorch version,
+whole pipeline in shared memory (a float plane, three bit planes and the
+tables: :func:`smem_bytes`); a map too large for four such blocks on an SM is
+cut into row bands with a halo (:func:`band_plan`), one block per band, and
+a finishing kernel adds the bands' partial contractions in order. It takes
+any K <= 128 (the TPU kernel's limit), any r, fc >= 0 and any map with
+h, w >= 1 of which one row with its halo fits a block. Beside it lives the
+plain PyTorch version,
 :func:`phik_from_grid_plain`, with the same inputs and outputs; the CPU tests
 run it, ``chip_smoke.py`` holds the kernel against it on the card.
 
@@ -46,7 +49,12 @@ from ergodic_exploration_tpu_torch.ops.solve_kernel import (
     _check_operands, _on_cpu, _require_cuda, _stream_of)
 
 MAX_SMEM = 232448  # dynamic shared memory one block can have on sm_90 (227 KB)
-PAIR_SMEM = 115712  # what each of two blocks on one SM can have (228 KB, 1 KB reserved a block)
+# what each of n blocks on one SM can have: the SM's 228 KB split n ways, less
+# the 1 KB the hardware reserves for every block
+QUAD_SMEM, PAIR_SMEM = (233472 // n - 1024 for n in (4, 2))
+KMAX = 128  # the TPU kernel's limit on K
+# constants of csrc/mi_kernel.cu that its shared-memory layout depends on
+_WARPS, _KC, _RWIN = 8, 12, 3  # warps a block; coefficients a chunk; radius with a window
 
 
 class MiOperands(NamedTuple):
@@ -125,39 +133,59 @@ class _Buffers(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
 
 
-def smem_bytes(rows: int, w: int, K: int, band_rows: int = None) -> int:
+def smem_bytes(rows: int, w: int, K: int, band_rows: int = None, r: int = 0) -> int:
     """Dynamic shared memory of a block that holds ``rows`` rows of a w-wide
     map and contracts ``band_rows`` of them (all of them when None: the whole
-    map); ``k3_smem_bytes`` in the source: two float planes, the two tables,
-    two byte planes."""
+    map) at sensor radius ``r``; ``k3_layout`` in the source: the transposed
+    y table padded to whole float4s, one float plane (two for a radius other
+    than 0 and 3, which has no register window) that the partial sums of the
+    y contraction reuse where they fit (else beside it), the x table, the
+    (K, K) result, three bit planes of 32-bit words."""
     bh = rows if band_rows is None else band_rows
-    return 4 * (2 * rows * w + w * K + K * bh) + 2 * rows * w
+    ww = -(-w // 32)
+    ry = _WARPS // ww if ww < _WARPS else 1
+    kp = -(-K // 4) * 4
+    kc = min(kp, _KC)
+    planes = rows * w * (2 if r not in (0, _RWIN) else 1)
+    part = ry * kc * w
+    region = max(planes, part) if kp <= _KC and ww <= _WARPS else planes + part
+    return 4 * (bh * kp + region + w * K + K * K + 3 * rows * ww)
 
 
 @lru_cache(maxsize=None)
 def band_plan(h: int, w: int, K: int, r: int, fc: int,
               max_smem: int = MAX_SMEM) -> Tuple[int, int]:
     """(band height, number of bands) of K3's launch for an (h, w) map:
-    ``(h, 0)`` when the whole map fits one block (the single launch), else
-    row bands of equal height (the last may be shorter) that cover [0, h)
-    once. A band's block holds its rows and a halo of max(r, fc) rows on each
-    side. Bands are sized so that two blocks share an SM unless the halo
-    would then be over half of a band; raises ``ValueError`` when not even
-    one row with its halo fits ``max_smem``."""
-    if smem_bytes(h, w, K) <= max_smem:
+    ``(h, 0)`` when the whole map fits a block of which four share an SM
+    (the single launch), else row bands of equal height (the last may be
+    shorter) that cover [0, h) once. A band's block holds its rows and a
+    halo of max(r, fc) rows on each side (fc only as far as the map
+    reaches). Bands are sized so that four blocks share an SM, else two,
+    unless the halo would then be over half of a band; raises
+    ``ValueError`` when not even one row with its halo fits ``max_smem``."""
+    quad = min(QUAD_SMEM, max_smem)
+    if smem_bytes(h, w, K, None, r) <= quad:
         return h, 0
     m = max(r, fc)
-    for limit in (min(PAIR_SMEM, max_smem), max_smem):
-        # bytes of a band: 10 w (bh + 2 m) + 4 w K + 4 K bh  <=  limit
-        bh = min(h, (limit - 20 * m * w - 4 * w * K) // (10 * w + 4 * K))
-        if bh >= max(1, 4 * m) or (limit == max_smem and bh >= 1):
-            n_bands = -(-h // bh)
+
+    def fits(bh, limit):
+        return smem_bytes(min(h, bh + 2 * m), w, K, bh, r) <= limit
+
+    for limit in (quad, min(PAIR_SMEM, max_smem), max_smem):
+        if not fits(1, limit):
+            continue
+        lo, hi = 1, h  # the tallest band that fits: fits(lo) holds
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if fits(mid, limit) else (lo, mid - 1)
+        if lo >= max(1, 4 * m) or limit == max_smem:
+            n_bands = -(-h // lo)
             return -(-h // n_bands), n_bands
     raise ValueError(
         f"K3 keeps a row band of the ({h}, {w}) map with a halo of max(r, fc) = {m} rows on "
         f"each side in a block's shared memory: one row needs "
-        f"{smem_bytes(min(h, 1 + 2 * m), w, K, 1)} bytes, over the {max_smem}-byte limit of a "
-        f"block on this architecture")
+        f"{smem_bytes(min(h, 1 + 2 * m), w, K, 1, r)} bytes, over the {max_smem}-byte limit of "
+        f"a block on this architecture")
 
 
 class PhikFromGrid:
@@ -197,9 +225,9 @@ class PhikFromGrid:
         S, h, w = data.shape
         K = ops.cxA.shape[-1]
         r, fc = int(sensor_radius_cells), int(frontier_cells)
-        if not 1 <= K <= min(h, w) or r < 0 or not 0 <= fc <= 127:
-            raise ValueError(f"K3 supports 1 <= K <= min(h, w), r >= 0 and 0 <= fc <= 127, got "
-                             f"K={K}, (h, w)=({h}, {w}), r={r}, fc={fc}")
+        if not 1 <= K <= KMAX or r < 0 or fc < 0:
+            raise ValueError(f"K3 supports 1 <= K <= {KMAX}, r >= 0 and fc >= 0, got K={K}, "
+                             f"r={r}, fc={fc}")
         bh, n_bands = band_plan(h, w, K, r, fc)
         tensors = dict(data=data, cxA=ops.cxA, cyA=ops.cyA, fallback=ops.fallback,
                        hk00=ops.hk00)

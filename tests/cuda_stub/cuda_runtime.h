@@ -1,7 +1,8 @@
 // Host stand-in for the CUDA runtime, for tests only: lets the package's
 // .cu sources compile as host C++ (g++ -std=c++20) and run a launch as one
 // std::thread per CUDA thread, block after block, with std::barrier for
-// __syncthreads / __syncwarp and a per-warp exchange buffer for shuffles.
+// __syncthreads / __syncwarp and a per-warp exchange buffer for shuffles and
+// ballots.
 // It exists to check a kernel's indexing and arithmetic where there is no
 // GPU; it says nothing about speed and does not model memory ordering.
 #pragma once
@@ -56,7 +57,8 @@ namespace host_stub {
 struct Warp {
     std::barrier<> bar;
     uint64_t slot[32];
-    explicit Warp(int n) : bar(n) {}
+    int n;  // lanes of this warp
+    explicit Warp(int n_) : bar(n_), n(n_) {}
 };
 
 inline thread_local unsigned char* dyn_smem = nullptr;
@@ -114,6 +116,24 @@ template <class T>
 inline T __shfl_xor_sync(unsigned m, T v, int lane_mask) {
     const unsigned lane = (threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z)) % 32;
     return __shfl_sync(m, v, (int)(lane ^ (unsigned)lane_mask));
+}
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+    host_stub::Warp& w = *host_stub::warp;
+    const unsigned lane = (threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z)) % 32;
+    w.slot[lane] = pred ? 1 : 0;
+    w.bar.arrive_and_wait();
+    unsigned bits = 0;
+    for (int l = 0; l < w.n; ++l) bits |= (unsigned)w.slot[l] << l;
+    w.bar.arrive_and_wait();
+    return bits;
+}
+
+inline bool __any_sync(unsigned m, int pred) { return __ballot_sync(m, pred) != 0u; }
+
+// low 32 bits of (hi:lo) >> (shift & 31)
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+    return (unsigned)((((uint64_t)hi << 32) | lo) >> (shift & 31u));
 }
 
 template <class T>

@@ -40,42 +40,44 @@ def _check_plan(h, w, K, r, fc, max_smem):
     assert all(a[1] == b[0] for a, b in zip(bands, bands[1:]))
     assert all(y1 > y0 for y0, y1 in bands)
     m = max(r, fc)
+    quad = min(mk.QUAD_SMEM, max_smem)
     if n_bands == 0:
-        assert bh == h and mk.smem_bytes(h, w, K) <= max_smem
+        assert bh == h and mk.smem_bytes(h, w, K, None, r) <= quad
     else:
-        assert mk.smem_bytes(h, w, K) > max_smem  # a map that fits keeps the single launch
+        # a map that fits a block of which four share an SM keeps the single launch
+        assert mk.smem_bytes(h, w, K, None, r) > quad
         for y0, y1 in bands:  # every band with its halo fits one block
             rows = min(h, y1 + m) - max(0, y0 - m)
-            assert mk.smem_bytes(rows, w, K, y1 - y0) <= max_smem
+            assert mk.smem_bytes(rows, w, K, y1 - y0, r) <= max_smem
     return bh, n_bands
 
 
 @pytest.mark.parametrize("h,w", [(100, 100), (150, 150), (200, 200), (300, 200)])
 def test_band_plan_of_the_named_maps(h, w):
     bh, n_bands = _check_plan(h, w, 10, 3, 3, mk.MAX_SMEM)
-    assert (n_bands == 0) == (h == 100)  # 150 x 150 is 237,000 bytes at K = 10, over the limit
-    if n_bands:  # sized so that two blocks share an SM
-        assert mk.smem_bytes(min(h, bh + 6), w, 10, bh) <= mk.PAIR_SMEM
+    # 150 x 150 is 119,600 bytes at K = 10, over what each of four blocks an SM can have
+    assert (n_bands == 0) == (h == 100)
+    if n_bands:  # sized so that four blocks share an SM
+        assert mk.smem_bytes(min(h, bh + 6), w, 10, bh, 3) <= mk.QUAD_SMEM
 
 
 @settings(max_examples=200, deadline=None)
-@given(h=st.integers(1, 700), w=st.integers(1, 700), K=st.integers(1, 16), r=st.integers(0, 12),
-       fc=st.integers(0, 12), max_smem=st.sampled_from([mk.MAX_SMEM, 48 * 1024, 100_000]))
+@given(h=st.integers(1, 700), w=st.integers(1, 700), K=st.integers(1, 40), r=st.integers(0, 12),
+       fc=st.integers(0, 300), max_smem=st.sampled_from([mk.MAX_SMEM, 48 * 1024, 100_000]))
 def test_band_plan_covers_the_map_and_fits(h, w, K, r, fc, max_smem):
-    if K > min(h, w):
-        return
     try:
         _check_plan(h, w, K, r, fc, max_smem)
     except ValueError as e:
         # refused only when one row with its halo does not fit
         rows = min(h, 1 + 2 * max(r, fc))
-        assert mk.smem_bytes(rows, w, K, 1) > max_smem and f"{max_smem}-byte limit" in str(e)
+        assert mk.smem_bytes(rows, w, K, 1, r) > max_smem and f"{max_smem}-byte limit" in str(e)
 
 
 def test_a_200x200_map_is_planned_not_refused():
     """The map the JAX kernel's ``_pick_sc`` comment names: the wrapper plans
-    row bands for it (and the launch then fails only for want of a card)."""
-    assert mk.smem_bytes(200, 200, 10) > mk.MAX_SMEM
+    row bands for it, four blocks an SM (and the launch then fails only for
+    want of a card)."""
+    assert mk.smem_bytes(200, 200, 10, None, 3) > mk.QUAD_SMEM
     bh, n_bands = mk.band_plan(200, 200, 10, 3, 3)
     assert n_bands >= 2 and bh * n_bands >= 200 > bh * (n_bands - 1)
     big = torch.zeros(1, 200, 200)

@@ -131,6 +131,30 @@ def test_three_formulations_of_the_port_agree(r, fc):
     np.testing.assert_allclose(plain, sep, **TOL)
 
 
+@pytest.mark.parametrize("fc", [3, 200])
+def test_k3_plain_matches_pallas_on_a_map_smaller_than_K(fc):
+    """8 x 8 beliefs with K = 10, r = 1: a corridor narrower than K cells,
+    which the JAX kernel takes (K <= 128); fc = 200 reaches past every edge."""
+    rng = np.random.default_rng(3)
+    data = np.full((2, 8, 8), -1.0, np.float32)
+    data[:, :, :4] = 0.0
+    data[:, 2, 1:3] = 1.0
+    data[0, 5:8, 4:7] = rng.uniform(0.0, 1.0, (3, 3)).astype(np.float32)
+    data[1] = rng.uniform(0.0, 1.0, (8, 8)).astype(np.float32)
+    jg = JGridMap(jnp.asarray(data), jnp.zeros((2, 2), jnp.float32),
+                  jnp.full((2,), 0.05, jnp.float32))
+    ref = np.asarray(jmk.phik_from_grid_pallas(
+        jg.data, jax.tree.map(lambda a: a[0], jg), JDomain.create(0.0, 0.0, 0.4, 0.4), 10,
+        (10, 10), sensor_radius_cells=1, frontier_cells=fc, interpret=True))
+    g = GridMap(torch.from_numpy(data), torch.zeros(2, 2), torch.full((2,), 0.05))
+    ops = mk.mi_operands(GridMap(g.data[0], g.origin[0], g.resolution[0]),
+                         Domain.create(0.0, 0.0, 0.4, 0.4), 10, (10, 10))
+    got = mk.phik_from_grid(g.data, ops, 1, fc).numpy()
+    assert got.shape == (2, 10, 10) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, **TOL)
+    assert np.abs(got - ops.fallback.numpy()).max() > 1e-3  # neither took the fallback
+
+
 def test_k3_honours_the_occupied_threshold():
     """Cells at 0.55 are free at threshold 0.65 and obstacles at 0.5: they
     carry target mass and seed the frontier only in the first case."""
@@ -153,20 +177,32 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take():
         mk.K3(data[:, :, :30].contiguous(), ops, 2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         mk.K3(data.transpose(1, 2), ops, 2, 3)
-    with pytest.raises(ValueError, match="fc <= 127"):
-        mk.K3(data, ops, 2, 200)
+    with pytest.raises(ValueError, match="1 <= K <= 128"):
+        mk.K3(data, ops._replace(cxA=torch.zeros(W, 129), cyA=torch.zeros(129, H),
+                                 fallback=torch.zeros(129, 129)), 2, 3)
+    with pytest.raises(ValueError, match="r >= 0 and fc >= 0"):
+        mk.K3(data, ops, -1, 3)
+    with pytest.raises(ValueError, match="r >= 0 and fc >= 0"):
+        mk.K3(data, ops, 2, -1)
     # what no band plan can hold is still refused, and the limit is named: one
     # row of a 6000-wide map with its halo of 3 rows a side is over a block's memory
-    assert mk.smem_bytes(100, 100, 10) == 108000
-    assert mk.smem_bytes(7, 6000, K, 1) > mk.MAX_SMEM
+    assert mk.smem_bytes(100, 100, 10, None, 3) == 54000
+    assert mk.smem_bytes(7, 6000, K, 1, 2) > mk.MAX_SMEM
     wide = torch.zeros(1, 40, 6000)
     wide_ops = ops._replace(cxA=torch.zeros(6000, K), cyA=torch.zeros(K, 40))
     with pytest.raises(ValueError, match=f"halo.*{mk.MAX_SMEM}-byte limit"):
         mk.K3(wide, wide_ops, 2, 3)
-    # well-formed CPU operands: the kernel object still never runs the plain version
+    # well-formed CPU operands: the kernel object still never runs the plain version;
+    # K > min(h, w) and fc > 127 pass every check up to the device's
     mk.K3.reset_launches()
     with pytest.raises(ValueError, match="CUDA tensors"):
         mk.K3(data, ops, 2, 3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mk.K3(data, ops, 2, 200)
+    small = torch.from_numpy(_beliefs()[:, :4, :5].copy())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mk.K3(small, ops._replace(cxA=ops.cxA[:5].contiguous(), cyA=ops.cyA[:, :4].contiguous()),
+              1, 3)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         mk.phik_from_grid(data.to("meta"), ops, 2, 3)
     assert sum(mk.K3.launches.values()) == 0
