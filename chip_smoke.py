@@ -55,6 +55,13 @@ Phases:
     reveal -> dense MI target -> world rebuild -> 10 ticks of K1 on
     per-scenario maps), S = 4096, 5 refreshes, two rooms and a pillar
 15  the MI tick (S = 64) and the mapping loop (S = 16) on the card vs on the CPU
+16  the single-robot node (``ExplorationNode``, ``default_config("cart")``, a
+    100 x 100 map, native EDT): 300 ticks with a plant and a map update every
+    50, eager (``fused_safety``), fused (K1 on the node's map, S = 1) and
+    fused with pipelining, p50 / p99 of ``step()`` against the 100 ms budget;
+    100 ticks of the MI target on a belief a disc sensor opens; the node on
+    the card vs on the CPU over one odometry stream; K1 and ``fused_safety``
+    vs plain on the node's inputs
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are a JSON line describing each kernel
@@ -99,6 +106,10 @@ S_BIG, CELLS_BIG, T_BIG = 1024, 200, 10  # the MI tick on maps that take K3's ro
 MI_RADIUS = 3  # sensor_radius_cells of the MI tick
 MAP_REFRESHES, MAP_EVERY = 5, 10  # path F: refreshes and ticks per refresh
 REVEAL_PEAK_LIMIT = 8 * 2**30  # bytes reveal_raycast may hold at S_MAIN
+NODE_TICKS, NODE_MAP_EVERY = 300, 50  # phase 16: ticks after one warm-up tick; map cadence
+NODE_MI_TICKS, NODE_REVEAL_EVERY = 100, 10  # phase 16's MI loop
+NODE_CMP_TICKS = 10  # phase 16: ticks of the node on the card vs on the CPU
+BUDGET_MS = 100.0  # the 10 Hz loop's period
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -271,6 +282,23 @@ def mapping_case(S: int, device, seed: int = 14):
     truth = GridMap(torch.from_numpy(data).to(device).expand(S, 100, 100).contiguous(),
                     torch.zeros((S, 2), device=device), torch.full((S,), 0.05, device=device))
     return default_config("cart").replace(use_fused_solve=True), x0, truth, data
+
+
+def node_case():
+    """tools/tpu_node_loop.py's case, in numpy: a two-component GMM and a
+    100 x 100 int8 map (0.05 m) with a wall; the robot starts at
+    (2.5, 0.8, 1.2); the map update of tick i adds a growing block."""
+    means = np.array([[1.2, 3.8], [3.8, 3.8]], np.float32)
+    covs = np.tile(0.15 * np.eye(2, dtype=np.float32)[None], (2, 1, 1))
+    base = np.zeros((100, 100), np.int8)
+    base[45:50, 20:80] = 100
+
+    def update(i):
+        m = base.copy()
+        m[70:74 + (i // NODE_MAP_EVERY) * 2, 55:65] = 100
+        return m
+
+    return (means, covs), base, update, [2.5, 0.8, 1.2]
 
 
 def advance(engine, sc, u):
@@ -477,6 +505,212 @@ def dwa_probes_needed(cfg, model, x, vb, domain, crop) -> float:
     return float(first.sum().item())
 
 
+def node_phase(dev, card, entry, kernels) -> None:
+    """Phase 16: the single-robot node at default_config("cart") on ``dev``;
+    adds the entries of the two kernels of its path through ``entry``."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    from ergodic_exploration_tpu_torch import native
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
+    from ergodic_exploration_tpu_torch.node import ExplorationNode
+    from ergodic_exploration_tpu_torch.ops import sensor
+    from ergodic_exploration_tpu_torch.ops.integrator import constant_twist_poses, rollout
+    from ergodic_exploration_tpu_torch.ops.patch import extract_patch
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+
+    print(f"== 16. the single-robot node: ExplorationNode at default_config('cart'), "
+          f"{NODE_TICKS} ticks, a map update every {NODE_MAP_EVERY}", flush=True)
+    if not native.available():
+        fail("the native runtime is not available (no g++) on this machine")
+    gmm_np, base_map, map_update, start = node_case()
+
+    def make_node(d, fused, pipeline=False, **kw):
+        c = default_config("cart").replace(use_fused_solve=fused)
+        return ExplorationNode(c, target=GaussianMixture.create(*gmm_np), use_native=True,
+                               pipeline=pipeline, device=d, **kw)
+
+    def node_loop(fused, pipeline):
+        """NODE_TICKS ticks after one warm-up tick: step(), then a plant that
+        applies the twist through the port's rollout; a map update every
+        NODE_MAP_EVERY ticks, paid by the next step()."""
+        node = make_node(None, fused, pipeline)
+        if node.device.type != dev.type or not node.use_native:
+            fail("the node is not on the card or not on the native runtime")
+        node.on_map(base_map, resolution=0.05)
+        node.on_odom(start)
+        pose = torch.tensor(start, dtype=torch.float32, device=dev)
+
+        def plant(tw):
+            nonlocal pose
+            u = node.model.from_twist(torch.as_tensor(tw, device=dev))
+            pose = rollout(node.model, pose, u[None], node.config.dt)[-1]
+            return pose, tw
+
+        t0 = time.perf_counter()
+        node.step()  # the first tick: world, target, nothing warm yet
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        reset_counts()
+        lat, map_lat, dwa, n_diag = [], [], 0, 0
+        for i in range(NODE_TICKS):
+            update = i > 0 and i % NODE_MAP_EVERY == 0
+            if update:
+                node.on_map(map_update(i), resolution=0.05)
+            t0 = time.perf_counter()
+            tw, diag = node.step()
+            ms = 1e3 * (time.perf_counter() - t0)
+            (map_lat if update else lat).append(ms)
+            if diag is not None:
+                n_diag += 1
+                dwa += int(diag.dwa_active)
+                if diag.diverged or not np.isfinite(tw).all():
+                    fail(f"node (fused={fused}, pipeline={pipeline}): tick {i} diverged")
+            node.on_odom(*plant(tw))
+        if pipeline and node.flush() is None:
+            fail("the pipelined node had no tail to flush")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        every = np.asarray(lat + map_lat)
+        p = {q: float(np.percentile(every, q)) for q in (50, 90, 99)}
+        final = pose.tolist()
+        print(f"  fused={fused} pipeline={pipeline}: step() p50 {p[50]:.4f} ms, p90 {p[90]:.4f}, "
+              f"p99 {p[99]:.4f}, max {every.max():.4f} over {len(every)} ticks (budget "
+              f"{BUDGET_MS} ms); steady ticks p50 {np.percentile(lat, 50):.4f}, p99 "
+              f"{np.percentile(lat, 99):.4f}; the {len(map_lat)} map-update ticks "
+              f"{[round(v, 4) for v in map_lat]} ms; the first tick {first_ms:.1f} ms; "
+              f"achievable {1e3 / p[50]:.1f} Hz; DWA rate {dwa / max(n_diag, 1):.4f}; final pose "
+              f"{[round(v, 3) for v in final]} {card}")
+        if p[99] >= BUDGET_MS:
+            fail(f"node (fused={fused}, pipeline={pipeline}): p99 {p[99]:.2f} ms reaches the "
+                 f"{BUDGET_MS} ms budget")
+        if not np.isfinite(final).all():
+            fail("node: non-finite final pose")
+        return node, counts
+
+    node_e, counts_e = node_loop(False, False)
+    expect_counts("phase 16, eager node", counts_e, {"fused_safety": NODE_TICKS})
+    node_f, counts_f = node_loop(True, False)
+    expect_counts("phase 16, fused node", counts_f, {"fused_solve_safety_map_h0_nb": NODE_TICKS})
+    _, counts_p = node_loop(True, True)
+    expect_counts("phase 16, fused pipelined node", counts_p,
+                  {"fused_solve_safety_map_h0_nb": NODE_TICKS})
+
+    # the MI target on a belief a disc sensor opens every NODE_REVEAL_EVERY
+    # ticks (examples/single_robot.py's world and start), fused
+    truth_np = np.zeros((100, 100), np.float32)
+    truth_np[48:52, 10:60] = 1.0
+    truth_np[48:52, 75:95] = 1.0
+    truth_np[20:28, 70:78] = 1.0
+    truth = GridMap.create(truth_np, 0.0, 0.0, 0.05, device=dev)
+    belief = truth._replace(data=torch.full_like(truth.data, -1.0))
+    node = ExplorationNode(default_config("cart").replace(use_fused_solve=True,
+                                                          ergodic_weight=50.0), target="mi",
+                           device=dev)
+    pose = torch.tensor([1.0, 1.0, 0.3], device=dev)
+    node.on_odom(pose)
+    step_t = torch.tensor([node.config.dt], device=dev)
+    reset_counts()
+    lat, map_lat, poses = [], [], []
+    for t in range(NODE_MI_TICKS):
+        update = t % NODE_REVEAL_EVERY == 0
+        if update:
+            belief = sensor.reveal(belief, truth, pose, 1.2)
+            node.on_map(belief.data, 0.0, 0.0, 0.05)
+        t0 = time.perf_counter()
+        tw, diag = node.step()
+        (map_lat if update else lat).append(1e3 * (time.perf_counter() - t0))
+        pose = constant_twist_poses(pose, torch.as_tensor(tw, device=dev), step_t)[0]
+        node.on_odom(pose, tw)
+        poses.append(pose)
+    poses = torch.stack(poses).cpu()
+    expect_counts("phase 16, MI node", read_counts(),
+                  {"fused_solve_safety_map_h0_nb": NODE_MI_TICKS})
+    inside = bool(((poses[:, :2] >= 0.0) & (poses[:, :2] <= 5.0)).all())
+    if not torch.isfinite(poses).all() or not inside:
+        fail("the MI node's poses are non-finite or left the domain")
+    print(f"  MI node, {NODE_MI_TICKS} ticks: steady step() p50 {np.percentile(lat, 50):.4f} ms, "
+          f"p99 {np.percentile(lat, 99):.4f}; reveal ticks (first excluded) p50 "
+          f"{np.percentile(map_lat[1:], 50):.4f} ms, max {max(map_lat[1:]):.4f}; moved "
+          f"{(poses[-1, :2] - poses[0, :2]).norm().item():.3f} m; belief known "
+          f"{(belief.data >= 0).float().mean().item():.4f} {card}")
+
+    # the node on the card against the node on the CPU, one fixed odometry
+    # stream that ends inside the footprint of the wall (barrier, validation, DWA)
+    stream = [[2.5 + 0.01 * i, 1.65 + 0.05 * i, 1.3] for i in range(NODE_CMP_TICKS)]
+
+    def node_stream(d, fused, pipeline=False, with_map=True):
+        node = make_node(d, fused, pipeline,
+                         domain=None if with_map else Domain.create(0.0, 0.0, 5.0, 5.0))
+        if with_map:
+            node.on_map(base_map, resolution=0.05)
+        out = []
+        for p in stream:
+            node.on_odom(p)
+            out.append(node.step())
+        if pipeline:
+            out = out[1:] + [node.flush()]
+        return (np.stack([o[0] for o in out]),
+                np.array([[int(o[1].collision_code), int(o[1].dwa_active),
+                           int(o[1].dwa_feasible)] for o in out]))
+
+    cpu = torch.device("cpu")
+    for fused, with_map in ((False, True), (True, True), (True, False)):
+        (tw_d, f_d), (tw_c, f_c) = (node_stream(dev, fused, with_map=with_map),
+                                    node_stream(cpu, fused, with_map=with_map))
+        du = np.abs(tw_d - tw_c).max()
+        world = "map" if with_map else "no map (2 x 2 world)"
+        print(f"  fused={fused}, {world}: max |twist_card - twist_cpu| {du:.3e} (atol 5e-5) "
+              f"over {NODE_CMP_TICKS} ticks; codes "
+              f"{f_d[:, 0].tolist()} (card) {f_c[:, 0].tolist()} (CPU); DWA "
+              f"{f_d[:, 1].tolist()}")
+        if du > 5e-5 or not np.array_equal(f_d, f_c):
+            fail("the node on the card disagrees with the node on the CPU")
+        if fused and with_map:
+            tw_p, f_p = node_stream(dev, True, pipeline=True)
+            if np.abs(tw_p - tw_d).max() > 1e-6 or not np.array_equal(f_p, f_d):
+                fail("pipelined twists are not the unpipelined ones shifted by one tick")
+            print("  pipelined on the card: the unpipelined twists shifted by one tick")
+
+    # each kernel of the node's path against its plain version on the node's inputs
+    cfg_n = node_f.config
+    x1, vb1 = node_f._pose[None], node_f._twist[None]
+    inp, _, _ = sk.fused_tick_inputs(cfg_n, node_f.state, x1, vb1, node_f._phik, node_f._world)
+    k, p = sk.K1(cfg_n, inp), sk.fused_solve_safety_plain(cfg_n, inp)
+    torch.cuda.synchronize()
+    e = compare("node fused_solve_safety_map_h0_nb (S=1)", k, p)
+    w_n = node_f._world
+    P_n = min(cfg_n.patch_cells, *w_n.dist.dist.shape[-2:])
+    crop = extract_patch(w_n.dist, x1[:, :2], P_n).center_crop(cfg_n.safety_patch_cells)
+    probes = dwa_probes_needed(cfg_n, node_f.model, x1, vb1, w_n.domain, crop)
+    entry("node_fused_solve_safety_map_h0_nb", "solve_kernel.cu",
+          "ergodic_exploration_tpu/ops/solve_kernel.py:345", e,
+          events_ms(lambda: sk.K1(cfg_n, inp), 200),
+          events_ms(lambda: sk.fused_solve_safety_plain(cfg_n, inp), 5),
+          solve_work(cfg_n, 1, P_n, True, probes, map_cells=P_n * P_n,
+                     nb=cfg_n.buffer_batch))
+    kernels["node_fused_solve_safety_map_h0_nb"]["launches"] = \
+        counts_f["fused_solve_safety_map_h0_nb"]
+    cfg_e, w_e = node_e.config, node_e._world
+    x1, vb1 = node_e._pose[None], node_e._twist[None]
+    crop = extract_patch(w_e.dist, x1[:, :2], P_n).center_crop(cfg_e.safety_patch_cells)
+    args = (x1.contiguous(), vb1.contiguous(), node_e.state.U[:, 0].contiguous(),
+            crop.dist.contiguous(), crop.start.to(torch.int32), crop.origin.contiguous(),
+            crop.resolution.contiguous(), w_e.domain.origin.contiguous(),
+            w_e.domain.lengths.contiguous())
+    ks, ps = sk.K1.safety(cfg_e, *args), sk.fused_safety_plain(cfg_e, *args)
+    torch.cuda.synchronize()
+    e = compare_safety("node fused_safety (S=1)", ks, ps)
+    probes = dwa_probes_needed(cfg_e, node_e.model, x1, vb1, w_e.domain, crop)
+    entry("node_fused_safety", "solve_kernel.cu",
+          "ergodic_exploration_tpu/ops/solve_kernel.py:1254", e,
+          events_ms(lambda: sk.K1.safety(cfg_e, *args), 200),
+          events_ms(lambda: sk.fused_safety_plain(cfg_e, *args), 20),
+          safety_work(cfg_e, 1, crop.dist.shape[-1], probes))
+    kernels["node_fused_safety"]["launches"] = counts_e["fused_safety"]
+
+
 def main() -> int:
     import torch
 
@@ -513,7 +747,7 @@ def run(dev) -> int:
                          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                          "library_ms": None}
         print(f"{name}: {ms:.4f} ms/call, plain version {plain_ms:.4f} ms/call, bound "
-              f"{b_ms:.5f} ms by {by} {card}")
+              f"{b_ms:.4g} ms by {by} {card}")
 
     # ---- 1. environment
     print("== 1. environment", flush=True)
@@ -1198,8 +1432,11 @@ def run(dev) -> int:
           mi_work(S_MAIN, 100, 100, cfg.num_basis, MI_RADIUS, cfg.mi_frontier_cells))
     kernels["phik_from_grid_fc"]["launches"] = counts["phik_from_grid_fc"]
     one = belief.data[:1].clone()  # a copy: a view would keep all S_MAIN maps alive
+    b_ms, by = bound(*mi_work(1, 100, 100, cfg.num_basis, MI_RADIUS, cfg.mi_frontier_cells))
     print(f"  K3 at S=1 on this path's beliefs: {events_ms(lambda: mk.K3(one, *k3_args), 200):.4f} "
-          f"ms/call {card}")
+          f"ms/call, plain version "
+          f"{events_ms(lambda: mk.phik_from_grid_plain(one, *k3_args), 20):.4f} ms/call, bound "
+          f"{b_ms:.4g} ms by {by} {card}")
     del one
     # continuous beliefs: no cell at -1, 0 or 1, every entropy through the logs
     cont = torch.from_numpy(np.random.default_rng(17).uniform(
@@ -1208,7 +1445,8 @@ def run(dev) -> int:
     print(f"  K3 on continuous beliefs at S={S_MAIN}: "
           f"{events_ms(lambda: mk.K3(cont, *k3_args), 20):.4f} ms/call against "
           f"{kernels['phik_from_grid_fc']['ms']:.4f} on path E's (max |kernel - plain| "
-          f"{err_c:.3e}) {card}")
+          f"{err_c:.3e}), plain version "
+          f"{events_ms(lambda: mk.phik_from_grid_plain(cont, *k3_args), 3):.4f} ms/call {card}")
     del cont
     dense_ms = events_ms(lambda: engine._phik_grid_batch_dense_fn(belief, domain, MI_RADIUS), 5)
     print(f"  the dense path on the same beliefs (the stand-in a faster K3 is compared with, no "
@@ -1394,6 +1632,8 @@ def run(dev) -> int:
           f"{dcov:.2e} (limit 1e-3)")
     if n_diff > 1e-3 * b_d.numel() or dcov > 1e-3:
         fail("the mapping loop on the card disagrees with the mapping loop on the CPU")
+
+    node_phase(dev, card, entry, kernels)
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:

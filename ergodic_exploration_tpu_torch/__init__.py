@@ -12,7 +12,13 @@ eagerly in PyTorch around hand-written CUDA kernels for an NVIDIA H100
 - controller                                    — the batched eager tick
 - ops.solve_kernel + csrc/solve_kernel.cu       — K1, the one-kernel tick
 - engine                                        — the batched single-device API
+- node, native                                  — the single-robot loop, the C++ host runtime
+- viz, utils.profiling                          — figures, timing and traces
 - utils.prng, utils.validation, utils.interop   — JAX-exact RNG, guards, state I/O
+
+``Engine``, ``ErgodicController``, ``ExplorationNode`` and ``GaussianMixture``
+are imported from the package root on first use: the config and grid stay
+cheap to import.
 """
 
 from ergodic_exploration_tpu_torch.config import (
@@ -23,8 +29,26 @@ from ergodic_exploration_tpu_torch.config import (
     default_config,
     load_yaml_config,
 )
+from ergodic_exploration_tpu_torch.grid import Domain, GridMap
 
 __version__ = "0.1.0"
 
+_LAZY = {
+    "ErgodicController": "ergodic_exploration_tpu_torch.controller",
+    "Engine": "ergodic_exploration_tpu_torch.engine",
+    "ExplorationNode": "ergodic_exploration_tpu_torch.node",
+    "GaussianMixture": "ergodic_exploration_tpu_torch.ops.target",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(name)
+
+
 __all__ = ["CartParams", "DwaConfig", "EngineConfig", "OmniParams", "default_config",
-           "load_yaml_config"]
+           "load_yaml_config", "Domain", "GridMap", "ErgodicController", "Engine",
+           "ExplorationNode", "GaussianMixture"]

@@ -1,7 +1,9 @@
 """Frozen configuration dataclasses for the ergodic-exploration engine.
 
-A verbatim copy of ``ergodic_exploration_tpu/config.py`` (same fields, same
-defaults, same YAML names) so the PyTorch port imports no JAX package code.
+A copy of ``ergodic_exploration_tpu/config.py`` (same fields, same defaults,
+same YAML names) so the PyTorch port imports no JAX package code, with two
+checks the JAX package lacks: ``validate()`` refuses a ``precision`` other
+than ``"fp32"``, and :func:`load_yaml_config` warns about the keys it drops.
 Some field comments quote measurements or switches of the JAX package; the
 port reads the same fields with the same meaning.
 
@@ -16,6 +18,7 @@ names so a reference user can carry their config files over.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -182,7 +185,9 @@ class EngineConfig:
     orbit_eps: float = 0.15
 
     # --- numerics / scale-out ---
-    precision: str = "fp32"  # "fp32" | "bf16" (bf16 basis matmul inputs, fp32 accum)
+    # "fp32" only in the port: every matmul runs in exact float32 (TF32 off);
+    # validate() refuses the JAX package's "bf16"
+    precision: str = "fp32"
     use_pallas: bool = True  # fused ergodic-reduction kernel where profitable
     # Fused Pallas descent core for the batched Engine replan (rollout ->
     # basis -> gradient -> barrier -> co-state -> update in ONE kernel;
@@ -245,6 +250,10 @@ class EngineConfig:
             raise ValueError(f"unknown dwa cost_space {self.dwa.cost_space!r}")
         if self.horizon < 1 or self.num_basis < 1:
             raise ValueError("horizon and num_basis must be >= 1")
+        if self.precision != "fp32":
+            raise ValueError(
+                f"precision {self.precision!r} is not supported: the port runs exact float32 "
+                "matmuls (TF32 off), so only 'fp32' is accepted")
         return self
 
 
@@ -281,6 +290,16 @@ _REFERENCE_PARAM_MAP = {
 }
 
 
+# Keys of ROS parameter files that configure a ROS node (frame ids, topic
+# names, the loop rate), not the controller: the loader drops them without a
+# warning. Any other key it cannot use is named in one warning per call.
+ROS_ONLY_KEYS = frozenset({
+    "frequency", "map_frame_id", "base_frame_id", "odom_frame_id", "world_frame_id",
+    "global_frame", "robot_base_frame", "map_topic", "odom_topic", "cmd_vel_topic",
+    "cmd_topic", "path_topic", "target_topic", "marker_topic", "scan_topic",
+})
+
+
 def _as_bool(val) -> bool:
     """Strict bool coercion: YAML bools, 0/1, and true/false strings only."""
     if isinstance(val, bool):
@@ -298,6 +317,8 @@ def load_yaml_config(path_or_dict) -> EngineConfig:
     Accepts the reference's parameter names (``expl_weight``, ``buffer_size``,
     ``wheel_radius`` ...) as well as native field names, so reference
     ``config/*.yaml`` files carry over (SURVEY.md section 6, config row).
+    Keys it cannot use, other than those of :data:`ROS_ONLY_KEYS`, are named
+    in one :class:`UserWarning`.
     """
     if isinstance(path_or_dict, dict):
         raw = dict(path_or_dict)
@@ -359,10 +380,13 @@ def load_yaml_config(path_or_dict) -> EngineConfig:
     # Coerce by the DEFAULT VALUE's type so every scalar field round-trips
     # with its declared type (bool before int: isinstance(True, int) is True).
     defaults = EngineConfig()
+    dropped = []
     for key, val in list(raw.items()):
         field = _REFERENCE_PARAM_MAP.get(key, key if key in field_names else None)
         if field is None:
-            continue  # ignore ROS-only params (frame ids, topic names, frequency)
+            if key not in ROS_ONLY_KEYS:
+                dropped.append(key)
+            continue
         default = getattr(defaults, field)
         if field == "buffer_batch":
             updates[field] = None if val is None else int(val)
@@ -374,7 +398,12 @@ def load_yaml_config(path_or_dict) -> EngineConfig:
             updates[field] = float(val)
         elif isinstance(default, str):
             updates[field] = str(val)
-        # tuple / nested-dataclass fields (grid_samples, r_diag, dwa, ...)
-        # are handled by the explicit blocks above; ignore here.
+        else:
+            # tuple / nested-dataclass fields take the explicit spellings
+            # above (grid_samples, r, control_min, dwa_*, wheel_radius, ...)
+            dropped.append(key)
+    if dropped:
+        warnings.warn(f"load_yaml_config ignored unknown keys: {sorted(map(str, dropped))}",
+                      stacklevel=2)
 
     return cfg.replace(**updates).validate()

@@ -207,7 +207,8 @@ class ErgodicController:
         return make_model(self.config)
 
     def init_state(self, rng: torch.Tensor) -> ControllerState:
-        """Fresh state for keys ``rng`` (S, 2): one scenario per key row."""
+        """Fresh state for keys ``rng`` (S, 2): one scenario per key row
+        (a row of zeros is the JAX package's default ``PRNGKey(0)``)."""
         cfg = self.config
         S, dev = rng.shape[0], rng.device
         K = cfg.num_basis
@@ -266,3 +267,9 @@ class ErgodicController:
         ck_sum = state.ck_sum + basis.coefficients_cos(Cnx, Cny, torch.ones_like(x[:, :1]), hk)
         return finish_tick(cfg, state, x, U_new, u0, safety_out, ck_sum, rng, metric,
                            bcost, orbiting)
+
+    def predicted_path(self, state: ControllerState, x) -> torch.Tensor:
+        """(S, H+1, 3) forward-simulated path of each scenario's control
+        sequence from poses ``x`` (S, 3) (the reference publishes it as a
+        ``nav_msgs/Path``)."""
+        return rollout(self.model, x, state.U, self.config.dt)

@@ -517,16 +517,24 @@ class Engine:
     # ------------------------------------------------------------------
 
     def warmup(self, S: int, domain: Domain, map_shape=None, gmm_components: int = 1,
-               n_ticks=()) -> dict:
+               n_ticks=(), persistent_cache=None) -> dict:
         """Pay the startup costs before the first real tick: on a CUDA device
         build (or load) every kernel library, then run each entry point once
         on dummy data of ``S`` scenarios: ``init_scenarios``, ``prepare_world``
         with ``phik_from_grid`` and ``replan_refresh_mi`` (when ``map_shape``
         is given, else an empty world), ``phik_from_gmm``, ``replan``,
         ``replan_refresh`` and ``explore`` for each length in ``n_ticks``.
-        Returns {stage: seconds}.
+        ``persistent_cache`` (True for the default ``build/kernels/``, or a
+        directory) is where the kernel libraries are built and loaded from
+        then on (``utils.cuda_build.set_build_dir``); a library built there
+        survives the process, as the JAX package's compile cache does. On the
+        CPU it changes nothing. Returns {stage: seconds}.
         """
         timings = {}
+        if persistent_cache and self.device.type == "cuda":
+            from ergodic_exploration_tpu_torch.utils.cuda_build import set_build_dir
+
+            set_build_dir(None if persistent_cache is True else persistent_cache)
 
         def timed(name, fn):
             t0 = time.perf_counter()

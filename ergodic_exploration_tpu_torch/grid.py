@@ -71,6 +71,14 @@ class GridMap(NamedTuple):
             resolution=torch.tensor(resolution, dtype=torch.float32, device=device),
         )
 
+    @staticmethod
+    def from_ros(int8_data, x0: float, y0: float, resolution: float, device=None) -> "GridMap":
+        """A map from ROS ``nav_msgs/OccupancyGrid`` int8 data: -1 stays
+        UNKNOWN, 0..100 becomes the probability 0..1."""
+        raw = torch.as_tensor(int8_data, device=device).to(torch.float32)
+        data = torch.where(raw < 0.0, torch.full_like(raw, UNKNOWN), raw / 100.0)
+        return GridMap.create(data, x0, y0, resolution, device=device)
+
     @property
     def shape(self) -> Tuple[int, int]:
         return tuple(self.data.shape[-2:])
@@ -84,6 +92,12 @@ class GridMap(NamedTuple):
     def world_to_grid(self, p: torch.Tensor) -> torch.Tensor:
         """World points (..., N, 2) -> fractional (ix, iy) indices."""
         return (p - rows(self.origin)) / self.resolution[..., None, None] - 0.5
+
+    def grid_to_world(self, idx) -> torch.Tensor:
+        """(ix, iy) indices (..., N, 2) -> world coordinates of the cell
+        centres."""
+        idx = torch.as_tensor(idx, device=self.origin.device).to(torch.float32)
+        return rows(self.origin) + (idx + 0.5) * self.resolution[..., None, None]
 
     def cell_index(self, p: torch.Tensor) -> torch.Tensor:
         """World points -> integer (ix, iy), clamped to the map (half-even
@@ -103,6 +117,14 @@ class GridMap(NamedTuple):
         """Occupancy probability with unknown cells at 0.5."""
         return torch.where(self.data < 0.0, torch.full_like(self.data, 0.5), self.data)
 
+    def known(self) -> torch.Tensor:
+        """Cells some sensor has seen."""
+        return self.data >= 0.0
+
     def occupied(self, threshold: float = 0.65) -> torch.Tensor:
         """Obstacle mask; unknown cells are NOT obstacles."""
         return self.data >= threshold
+
+    def free(self, threshold: float = 0.2) -> torch.Tensor:
+        """Known cells at or below the free-space probability ``threshold``."""
+        return (self.data >= 0.0) & (self.data <= threshold)

@@ -2,9 +2,11 @@
 
 Kernels are compiled on first use, by ``nvcc`` from the sources under
 ``ergodic_exploration_tpu_torch/csrc``, into ``build/kernels/`` at the root
-of the checkout. The library name carries a hash of every source and header
-in ``csrc`` and of the flags, so an edited source or flag builds anew and an
-unchanged one is loaded from disk. The libraries have a plain C interface
+of the checkout, or into the directory last given to :func:`set_build_dir`
+(``Engine.warmup(..., persistent_cache=path)`` sets it). The library name
+carries a hash of every source and header in ``csrc`` and of the flags, so
+an edited source or flag builds anew and an unchanged one is loaded from
+disk. The libraries have a plain C interface
 and are loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). :func:`build_all` compiles several sources at once, one ``nvcc``
 process each.
@@ -24,7 +26,18 @@ from pathlib import Path
 from typing import Dict, NamedTuple, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = DEFAULT_BUILD_DIR  # where build() writes and looks for libraries
+
+
+def set_build_dir(path=None) -> Path:
+    """Build and load the libraries in ``path`` from now on (None: the
+    default ``build/kernels/``); returns the directory. Libraries already
+    loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = DEFAULT_BUILD_DIR if path is None else Path(path).resolve()
+    return BUILD_DIR
+
 
 # sm_90a: Hopper with its architecture-specific features. -fmad=false keeps
 # every multiply and add rounded separately, as PyTorch's elementwise ops
@@ -53,7 +66,7 @@ def _nvcc() -> str:
 
 
 def build(name: str, source: str, flags: Sequence[str] = NVCC_FLAGS) -> Built:
-    """Compile ``csrc/<source>`` into ``build/kernels/<name>-<hash>.so``
+    """Compile ``csrc/<source>`` into ``<BUILD_DIR>/<name>-<hash>.so``
     (unless that file exists) and load it."""
     h = hashlib.sha256("\0".join(flags).encode())
     for f in sorted(CSRC.glob("*.cu*")):

@@ -1,7 +1,7 @@
 """Carry state between the JAX package and the port, through numpy.
 
-The JAX package's pytrees (``Scenarios``, ``World``, ``GaussianMixture``,
-``GridMap``)
+The JAX package's pytrees (``Scenarios``, ``ControllerState``, ``World``,
+``GaussianMixture``, ``GridMap``)
 converted leaf by leaf to numpy arrays (``jax.tree.map(np.asarray, tree)``)
 have the same field names as the port's NamedTuples, so these functions
 read them by attribute and need no JAX import. JAX keys are uint32 words;
@@ -26,26 +26,35 @@ def _t(a, device, dtype):
     return torch.as_tensor(np.array(a), device=device).to(dtype)
 
 
+def state_from_numpy(st, device=None) -> ControllerState:
+    """JAX ``ControllerState`` (numpy leaves) -> the port's. A batched state
+    (U of shape (S, H, nu)) keeps its S rows; an unbatched one, as the JAX
+    node holds it, becomes one scenario (S = 1)."""
+    device = resolve_device(device)
+    one = np.ndim(st.U) == 2
+
+    def t(a, dtype):
+        a = np.asarray(a)
+        return _t(a[None] if one else a, device, dtype)
+
+    buf = st.buffer
+    return ControllerState(
+        U=t(st.U, torch.float32),
+        buffer=RingBuffer(t(buf.states, torch.float32), t(buf.cursor, torch.int32),
+                          t(buf.count, torch.int32)),
+        ck_sum=t(st.ck_sum, torch.float32),
+        hist_count=t(st.hist_count, torch.int32),
+        rng=t(np.asarray(st.rng).astype(np.int64), torch.int64),
+    )
+
+
 def scenarios_from_numpy(sc, device=None):
     """JAX ``Scenarios`` (numpy leaves) -> the port's ``Scenarios``."""
     from ergodic_exploration_tpu_torch.engine import Scenarios
 
     device = resolve_device(device)
-    st = sc.state
-    buf = st.buffer
-    return Scenarios(
-        state=ControllerState(
-            U=_t(st.U, device, torch.float32),
-            buffer=RingBuffer(_t(buf.states, device, torch.float32),
-                              _t(buf.cursor, device, torch.int32),
-                              _t(buf.count, device, torch.int32)),
-            ck_sum=_t(st.ck_sum, device, torch.float32),
-            hist_count=_t(st.hist_count, device, torch.int32),
-            rng=_t(np.asarray(st.rng).astype(np.int64), device, torch.int64),
-        ),
-        x=_t(sc.x, device, torch.float32),
-        vb=_t(sc.vb, device, torch.float32),
-    )
+    return Scenarios(state=state_from_numpy(sc.state, device),
+                     x=_t(sc.x, device, torch.float32), vb=_t(sc.vb, device, torch.float32))
 
 
 def world_from_numpy(world, device=None) -> World:

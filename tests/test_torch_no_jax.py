@@ -26,7 +26,9 @@ def test_package_has_the_slice_modules():
     for m in ("config.py", "grid.py", "controller.py", "engine.py", "ops/solve_kernel.py",
               "utils/interop.py", "utils/prng.py", "utils/validation.py", "ops/gmm_kernel.py",
               "utils/checkpoint.py", "utils/metrics.py", "utils/device.py", "ops/mi_kernel.py",
-              "ops/sensor.py", "ops/target.py", "ops/basis.py", "utils/cuda_build.py"):
+              "ops/sensor.py", "ops/target.py", "ops/basis.py", "utils/cuda_build.py",
+              "node.py", "native.py", "viz.py", "utils/profiling.py",
+              "examples/single_robot.py"):
         assert m in names
     for src in ("solve_kernel.cu", "gmm_kernel.cu", "gmm_refresh.cuh", "mi_kernel.cu"):
         assert (PKG / "csrc" / src).exists()
