@@ -62,6 +62,21 @@ Phases:
     100 ticks of the MI target on a belief a disc sensor opens; the node on
     the card vs on the CPU over one odometry stream; K1 and ``fused_safety``
     vs plain on the node's inputs
+17  scale-out (path H), on ranks spawned with ``torch.multiprocessing`` and
+    joined through a file store. Leg (a), a world of one NCCL rank: path A
+    (S = 4096, 10 ticks) on ``make_scenario_mesh()`` and on ``make_mesh(1,
+    1)`` and path E's MI tick with K3 on the mesh, each equal bit for bit to
+    the unsharded engine; a collective checkpoint loaded by the unsharded
+    engine, 5 more ticks equal; ``graft_entry.dryrun_multichip(1)``; K1 and
+    K3 vs plain on the rank's inputs. Leg (b), two gloo ranks sharing the
+    card: path A on mesh (2,), 2048 scenarios a rank, gathered and held
+    against this process's unsharded engine; on mesh (1, 2) the
+    sample-sharded GMM target (unmasked, masked, fully occupied scenarios) vs
+    K2 and the MI target vs the dense path, and ``replan_refresh`` for 5
+    ticks vs the unsharded engine from the same state; a checkpoint of two
+    ranks loaded here equal bit for bit to their gathered state;
+    ``dryrun_multichip(2)`` with its 2-D leg. Tick and collective times are
+    printed; two ranks on one card are no scaling figure
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are a JSON line describing each kernel
@@ -110,6 +125,10 @@ NODE_TICKS, NODE_MAP_EVERY = 300, 50  # phase 16: ticks after one warm-up tick; 
 NODE_MI_TICKS, NODE_REVEAL_EVERY = 100, 10  # phase 16's MI loop
 NODE_CMP_TICKS = 10  # phase 16: ticks of the node on the card vs on the CPU
 BUDGET_MS = 100.0  # the 10 Hz loop's period
+REVEAL_RANGE = 0.75  # m: the disc a scenario's sensor reveals around its pose each MI tick
+SCALE_TICKS, SAMPLE_TICKS, RESUME_TICKS = 10, 5, 5  # phase 17: mesh ticks; (1, 2); resumed
+RANK_TIMEOUT_S = 300  # phase 17: the spawned ranks of one leg together
+TICK_FIELDS = ("u", "metric", "code", "dwa_active", "dwa_feasible", "U")
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -709,6 +728,434 @@ def node_phase(dev, card, entry, kernels) -> None:
           events_ms(lambda: sk.fused_safety_plain(cfg_e, *args), 20),
           safety_work(cfg_e, 1, crop.dist.shape[-1], probes))
     kernels["node_fused_safety"]["launches"] = counts_e["fused_safety"]
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the scale-out path, on ranks spawned with torch.multiprocessing
+# ---------------------------------------------------------------------------
+
+
+def _drive(engine, sc, world, gmm, domain, n):
+    """n bench ticks (``replan_refresh`` + pose advance) timed by CUDA events;
+    returns (final state, per-tick (u, metric, code, DWA active, DWA
+    feasible, U), ms per tick)."""
+    import torch
+
+    outs = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        sc, u, dg = engine.replan_refresh(sc, gmm, domain, world)
+        outs.append((u, dg.ergodic_metric, dg.collision_code, dg.dwa_active, dg.dwa_feasible,
+                     sc.state.U))
+        sc = advance(engine, sc, u)
+    end.record()
+    torch.cuda.synchronize()
+    return sc, outs, start.elapsed_time(end) / n
+
+
+def _mi_drive(engine, sc, belief, truth, world, domain, n):
+    """n MI ticks (disc reveal + ``replan_refresh_mi`` with K3 + pose
+    advance); returns (state, beliefs, per-tick (u, metric, code, DWA active,
+    DWA feasible, U), ms per tick)."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.ops import sensor
+
+    outs = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        belief = sensor.reveal(belief, truth, sc.x, REVEAL_RANGE)
+        sc, u, dg = engine.replan_refresh_mi(sc, engine.shard_scenarios(belief), world,
+                                             sensor_radius_cells=MI_RADIUS, domain=domain,
+                                             use_mi_kernel=True)
+        outs.append((u, dg.ergodic_metric, dg.collision_code, dg.dwa_active, dg.dwa_feasible,
+                     sc.state.U))
+        sc = advance(engine, sc, u)
+    end.record()
+    torch.cuda.synchronize()
+    return sc, belief, outs, start.elapsed_time(end) / n
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of NamedTuples and tuples, in order."""
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _same_ticks(what: str, got, ref) -> None:
+    """Fail unless every tensor of every tick is equal bit for bit."""
+    import torch
+
+    for t, (a, b) in enumerate(zip(got, ref)):
+        for name, x, y in zip(TICK_FIELDS, a, b):
+            if not torch.equal(x, y):
+                fail(f"{what}: tick {t} {name} differs from the unsharded engine")
+    print(f"  {what}: {len(got)} ticks equal to the unsharded engine bit for bit", flush=True)
+
+
+def _leg_a(tmp, card):
+    """Leg (a), a world of one NCCL rank: the mesh wrappers on path A and
+    path E at S = 4096 against the unsharded engine in this process; the
+    collective checkpoint; the dry run; K1 and K3 against their plain
+    versions on this rank's inputs."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.mi_kernel as mk
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    from ergodic_exploration_tpu_torch.engine import Engine, make_mesh, make_scenario_mesh
+    from ergodic_exploration_tpu_torch.graft_entry import dryrun_multichip
+    from ergodic_exploration_tpu_torch.grid import GridMap
+    from ergodic_exploration_tpu_torch.ops.patch import extract_patch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = {}
+    cfg, x0, grids, gmm, domain = bench_case(S_MAIN, dev)
+    eng_u = Engine(cfg, device=dev)
+    world_u = eng_u.prepare_world(grids)
+    _, ref, _ = _drive(eng_u, eng_u.init_scenarios(x0), world_u, gmm, domain, SCALE_TICKS)
+    ms = {}  # each engine timed on its second run from the start, so no first-use cost counts
+    _, _, ms["unsharded"] = _drive(eng_u, eng_u.init_scenarios(x0), world_u, gmm, domain,
+                                   SCALE_TICKS)
+    mesh = make_scenario_mesh()
+    for name, m in (("mesh (1,)", mesh), ("mesh (1, 1)", make_mesh(1, 1))):
+        eng = Engine(cfg, mesh=m)
+        world, gmm_l = eng.prepare_world(grids), eng.shard_scenarios(gmm)
+        reset_counts()
+        sc, got, _ = _drive(eng, eng.init_scenarios(x0), world, gmm_l, domain, SCALE_TICKS)
+        counts = read_counts()
+        expect_counts(f"phase 17 (a), path A on {name}", counts,
+                      {"fused_solve_safety": SCALE_TICKS})
+        _same_ticks(f"path A on {name}", got, ref)
+        _, _, ms[name] = _drive(eng, eng.init_scenarios(x0), world, gmm_l, domain, SCALE_TICKS)
+        if name == "mesh (1,)":
+            eng_m, sc_m, world_m, gmm_m = eng, sc, world, gmm_l
+            res["k1_launches"] = counts["fused_solve_safety"]
+    _, _, ms["unsharded, again"] = _drive(eng_u, eng_u.init_scenarios(x0), world_u, gmm, domain,
+                                          SCALE_TICKS)
+    print(f"  path A tick (replan_refresh + pose advance), S={S_MAIN}, ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" {card}", flush=True)
+
+    # K1 against its plain version on this rank's inputs (the mesh path's state)
+    inp, _, _ = sk.fused_tick_inputs(cfg, sc_m.state, sc_m.x, sc_m.vb, None, world_m, gmm_m,
+                                     domain)
+    k, p = sk.K1(cfg, inp), sk.fused_solve_safety_plain(cfg, inp)
+    torch.cuda.synchronize()
+    err = compare("mesh K1 (J=2)", k, p)
+    P = min(cfg.patch_cells, 100)
+    crop = extract_patch(world_m.dist, sc_m.x[:, :2], P).center_crop(cfg.safety_patch_cells)
+    probes = dwa_probes_needed(cfg, eng_m.model, sc_m.x, sc_m.vb, world_m.domain, crop)
+    rf, rb = refresh_work(S_MAIN, int(np.prod(cfg.grid_samples)), cfg.num_basis ** 2, 2)
+    sf, sb = solve_work(cfg, S_MAIN, P, True, probes, map_cells=100 * 100)
+    res["k1"] = dict(err=err, ms=events_ms(lambda: sk.K1(cfg, inp), 20),
+                     plain_ms=events_ms(lambda: sk.fused_solve_safety_plain(cfg, inp), 3),
+                     work=(rf + sf, rb + sb))
+    del inp, k, p, crop
+
+    # the collective checkpoint, loaded by the unsharded engine: 5 more ticks equal
+    ck = os.path.join(tmp, "leg_a_ck.npz")
+    eng_m.save_checkpoint(ck, sc_m)
+    _, a, _ = _drive(eng_m, sc_m, world_m, gmm_m, domain, RESUME_TICKS)
+    _, b, _ = _drive(eng_u, eng_u.load_checkpoint(ck), world_u, gmm, domain, RESUME_TICKS)
+    _same_ticks("resumed from the collective checkpoint (mesh vs unsharded)", a, b)
+    del eng_m, sc_m, world_m, ref, a, b
+    torch.cuda.empty_cache()
+
+    # path E, the MI tick with K3, on the mesh against the unsharded engine
+    eng_e, sc_e, belief, truth, world_e, dom = mi_case(S_MAIN, dev)
+    x0_e = sc_e.x.clone()
+    _, _, ref, ms_u = _mi_drive(eng_e, sc_e, belief, truth, world_e, dom, SCALE_TICKS)
+    eng_me = Engine(eng_e.config, mesh=mesh)
+    reset_counts()
+    _, belief_m, got, ms_m = _mi_drive(eng_me, eng_me.init_scenarios(x0_e), belief, truth,
+                                       eng_me.prepare_world(belief), dom, SCALE_TICKS)
+    counts = read_counts()
+    expect_counts("phase 17 (a), path E on mesh (1,)", counts,
+                  {"phik_from_grid_fc": SCALE_TICKS, "fused_solve_safety": SCALE_TICKS})
+    _same_ticks("path E on mesh (1,)", got, ref)
+    res["k3_launches"] = counts["phik_from_grid_fc"]
+    print(f"  path E tick (reveal + replan_refresh_mi + pose advance), S={S_MAIN}: unsharded "
+          f"{ms_u:.4f} ms, mesh (1,) {ms_m:.4f} ms {card}", flush=True)
+    c = eng_e.config
+    ops = mk.mi_operands(GridMap(belief_m.data[0], belief_m.origin[0], belief_m.resolution[0]),
+                         dom, c.num_basis, c.grid_samples)
+    args = (ops, MI_RADIUS, c.mi_frontier_cells, c.occupied_threshold)
+    kk, pp = mk.K3(belief_m.data, *args), mk.phik_from_grid_plain(belief_m.data, *args)
+    torch.cuda.synchronize()
+    e3 = (kk - pp).abs()
+    if bool((e3 > K3_TOL["atol"] + K3_TOL["rtol"] * pp.abs()).any()):
+        fail(f"mesh K3 outside rtol {K3_TOL['rtol']} / atol {K3_TOL['atol']}: {e3.max():.3e}")
+    res["k3"] = dict(err=e3.max().item(), ms=events_ms(lambda: mk.K3(belief_m.data, *args), 20),
+                     plain_ms=events_ms(lambda: mk.phik_from_grid_plain(belief_m.data, *args), 3),
+                     work=mi_work(S_MAIN, 100, 100, c.num_basis, MI_RADIUS, c.mi_frontier_cells))
+    print(f"  mesh K3: max |kernel - plain| {res['k3']['err']:.3e}", flush=True)
+    del eng_e, eng_me, belief, belief_m, truth, world_e, kk, pp
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    print(f"  dryrun_multichip(1): ok in {time.perf_counter() - t0:.2f} s", flush=True)
+    return res
+
+
+def _sync_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn`` by the host clock, the device synchronised after
+    each call (for collectives, which the host waits on)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _leg_b(tmp, card):
+    """Leg (b), two gloo ranks sharing the card: path A on mesh (2,), the
+    sample-sharded targets and ticks on mesh (1, 2), the collective
+    checkpoint, the dry run with its 2-D leg. Rank 0 writes what its group
+    gathered for the parent to compare."""
+    import torch
+    import torch.distributed as dist
+
+    from ergodic_exploration_tpu_torch.engine import Engine, make_mesh, make_scenario_mesh
+    from ergodic_exploration_tpu_torch.graft_entry import dryrun_multichip
+    from ergodic_exploration_tpu_torch.grid import GridMap
+    from ergodic_exploration_tpu_torch.parallel import process_allgather
+    from ergodic_exploration_tpu_torch.utils.interop import to_numpy
+
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out, res = {}, {}
+    cfg, x0, grids, gmm, domain = bench_case(S_MAIN, dev)
+    mesh = make_scenario_mesh(devices="cuda")
+    eng = Engine(cfg, mesh=mesh)
+    world, gmm_l = eng.prepare_world(grids), eng.shard_scenarios(gmm)
+    sc, ticks, res["tick_ms"] = _drive(eng, eng.init_scenarios(x0), world, gmm_l, domain,
+                                       SCALE_TICKS)
+    for t, tick in enumerate(ticks):
+        for name, v in zip(TICK_FIELDS, process_allgather(tick, mesh)):
+            out[f"a{t}_{name}"] = v.cpu().numpy()
+    res["gather_ms"] = _sync_ms(lambda: process_allgather(sc, mesh), 5)
+    ck = os.path.join(tmp, "leg_b_ck.npz")
+    t0 = time.perf_counter()
+    eng.save_checkpoint(ck, sc)
+    res["checkpoint_ms"] = 1e3 * (time.perf_counter() - t0)
+    for i, leaf in enumerate(tree_leaves(to_numpy(process_allgather(sc, mesh)))):
+        out[f"state_{i}"] = leaf
+    del eng, sc, world, ticks
+    torch.cuda.empty_cache()
+
+    # mesh (1, 2): the lattice split over the two ranks
+    mesh2 = make_mesh(1, 2, devices="cuda")
+    cfg_d, _, grids_d, gmm_d, dom_d = distinct_case(S_MAIN, dev)
+    eng2 = Engine(cfg_d, mesh=mesh2)
+    deg = grids_d.data.clone()
+    deg[::97] = 1.0  # every 97th scenario fully occupied: an empty free mask
+    out["phik_unmasked"] = eng2.phik_from_gmm(gmm_d, dom_d).cpu().numpy()
+    out["phik_masked"] = eng2.phik_from_gmm(gmm_d, dom_d, eng2.prepare_world(grids_d)).cpu().numpy()
+    out["phik_degenerate"] = eng2.phik_from_gmm(
+        gmm_d, dom_d, eng2.prepare_world(grids_d._replace(data=deg))).cpu().numpy()
+    beliefs = torch.from_numpy(mi_beliefs(S_MAIN, 100, 100)).to(dev)
+    bgrids = GridMap(beliefs, torch.zeros((S_MAIN, 2), device=dev),
+                     torch.full((S_MAIN,), 0.05, device=dev))
+    out["phik_mi"] = eng2.phik_from_grid(bgrids, MI_RADIUS).cpu().numpy()
+    group = mesh2.get_group("sample")
+    mass = torch.ones((S_MAIN, 2), device=dev)
+    part = torch.ones((S_MAIN, cfg_d.num_basis ** 2), device=dev)
+    res["all_reduce_mass_ms"] = _sync_ms(lambda: dist.all_reduce(mass, group=group), 20)
+    res["all_reduce_ck_ms"] = _sync_ms(lambda: dist.all_reduce(part, group=group), 20)
+    res["phik_sharded_ms"] = _sync_ms(lambda: eng2.phik_from_gmm(gmm_d, dom_d), 5)
+    del eng2, beliefs, bgrids, deg
+    # replan_refresh on mesh (1, 2), each tick beside the unsharded engine's
+    # tick from the same state (a rank holds every scenario on this mesh)
+    eng3, eng_u = Engine(cfg, mesh=mesh2), Engine(cfg, device=dev)
+    world3, world_u = eng3.prepare_world(grids), eng_u.prepare_world(grids)
+    sc, gmm3 = eng3.init_scenarios(x0), eng3.shard_scenarios(gmm)
+    for t in range(SAMPLE_TICKS):
+        for tag, (sc2, u, dg) in (("s", eng3.replan_refresh(sc, gmm3, domain, world3)),
+                                  ("r", eng_u.replan_refresh(sc, gmm, domain, world_u))):
+            tick = (u, dg.ergodic_metric, dg.collision_code, dg.dwa_active, dg.dwa_feasible,
+                    sc2.state.U)
+            for name, v in zip(TICK_FIELDS, tick):
+                out[f"{tag}{t}_{name}"] = v.cpu().numpy()
+            if tag == "s":
+                sc_next = advance(eng3, sc2, u)
+        sc = sc_next
+    _, _, res["sample_tick_ms"] = _drive(eng3, sc, world3, gmm3, domain, SAMPLE_TICKS)
+    del eng3, eng_u, world3, world_u, sc, sc2, sc_next
+    torch.cuda.empty_cache()
+    if rank == 0:
+        np.savez(os.path.join(tmp, "leg_b.npz"), **out)
+
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    print(f"  [rank {rank}] dryrun_multichip(2) with its 2-D leg: ok in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return res
+
+
+def _rank_main(leg: str, rank: int, world: int, tmp: str, backend: str, card: str) -> None:
+    """A spawned rank: joins the group through a file store, runs its leg,
+    writes ``<tmp>/<leg>_rank<r>.json`` and leaves the group."""
+    import torch.distributed as dist
+
+    from ergodic_exploration_tpu_torch.parallel import initialize_multihost
+
+    initialize_multihost(f"file://{os.path.join(tmp, leg + '_store')}", world, rank,
+                         backend=backend)
+    try:
+        res = {"a": _leg_a, "b": _leg_b}[leg](tmp, card)
+        with open(os.path.join(tmp, f"{leg}_rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(leg: str, world: int, backend: str, tmp: str, card: str):
+    """Run the ranks of a leg to their end; fail unless every rank exits 0.
+    Returns each rank's results."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(leg, r, world, tmp, backend, card))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(RANK_TIMEOUT_S)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        fail(f"phase 17 leg ({leg}): ranks exited with {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{leg}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _close_ticks(what: str, got: dict, prefix: str, ref, n: int) -> None:
+    """Ticks gathered from the ranks (``got[f"{prefix}{t}_{field}"]``)
+    against the unsharded ticks ``ref``, within the port's budgets: at most
+    CODE_MISMATCH_LIMIT scenarios whose code or DWA flags differ (over the
+    run), controls within 5e-5 and the metric within rtol 1e-5 elsewhere."""
+    mism = np.zeros(S_MAIN, bool)
+    du = dm = 0.0
+    bad_metric = 0
+    for t in range(n):
+        g = {k: got[f"{prefix}{t}_{k}"] for k in TICK_FIELDS}
+        r = dict(zip(TICK_FIELDS, ref[t]))
+        mism |= ((g["code"] != r["code"]) | (g["dwa_active"] != r["dwa_active"])
+                 | (g["dwa_feasible"] != r["dwa_feasible"]))
+        ok = ~mism
+        du = max(du, float(np.abs(g["u"] - r["u"])[ok].max()),
+                 float(np.abs(g["U"] - r["U"])[ok].max()))
+        e = np.abs(g["metric"] - r["metric"])[ok]
+        dm = max(dm, float(e.max()))
+
+        bad_metric += int((e > TOL["metric"]["atol"]
+                           + TOL["metric"]["rtol"] * np.abs(r["metric"][ok])).sum())
+    print(f"  {what}: max |ΔU| {du:.3e} (atol 5e-5), max |Δmetric| {dm:.3e} (rtol 1e-5: "
+          f"{bad_metric} outside), {int(mism.sum())} of {S_MAIN} scenarios differ in code / "
+          f"DWA flags (limit {CODE_MISMATCH_LIMIT})", flush=True)
+    if du > TOL["U_new"]["atol"] or bad_metric or mism.sum() > CODE_MISMATCH_LIMIT:
+        fail(f"{what}: outside the port's budgets")
+
+
+def scale_out_phase(dev, card, entry, kernels) -> None:
+    """Phase 17: leg (a) on one NCCL rank, leg (b) on two gloo ranks sharing
+    the card, each spawned after the libraries were built; leg (b) is held
+    against the unsharded engine of this process. Adds the mesh path's K1
+    and K3 entries through ``entry``."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import GridMap
+    from ergodic_exploration_tpu_torch.utils.interop import to_numpy
+
+    print("== 17. scale-out: leg (a), a world of one NCCL rank", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (res_a,) = _spawn("a", 1, "nccl", tmp, card)
+        print(f"  leg (a) in {time.perf_counter() - t0:.1f} s", flush=True)
+        k1, k3 = res_a["k1"], res_a["k3"]
+        entry("mesh_fused_solve_safety", "solve_kernel.cu",
+              "ergodic_exploration_tpu/ops/solve_kernel.py:602", k1["err"], k1["ms"],
+              k1["plain_ms"], k1["work"])
+        kernels["mesh_fused_solve_safety"]["launches"] = res_a["k1_launches"]
+        entry("mesh_phik_from_grid_fc", "mi_kernel.cu", "ergodic_exploration_tpu/ops/mi_kernel.py:210",
+              k3["err"], k3["ms"], k3["plain_ms"], k3["work"])
+        kernels["mesh_phik_from_grid_fc"]["launches"] = res_a["k3_launches"]
+
+        # the unsharded references of leg (b), in this process
+        print("== 17. scale-out: leg (b), two gloo ranks sharing the card", flush=True)
+        cfg, x0, grids, gmm, domain = bench_case(S_MAIN, dev)
+        eng = Engine(cfg, device=dev)
+        _, ref, _ = _drive(eng, eng.init_scenarios(x0), eng.prepare_world(grids), gmm, domain,
+                           SCALE_TICKS)
+        ref = [[v.cpu().numpy() for v in tick] for tick in ref]
+        cfg_d, _, grids_d, gmm_d, dom_d = distinct_case(S_MAIN, dev)
+        eng_d = Engine(cfg_d, device=dev)
+        deg = grids_d.data.clone()
+        deg[::97] = 1.0
+        beliefs = torch.from_numpy(mi_beliefs(S_MAIN, 100, 100)).to(dev)
+        bgrids = GridMap(beliefs, torch.zeros((S_MAIN, 2), device=dev),
+                         torch.full((S_MAIN,), 0.05, device=dev))
+        refs = dict(
+            unmasked=eng_d.phik_from_gmm(gmm_d, dom_d),
+            masked=eng_d.phik_from_gmm(gmm_d, dom_d, eng_d.prepare_world(grids_d)),
+            degenerate=eng_d.phik_from_gmm(gmm_d, dom_d,
+                                           eng_d.prepare_world(grids_d._replace(data=deg))),
+            mi=eng_d.phik_from_grid(bgrids, MI_RADIUS, domain=dom_d))
+        refs = {k: v.cpu().numpy() for k, v in refs.items()}
+        del eng, eng_d, deg, beliefs, bgrids
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        res_b = _spawn("b", 2, "gloo", tmp, card)
+        print(f"  leg (b) in {time.perf_counter() - t0:.1f} s", flush=True)
+        for r, rb in enumerate(res_b):
+            print(f"  [rank {r}] path A tick on mesh (2,), 2048 scenarios: {rb['tick_ms']:.4f} ms; "
+                  f"on mesh (1, 2) (sample-sharded refresh, K1 fed phi_k): "
+                  f"{rb['sample_tick_ms']:.4f} ms; sample-sharded phik_from_gmm "
+                  f"{rb['phik_sharded_ms']:.4f} ms; all_reduce of the mass (4096 x 2) "
+                  f"{rb['all_reduce_mass_ms']:.4f} ms, of the partial coefficients "
+                  f"(4096 x 100) {rb['all_reduce_ck_ms']:.4f} ms; checkpoint gather "
+                  f"{rb['gather_ms']:.4f} ms, collective save {rb['checkpoint_ms']:.1f} ms "
+                  f"{card} (two ranks on one card: not a scaling figure)", flush=True)
+        got = dict(np.load(os.path.join(tmp, "leg_b.npz")))
+        _close_ticks("path A on mesh (2,) vs unsharded", got, "a", ref, SCALE_TICKS)
+        same_state = [tuple(got[f"r{t}_{k}"] for k in TICK_FIELDS) for t in range(SAMPLE_TICKS)]
+        _close_ticks("replan_refresh on mesh (1, 2) vs unsharded from the same state", got, "s",
+                     same_state, SAMPLE_TICKS)
+        loop = max(float(np.abs(got[f"s{t}_U"] - ref[t][5]).max()) for t in range(SAMPLE_TICKS))
+        print(f"  (the two closed loops apart, {SAMPLE_TICKS} ticks: max |ΔU| {loop:.3e}: "
+              f"rounding-level target differences grow along a trajectory)", flush=True)
+        for name, ref_p in refs.items():
+            tol = K3_TOL if name == "mi" else dict(rtol=0.0, atol=K2_ATOL)
+            err = np.abs(got[f"phik_{name}"] - ref_p)
+            bad = int((err > tol["atol"] + tol["rtol"] * np.abs(ref_p)).sum())
+            print(f"  sample-sharded {name} target on mesh (1, 2) vs unsharded "
+                  f"{'dense path' if name == 'mi' else 'K2'}: max |diff| {err.max():.3e} "
+                  f"(rtol {tol['rtol']}, atol {tol['atol']}), {bad} outside", flush=True)
+            if bad:
+                fail(f"sample-sharded {name} target outside tolerance")
+        eng = Engine(cfg, device=dev)
+        back = tree_leaves(to_numpy(eng.load_checkpoint(os.path.join(tmp, "leg_b_ck.npz"))))
+        for i, leaf in enumerate(back):
+            if not np.array_equal(leaf, got[f"state_{i}"]):
+                fail(f"the checkpoint of two ranks differs from their gathered state (leaf {i})")
+        print(f"  the checkpoint of two ranks, loaded here, equals their gathered state bit for "
+              f"bit ({len(back)} leaves)", flush=True)
 
 
 def main() -> int:
@@ -1370,7 +1817,6 @@ def run(dev) -> int:
 
     # ---- 13. path E: the MI tick at full width
     print(f"== 13. path E: Engine.replan_refresh_mi with K3, S={S_MAIN}", flush=True)
-    REVEAL_RANGE = 0.75  # m: the disc a scenario's sensor reveals around its pose each tick
 
     def mi_ticks(engine, sc, belief, truth, world, dom, n, use_kernel, check=None):
         """n ticks: reveal a disc around each pose, replan with the MI target
@@ -1634,6 +2080,7 @@ def run(dev) -> int:
         fail("the mapping loop on the card disagrees with the mapping loop on the CPU")
 
     node_phase(dev, card, entry, kernels)
+    scale_out_phase(dev, card, entry, kernels)
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:

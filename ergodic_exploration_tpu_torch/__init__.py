@@ -11,14 +11,15 @@ eagerly in PyTorch around hand-written CUDA kernels for an NVIDIA H100
   ops.collision, ops.dwa, ops.buffer            — world queries, safety, history
 - controller                                    — the batched eager tick
 - ops.solve_kernel + csrc/solve_kernel.cu       — K1, the one-kernel tick
-- engine                                        — the batched single-device API
+- engine                                        — the batched API, one device or a mesh
+- parallel                                      — scale-out over torch.distributed
 - node, native                                  — the single-robot loop, the C++ host runtime
 - viz, utils.profiling                          — figures, timing and traces
 - utils.prng, utils.validation, utils.interop   — JAX-exact RNG, guards, state I/O
 
-``Engine``, ``ErgodicController``, ``ExplorationNode`` and ``GaussianMixture``
-are imported from the package root on first use: the config and grid stay
-cheap to import.
+``Engine``, ``ErgodicController``, ``ExplorationNode``, ``GaussianMixture``,
+``make_scenario_mesh`` and ``make_mesh`` are imported from the package root on
+first use: the config and grid stay cheap to import.
 """
 
 from ergodic_exploration_tpu_torch.config import (
@@ -38,6 +39,8 @@ _LAZY = {
     "Engine": "ergodic_exploration_tpu_torch.engine",
     "ExplorationNode": "ergodic_exploration_tpu_torch.node",
     "GaussianMixture": "ergodic_exploration_tpu_torch.ops.target",
+    "make_scenario_mesh": "ergodic_exploration_tpu_torch.engine",
+    "make_mesh": "ergodic_exploration_tpu_torch.engine",
 }
 
 
@@ -51,4 +54,4 @@ def __getattr__(name):
 
 __all__ = ["CartParams", "DwaConfig", "EngineConfig", "OmniParams", "default_config",
            "load_yaml_config", "Domain", "GridMap", "ErgodicController", "Engine",
-           "ExplorationNode", "GaussianMixture"]
+           "ExplorationNode", "GaussianMixture", "make_scenario_mesh", "make_mesh"]

@@ -1,5 +1,5 @@
-"""The batched engine: many ergodic-MPC scenarios per tick on one device
-(port of the single-device subset of ``ergodic_exploration_tpu/engine.py``).
+"""The batched engine: many ergodic-MPC scenarios per tick, on one device or
+sharded over ranks (port of ``ergodic_exploration_tpu/engine.py``).
 
     engine = Engine(config)                                   # the CUDA device
     sc     = engine.init_scenarios(x0s)                       # (S, 3) poses
@@ -26,8 +26,18 @@ The mutual-information target is recomputed from the belief maps by
 ``phik_from_grid`` (dense on a shared domain, separable otherwise) and, in
 ``replan_refresh_mi(..., domain=<shared>, use_mi_kernel=True)``, by K3
 (ops/mi_kernel.py); ``explore_mapping`` and ``explore_mapping_fused`` close
-the loop with the range sensor of ops/sensor.py. Device meshes are not
-ported yet (ROADMAP.md).
+the loop with the range sensor of ops/sensor.py.
+
+Scale-out (``Engine(config, mesh=make_scenario_mesh())`` or
+``make_mesh(n_scenario, n_sample)``, over ``torch.distributed``: one process a
+device, see ``parallel``): the constructors (``init_scenarios``,
+``prepare_world``, ``empty_world``, ``phik_from_gmm``, ``phik_from_grid``,
+``load_checkpoint``) take the GLOBAL batch and return this rank's rows; the
+tick methods take those local slices, and a per-tick input (a target,
+beliefs, a truth map) is laid out by the caller with ``shard_scenarios``. A
+tick on the ``scenario`` dim needs no communication; a populated ``sample``
+dim splits the target's lattice and combines it with two ``all_reduce``.
+``save_checkpoint`` is collective.
 
 TF32 is switched off where the engine is built
 (``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -84,19 +94,34 @@ class ExploreOutput(NamedTuple):
 
 
 class Engine:
-    """Batched ergodic-MPC engine on one device.
+    """Batched ergodic-MPC engine.
 
     Args:
         config: controller configuration.
         device: the torch device every tensor of the engine lives on; None
             (the default) is the CUDA device, and raises when there is none.
             Pass ``"cpu"`` to run on the CPU.
-        mesh: not supported yet (multi-device scale-out is a later port).
+        mesh: optional ``DeviceMesh`` (``make_scenario_mesh``, ``make_mesh``)
+            with a ``scenario`` dim. The engine then lives on the mesh's
+            device: the rank's current CUDA device under a CUDA mesh (which
+            raises where there is no card), the CPU under a CPU mesh.
     """
+
+    SCENARIO_AXIS = "scenario"
+    SAMPLE_AXIS = "sample"
 
     def __init__(self, config: EngineConfig, device=None, mesh=None):
         if mesh is not None:
-            raise NotImplementedError("Engine mesh paths are not ported yet")
+            names = getattr(mesh, "mesh_dim_names", None)
+            if not names or self.SCENARIO_AXIS not in names:
+                raise ValueError(f"mesh must have a {self.SCENARIO_AXIS!r} axis, got {names}")
+            on_card = mesh.device_type == "cuda"
+            mesh_dev = torch.device("cuda", torch.cuda.current_device()) if (
+                on_card and torch.cuda.is_available()) else torch.device(mesh.device_type)
+            if device is not None and torch.device(device).type != mesh_dev.type:
+                raise ValueError(f"device {device!r} is not the mesh's {mesh.device_type!r}")
+            device = mesh_dev
+        self.mesh = mesh
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -132,13 +157,96 @@ class Engine:
         """A NamedTuple of tensors (a target, a domain) on the engine's
         device: what a caller made elsewhere is moved, never computed on
         where it lies."""
-        return type(tree)(*(t.to(self.device) for t in tree))
+        return type(tree)(*(torch.as_tensor(t, device=self.device) for t in tree))
+
+    # ------------------------------------------------------------------
+    # sharding plumbing
+    # ------------------------------------------------------------------
+
+    def _rows(self, S: int):
+        """(lo, hi): the rows of a global batch of S scenarios this rank
+        holds ((0, S) without a mesh)."""
+        if self.mesh is None:
+            return 0, S
+        from ergodic_exploration_tpu_torch.parallel import process_scenario_slice
+
+        return process_scenario_slice(S, self.mesh)
+
+    def shard_scenarios(self, tree):
+        """This rank's rows of a batched tree whose leaves are GLOBAL-shaped
+        (tensors or arrays, the scenario axis first), on the engine's device.
+        Every rank passes the same global value. Without a mesh the tree is
+        returned as it is."""
+        if self.mesh is None:
+            return tree
+        from ergodic_exploration_tpu_torch.parallel import map_tree
+
+        def one(a):
+            lo, hi = self._rows(a.shape[0])
+            return torch.as_tensor(a[lo:hi], device=self.device)
+
+        return map_tree(one, tree)
+
+    def shard_scenarios_from_local(self, tree):
+        """A batched tree of THIS RANK's slice (leaves of the local scenario
+        count, made by the rank itself) on the engine's device: the feeding
+        path in which no rank materializes another's scenarios. Raises
+        ``ValueError`` unless the leaves agree on the leading axis. Without a
+        mesh the tree is returned as it is."""
+        if self.mesh is None:
+            return tree
+        from ergodic_exploration_tpu_torch.parallel import map_tree
+
+        counts = set()
+
+        def one(a):
+            counts.add(a.shape[0])
+            return torch.as_tensor(a, device=self.device)
+
+        out = map_tree(one, tree)
+        if len(counts) > 1:
+            raise ValueError(f"local leaves disagree on the scenario count: {sorted(counts)}")
+        return out
+
+    def _check_local(self, sc: "Scenarios", **trees) -> None:
+        """Under a mesh, every leaf of the per-tick inputs must lead with this
+        rank's scenario count, that of ``sc``."""
+        if self.mesh is None:
+            return
+        from ergodic_exploration_tpu_torch.parallel import map_tree
+
+        n = sc.x.shape[0]
+        for name, tree in trees.items():
+            def one(a, name=name):
+                if a.shape[0] != n:
+                    raise ValueError(
+                        f"{name} leads with {a.shape[0]} scenarios where this rank holds {n}: "
+                        "lay per-tick inputs out with engine.shard_scenarios(global_tree)")
+
+            map_tree(one, tree)
+
+    def _local_mask(self, free_mask, S: int):
+        """A free mask of the global batch (S rows) or of this rank's slice,
+        as this rank's rows."""
+        lo, hi = self._rows(S)
+        if free_mask is None or free_mask.shape[0] == hi - lo:
+            return free_mask
+        if free_mask.shape[0] != S:
+            raise ValueError(f"free_mask has {free_mask.shape[0]} rows: need {S} (global) or "
+                             f"{hi - lo} (this rank's)")
+        return free_mask[lo:hi]
+
+    # ------------------------------------------------------------------
+    # construction helpers (global batch in, this rank's rows out)
+    # ------------------------------------------------------------------
 
     def init_scenarios(self, x0, vb0=None, rng=None) -> Scenarios:
-        """Batched initial state for poses ``x0`` (S, 3). ``rng`` is a key
-        (2,) of uint32 words (default: the words of ``jax.random.PRNGKey(0)``);
-        under ``shared_history_draw`` every scenario gets that key, else
-        ``split(rng, S)``."""
+        """Batched initial state for poses ``x0`` (S, 3), the GLOBAL batch
+        under a mesh (this rank's rows come back). ``rng`` is a key (2,) of
+        uint32 words (default: the words of ``jax.random.PRNGKey(0)``); under
+        ``shared_history_draw`` every scenario gets that key, else
+        ``split(rng, S)`` over the global S, so that no draw depends on the
+        mesh."""
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
         S = x0.shape[0]
         vb0 = (torch.zeros((S, 3), dtype=torch.float32, device=self.device) if vb0 is None
@@ -146,14 +254,19 @@ class Engine:
         key = torch.zeros(2, dtype=torch.int64, device=self.device) if rng is None else \
             torch.as_tensor(rng, device=self.device).to(torch.int64)
         keys = key.expand(S, 2).clone() if self.config.shared_history_draw else prng.split(key, S)
-        return Scenarios(state=self.controller.init_state(keys), x=x0, vb=vb0)
+        lo, hi = self._rows(S)
+        return Scenarios(state=self.controller.init_state(keys[lo:hi]), x=x0[lo:hi],
+                         vb=vb0[lo:hi])
 
     def prepare_world(self, grids: GridMap, domain: Optional[Domain] = None) -> World:
         """Batched world preprocessing (map cadence): EDT + gradient and the
-        free-space phi mask per map; ``grids`` leaves lead with (S, ...).
-        The domain is each map's extent unless ``domain`` is given."""
+        free-space phi mask per map; ``grids`` leaves lead with the global
+        (S, ...) (this rank's rows are built). The domain is each map's
+        extent unless ``domain`` is given."""
+        return self._prepare_world(self._grids_here(self.shard_scenarios(grids)), domain)
+
+    def _prepare_world(self, grids: GridMap, domain: Optional[Domain] = None) -> World:
         cfg = self.config
-        grids = self._grids_here(grids)
         S = grids.data.shape[0]
         if cfg.shared_maps and cfg.validate_shared:
             from ergodic_exploration_tpu_torch.utils.validation import check_rows_shared
@@ -179,8 +292,10 @@ class Engine:
                      free_mask=free)
 
     def empty_world(self, domain: Domain, n: int) -> World:
-        """Obstacle-free batched world of ``n`` scenarios over an unbatched
-        ``domain``."""
+        """Obstacle-free batched world of ``n`` scenarios (global) over an
+        unbatched ``domain``: this rank's rows of it."""
+        lo, hi = self._rows(n)
+        n = hi - lo
         one = World.empty(self._here(domain))
 
         def rows_n(t):
@@ -201,6 +316,8 @@ class Engine:
         every S, its plain version on the CPU); without it, the plain dense
         contraction. Per-scenario domains take the separable contraction.
         """
+        if self._use_sample_sharding(domain):
+            return self._phik_gmm_sharded_fn(gmm, domain, free_mask)
         cfg = self.config
         K = cfg.num_basis
         S = gmm.means.shape[0]
@@ -233,13 +350,92 @@ class Engine:
                            ck / torch.clamp(denom, min=1e-12)[:, None, None], mask_ck)
 
     def phik_from_gmm(self, gmm, domain: Domain, free_mask=None) -> torch.Tensor:
-        """Batched target coefficients for GMM targets; ``free_mask`` may be
-        (S, N) or a batched :class:`World` (its ``free_mask`` is used)."""
+        """Batched target coefficients for GMM targets; gmm leaves lead with
+        the global S (this rank's rows come back). ``free_mask`` may be
+        (S, N), this rank's rows of it, or a batched :class:`World` (its
+        ``free_mask`` is used). A mesh with a populated ``sample`` dim takes
+        :meth:`phik_from_gmm_sample_sharded`."""
+        gmm, free_mask = self._gmm_inputs(gmm, free_mask)
+        return self._phik_from_gmm_fn(gmm, self._here(domain), free_mask)
+
+    def _gmm_inputs(self, gmm, free_mask):
+        """This rank's rows of a global GMM batch and of its free mask."""
         if isinstance(free_mask, World):
             free_mask = free_mask.free_mask
+        S = gmm.means.shape[0]
+        gmm = self._here(self.shard_scenarios(gmm))
         if free_mask is not None:
-            free_mask = free_mask.to(self.device)
-        return self._phik_from_gmm_fn(self._here(gmm), self._here(domain), free_mask)
+            free_mask = self._local_mask(torch.as_tensor(free_mask, device=self.device), S)
+        return gmm, free_mask
+
+    def _use_sample_sharding(self, domain: Domain) -> bool:
+        return self._sample_ranks() > 1 and domain.origin.dim() == 1
+
+    def _sample_ranks(self) -> int:
+        """Ranks on the mesh's ``sample`` dim (1 without one)."""
+        if self.mesh is None or self.SAMPLE_AXIS not in self.mesh.mesh_dim_names:
+            return 1
+        return self.mesh.size(self.mesh.mesh_dim_names.index(self.SAMPLE_AXIS))
+
+    def _sample_block(self, pts: torch.Tensor):
+        """(lo, hi) of this rank's contiguous block of the lattice ``pts``
+        (N, 2) on the ``sample`` dim, in the lattice's own order (the blocks
+        of ``P("sample", None)`` in the JAX package)."""
+        names = self.mesh.mesh_dim_names
+        if self.SAMPLE_AXIS not in names:
+            raise ValueError(f"the sample-sharded target needs a mesh with a "
+                             f"{self.SAMPLE_AXIS!r} dim, got {names}")
+        d = names.index(self.SAMPLE_AXIS)
+        n, j = self.mesh.size(d), self.mesh.get_coordinate()[d]
+        N = pts.shape[0]
+        if N % n:
+            raise ValueError(f"a lattice of {N} points does not split into {n} sample blocks")
+        return j * (N // n), (j + 1) * (N // n)
+
+    def _sample_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed in place over the mesh's ``sample`` group."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, group=self.mesh.get_group(self.SAMPLE_AXIS))
+        return t
+
+    def _phik_gmm_sharded_fn(self, gmm, domain: Domain, free_mask=None) -> torch.Tensor:
+        """phi_k (S, K, K) with the lattice split over the mesh's ``sample``
+        dim: each rank evaluates the mixtures on its block of the lattice
+        (clamped at 0, free-space masked), one ``all_reduce`` forms the
+        per-scenario mass (and the mask's, for the fallback), the uniform
+        fallback replaces a target with no mass, and a second ``all_reduce``
+        adds the (S, K^2) partial contractions, taken in full float32. Plain
+        PyTorch, as the JAX package computes it outside any Pallas kernel;
+        needs a shared (unbatched) domain."""
+        cfg = self.config
+        K = cfg.num_basis
+        pts = domain.sample_lattice(cfg.grid_samples)
+        lo, hi = self._sample_block(pts)
+        n_global = float(pts.shape[0])
+        pts = pts[lo:hi]
+        D = basis.dense_table(basis.tables(pts, K, domain), basis.hk_norm(K, domain.lengths))
+        phi = torch.clamp(target_ops.gmm_eval(pts, gmm), min=0.0)  # (S, N_blk)
+        if free_mask is None:
+            total = self._sample_sum(phi.sum(dim=1))
+            fallback = torch.full_like(phi, 1.0 / n_global)
+        else:
+            m = free_mask[:, lo:hi].to(phi.dtype)
+            phi = phi * m
+            sums = self._sample_sum(torch.stack([phi.sum(dim=1), m.sum(dim=1)], dim=1))
+            total = sums[:, 0]
+            fallback = m / torch.clamp(sums[:, 1], min=1.0)[:, None]
+        phi = torch.where((total > 1e-12)[:, None],
+                          phi / torch.clamp(total, min=1e-12)[:, None], fallback)
+        ck = self._sample_sum(torch.matmul(phi, D))  # (S, K^2)
+        return ck.view(-1, K, K)
+
+    def phik_from_gmm_sample_sharded(self, gmm, domain: Domain, free_mask=None) -> torch.Tensor:
+        """:meth:`phik_from_gmm` through the sample-sharded reduction
+        (:meth:`_phik_gmm_sharded_fn`) on a mesh with a ``sample`` dim; the
+        same inputs (global gmm; the mask global, local or a World)."""
+        gmm, free_mask = self._gmm_inputs(gmm, free_mask)
+        return self._phik_gmm_sharded_fn(gmm, self._here(domain), free_mask)
 
     # ------------------------------------------------------------------
     # the mutual-information target (BASELINE config 4)
@@ -318,14 +514,46 @@ class Engine:
         return phik_from_grid(grids.data.contiguous(), hit[1], sensor_radius_cells,
                               cfg.mi_frontier_cells, cfg.occupied_threshold)
 
+    def _phik_grid_sharded_fn(self, grids: GridMap, sensor_radius_cells: int = 0) -> torch.Tensor:
+        """The MI twin of :meth:`_phik_gmm_sharded_fn`: each rank builds the
+        full information map of its scenarios (map-space work does not split
+        along samples), samples it on its own block of the lattice (scenario
+        0's domain: the grids share one geometry), and the two ``all_reduce``
+        combine the blocks."""
+        cfg = self.config
+        K = cfg.num_basis
+        dom = Domain(grids.origin[0], grids.domain().lengths[0])
+        pts = dom.sample_lattice(cfg.grid_samples)
+        lo, hi = self._sample_block(pts)
+        n_global = float(pts.shape[0])
+        pts = pts[lo:hi]
+        D = basis.dense_table(basis.tables(pts, K, dom), basis.hk_norm(K, dom.lengths))
+        info = target_ops.mutual_information_map(grids, sensor_radius_cells,
+                                                 cfg.mi_frontier_cells, cfg.occupied_threshold)
+        vals = torch.clamp(target_ops.sample_map_at(info, grids, pts), min=0.0)  # (S, N_blk)
+        total = self._sample_sum(vals.sum(dim=1))
+        phi = torch.where((total > 1e-12)[:, None], vals / torch.clamp(total, min=1e-12)[:, None],
+                          torch.full_like(vals, 1.0 / n_global))
+        ck = self._sample_sum(torch.matmul(phi, D))
+        return ck.view(-1, K, K)
+
     def phik_from_grid(self, grids: GridMap, sensor_radius_cells: int = 0,
                        domain: Optional[Domain] = None) -> torch.Tensor:
         """Batched mutual-information target coefficients (S, K, K)
-        recomputed from the (evolving) occupancy grids. Pass the unbatched
-        shared exploration ``domain`` when all grids share it and one
-        geometry: the dense path then runs; without it, the per-scenario
-        separable path."""
-        grids = self._grids_here(grids)
+        recomputed from the (evolving) occupancy grids, whose leaves lead
+        with the global S (this rank's rows come back). A mesh with a
+        populated ``sample`` dim takes the sample-sharded reduction. Else,
+        pass the unbatched shared exploration ``domain`` when all grids share
+        it and one geometry: the dense path then runs; without it, the
+        per-scenario separable path."""
+        return self._phik_grid(self._grids_here(self.shard_scenarios(grids)),
+                               sensor_radius_cells, domain)
+
+    def _phik_grid(self, grids: GridMap, sensor_radius_cells: int,
+                   domain: Optional[Domain]) -> torch.Tensor:
+        if self._sample_ranks() > 1:
+            self._check_shared_grids(grids)  # the lattice of scenario 0's domain
+            return self._phik_grid_sharded_fn(grids, sensor_radius_cells)
         if domain is not None and domain.origin.dim() == 1:
             self._check_shared_grids(grids)  # dense path: scenario-0 geometry
             return self._phik_grid_batch_dense_fn(grids, self._here(domain),
@@ -350,15 +578,20 @@ class Engine:
     def replan(self, sc: Scenarios, phik, world: World):
         """One batched replan tick: (S,) solves -> (S, nu) controls. Does not
         advance the poses (the caller owns the plant)."""
+        self._check_local(sc, phik=phik, world=world)
         self._check_shared_world(world)
         return self._replan_fn(sc, phik, world)
 
     def _refresh_and_replan_fn(self, sc: Scenarios, gmm, domain: Domain, world: World):
         """GMM target refresh + batched solve: the full per-tick work. With
         the fused solve + shared maps on a shared domain the refresh runs
-        inside K1 — the whole tick is one kernel launch."""
+        inside K1 — the whole tick is one kernel launch, also on a scenario
+        mesh (this rank's slice; reads of row 0 see the local row 0, the same
+        map by the shared contracts). A populated ``sample`` dim keeps the
+        sample-sharded refresh ahead of the solve."""
         cfg = self.config
-        if cfg.use_fused_solve and cfg.shared_maps and domain.origin.dim() == 1:
+        if (cfg.use_fused_solve and cfg.shared_maps and domain.origin.dim() == 1
+                and not self._use_sample_sharding(domain)):
             from ergodic_exploration_tpu_torch.ops.solve_kernel import replan_batched_fused
 
             state, u, diag = replan_batched_fused(cfg, self.model, sc.state, sc.x, sc.vb,
@@ -369,7 +602,9 @@ class Engine:
 
     def replan_refresh(self, sc: Scenarios, gmm, domain: Domain, world: World):
         """One batched tick including the per-tick GMM target refresh (the
-        tick ``bench.py`` times in the JAX package)."""
+        tick ``bench.py`` times in the JAX package). Under a mesh ``gmm`` is
+        this rank's rows (``shard_scenarios``)."""
+        self._check_local(sc, gmm=gmm, world=world)
         self._check_shared_world(world)
         return self._refresh_and_replan_fn(sc, self._here(gmm), self._here(domain), world)
 
@@ -377,12 +612,15 @@ class Engine:
                                   sensor_radius_cells: int, domain: Optional[Domain] = None,
                                   use_mi_kernel: bool = False):
         """MI target refresh from the evolving occupancy grids + batched
-        solve: config 4's full per-tick work. On a shared ``domain`` the
-        refresh is K3 (one launch from the (S, h, w) beliefs) when
-        ``use_mi_kernel`` is set, else the dense path; without a shared
+        solve: config 4's full per-tick work. A mesh with a populated
+        ``sample`` dim takes the sample-sharded reduction; else, on a shared
+        ``domain``, the refresh is K3 (one launch from the (S, h, w) beliefs)
+        when ``use_mi_kernel`` is set, else the dense path; without a shared
         domain, the per-scenario separable contraction."""
         shared = domain is not None and domain.origin.dim() == 1
-        if use_mi_kernel and shared:
+        if self._sample_ranks() > 1:
+            phik = self._phik_grid_sharded_fn(grids, sensor_radius_cells)
+        elif use_mi_kernel and shared:
             phik = self._phik_grid_kernel(grids, domain, sensor_radius_cells)
         elif shared:
             phik = self._phik_grid_batch_dense_fn(grids, domain, sensor_radius_cells)
@@ -396,7 +634,9 @@ class Engine:
         """One batched tick including the per-tick MUTUAL-INFORMATION target
         refresh (config 4's hot path). ``world`` carries the distance field
         built from the same beliefs at map cadence. Pass the shared ``domain``
-        when all grids span it; ``use_mi_kernel`` then selects K3."""
+        when all grids span it; ``use_mi_kernel`` then selects K3. Under a
+        mesh ``grids`` is this rank's rows (``shard_scenarios``)."""
+        self._check_local(sc, grids=grids, world=world)
         self._check_shared_world(world)
         grids = self._grids_here(grids)
         if domain is not None:
@@ -421,6 +661,7 @@ class Engine:
         replans and applies the emitted control for one dt. The JAX
         package's ``lax.scan`` is a Python loop here that writes into
         preallocated (T, S, ...) tensors and never waits for the device."""
+        self._check_local(sc, phik=phik, world=world)
         S, nu = sc.x.shape[0], self.config.nu
         kw = dict(device=sc.x.device)
         traj = torch.empty((n_ticks, S, 3), dtype=torch.float32, **kw)
@@ -449,10 +690,12 @@ class Engine:
         unknown) or "disc" (sees through walls).
 
         Returns (ExploreOutput of the final chunk, belief GridMap, coverage
-        (n_refreshes,) fraction-known history).
+        (n_refreshes,) fraction-known history). Under a mesh ``truth`` (and
+        ``belief``) are this rank's rows, and so is the coverage.
         """
         from ergodic_exploration_tpu_torch.ops import sensor
 
+        self._check_local(sc, truth=truth, belief=belief)
         truth = self._grids_here(truth)
         if belief is None:
             belief = truth._replace(data=torch.full_like(truth.data, -1.0))
@@ -471,8 +714,8 @@ class Engine:
         out = None
         for _ in range(max(1, n_ticks // refresh_every)):
             belief = reveal_b(belief, truth, sc.x)
-            phik = self.phik_from_grid(belief)
-            world = self.prepare_world(belief)
+            phik = self._phik_grid(belief, 0, None)
+            world = self._prepare_world(belief)
             out = self.explore(sc, phik, world, refresh_every)
             sc = out.scenarios
             coverage.append(sensor.fraction_known(belief))
@@ -491,10 +734,11 @@ class Engine:
         Returns (Scenarios, belief GridMap, coverage (n_refreshes,),
         trajectory (n_refreshes, refresh_every, S, 3), ergodic metric
         (n_refreshes, refresh_every, S): the per-tick metric against each
-        refresh's CURRENT target).
+        refresh's CURRENT target). Under a mesh ``truth`` is this rank's rows.
         """
         from ergodic_exploration_tpu_torch.ops import sensor
 
+        self._check_local(sc, truth=truth)
         truth = self._grids_here(truth)
         win = sensor.raycast_window_cells(sensor_range, float(truth.resolution.min()))
         dom = Domain(origin=truth.origin[0], lengths=truth.domain().lengths[0])
@@ -524,6 +768,7 @@ class Engine:
         with ``phik_from_grid`` and ``replan_refresh_mi`` (when ``map_shape``
         is given, else an empty world), ``phik_from_gmm``, ``replan``,
         ``replan_refresh`` and ``explore`` for each length in ``n_ticks``.
+        ``S`` is the global count: under a mesh each rank warms its rows.
         ``persistent_cache`` (True for the default ``build/kernels/``, or a
         directory) is where the kernel libraries are built and loaded from
         then on (``utils.cuda_build.set_build_dir``); a library built there
@@ -563,13 +808,14 @@ class Engine:
                 resolution=torch.full((S,), res, dtype=torch.float32))
             world = timed("prepare_world", lambda: self.prepare_world(grids))
             timed("phik_from_grid", lambda: self.phik_from_grid(grids))
-            timed("replan_refresh_mi", lambda: self.replan_refresh_mi(sc, grids, world,
-                                                                     domain=domain))
+            timed("replan_refresh_mi", lambda: self.replan_refresh_mi(
+                sc, self.shard_scenarios(grids), world, domain=domain))
         else:
             world = self.empty_world(domain, S)
         phik = timed("phik_from_gmm", lambda: self.phik_from_gmm(gmm, domain, world.free_mask))
         timed("replan", lambda: self.replan(sc, phik, world))
-        timed("replan_refresh", lambda: self.replan_refresh(sc, gmm, domain, world))
+        timed("replan_refresh", lambda: self.replan_refresh(sc, self.shard_scenarios(gmm),
+                                                            domain, world))
         for n in n_ticks:
             timed(f"explore_{n}", lambda n=n: self.explore(sc, phik, world, n))
         return timings
@@ -582,22 +828,79 @@ class Engine:
         """Snapshot the full batched solver state to ``path`` (.npz), in the
         JAX package's checkpoint format: a file either package wrote loads
         in the other. The key words are written as uint32, as JAX holds
-        them."""
+        them. Under a mesh the call is collective: every rank calls it with
+        its rows, the state is gathered over the ``scenario`` group
+        (``parallel.process_allgather``), world rank 0 writes the global
+        batch, and no rank returns before the file is whole."""
         from ergodic_exploration_tpu_torch.utils.checkpoint import save_pytree
         from ergodic_exploration_tpu_torch.utils.interop import to_numpy
 
+        if self.mesh is not None:
+            from ergodic_exploration_tpu_torch.parallel import process_allgather
+
+            sc = process_allgather(sc, self.mesh)
         tree = to_numpy(sc)
         state = tree.state._replace(rng=tree.state.rng.astype(np.uint32))
-        save_pytree(path, tree._replace(state=state))
+        save_pytree(path, tree._replace(state=state), collective=self.mesh is not None)
 
     def load_checkpoint(self, path: str) -> Scenarios:
         """Restore :class:`Scenarios` saved by :meth:`save_checkpoint` (of
-        this package or of the JAX package) onto this engine's device."""
+        this package or of the JAX package) onto this engine's device; under
+        a mesh every rank reads the file and keeps its rows (the mesh may
+        differ from the run that wrote it)."""
         from ergodic_exploration_tpu_torch.utils.checkpoint import load_pytree
 
         with np.load(path) as data:
             # every Scenarios leaf has the scenario count as its leading axis
             leaf_keys = sorted(k for k in data.files if k.startswith("leaf_"))
             S = data[leaf_keys[0]].shape[0]
-        like = self.init_scenarios(np.zeros((S, 3), np.float32))
-        return load_pytree(path, like)
+        keys = torch.zeros((S, 2), dtype=torch.int64, device=self.device)
+        zeros = torch.zeros((S, 3), dtype=torch.float32, device=self.device)
+        like = Scenarios(state=self.controller.init_state(keys), x=zeros, vb=zeros)
+        return self.shard_scenarios(load_pytree(path, like))
+
+
+def _mesh(shape, names, devices):
+    """A DeviceMesh of ``shape`` over the ranks of the process group, rank r
+    at row-major position r."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("no process group: call parallel.initialize_multihost() first")
+    need, have = int(np.prod(shape)), dist.get_world_size()
+    if have < need:
+        raise ValueError(f"need {need} devices, have {have}")
+    if have > need:
+        raise ValueError(f"need {need} devices, have {have}: a rank outside the mesh would "
+                         "hold no scenarios; start as many ranks as the mesh has devices")
+    device_type = devices or ("cuda" if dist.get_backend() == "nccl" else "cpu")
+    if device_type == "cuda":
+        resolve_device("cuda")
+    return DeviceMesh(device_type, torch.arange(need).reshape(shape), mesh_dim_names=names)
+
+
+def make_scenario_mesh(n_devices: Optional[int] = None, devices: Optional[str] = None):
+    """1-D ``("scenario",)`` mesh over the ranks of the process group (one
+    process a device). ``n_devices``: the ranks of the mesh (None: the
+    world). ``devices``: the device type the mesh lives on, ``"cuda"`` or
+    ``"cpu"`` (None: the group's, ``"cuda"`` under NCCL and ``"cpu"`` under
+    gloo; gloo on the card passes ``"cuda"``).
+
+    Raises ``ValueError`` when the world is smaller than the mesh, as the JAX
+    package does, and also when it is larger: a rank is a process here, and a
+    process outside the mesh would hold no scenarios."""
+    import torch.distributed as dist
+
+    if n_devices is None:
+        n_devices = dist.get_world_size() if dist.is_initialized() else 1
+    return _mesh((n_devices,), (Engine.SCENARIO_AXIS,), devices)
+
+
+def make_mesh(n_scenario: int, n_sample: int = 1, devices: Optional[str] = None):
+    """2-D ``("scenario", "sample")`` mesh: scenario-parallel solves with the
+    grid-sample reduction split over ``n_sample`` ranks each. Rank r holds
+    scenario coordinate ``r // n_sample`` and sample coordinate
+    ``r % n_sample``. ``devices`` and the refusals as for
+    :func:`make_scenario_mesh`."""
+    return _mesh((n_scenario, n_sample), (Engine.SCENARIO_AXIS, Engine.SAMPLE_AXIS), devices)

@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from ergodic_exploration_tpu_torch.ops.solve_kernel import (
-    LATTICE_CHUNK, _check_operands, _on_cpu, _require_cuda, _sm_count, _stream_of, lattice_split,
+    LATTICE_CHUNK, _check_operands, _on_cpu, _require_cuda, _sm_count, lattice_split, launch_on,
     pad_lattice)
 from ergodic_exploration_tpu_torch.ops.target import GaussianMixture, gmm_eval
 
@@ -121,8 +121,7 @@ class PhikFromGmm:
         params = _Params(S=S, J=J, KK=KK, Npad=Npad, n_real=N, nsplit=nsplit,
                          chunks_per_split=per, masked=int(free_mask is not None))
         bufs = _Buffers(**{n: t.data_ptr() for n, t in ops.items()})
-        err = self.build().lib.k2_phik_from_gmm(ctypes.byref(params), ctypes.byref(bufs),
-                                                _stream_of(dev))
+        err = launch_on(dev, self.build().lib.k2_phik_from_gmm, params, bufs)
         variant = "phik_from_gmm_masked" if free_mask is not None else "phik_from_gmm"
         if err != 0:
             raise RuntimeError(f"K2 {variant} launch failed: CUDA error {err}")

@@ -46,7 +46,7 @@ import torch
 from ergodic_exploration_tpu_torch.ops import basis
 from ergodic_exploration_tpu_torch.ops import target as target_ops
 from ergodic_exploration_tpu_torch.ops.solve_kernel import (
-    _check_operands, _on_cpu, _require_cuda, _stream_of)
+    _check_operands, _on_cpu, _require_cuda, launch_on)
 
 MAX_SMEM = 232448  # dynamic shared memory one block can have on sm_90 (227 KB)
 # what each of n blocks on one SM can have: the SM's 228 KB split n ways, less
@@ -239,8 +239,7 @@ class PhikFromGrid:
         params = _Params(S=S, h=h, w=w, K=K, r=r, fc=fc, bh=bh, n_bands=n_bands,
                          thr=occupied_threshold, eps=eps)
         bufs = _Buffers(**{n: t.data_ptr() for n, t in tensors.items()})
-        err = self.build().lib.k3_phik_from_grid(ctypes.byref(params), ctypes.byref(bufs),
-                                                 _stream_of(dev))
+        err = launch_on(dev, self.build().lib.k3_phik_from_grid, params, bufs)
         variant = ("phik_from_grid_fc" if fc > 0 else "phik_from_grid_nofc") + (
             "_banded" if n_bands else "")
         if err != 0:

@@ -372,6 +372,17 @@ def _stream_of(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def launch_on(dev, fn, params, bufs) -> int:
+    """Call the library's launcher ``fn(params, buffers, stream)`` with
+    ``dev`` the current CUDA device for the call, and return its CUDA error
+    code. The runtime launches on its current device whatever device the
+    pointers and the stream belong to, so a process whose tensors live on
+    ``cuda:1`` while its current device is 0 would launch into the wrong
+    context. Every wrapper of the three libraries launches through here."""
+    with torch.cuda.device(dev):
+        return fn(ctypes.byref(params), ctypes.byref(bufs), _stream_of(dev))
+
+
 class FusedSolveSafety:
     """The K1 wrapper: builds ``csrc/solve_kernel.cu`` on first use and
     counts its launches per variant (``launches[variant]`` grows by one per
@@ -420,8 +431,7 @@ class FusedSolveSafety:
         """Call the library's ``fn_name``; a launch of a variant is counted."""
         bufs = _Buffers(**{n: (t.data_ptr() if t is not None else None)
                            for n, t in ops.items()})
-        fn = getattr(self.build().lib, fn_name)
-        err = fn(ctypes.byref(params), ctypes.byref(bufs), _stream_of(dev))
+        err = launch_on(dev, getattr(self.build().lib, fn_name), params, bufs)
         if err != 0:
             raise RuntimeError(f"K1 {variant or fn_name} launch failed: CUDA error {err}")
         if variant is not None:

@@ -11,6 +11,10 @@ items, ``['k']`` for dict entries), produced here without JAX. Loading
 validates version, keys and shapes against the ``like`` template and fails
 loudly on any mismatch, so a reordered or renamed field can never silently
 load wrong data into a same-shape leaf.
+
+On a mesh the engine gathers the state over the ``scenario`` group first and
+every rank calls :func:`save_pytree` with ``collective=True``: world rank 0
+writes, and no rank returns before the file is whole.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import json
 
 import numpy as np
 import torch
+import torch.distributed
 
 CHECKPOINT_FORMAT_VERSION = 2
 
@@ -53,9 +58,11 @@ def _numpy(leaf) -> np.ndarray:
     return leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
 
 
-def save_pytree(path: str, tree) -> None:
+def save_pytree(path: str, tree, collective: bool = False) -> None:
     """Save a tree (NamedTuples, sequences, dicts) of tensors or arrays to
-    ``path`` (.npz, format v2)."""
+    ``path`` (.npz, format v2). ``collective``: every rank of the process
+    group calls it with the same (gathered) tree; world rank 0 writes, and a
+    barrier then holds every rank until the file is whole."""
     flat = _flatten(tree)
     arrays = {f"leaf_{i:04d}": _numpy(leaf) for i, (_, leaf) in enumerate(flat)}
     meta = {
@@ -64,7 +71,10 @@ def save_pytree(path: str, tree) -> None:
         "shapes": [list(a.shape) for a in arrays.values()],
         "dtypes": [str(a.dtype) for a in arrays.values()],
     }
-    np.savez(path, __meta__=np.array(json.dumps(meta)), **arrays)
+    if not collective or torch.distributed.get_rank() == 0:
+        np.savez(path, __meta__=np.array(json.dumps(meta)), **arrays)
+    if collective:
+        torch.distributed.barrier()
 
 
 def load_pytree(path: str, like):

@@ -112,8 +112,11 @@ def test_package_root_exports_the_application():
     assert pkg.Domain is Domain and pkg.GridMap is GridMap
     for name in pkg.__all__:
         assert getattr(pkg, name) is not None
+    from ergodic_exploration_tpu_torch.engine import make_mesh, make_scenario_mesh
+
+    assert pkg.make_mesh is make_mesh and pkg.make_scenario_mesh is make_scenario_mesh
     with pytest.raises(AttributeError):
-        pkg.make_mesh  # noqa: B018 (scale-out is not ported yet)
+        pkg.not_an_export  # noqa: B018
 
 
 # ---------------------------------------------------------------- profiling

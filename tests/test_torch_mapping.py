@@ -18,6 +18,8 @@ poses to 1e-4 and the metric to rtol 1e-4, as ``chip_smoke.py`` holds the
 later ticks of ``explore`` on the card against the CPU.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,8 +100,9 @@ def test_interop_grids_and_the_shared_geometry_guard():
     with pytest.raises(ValueError, match="scenario indices \\[5\\]"):
         te.phik_from_grid(bad, domain=Domain.create(0.0, 0.0, 2.0, 2.0))
     assert te.phik_from_grid(bad).shape == (8, 6, 6)  # per-scenario geometry: separable
-    with pytest.raises(NotImplementedError):
-        Engine(default_config("cart"), device="cpu", mesh=object())
+    no_scenario_dim = SimpleNamespace(mesh_dim_names=("sample",), device_type="cpu")
+    with pytest.raises(ValueError, match="mesh must have a 'scenario' axis"):
+        Engine(default_config("cart"), device="cpu", mesh=no_scenario_dim)
 
 
 @pytest.fixture(scope="module")

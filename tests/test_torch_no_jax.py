@@ -9,7 +9,8 @@ import pytest
 
 PKG = Path(__file__).resolve().parents[1] / "ergodic_exploration_tpu_torch"
 FILES = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py",
-                                      PKG.parent / "chip_profile.py"]
+                                      PKG.parent / "chip_profile.py",
+                                      PKG.parent / "tests" / "torch_parallel_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "ergodic_exploration_tpu")
 
 
@@ -28,7 +29,8 @@ def test_package_has_the_slice_modules():
               "utils/checkpoint.py", "utils/metrics.py", "utils/device.py", "ops/mi_kernel.py",
               "ops/sensor.py", "ops/target.py", "ops/basis.py", "utils/cuda_build.py",
               "node.py", "native.py", "viz.py", "utils/profiling.py",
-              "examples/single_robot.py"):
+              "examples/single_robot.py", "parallel/__init__.py", "graft_entry.py",
+              "examples/batched_fleet.py", "examples/scaling.py"):
         assert m in names
     for src in ("solve_kernel.cu", "gmm_kernel.cu", "gmm_refresh.cuh", "mi_kernel.cu"):
         assert (PKG / "csrc" / src).exists()
