@@ -4,7 +4,7 @@ port's closed loops on one NVIDIA GPU.
 
     python3 chip_profile.py
 
-For each of five loops of ``ergodic_exploration_tpu_torch`` it runs 10 warm
+For each of six loops of ``ergodic_exploration_tpu_torch`` it runs 10 warm
 ticks, then profiles 10 ticks and prints the tick time (CUDA events), the
 device-busy time per tick (sum of the kernels' device time), the kernel
 launches per tick and the kernels that take most of the device time:
@@ -15,6 +15,8 @@ launches per tick and the kernels that take most of the device time:
   E  the MI tick (disc reveal + ``replan_refresh_mi`` with K3 + pose advance)
   F  one tick of the mapping loop (``explore`` on the beliefs' world after a
      ray-cast reveal), and one whole map refresh of it in a single window
+  Q  one eager tick of the quality run (``default_config("omni")``, S=256,
+     its spawns) after a ray-cast reveal, and one whole refresh of it
 
 The cases are those of ``chip_smoke.py``. Needs a CUDA device.
 """
@@ -123,7 +125,7 @@ def main() -> int:
     del engine, sc, belief, truth, world, st_e
     torch.cuda.empty_cache()
 
-    cfg, x0, truth, _ = cs.mapping_case(cs.S_MAIN, dev)
+    cfg, x0, truth = cs.mapping_case(cs.S_MAIN, dev)
     eng = Engine(cfg)
     sc, belief, _, _, _ = eng.explore_mapping_fused(eng.init_scenarios(x0), truth, n_refreshes=1,
                                                     refresh_every=cs.MAP_EVERY)
@@ -143,6 +145,32 @@ def main() -> int:
 
     profile(f"F one map refresh from unknown beliefs (reveal + MI target + world + "
             f"{cs.MAP_EVERY} ticks), S={cs.S_MAIN}", refresh_f, card, ticks=2)
+    del eng, sc, belief, truth, world, phik, st_f
+    torch.cuda.empty_cache()
+
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.tools import quality
+
+    eng = Engine(default_config("omni"))
+    truth = quality.build_truth(cs.Q_S, dev)
+    sc, belief, _, _, _ = eng.explore_mapping_fused(
+        eng.init_scenarios(quality.spawn_poses(eng.config, truth, cs.Q_S)), truth,
+        n_refreshes=1, refresh_every=cs.Q_EVERY)
+    world = eng.prepare_world(belief)
+    phik = eng.phik_from_grid(belief, domain=Domain(truth.origin[0], truth.domain().lengths[0]))
+    st_q = [sc]
+
+    def tick_q():
+        st_q[0] = eng.explore(st_q[0], phik, world, 1).scenarios
+
+    profile(f"Q one eager tick of the quality run (omni), S={cs.Q_S}", tick_q, card)
+
+    def refresh_q():
+        st_q[0] = eng.explore_mapping_fused(st_q[0], truth, n_refreshes=1,
+                                            refresh_every=cs.Q_EVERY)[0]
+
+    profile(f"Q one refresh of the quality run from unknown beliefs (reveal + MI target + "
+            f"world + {cs.Q_EVERY} ticks), S={cs.Q_S}", refresh_q, card, ticks=2)
     return 0
 
 

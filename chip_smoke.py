@@ -77,6 +77,16 @@ Phases:
     ranks loaded here equal bit for bit to their gathered state;
     ``dryrun_multichip(2)`` with its 2-D leg. Tick and collective times are
     printed; two ranks on one card are no scaling figure
+18  path Q, the config-4 quality run at full length: ``tools.quality.run``
+    (``default_config("omni")`` untouched: the eager step, whose safety stage
+    is ``fused_safety``), S = 256, 500 refreshes of 10 ticks, sensor range
+    1.5 m, its spawns equal to those drawn on the CPU's EDT, held against
+    docs/quality_config4.json (refresh 1's coverage
+    within 1e-3, the later ``coverage_at`` points within 0.03, the final
+    per-scenario p10 and median no lower than the record's by 0.05 and
+    0.02); the multi-room floors of tests/test_quality.py (S = 4, 400 ticks:
+    mean speed, coverage, second-half rise); ``fused_safety`` vs plain on
+    the state the run reached
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are a JSON line describing each kernel
@@ -129,6 +139,7 @@ REVEAL_RANGE = 0.75  # m: the disc a scenario's sensor reveals around its pose e
 SCALE_TICKS, SAMPLE_TICKS, RESUME_TICKS = 10, 5, 5  # phase 17: mesh ticks; (1, 2); resumed
 RANK_TIMEOUT_S = 300  # phase 17: the spawned ranks of one leg together
 TICK_FIELDS = ("u", "metric", "code", "dwa_active", "dwa_feasible", "U")
+Q_S, Q_REFRESHES, Q_EVERY = 256, 500, 10  # phase 18 (a): the record's quality run, full length
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -277,20 +288,13 @@ def mi_case(S: int, device, cells: int = 100, **overrides):
 
 
 def mapping_case(S: int, device, seed: int = 14):
-    """tools/tpu_quality.py's build_truth, in numpy: outer walls, two rooms
-    with doorways and a pillar on a 5 m map of 100 x 100 cells; S start poses
-    at least 0.35 m clear of every occupied cell."""
-    import torch
-
+    """The quality run's building (``tools.quality.build_truth``: outer
+    walls, two rooms with doorways and a pillar on a 5 m map of 100 x 100
+    cells); S start poses at least 0.35 m clear of every occupied cell."""
     from ergodic_exploration_tpu_torch.config import default_config
-    from ergodic_exploration_tpu_torch.grid import GridMap
+    from ergodic_exploration_tpu_torch.tools.quality import build_truth, truth_data
 
-    data = np.zeros((100, 100), np.float32)
-    data[0, :] = data[-1, :] = data[:, 0] = data[:, -1] = 1.0  # outer walls
-    data[45:48, 0:64] = 1.0  # long wall, 1.3 m doorway on the right
-    data[45:48, 90:100] = 1.0
-    data[70:72, 32:100] = 1.0  # upper room divider, 1.6 m doorway on the left
-    data[20:28, 70:78] = 1.0  # pillar
+    data = truth_data()
     occ = (np.argwhere(data > 0.5)[:, ::-1] + 0.5) * 0.05  # (n, 2) cell centres (x, y)
 
     def clear(xy):
@@ -298,9 +302,7 @@ def mapping_case(S: int, device, seed: int = 14):
         return d.min(axis=1) > 0.35
 
     x0, _ = _poses_and_gmm(S, np.random.default_rng(seed), clear)
-    truth = GridMap(torch.from_numpy(data).to(device).expand(S, 100, 100).contiguous(),
-                    torch.zeros((S, 2), device=device), torch.full((S,), 0.05, device=device))
-    return default_config("cart").replace(use_fused_solve=True), x0, truth, data
+    return default_config("cart").replace(use_fused_solve=True), x0, build_truth(S, device)
 
 
 def node_case():
@@ -1158,6 +1160,117 @@ def scale_out_phase(dev, card, entry, kernels) -> None:
               f"bit ({len(back)} leaves)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: path Q, the config-4 quality run at full length
+# ---------------------------------------------------------------------------
+
+
+def quality_phase(dev, card, entry, kernels) -> None:
+    """Phase 18: (a) ``tools.quality.run`` at the record's configuration,
+    held against docs/quality_config4.json; (b) the multi-room floors of
+    tests/test_quality.py; (c) ``k1_safety`` against its plain version on
+    the state (a) reached, added through ``entry``."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.ops.patch import extract_patch
+    from ergodic_exploration_tpu_torch.tools import quality
+
+    n_ticks = Q_REFRESHES * Q_EVERY
+    print(f"== 18. path Q: the quality run, default_config('omni'), S={Q_S}, {Q_REFRESHES} "
+          f"refreshes of {Q_EVERY} ticks, sensor range {quality.SENSOR_RANGE} m", flush=True)
+    cfg = default_config("omni")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    r = quality.run(Q_S, Q_REFRESHES, Q_EVERY, quality.SENSOR_RANGE, seed=0, device=dev)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_counts("phase 18 (a)", counts, {"fused_safety": n_ticks})
+    truth = quality.build_truth(Q_S, dev)
+    # the CPU's spawns are the JAX tool's (tests/test_torch_quality.py), and
+    # each lies inside the domain with an EDT above the margin by construction
+    spawns_ok = np.array_equal(r.x0, quality.spawn_poses(cfg, quality.build_truth(Q_S, "cpu"),
+                                                         Q_S))
+    print(f"  {Q_S} spawns equal to those of the CPU's EDT element for element: {spawns_ok}")
+
+    cov, traj, metric, belief = r.coverage, r.trajectory, r.metric, r.belief.data
+    summary = quality.summarize(cov.cpu().numpy(), belief.cpu().numpy(), metric.cpu().numpy(),
+                                quality.SENSOR_RANGE, r.wall_s)
+    record = json.loads(quality.RECORD.read_text())
+    verdict = quality.compare_to_record(summary, record)
+    for i, (tick, got, ref, gap) in enumerate(verdict["coverage_at"]):
+        tol = quality.FIRST_TOL if i == 0 else quality.COV_TOL
+        print(f"  fleet coverage at tick {tick:4d}: port {got:.5f} | record {ref:.5f} | gap "
+              f"{gap:+.5f} (limit {tol})")
+    dist, rec_dist = summary["final_coverage_per_scenario"], record["final_coverage_per_scenario"]
+    print("  final per-scenario coverage (port | record): " + ", ".join(
+        f"{q} {dist[q]:.4f} | {rec_dist[q]:.4f}" for q in ("p10", "median", "p90", "best")) +
+        f"; limits p10 >= record - {quality.P10_SLACK}, median >= record - "
+        f"{quality.MEDIAN_SLACK}; final fleet coverage {summary['final_coverage']:.5f} | "
+        f"{record['final_coverage']:.5f}")
+    print("  ergodic metric (port | record): " + ", ".join(
+        f"{k[len('ergodic_metric_'):]} {summary[k]:.6f} | {record[k]:.6f}"
+        for k in ("ergodic_metric_first_tick", "ergodic_metric_last_tick",
+                  "ergodic_metric_last_refresh_mean")))
+    print(f"  wall {r.wall_s:.2f} s for {n_ticks} ticks: {1e3 * r.wall_s / n_ticks:.4f} ms a tick, "
+          f"{1e3 * r.wall_s / Q_REFRESHES:.3f} ms a refresh; peak device memory "
+          f"{peak / 2**20:.1f} MiB {card}", flush=True)
+
+    faults = [] if spawns_ok else ["the card's spawns differ from the CPU's"]
+    if (traj.shape != (Q_REFRESHES, Q_EVERY, Q_S, 3) or metric.shape != (Q_REFRESHES, Q_EVERY, Q_S)
+            or not all(torch.isfinite(t).all() for t in (cov, traj, metric, r.scenarios.x))):
+        faults.append("non-finite or mis-shaped outputs")
+    if not ((traj[..., :2] >= 0.0) & (traj[..., :2] <= 5.0)).all():
+        faults.append("a pose left the domain")
+    known = belief != -1.0
+    if not torch.equal(belief[known], truth.data[known]):
+        faults.append("a known cell of the final belief differs from the truth")
+    if not bool((cov[1:] >= cov[:-1]).all()):
+        faults.append("coverage fell between refreshes")
+    faults += verdict["failures"]
+    if faults:
+        fail(f"phase 18 (a): {faults}")
+    print("  all finite; every pose inside the domain; every known cell equals the truth; "
+          "coverage never fell; every gap to the record inside its limit")
+
+    # (b) the multi-room floors at pure defaults (tests/test_quality.py)
+    print(f"== 18 (b). the multi-room floors: S={len(quality.MULTIROOM_X0)}, "
+          f"{quality.MULTIROOM_TICKS} ticks, a refresh every {Q_EVERY} (reveal -> phik_from_grid "
+          f"-> prepare_world -> explore)", flush=True)
+    eng = Engine(cfg, device=dev)
+    reset_counts()
+    speed, coverage, rise = quality.multiroom_floors(eng, Q_EVERY)
+    expect_counts("phase 18 (b)", read_counts(), {"fused_safety": quality.MULTIROOM_TICKS})
+    print(f"  mean speed {speed:.4f} m/s (floor {quality.FLOOR_SPEED}); coverage {coverage:.4f} "
+          f"(floor {quality.FLOOR_COVERAGE}); second-half rise {rise:.4f} "
+          f"(floor {quality.FLOOR_RISE})")
+    if not (speed > quality.FLOOR_SPEED and coverage > quality.FLOOR_COVERAGE
+            and rise > quality.FLOOR_RISE):
+        fail("phase 18 (b): the default omni configuration fell under a multi-room floor")
+
+    # (c) k1_safety against its plain version on the state (a) reached
+    sc, world = r.scenarios, eng.prepare_world(r.belief)
+    P = min(cfg.patch_cells, *world.dist.dist.shape[-2:])
+    crop = extract_patch(world.dist, sc.x[:, :2], P).center_crop(cfg.safety_patch_cells)
+    args = (sc.x.contiguous(), sc.vb.contiguous(), sc.state.U[:, 0].contiguous(),
+            crop.dist.contiguous(), crop.start.to(torch.int32), crop.origin.contiguous(),
+            crop.resolution.contiguous(), world.domain.origin.contiguous(),
+            world.domain.lengths.contiguous())
+    ks, ps = sk.K1.safety(cfg, *args), sk.fused_safety_plain(cfg, *args)
+    torch.cuda.synchronize()
+    e = compare_safety(f"path Q fused_safety (omni, S={Q_S})", ks, ps)
+    probes = dwa_probes_needed(cfg, eng.model, sc.x, sc.vb, world.domain, crop)
+    entry("quality_fused_safety", "solve_kernel.cu",
+          "ergodic_exploration_tpu/ops/solve_kernel.py:1254", e,
+          events_ms(lambda: sk.K1.safety(cfg, *args), 50),
+          events_ms(lambda: sk.fused_safety_plain(cfg, *args), 5),
+          safety_work(cfg, Q_S, crop.dist.shape[-1], probes))
+    kernels["quality_fused_safety"]["launches"] = counts["fused_safety"]
+
+
 def main() -> int:
     import torch
 
@@ -1983,7 +2096,7 @@ def run(dev) -> int:
     # ---- 14. path F: the mapping loop at full width
     print(f"== 14. path F: explore_mapping_fused, S={S_MAIN}, {MAP_REFRESHES} refreshes of "
           f"{MAP_EVERY} ticks, sensor range 1.5 m", flush=True)
-    cfg_f, x0_f, truth_f, truth_np = mapping_case(S_MAIN, dev)
+    cfg_f, x0_f, truth_f = mapping_case(S_MAIN, dev)
     eng_f = Engine(cfg_f)
     sc_f = eng_f.init_scenarios(x0_f)
     torch.cuda.synchronize()
@@ -2066,7 +2179,7 @@ def run(dev) -> int:
         fail("the MI tick on the card disagrees with the MI tick on the CPU")
     runs = {}
     for d in (dev, torch.device("cpu")):
-        c, x0_, t_, _ = mapping_case(16, d, seed=15)
+        c, x0_, t_ = mapping_case(16, d, seed=15)
         e_ = Engine(c, device=d)
         _, b_, cov_, _, _ = e_.explore_mapping_fused(e_.init_scenarios(x0_), t_, n_refreshes=2,
                                                      refresh_every=5, sensor_range=1.5)
@@ -2081,6 +2194,7 @@ def run(dev) -> int:
 
     node_phase(dev, card, entry, kernels)
     scale_out_phase(dev, card, entry, kernels)
+    quality_phase(dev, card, entry, kernels)
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:
