@@ -20,7 +20,8 @@ Phases:
     S = 4096 and S = 1, the refresh alone vs plain
  4  path A, the bench tick: ``Engine.replan_refresh`` (cart, K = 10, H = 20,
     100 x 100 lattice, shared map, shared history draw, safety on) at
-    S = 4096 and at S = 1
+    S = 4096 and at S = 1, on ``bench.build_case``'s inputs (their sha256
+    printed)
  5  the engine on the card vs on the CPU, one bench tick, S = 64
  6  K2 vs plain: unmasked, masked, degenerate scenarios, S = 1 and S = 100
  7  path B, the quick-start loop at full width: S = 4096 scenarios with
@@ -87,6 +88,15 @@ Phases:
     0.02); the multi-room floors of tests/test_quality.py (S = 4, 400 ticks:
     mean speed, coverage, second-half rise); ``fused_safety`` vs plain on
     the state the run reached
+19  the headline entry point, ``ergodic_exploration_tpu_torch.bench``:
+    ``bench._run()`` in process at full width (S = 4096, 50 ticks each of
+    ``bench_throughput`` and ``bench_throughput_mi``; ``bench_latency``'s
+    24 runs of 32 replans at S = 1), the launches of each of the three
+    counted apart; K1 (J = 2 at S = 4096 and S = 1; J = 0 fed by K3) and K3
+    vs plain on the states those loops reached; the line's values finite
+    and above 0, p99 under the 100 ms budget; this run's path A and path E
+    ticks printed beside it; ``python -m ergodic_exploration_tpu_torch.bench``
+    once as a subprocess, exit 0 and a line with the same keys
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The last two lines are a JSON line describing each kernel
@@ -99,6 +109,7 @@ and can fail the run, but do not enter that line.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -140,6 +151,8 @@ SCALE_TICKS, SAMPLE_TICKS, RESUME_TICKS = 10, 5, 5  # phase 17: mesh ticks; (1, 
 RANK_TIMEOUT_S = 300  # phase 17: the spawned ranks of one leg together
 TICK_FIELDS = ("u", "metric", "code", "dwa_active", "dwa_feasible", "U")
 Q_S, Q_REFRESHES, Q_EVERY = 256, 500, 10  # phase 18 (a): the record's quality run, full length
+LAT_REPS, LAT_GROUP, LAT_CHAIN = 24, 8, 32  # phase 19: bench_latency's runs, groups, replans a run
+BENCH_TIMEOUT_S = 300  # phase 19: the entry point run as a subprocess
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -173,23 +186,16 @@ def _poses_and_gmm(S, rng, clear=None):
 
 
 def bench_case(S: int, device, seed: int = 0):
-    """bench.py's build_case, in numpy: one shared 100 x 100 map of a 5 m
-    domain with a wall and a pillar."""
-    import torch
-
-    from ergodic_exploration_tpu_torch.config import default_config
-    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
+    """The headline bench's inputs (``ergodic_exploration_tpu_torch.bench``):
+    its configuration, poses, shared wall-and-pillar map of a 5 m domain and
+    GMM."""
+    from ergodic_exploration_tpu_torch import bench
+    from ergodic_exploration_tpu_torch.grid import Domain
     from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
 
-    cfg = default_config("cart").replace(use_fused_solve=True, shared_maps=True,
-                                         shared_history_draw=True)
-    x0, gmm = _poses_and_gmm(S, np.random.default_rng(seed))
-    data = np.zeros((100, 100), np.float32)
-    data[45:50, 20:80] = 1.0
-    data[70:78, 60:68] = 1.0
-    grids = GridMap(torch.from_numpy(data).to(device).expand(S, 100, 100),
-                    torch.zeros((S, 2), device=device), torch.full((S,), 0.05, device=device))
-    return (cfg, x0, grids, GaussianMixture.create(*gmm, device=device),
+    a = bench.case_arrays(S, seed)
+    return (bench.bench_config(), a.x0, bench.shared_grids(a.data, S, device),
+            GaussianMixture.create(a.means, a.covs, a.weights, device=device),
             Domain.create(0.0, 0.0, 5.0, 5.0, device=device))
 
 
@@ -257,7 +263,7 @@ def mi_beliefs(S: int, h: int, w: int, seed: int = 12) -> np.ndarray:
 
 
 def mi_case(S: int, device, cells: int = 100, **overrides):
-    """bench.py's build_case_mi, in numpy: the bench configuration, beliefs
+    """The case of ``bench.build_case_mi``: the bench configuration, beliefs
     of which the left 55 % of the columns are known (free, and the known part
     of the wall), the world prepared from them; beside it the true map that a
     sensor reveals. ``cells`` = 100 is the bench's 5 m map; any other size is
@@ -265,22 +271,25 @@ def mi_case(S: int, device, cells: int = 100, **overrides):
     ``cells`` * 0.05 m."""
     import torch
 
+    from ergodic_exploration_tpu_torch import bench
     from ergodic_exploration_tpu_torch.engine import Engine
     from ergodic_exploration_tpu_torch.grid import Domain
 
     cfg, x0, truth, _, domain = bench_case(S, device)
     cfg = cfg.replace(**overrides)
     c = cells
-    if c != 100:
+    if c == 100:
+        belief = bench.belief_array()
+    else:
         data = np.zeros((c, c), np.float32)
         data[int(0.45 * c):int(0.5 * c), int(0.2 * c):int(0.8 * c)] = 1.0
         data[int(0.7 * c):int(0.78 * c), int(0.6 * c):int(0.68 * c)] = 1.0
         truth = truth._replace(data=torch.from_numpy(data).to(device).expand(S, c, c))
         x0[:, :2] *= c / 100.0
         domain = Domain.create(0.0, 0.0, 0.05 * c, 0.05 * c, device=device)
-    belief = np.full((c, c), -1.0, np.float32)
-    belief[:, :int(0.55 * c)] = 0.0
-    belief[int(0.45 * c):int(0.5 * c), int(0.2 * c):int(0.55 * c)] = 1.0
+        belief = np.full((c, c), -1.0, np.float32)
+        belief[:, :int(0.55 * c)] = 0.0
+        belief[int(0.45 * c):int(0.5 * c), int(0.2 * c):int(0.55 * c)] = 1.0
     grids = truth._replace(data=torch.from_numpy(belief).to(device).expand(S, c, c))
     engine = Engine(cfg, device=device)
     world = engine.prepare_world(grids)
@@ -331,13 +340,20 @@ def advance(engine, sc, u):
 
 
 def build_engine(S: int, device):
-    from ergodic_exploration_tpu_torch.engine import Engine
+    """``bench.build_case`` as (engine, scenarios, world, gmm, domain)."""
+    from ergodic_exploration_tpu_torch import bench
 
-    cfg, x0, grids, gmm, domain = bench_case(S, device)
-    engine = Engine(cfg, device=device)
-    sc = engine.init_scenarios(x0)
-    world = engine.prepare_world(grids)
+    engine, sc, gmm, domain, world = bench.build_case(S, device=device)
     return engine, sc, world, gmm, domain
+
+
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes: shows
+    that two trees hand a path bit-identical inputs."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 # ---------------------------------------------------------------------------
@@ -1271,6 +1287,86 @@ def quality_phase(dev, card, entry, kernels) -> None:
     kernels["quality_fused_safety"]["launches"] = counts["fused_safety"]
 
 
+def headline_phase(dev, card, kernels, k3_check, tick_a_ms, tick_e_ms) -> None:
+    """Phase 19: ``bench._run()`` at full width with the launches of its
+    three timed functions counted apart; K1 and K3 against their plain
+    versions on the states those loops reached; the line's values; this
+    run's path A and path E ticks beside it; the entry point run once as a
+    subprocess."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    from ergodic_exploration_tpu_torch import bench
+
+    print(f"== 19. the headline entry point: bench._run(), S={S_MAIN}", flush=True)
+    reached, counts = {}, {}
+
+    def watch(name, fn, **kw):
+        reached[name] = {}
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn(reached=reached[name], **kw)
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+        return out
+
+    t0 = time.perf_counter()
+    line = bench._run(dev, S=S_MAIN, iters=TIMED_TICKS, reps=LAT_REPS, group=LAT_GROUP,
+                      chain=LAT_CHAIN, watch=watch)
+    print(f"bench._run() took {time.perf_counter() - t0:.1f} s")
+    # each timed function makes one replan_refresh (its checks) and one warm
+    # tick ahead of its window; bench_latency warms with one run of LAT_CHAIN
+    n = TIMED_TICKS + 2
+    expect_counts("headline, bench_throughput", counts["throughput"], {"fused_solve_safety": n})
+    expect_counts("headline, bench_throughput_mi", counts["mi"],
+                  {"phik_from_grid_fc": n, "fused_solve_safety": n})
+    expect_counts("headline, bench_latency", counts["latency"],
+                  {"fused_solve_safety": 1 + LAT_CHAIN * (LAT_REPS + 1)})
+    for c in counts.values():
+        for name, got in c.items():
+            if got:
+                kernels[name]["launches"] += got
+    # the kernels against their plain versions on the states the timed loops reached
+    for name, S_ in (("throughput", S_MAIN), ("latency", 1)):
+        r = reached[name]
+        cfg = r["engine"].config
+        inp2, _, _ = sk.fused_tick_inputs(cfg, r["sc"].state, r["sc"].x, r["sc"].vb, None,
+                                          r["world"], r["gmm"], r["domain"])
+        compare(f"headline {name} K1 J=2 S={S_}", sk.K1(cfg, inp2),
+                sk.fused_solve_safety_plain(cfg, inp2))
+    r = reached["mi"]
+    engine, sc, belief, domain = r["engine"], r["sc"], r["grids"], r["domain"]
+    k3_check("the headline MI tick's beliefs", belief.data.contiguous(), engine, domain, MI_RADIUS)
+    phik = engine._phik_grid_kernel(belief, domain, MI_RADIUS)
+    inp0, _, _ = sk.fused_tick_inputs(engine.config, sc.state, sc.x, sc.vb, phik, r["world"])
+    compare(f"headline mi K1 J=0 S={S_MAIN}", sk.K1(engine.config, inp0),
+            sk.fused_solve_safety_plain(engine.config, inp0))
+    del reached, r, engine, sc, belief, phik, inp0, inp2
+    torch.cuda.empty_cache()
+    nums = [v for v in line.values() if isinstance(v, (int, float))] + line["latency_spread_ms"]
+    if not all(np.isfinite(v) and v > 0 for v in nums):
+        fail(f"the headline line holds a value that is not finite and above 0: {line}")
+    if line["mi_frontier_cells"] != 3 or line["p99_replan_latency_ms"] >= BUDGET_MS:
+        fail(f"the headline line has mi_frontier_cells != 3 or p99 over {BUDGET_MS} ms")
+    print(json.dumps(line))
+    print(f"  the twin's ticks: {S_MAIN * 1e3 / line['value']:.4f} ms (GMM), "
+          f"{S_MAIN * 1e3 / line['mi_solves_per_s_per_chip']:.4f} ms (MI); beside them, this "
+          f"run's path A tick {tick_a_ms:.4f} ms (with a pose advance) and path E tick "
+          f"{tick_e_ms:.4f} ms (with a reveal and a pose advance) {card}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ergodic_exploration_tpu_torch.bench"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    out = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not out:
+        print(proc.stderr[-4000:])
+        fail(f"python -m ergodic_exploration_tpu_torch.bench exited {proc.returncode}")
+    sub = json.loads(out[-1])
+    if set(sub) != set(line):
+        fail(f"the entry point's line has keys {sorted(sub)}, _run() gave {sorted(line)}")
+    print(f"python -m ergodic_exploration_tpu_torch.bench: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s; its line: {out[-1]}")
+
+
 def main() -> int:
     import torch
 
@@ -1405,6 +1501,8 @@ def run(dev) -> int:
     engine, sc, world, gmm, domain = build_engine(S_MAIN, dev)
     torch.cuda.synchronize()
     print(f"init_scenarios + prepare_world {1e3 * (time.perf_counter() - t0):.1f} ms {card}")
+    print(f"path A inputs: sha256 of x0, the GMM and the map's free mask "
+          f"{digest(sc.x, *gmm, world.free_mask)}")
     torch.cuda.reset_peak_memory_stats()
     for _ in range(5):
         sc, u, diag = engine.replan_refresh(sc, gmm, domain, world)
@@ -1945,6 +2043,8 @@ def run(dev) -> int:
         return sc, belief
 
     engine, sc, belief, truth, world, domain = mi_case(S_MAIN, dev)
+    print(f"path E inputs: sha256 of x0, the beliefs and the true map "
+          f"{digest(sc.x, belief.data, truth.data)}")
     known0 = sensor.fraction_known(belief)
     sc, belief = mi_ticks(engine, sc, belief, truth, world, domain, 5, True)
     torch.cuda.synchronize()
@@ -2195,6 +2295,8 @@ def run(dev) -> int:
     node_phase(dev, card, entry, kernels)
     scale_out_phase(dev, card, entry, kernels)
     quality_phase(dev, card, entry, kernels)
+
+    headline_phase(dev, card, kernels, k3_check, ms, ms_e)
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:

@@ -38,7 +38,9 @@ def obstacle_barrier(clearance, clearance_grad, boundary_radius: float, d_safe: 
 
 
 def barrier(p, domain, field, cfg):
-    """Combined barrier value (S, Q) and gradient (S, Q, 2) at points p."""
+    """Combined barrier value (S, Q) and gradient (S, Q, 2) at points p;
+    ``field`` is a PatchField or a whole DistanceField (one map a scenario,
+    or one shared map)."""
     bv, bg = boundary_barrier(p, domain, cfg.barrier_eps, cfg.barrier_boundary_weight)
     clearance, cgrad = field.query(p)
     ov, og = obstacle_barrier(clearance, cgrad, cfg.boundary_radius, cfg.d_safe,

@@ -13,7 +13,8 @@ CRASH = 2  # footprint overlaps an obstacle or leaves the domain
 
 
 def check_pose(p, domain, field, boundary_radius: float, d_safe: float):
-    """Collision code (int32) for positions (S, Q, 2) -> (S, Q)."""
+    """Collision code (int32) for positions (S, Q, 2) -> (S, Q); ``field``
+    is a PatchField or a whole DistanceField."""
     d = field.query_dist(p) - boundary_radius
     crash = (~domain.contains(p)) | (d <= 0.0)
     warn = d < d_safe

@@ -14,6 +14,7 @@ EDT runs at map cadence, outside the replan tick.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -94,3 +95,53 @@ class DistanceField(NamedTuple):
         gx, gy = central_gradient(d, grid.resolution)
         return DistanceField(dist=d, grad=torch.stack([gx, gy], dim=-1),
                              origin=grid.origin, resolution=grid.resolution)
+
+    def _frac(self, p: torch.Tensor) -> torch.Tensor:
+        """Fractional cell coordinates (ix, iy) of world points. ``p`` is
+        (*B, *Q, 2) for a field with leading axes B: each map answers the
+        points of its own row."""
+        nq = p.dim() - 1 - (self.dist.dim() - 2)
+        res = self.resolution.reshape(*self.resolution.shape, *([1] * nq), 1)
+        origin = self.origin.reshape(*self.origin.shape[:-1], *([1] * nq), 2)
+        return (p - origin) / res - 0.5
+
+    def _at(self, a: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
+        """a[b, iy, ix] for each map b of the field's leading axes: ``a`` is
+        (*B, H, W, ...) and the indices (*B, *Q)."""
+        nb = self.dist.dim() - 2
+        if nb == 0:
+            return a[iy, ix]
+        lead = a.shape[:nb]
+        b = torch.arange(math.prod(lead), device=a.device).reshape(*lead, *([1] * (iy.dim() - nb)))
+        return a.reshape(-1, *a.shape[nb:])[b, iy, ix]
+
+    def query_dist(self, p: torch.Tensor) -> torch.Tensor:
+        """Nearest-cell clearance at world points (*B, *Q, 2) -> (*B, *Q):
+        half-even rounding to the nearest cell, clamped to the map."""
+        h, w = self.dist.shape[-2:]
+        n = torch.round(self._frac(p)).to(torch.int64)
+        return self._at(self.dist, torch.clamp(n[..., 1], 0, h - 1),
+                        torch.clamp(n[..., 0], 0, w - 1))
+
+    def query(self, p: torch.Tensor):
+        """Bilinear clearance (*B, *Q) and gradient (*B, *Q, 2) at world
+        points (*B, *Q, 2), fractional coordinates clamped to
+        [0, w - 1.001] x [0, h - 1.001]; the JAX package's weights in its
+        order of operations."""
+        h, w = self.dist.shape[-2:]
+        f = self._frac(p)
+        fx = torch.clamp(f[..., 0], 0.0, w - 1.001)
+        fy = torch.clamp(f[..., 1], 0.0, h - 1.001)
+        x0, y0 = torch.floor(fx), torch.floor(fy)
+        tx, ty = fx - x0, fy - y0
+        ix, iy = x0.to(torch.int64), y0.to(torch.int64)
+        d00, d01 = self._at(self.dist, iy, ix), self._at(self.dist, iy, ix + 1)
+        d10, d11 = self._at(self.dist, iy + 1, ix), self._at(self.dist, iy + 1, ix + 1)
+        dist = (d00 * (1 - tx) * (1 - ty) + d01 * tx * (1 - ty) + d10 * (1 - tx) * ty
+                + d11 * tx * ty)
+        wts = torch.stack([(1 - tx) * (1 - ty), tx * (1 - ty), (1 - tx) * ty, tx * ty], dim=-1)
+        g00, g01 = self._at(self.grad, iy, ix), self._at(self.grad, iy, ix + 1)
+        g10, g11 = self._at(self.grad, iy + 1, ix), self._at(self.grad, iy + 1, ix + 1)
+        grad = (g00 * wts[..., 0:1] + g01 * wts[..., 1:2] + g10 * wts[..., 2:3]
+                + g11 * wts[..., 3:4])
+        return dist, grad

@@ -230,6 +230,93 @@ def test_patch_and_queries_match():
     equal(crop.query_dist(T(q)), jax.vmap(lambda p, qq: p.query_dist(qq))(crop_ref, jnp.asarray(q)))
 
 
+def _query_fields():
+    """Distance fields of 30 x 40 maps at origin (0.3, -0.2), 0.05 m a cell:
+    a map with a block, an empty map (FAR everywhere), and a batch of three
+    (two blocks elsewhere, one empty), in both packages; the JAX batch is
+    ``from_grid`` vmapped over the maps."""
+    data = np.zeros((4, 30, 40), np.float32)
+    data[0, 10:14, 5:25] = 1.0
+    data[2, 20:26, 30:34] = 1.0
+    data[3, 0:3, 0:40] = 1.0
+    fields = {}
+    for name, d in (("block", data[0]), ("empty", data[1])):
+        fields[name] = (JDistanceField.from_grid(JGridMap.create(d, 0.3, -0.2, 0.05)),
+                        DistanceField.from_grid(GridMap.create(d, 0.3, -0.2, 0.05)))
+    b = data[1:]
+    origin = np.tile(np.float32([0.3, -0.2]), (3, 1))
+    res = np.full(3, 0.05, np.float32)
+    jb = jax.vmap(lambda m, o, r: JDistanceField.from_grid(JGridMap(m, o, r)))(
+        jnp.asarray(b), jnp.asarray(origin), jnp.asarray(res))
+    fields["batch"] = (jb, DistanceField.from_grid(GridMap(T(b), T(origin), T(res))))
+    return fields
+
+
+def _query_points(n, seed):
+    """(n, 2) world points over the 30 x 40 map at (0.3, -0.2): inside it,
+    on cell edges, and outside it on every side."""
+    rng = np.random.default_rng(seed)
+    x0, y0, r = 0.3, -0.2, 0.05
+    inside = np.stack([rng.uniform(x0, x0 + 40 * r, n), rng.uniform(y0, y0 + 30 * r, n)], -1)
+    edges = np.stack([x0 + r * rng.integers(0, 41, n), y0 + r * rng.integers(0, 31, n)], -1)
+    out = inside.copy()
+    side = np.arange(n) % 4
+    out[side == 0, 0] = x0 - rng.uniform(0.01, 1.0, (side == 0).sum())
+    out[side == 1, 0] = x0 + 40 * r + rng.uniform(0.01, 1.0, (side == 1).sum())
+    out[side == 2, 1] = y0 - rng.uniform(0.01, 1.0, (side == 2).sum())
+    out[side == 3, 1] = y0 + 30 * r + rng.uniform(0.01, 1.0, (side == 3).sum())
+    return np.concatenate([inside, edges, out]).astype(np.float32)
+
+
+@pytest.mark.parametrize("method", ["query", "query_dist"])
+@pytest.mark.parametrize("field", ["block", "empty"])
+def test_distance_field_queries_match(method, field):
+    """DistanceField.query / query_dist on a whole field (JAX
+    ops/distance.py:97-147): nearest-cell distance exactly, the bilinear
+    distance and gradient within 1e-6; on a batch of three fields against
+    ``jax.vmap`` of the JAX method."""
+    fields = _query_fields()
+    for jf, tf, q in ((*fields[field], _query_points(24, 3).reshape(6, 12, 2)),
+                      (*fields["batch"], _query_points(24, 4).reshape(3, 24, 2))):
+        batched = tf.dist.dim() == 3
+        call = jax.vmap(lambda f, p: getattr(f, method)(p)) if batched else \
+            (lambda f, p: getattr(f, method)(p))
+        ref = call(jf, jnp.asarray(q))
+        got = getattr(tf, method)(T(q))
+        if method == "query_dist":
+            equal(got, ref)
+        else:
+            close(got[0], ref[0], rtol=0.0, atol=1e-6)
+            close(got[1], ref[1], rtol=0.0, atol=1e-6)
+        if field == "empty" and not batched:
+            assert ((got if method == "query_dist" else got[0]) >= 0.9e6).all()
+
+
+@pytest.mark.parametrize("maps", ["per_scenario", "shared"])
+def test_barrier_and_collision_on_a_whole_field(maps):
+    """barrier and check_pose given a whole DistanceField (per-scenario
+    fields, or one field shared by every scenario) against the JAX functions
+    on the same field."""
+    fields = _query_fields()
+    jf, tf = fields["batch"] if maps == "per_scenario" else fields["block"]
+    q = _query_points(24, 5).reshape(3, 24, 2)
+    cfg, jcfg = default_config("cart"), j_default_config("cart")
+    jdom = JDomain.create(0.3, -0.2, 2.0, 1.5)
+    tdom = Domain(torch.tensor([[0.3, -0.2]]).expand(3, 2), torch.tensor([[2.0, 1.5]]).expand(3, 2))
+    axes = (0, 0) if maps == "per_scenario" else (None, 0)
+    v_ref, g_ref = jax.vmap(lambda f, p: jbarrier.barrier(p, jdom, f, jcfg), in_axes=axes)(
+        jf, jnp.asarray(q))
+    v, g = tbarrier.barrier(T(q), tdom, tf, cfg)
+    close(v, v_ref)
+    close(g, g_ref)
+    code_ref = jax.vmap(lambda f, p: jcollision.check_pose(p, jdom, f, cfg.boundary_radius,
+                                                           cfg.d_safe), in_axes=axes)(
+        jf, jnp.asarray(q))
+    code = tcollision.check_pose(T(q), tdom, tf, cfg.boundary_radius, cfg.d_safe)
+    equal(code, code_ref)
+    assert {0, 2} <= set(code.flatten().tolist())
+
+
 def test_barrier_matches():
     jf, tf, jfb, tfb, jdom, tdom = _world()
     cfg = default_config("cart")
