@@ -1,22 +1,29 @@
 #!/usr/bin/env python3
 """Where a tick's time goes on the card: a ``torch.profiler`` window over the
-port's closed loops on one NVIDIA GPU.
+port's loops on one NVIDIA GPU.
 
     python3 chip_profile.py
 
-For each of six loops of ``ergodic_exploration_tpu_torch`` it runs 10 warm
-ticks, then profiles 10 ticks and prints the tick time (CUDA events), the
-device-busy time per tick (sum of the kernels' device time), the kernel
-launches per tick and the kernels that take most of the device time:
+Each loop below is first timed by CUDA events (every loop, before any
+profiler session: a session leaves hooks behind that slow later launches),
+then profiled. For each it prints the time a tick (or a refresh), the
+device's busy time (the sum of its kernels', copies' and memsets' durations)
+and its share of the unprofiled and of the profiled time, the kernels the
+device ran and the
+host's CUDA runtime calls a tick, and the kernels that take most of the
+device time:
 
-  A  the bench tick (``replan_refresh``, shared map, K1 with the refresh)
-  B  ``explore`` with K1 on 4096 distinct maps (the quick-start loop, fused)
-  C  ``explore`` of the default configuration (eager step + fused_safety), S=512
+  A  the bench tick (``replan_refresh``, shared map, K1 with the refresh),
+     one eager tick a call
+  B  ``explore`` with K1 on 4096 distinct maps (the quick-start loop, fused),
+     10 ticks a call: the graph replays and the plain loop (``_explore_loop``)
+  C  the same for the default configuration (eager step + fused_safety), S=512
   E  the MI tick (disc reveal + ``replan_refresh_mi`` with K3 + pose advance)
-  F  one tick of the mapping loop (``explore`` on the beliefs' world after a
-     ray-cast reveal), and one whole map refresh of it in a single window
-  Q  one eager tick of the quality run (``default_config("omni")``, S=256,
-     its spawns) after a ray-cast reveal, and one whole refresh of it
+  F  the mapping loop: 10 ticks of ``explore`` on the beliefs' world after a
+     ray-cast reveal, graphs and loop; two whole refreshes of
+     ``explore_mapping_fused``, graphs and ``_explore_mapping_fused_loop``
+  Q  the same for the quality run (``default_config("omni")``, S=256, its
+     spawns)
 
 The cases are those of ``chip_smoke.py``. Needs a CUDA device.
 """
@@ -28,46 +35,62 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TICKS = 10
+CALLS = 10  # calls of a one-tick loop timed and profiled, after as many warm ones
+BLOCK = 10  # ticks a call of B, C, F and Q
 
 
-def profile(name, tick, card, ticks=TICKS):
-    """Profile ``ticks`` calls of ``tick`` (after as many warm ones)."""
+def timed(fn, calls=CALLS) -> float:
+    """ms a call of ``fn`` by CUDA events, after ``calls`` warm calls."""
     import torch
-    from torch.profiler import ProfilerActivity
 
-    for _ in range(ticks):
-        tick()
+    for _ in range(calls):
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(ticks):
-        tick()
+    for _ in range(calls):
+        fn()
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / ticks
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(ticks):
-            tick()
-        torch.cuda.synchronize()
-    # device-side events only (kernels, copies, memsets), by their own duration
-    from torch.autograd import DeviceType
+    return start.elapsed_time(end) / calls
 
-    by_name = {}
+
+def profile(name, fn, ms_call, card, units, unit="tick", calls=CALLS):
+    """Profile ``calls`` calls of ``fn`` (``units`` ticks or refreshes each)
+    and print its split beside ``ms_call``, its unprofiled time a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    by_name, host = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        elif e.name.startswith("cu"):
+            host += 1
+    n = calls * units
     kernels = {k: v for k, v in by_name.items() if not k.startswith(("Memcpy", "Memset"))}
-    busy_ms = sum(us for _, us in by_name.values()) / 1e3 / ticks
-    launches = sum(n for n, _ in kernels.values()) / ticks
-    print(f"== {name}: tick {ms:.4f} ms (CUDA events, unprofiled); device busy "
-          f"{busy_ms:.4f} ms per tick ({100 * busy_ms / ms:.1f} %); kernel launches per tick "
-          f"{launches:.1f} {card}")
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    launches = sum(c for c, _ in kernels.values()) / n
+    print(f"== {name}: {ms_call / units:.4f} ms a {unit} (CUDA events, unprofiled); device busy "
+          f"{busy_ms / n:.4f} ms a {unit} ({100 * busy_ms / n / (ms_call / units):.1f} % of the "
+          f"unprofiled {unit}, {100 * busy_ms / wall_ms:.1f} % of the profiled run); "
+          f"kernels run {launches:.1f} a {unit}; host CUDA runtime calls {(host - 3) / n:.2f} a "
+          f"{unit} {card}")
     if not by_name:
         print("   the profiler recorded no device time")
-    for key, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"   {us / 1e3 / ticks:9.4f} ms/tick  x{n / ticks:6.1f}  {key[:90]}")
+    for key, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"   {us / 1e3 / n:9.4f} ms/{unit}  x{c / n:6.1f}  {key[:90]}")
 
 
 def main() -> int:
@@ -78,14 +101,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
+    from ergodic_exploration_tpu_torch.config import default_config
     from ergodic_exploration_tpu_torch.engine import Engine
     from ergodic_exploration_tpu_torch.grid import Domain
+    from ergodic_exploration_tpu_torch.ops import sensor
+    from ergodic_exploration_tpu_torch.tools import quality
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = f"[{smi.stdout.strip().splitlines()[0]}]"
     print(card)
+    loops = []  # (name, fn, ticks or refreshes a call, unit)
 
     engine, sc, world, gmm, domain = cs.build_engine(cs.S_MAIN, dev)
     state = [sc]
@@ -94,83 +121,74 @@ def main() -> int:
         s, u, _ = engine.replan_refresh(state[0], gmm, domain, world)
         state[0] = cs.advance(engine, s, u)
 
-    profile(f"A bench tick, S={cs.S_MAIN}", tick_a, card)
+    loops.append((f"A bench tick, S={cs.S_MAIN}", tick_a, 1, "tick"))
+
+    def explore_pair(tag, eng, sc, phik, world):
+        """``explore`` (graphs) and ``_explore_loop``, BLOCK ticks a call,
+        each carrying its own state on."""
+        for kind, run in (("graphs", eng.explore), ("plain loop", eng._explore_loop)):
+            st = [sc]
+
+            def call(run=run, st=st):
+                st[0] = run(st[0], phik, world, BLOCK).scenarios
+
+            loops.append((f"{tag}, {kind}", call, BLOCK, "tick"))
+
+    def refresh_pair(tag, eng, sc, truth, every):
+        for kind, run in (("graphs", eng.explore_mapping_fused),
+                          ("plain loop", eng._explore_mapping_fused_loop)):
+            st = [sc]
+
+            def call(run=run, st=st):
+                st[0] = run(st[0], truth, 2, every)[0]
+
+            loops.append((f"{tag}, {kind}", call, 2, "refresh"))
 
     for name, S, kw in ((f"B explore, K1 on distinct maps, S={cs.S_MAIN}", cs.S_MAIN, {}),
                         ("C explore, default configuration (eager), S=512", 512,
                          dict(use_fused_solve=False))):
-        cfg, x0, grids, gmm, domain = cs.distinct_case(S, dev, **kw)
+        cfg, x0, grids, gmm_b, dom_b = cs.distinct_case(S, dev, **kw)
         eng = Engine(cfg)
-        world = eng.prepare_world(grids)
-        phik = eng.phik_from_gmm(gmm, domain, world)
-        st = [eng.init_scenarios(x0)]
+        world_b = eng.prepare_world(grids)
+        explore_pair(name, eng, eng.init_scenarios(x0),
+                     eng.phik_from_gmm(gmm_b, dom_b, world_b), world_b)
 
-        def tick_b():
-            st[0] = eng.explore(st[0], phik, world, 1).scenarios
-
-        profile(name, tick_b, card)
-
-    from ergodic_exploration_tpu_torch.ops import sensor
-
-    engine, sc, belief, truth, world, domain = cs.mi_case(cs.S_MAIN, dev)
-    st_e = [sc, belief]
+    engine_e, sc_e, belief, truth_e, world_e, domain_e = cs.mi_case(cs.S_MAIN, dev)
+    st_e = [sc_e, belief]
 
     def tick_e():
-        b = sensor.reveal(st_e[1], truth, st_e[0].x, 0.75)
-        s, u, _ = engine.replan_refresh_mi(st_e[0], b, world, sensor_radius_cells=cs.MI_RADIUS,
-                                           domain=domain, use_mi_kernel=True)
-        st_e[:] = [cs.advance(engine, s, u), b]
+        b = sensor.reveal(st_e[1], truth_e, st_e[0].x, 0.75)
+        s, u, _ = engine_e.replan_refresh_mi(st_e[0], b, world_e,
+                                             sensor_radius_cells=cs.MI_RADIUS, domain=domain_e,
+                                             use_mi_kernel=True)
+        st_e[:] = [cs.advance(engine_e, s, u), b]
 
-    profile(f"E MI tick (K3 + K1), S={cs.S_MAIN}", tick_e, card)
-    del engine, sc, belief, truth, world, st_e
-    torch.cuda.empty_cache()
+    loops.append((f"E MI tick (K3 + K1), S={cs.S_MAIN}", tick_e, 1, "tick"))
+
+    def mapping_loops(tag, eng, x0, truth, every):
+        """After one refresh from unknown beliefs: BLOCK ticks on its world,
+        then whole refreshes from unknown beliefs."""
+        sc, belief, _, _, _ = eng.explore_mapping_fused(eng.init_scenarios(x0), truth,
+                                                        n_refreshes=1, refresh_every=every)
+        world = eng.prepare_world(belief)
+        phik = eng.phik_from_grid(belief, domain=Domain(truth.origin[0],
+                                                         truth.domain().lengths[0]))
+        explore_pair(f"{tag}: ticks on the beliefs' world", eng, sc, phik, world)
+        refresh_pair(f"{tag}: refreshes from unknown beliefs (reveal + MI target + world + "
+                     f"{every} ticks)", eng, eng.init_scenarios(x0), truth, every)
 
     cfg, x0, truth = cs.mapping_case(cs.S_MAIN, dev)
-    eng = Engine(cfg)
-    sc, belief, _, _, _ = eng.explore_mapping_fused(eng.init_scenarios(x0), truth, n_refreshes=1,
-                                                    refresh_every=cs.MAP_EVERY)
-    world = eng.prepare_world(belief)
-    phik = eng.phik_from_grid(belief, domain=Domain(truth.origin[0],
-                                                     truth.domain().lengths[0]))
-    st_f = [sc]
+    mapping_loops(f"F mapping loop, S={cs.S_MAIN}", Engine(cfg), x0, truth, cs.MAP_EVERY)
+    eng_q = Engine(default_config("omni"))
+    truth_q = quality.build_truth(cs.Q_S, dev)
+    mapping_loops(f"Q quality run (omni, eager), S={cs.Q_S}", eng_q,
+                  quality.spawn_poses(eng_q.config, truth_q, cs.Q_S), truth_q, cs.Q_EVERY)
 
-    def tick_f():
-        st_f[0] = eng.explore(st_f[0], phik, world, 1).scenarios
-
-    profile(f"F one tick of the mapping loop, S={cs.S_MAIN}", tick_f, card)
-
-    def refresh_f():
-        st_f[0] = eng.explore_mapping_fused(st_f[0], truth, n_refreshes=1,
-                                            refresh_every=cs.MAP_EVERY)[0]
-
-    profile(f"F one map refresh from unknown beliefs (reveal + MI target + world + "
-            f"{cs.MAP_EVERY} ticks), S={cs.S_MAIN}", refresh_f, card, ticks=2)
-    del eng, sc, belief, truth, world, phik, st_f
-    torch.cuda.empty_cache()
-
-    from ergodic_exploration_tpu_torch.config import default_config
-    from ergodic_exploration_tpu_torch.tools import quality
-
-    eng = Engine(default_config("omni"))
-    truth = quality.build_truth(cs.Q_S, dev)
-    sc, belief, _, _, _ = eng.explore_mapping_fused(
-        eng.init_scenarios(quality.spawn_poses(eng.config, truth, cs.Q_S)), truth,
-        n_refreshes=1, refresh_every=cs.Q_EVERY)
-    world = eng.prepare_world(belief)
-    phik = eng.phik_from_grid(belief, domain=Domain(truth.origin[0], truth.domain().lengths[0]))
-    st_q = [sc]
-
-    def tick_q():
-        st_q[0] = eng.explore(st_q[0], phik, world, 1).scenarios
-
-    profile(f"Q one eager tick of the quality run (omni), S={cs.Q_S}", tick_q, card)
-
-    def refresh_q():
-        st_q[0] = eng.explore_mapping_fused(st_q[0], truth, n_refreshes=1,
-                                            refresh_every=cs.Q_EVERY)[0]
-
-    profile(f"Q one refresh of the quality run from unknown beliefs (reveal + MI target + "
-            f"world + {cs.Q_EVERY} ticks), S={cs.Q_S}", refresh_q, card, ticks=2)
+    # every loop timed before the first profiler session; a call of B, C,
+    # F or Q holds 10 ticks or 2 refreshes, so one call is profiled
+    ms = [timed(fn, CALLS if units == 1 else 2) for _, fn, units, _ in loops]
+    for (name, fn, units, unit), ms_call in zip(loops, ms):
+        profile(name, fn, ms_call, card, units, unit, CALLS if units == 1 else 1)
     return 0
 
 

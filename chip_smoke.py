@@ -98,8 +98,23 @@ Phases:
     ticks printed beside it; ``python -m ergodic_exploration_tpu_torch.bench``
     once as a subprocess, exit 0 and a line with the same keys
 
-Every path is driven with the launch counts set to 0 just before it and
-read just after. The last two lines are a JSON line describing each kernel
+20  the closed loops as CUDA graphs (``explore`` replays graphs of 10 ticks
+    and of 1, ``explore_mapping_fused`` one graph a refresh) against their
+    plain loops (``_explore_loop``, ``_explore_mapping_fused_loop``) from
+    one state, bit for bit in every output and the final state, the run
+    that captures and a run of replays only, each with exact launch counts:
+    path B (S = 4096, 100 ticks), path C and phase 8's omni case with the
+    eager step (S = 512, 25 ticks), path D (``fused_solve``, 25 ticks), path
+    F (5 refreshes) and path Q's configuration (S = 256, 2 refreshes); then
+    ms a tick (or a refresh) of both by CUDA events, and under
+    ``torch.profiler`` the host's CUDA runtime calls and the device's busy
+    share; at most 10 host calls a tick on path B and 20 a refresh on path F
+
+Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
+``explore_mapping_fused``) runs as graph replays, the first call of a shape
+capturing its graphs; a graph's first call is its warm-up, whose launches
+are real and counted. Every path is driven with the launch counts set to 0
+just before it and read just after. The last two lines are a JSON line describing each kernel
 variant that a path launched (launches on its path; error against the plain
 version, time, the plain version's time and the least time the card could
 take for the same work, all on that path's own inputs) and the result line
@@ -151,6 +166,12 @@ SCALE_TICKS, SAMPLE_TICKS, RESUME_TICKS = 10, 5, 5  # phase 17: mesh ticks; (1, 
 RANK_TIMEOUT_S = 300  # phase 17: the spawned ranks of one leg together
 TICK_FIELDS = ("u", "metric", "code", "dwa_active", "dwa_feasible", "U")
 Q_S, Q_REFRESHES, Q_EVERY = 256, 500, 10  # phase 18 (a): the record's quality run, full length
+# phase 18 (a): the gaps to the record at its nine coverage ticks and the final
+# p10 / median that the same run printed as a plain Python loop (NVIDIA H100
+# 80GB HBM3, 700.00 W); the graphs' run is printed beside them
+LOOP_Q_GAPS = ("+0.00000", "+0.00483", "+0.00612", "+0.00754", "+0.00251", "+0.00084",
+               "-0.00381", "-0.00165", "+0.00115")
+LOOP_Q_P10_MEDIAN = ("0.8381", "0.9834")
 LAT_REPS, LAT_GROUP, LAT_CHAIN = 24, 8, 32  # phase 19: bench_latency's runs, groups, replans a run
 BENCH_TIMEOUT_S = 300  # phase 19: the entry point run as a subprocess
 
@@ -1231,9 +1252,15 @@ def quality_phase(dev, card, entry, kernels) -> None:
         f"{k[len('ergodic_metric_'):]} {summary[k]:.6f} | {record[k]:.6f}"
         for k in ("ergodic_metric_first_tick", "ergodic_metric_last_tick",
                   "ergodic_metric_last_refresh_mean")))
-    print(f"  wall {r.wall_s:.2f} s for {n_ticks} ticks: {1e3 * r.wall_s / n_ticks:.4f} ms a tick, "
-          f"{1e3 * r.wall_s / Q_REFRESHES:.3f} ms a refresh; peak device memory "
-          f"{peak / 2**20:.1f} MiB {card}", flush=True)
+    gaps = tuple(f"{gap:+.5f}" for _, _, _, gap in verdict["coverage_at"])
+    p10_med = tuple(f"{dist[q]:.4f}" for q in ("p10", "median"))
+    print(f"  the {len(gaps)} gaps equal the plain loop's printed digits {LOOP_Q_GAPS}: "
+          f"{gaps == LOOP_Q_GAPS}; the final p10 / median equal its {LOOP_Q_P10_MEDIAN}: "
+          f"{p10_med == LOOP_Q_P10_MEDIAN}")
+    print(f"  wall {r.wall_s:.2f} s for {n_ticks} ticks as {Q_REFRESHES} graph replays (the "
+          f"first refresh the warm-up, then {r.capture_s:.3f} s of capture): "
+          f"{1e3 * r.wall_s / n_ticks:.4f} ms a tick, {1e3 * r.wall_s / Q_REFRESHES:.3f} ms a "
+          f"refresh; peak device memory {peak / 2**20:.1f} MiB {card}", flush=True)
 
     faults = [] if spawns_ok else ["the card's spawns differ from the CPU's"]
     if (traj.shape != (Q_REFRESHES, Q_EVERY, Q_S, 3) or metric.shape != (Q_REFRESHES, Q_EVERY, Q_S)
@@ -1365,6 +1392,226 @@ def headline_phase(dev, card, kernels, k3_check, tick_a_ms, tick_e_ms) -> None:
         fail(f"the entry point's line has keys {sorted(sub)}, _run() gave {sorted(line)}")
     print(f"python -m ergodic_exploration_tpu_torch.bench: exit 0 in "
           f"{time.perf_counter() - t0:.1f} s; its line: {out[-1]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the closed loops as CUDA graphs against their plain loops
+# ---------------------------------------------------------------------------
+
+
+def runtime_profile(fn):
+    """Run ``fn`` once under ``torch.profiler``: (the host's CUDA runtime
+    API calls (``cuda*`` and ``cu*``) by name, the device's busy ms: the sum of its kernels',
+    copies' and memsets' durations, and the run's ms by CUDA events). The
+    profile's own closing ``cudaDeviceSynchronize`` and the events' calls
+    are not counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    calls, busy_us = {}, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+        elif e.name.startswith("cu"):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    calls["cudaDeviceSynchronize"] = calls.get("cudaDeviceSynchronize", 1) - 1
+    for name in ("cudaEventRecord", "cudaEventRecordWithFlags"):  # the two events
+        if name in calls:
+            calls[name] -= 2
+            break
+    return {k: v for k, v in calls.items() if v}, busy_us / 1e3, start.elapsed_time(end)
+
+
+def named_leaves(tree, prefix=""):
+    """[(dotted name, tensor)] of a tree of NamedTuples, tuples and dicts."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [x for k, v in items for x in named_leaves(v, f"{prefix}.{k}" if prefix else str(k))]
+
+
+def same_as_loop(name: str, got, ref) -> None:
+    """Fail unless ``got`` (a graph run) equals ``ref`` (the plain loop) bit
+    for bit; where a leaf differs, it names the leaf and the first index
+    (the tick, on a per-tick leaf) where it does, and holds the budgets
+    instead: controls and U 5e-5, the metric rtol 1e-5, codes and DWA flags
+    equal; anything else must be equal."""
+    import torch
+
+    budgets = {"controls": 5e-5, "U": 5e-5}
+    differ = []
+    for (k, a), (_, b) in zip(named_leaves(got), named_leaves(ref), strict=True):
+        if a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b):
+            continue
+        first = (a != b).nonzero()[0].tolist() if a.shape == b.shape else "shape"
+        err = (a.float() - b.float()).abs().max().item() if a.shape == b.shape else float("inf")
+        differ.append(k)
+        leaf = k.split(".")[-1]
+        ok = (err <= budgets[leaf] if leaf in budgets else
+              err <= 1e-7 + 1e-5 * b.abs().max().item() if leaf == "ergodic_metric" else False)
+        print(f"  {name}: {k} differs from the plain loop, first at index {first}, max |diff| "
+              f"{err:.3e} ({'inside' if ok else 'outside'} its budget)")
+        if not ok:
+            fail(f"phase 20, {name}: {k} differs from the plain loop beyond its budget")
+    print(f"  {name}: equal to the plain loop bit for bit in "
+          f"{len(named_leaves(ref)) - len(differ)} of {len(named_leaves(ref))} leaves")
+
+
+def graph_case(name: str, engine, graph_run, loop_run, want: dict) -> None:
+    """The checks of one case of phase 20: the first graph run (which
+    captures) and the second (replays only), each with exact launch counts
+    and each against the plain loop bit for bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = graph_run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    expect_counts(f"phase 20, {name}, the run that captures", read_counts(), want)
+    reset_counts()
+    again = graph_run()
+    torch.cuda.synchronize()
+    expect_counts(f"phase 20, {name}, replays only", read_counts(), want)
+    captured = {n: [d for d in g.launches if d] for e in engine._graphs._entries.values()
+                for n, g in e.graphs.items()}
+    print(f"  {name}: launches a replay of each graph (by its ticks) {captured}; capture "
+          f"{engine.graph_capture_s:.3f} s; the first run {first_s:.3f} s (warm-up and capture "
+          f"included)", flush=True)
+    ref = loop_run()
+    same_as_loop(name + ", the run that captured", first, ref)
+    same_as_loop(name + ", replays only", again, ref)
+
+
+def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int = EXPLORE_TICKS,
+                 eager_ticks: int = 25, refreshes: int = MAP_REFRESHES) -> dict:
+    """Phase 20: ``explore`` and ``explore_mapping_fused`` as graph replays
+    against ``_explore_loop`` / ``_explore_mapping_fused_loop`` from one
+    state: path B, path C, the omni case of phase 8 with the eager step,
+    path D, path F and a short run of path Q's configuration. Fails when a
+    graph run differs from the loop, a launch count is off, or the host's
+    runtime calls exceed 10 a tick on path B or 20 a refresh on path F."""
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+    from ergodic_exploration_tpu_torch.tools import quality
+    from ergodic_exploration_tpu_torch.utils import graphs
+
+    print("== 20. the closed loops as CUDA graphs vs their plain loops", flush=True)
+    # (name, graph run, plain loop, its units, unit name, a shorter plain
+    # loop to profile, its units): timed and profiled at the end. The plain
+    # loop's host calls are the same every tick, so its profile is kept short
+    cases = []
+
+    def explore_case(tag, cfg, x0, world_of, phik_of, n, want):
+        eng = Engine(cfg, device=dev)
+        world = world_of(eng)
+        phik = phik_of(eng, world)
+        sc = eng.init_scenarios(x0)
+        runs = (lambda: eng.explore(sc, phik, world, n),
+                lambda: eng._explore_loop(sc, phik, world, n))
+        graph_case(tag, eng, *runs, want)
+        (entry,) = eng._graphs._entries.values()
+        nbytes = sum(t.numel() * t.element_size() for t in graphs.leaves(entry.buffers))
+        print(f"  {tag}: the copy-in of (sc, phik, world) a call, {nbytes / 2**20:.1f} MiB: "
+              f"{events_ms(lambda: entry.load((sc, phik, world)), 5):.4f} ms {card}")
+        short = min(n, eng.GRAPH_BLOCK)
+        cases.append((tag, *runs, n, "tick",
+                      lambda: eng._explore_loop(sc, phik, world, short), short))
+
+    def distinct(S_, model="cart", seed=1, **kw):
+        cfg, x0, grids, gmm, domain = distinct_case(S_, dev, model=model, seed=seed, **kw)
+        return (cfg, x0, lambda e: e.prepare_world(grids),
+                lambda e, w: e.phik_from_gmm(gmm, domain, w if cfg.use_fused_solve else None))
+
+    explore_case(f"path B (K1 on distinct maps, S={S_big}, {ticks} ticks)", *distinct(S_big),
+                 ticks, {"fused_solve_safety_map_h0_nb": ticks})
+    explore_case(f"path C (default_config('cart'), eager, S={S_small}, {eager_ticks} ticks)",
+                 *distinct(S_small, seed=3, use_fused_solve=False), eager_ticks,
+                 {"fused_safety": eager_ticks})
+    explore_case(f"omni, eager, phase 8's case (S={S_small}, {eager_ticks} ticks)",
+                 *distinct(S_small, model="omni", seed=2, use_fused_solve=False), eager_ticks,
+                 {"fused_safety": eager_ticks})
+    rng = np.random.default_rng(4)
+    x0_d = np.concatenate([rng.uniform(0.05, 4.95, (S_big, 2)),
+                           rng.uniform(-np.pi, np.pi, (S_big, 1))], axis=1).astype(np.float32)
+    gmm_d = GaussianMixture.create(np.full((S_big, 1, 2), 2.5, np.float32),
+                                   np.tile((0.4 * np.eye(2, dtype=np.float32))[None, None],
+                                           (S_big, 1, 1, 1)), device=dev)
+    dom_d = Domain.create(0.0, 0.0, 5.0, 5.0, device=dev)
+    cfg_d = default_config("cart").replace(use_fused_solve=True, enable_safety=False,
+                                           shared_maps=True, shared_history_draw=True)
+    explore_case(f"path D (fused_solve, empty world, S={S_big}, {eager_ticks} ticks)", cfg_d, x0_d,
+                 lambda e: e.empty_world(dom_d, S_big), lambda e, w: e.phik_from_gmm(gmm_d, dom_d),
+                 eager_ticks, {"fused_solve": eager_ticks})
+
+    def mapping(tag, cfg, x0, truth, n_ref, every, want):
+        eng = Engine(cfg, device=dev)
+        sc = eng.init_scenarios(x0)
+
+        def run(fn, n=n_ref):
+            return lambda: dict(zip(("scenarios", "belief", "coverage", "trajectory", "metric"),
+                                    fn(sc, truth, n, every, 1.5)))
+
+        runs = (run(eng.explore_mapping_fused), run(eng._explore_mapping_fused_loop))
+        graph_case(tag, eng, *runs, want)
+        cases.append((tag, *runs, n_ref, "refresh", run(eng._explore_mapping_fused_loop, 1), 1))
+
+    mapping(f"path F (explore_mapping_fused, S={S_big}, {refreshes} refreshes)",
+            *mapping_case(S_big, dev), refreshes, MAP_EVERY,
+            {"fused_solve_safety_map_h0_nb": refreshes * MAP_EVERY})
+    cfg_q = default_config("omni")
+    truth_q = quality.build_truth(Q_S, dev)
+    mapping(f"path Q's configuration (default_config('omni'), S={Q_S}, 2 refreshes)", cfg_q,
+            quality.spawn_poses(cfg_q, truth_q, Q_S), truth_q, 2, Q_EVERY,
+            {"fused_safety": 2 * Q_EVERY})
+
+    # times first, for every case, then the profiles: a profiler session
+    # leaves its hooks behind, which slows the launches that follow it
+    t0 = time.perf_counter()
+    res = {}
+    for tag, graph_run, loop_run, n, unit, _, _ in cases:
+        res[tag] = {kind: dict(ms=events_ms(fn, 1) / n) for kind, fn in
+                    (("graph", graph_run), ("loop", loop_run))}
+    print(f"  (the cases timed in {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for tag, graph_run, _, n_graph, unit, loop_short, n_short in cases:
+        for kind, fn, n in (("graph", graph_run, n_graph), ("loop", loop_short, n_short)):
+            calls, busy, wall = runtime_profile(fn)
+            r = res[tag][kind]
+            # busy: the profiled run's device ms a unit over the unprofiled ms
+            r.update(calls=sum(calls.values()) / n, busy=busy / n / r["ms"])
+            print(f"  {tag} {kind}: {r['ms']:.4f} ms a {unit}; host CUDA runtime calls "
+                  f"{r['calls']:.2f} a {unit} over {n} ({calls}); device busy {busy / n:.4f} ms a "
+                  f"{unit}: {100 * r['busy']:.1f} % of the unprofiled {unit}, "
+                  f"{100 * busy / wall:.1f} % of the profiled run {card}", flush=True)
+        g, lp = res[tag]["graph"], res[tag]["loop"]
+        print(f"  {tag}: the graph's {unit} {g['ms']:.4f} ms vs the loop's {lp['ms']:.4f} ms; "
+              f"host calls {g['calls']:.2f} vs {lp['calls']:.2f} a {unit}; device busy "
+              f"{100 * g['busy']:.1f} % vs {100 * lp['busy']:.1f} % {card} (profiled in "
+              f"{time.perf_counter() - t0:.1f} s so far)")
+    b, f = res[cases[0][0]]["graph"], res[cases[4][0]]["graph"]
+    if b["calls"] > 10 or f["calls"] > 20:
+        fail(f"phase 20: the graphs made {b['calls']:.2f} host calls a tick on path B (limit 10) "
+             f"and {f['calls']:.2f} a refresh on path F (limit 20)")
+    return res
 
 
 def main() -> int:
@@ -1653,7 +1900,10 @@ def run(dev) -> int:
           f"S={S_MAIN}, distinct maps", flush=True)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    warm = eng_b.warmup(S_MAIN, domain, map_shape=(100, 100), gmm_components=2, n_ticks=(2,))
+    # explore of EXPLORE_TICKS captures its graphs here, on the warm-up's
+    # dummy inputs of the same shapes: the timed explore below only replays
+    warm = eng_b.warmup(S_MAIN, domain, map_shape=(100, 100), gmm_components=2,
+                        n_ticks=(EXPLORE_TICKS,))
     print(f"warmup stages (s): {warm}")
     warm_counts = read_counts()
     reset_counts()
@@ -1696,7 +1946,7 @@ def run(dev) -> int:
         fail(f"path B: ergodic metric did not fall ({m_first:.6f} -> {m_last:.6f})")
     print(f"all finite; none diverged; mean ergodic metric {m_first:.6f} (first 10 ticks) -> "
           f"{m_last:.6f} (last 10)")
-    print(f"explore tick (replan + pose advance): {ms_b:.4f} ms, "
+    print(f"explore tick (replan + pose advance, graph replays): {ms_b:.4f} ms, "
           f"{S_MAIN * 1e3 / ms_b:.1f} solves/s {card}")
     print(f"prepare_world (EDT of {S_MAIN} distinct maps) {prep_ms:.1f} ms, peak device memory "
           f"{prep_peak:.1f} MiB; phik_from_gmm {phik_ms:.2f} ms (host clock) {card}")
@@ -1835,7 +2085,8 @@ def run(dev) -> int:
             or not torch.isfinite(out_c.trajectory).all()
             or out_c.controls.shape != (T_C, S_C, cfg_c.nu)):
         fail("path C diverged or produced non-finite or mis-shaped outputs")
-    print(f"all finite; none diverged; eager tick {start.elapsed_time(end) / T_C:.4f} ms at "
+    print(f"all finite; none diverged; eager tick {start.elapsed_time(end) / T_C:.4f} ms (the "
+          f"first call: its graph's warm-up and capture; phase 20 times the replays) at "
           f"S={S_C}; DWA-active share {out_c.diag.dwa_active.float().mean().item():.4f} {card}")
     # both kernels against their plain versions on this path's own inputs
     g_c = [t.contiguous() for t in gmm_c]
@@ -1904,7 +2155,7 @@ def run(dev) -> int:
             fail(f"path D ({variant}): diverged, non-finite, or DWA active with safety off")
         print(f"  all finite (barrier on the FAR plateau included: max "
               f"{out_d.diag.barrier_cost.max().item():.4f}); tick "
-              f"{start.elapsed_time(end) / T_D:.4f} ms {card}")
+              f"{start.elapsed_time(end) / T_D:.4f} ms (the first call, capture included) {card}")
         # the variant against its plain version on the state this path reached
         inp, _, _ = sk.fused_tick_inputs(cfg_d, out_d.scenarios.state, out_d.scenarios.x,
                                          out_d.scenarios.vb, phik_d, world_d)
@@ -2233,7 +2484,8 @@ def run(dev) -> int:
           f"clearance of the trajectories over the TRUE map {clearance.min().item():.3f} m "
           f"(reported: the robots plan on their beliefs); share of poses under the 0.2 m "
           f"footprint radius {(clearance < 0.2).float().mean().item():.5f}")
-    print(f"one refresh (reveal + MI target + world + {MAP_EVERY} ticks): {ms_f:.1f} ms; peak "
+    print(f"one refresh (reveal + MI target + world + {MAP_EVERY} ticks; the first of the "
+          f"{MAP_REFRESHES} the warm-up, capture included): {ms_f:.1f} ms; peak "
           f"device memory over the loop {peak_f / 2**20:.1f} MiB {card}")
     # the split of one refresh, each stage alone on the state the loop reached
     win = sensor.raycast_window_cells(1.5, 0.05)
@@ -2292,11 +2544,19 @@ def run(dev) -> int:
     if n_diff > 1e-3 * b_d.numel() or dcov > 1e-3:
         fail("the mapping loop on the card disagrees with the mapping loop on the CPU")
 
-    node_phase(dev, card, entry, kernels)
-    scale_out_phase(dev, card, entry, kernels)
-    quality_phase(dev, card, entry, kernels)
+    def at(phase):
+        print(f"(phase {phase} starts at {time.perf_counter() - t_start:.1f} s)", flush=True)
 
+    at(16)
+    node_phase(dev, card, entry, kernels)
+    at(17)
+    scale_out_phase(dev, card, entry, kernels)
+    at(18)
+    quality_phase(dev, card, entry, kernels)
+    at(19)
     headline_phase(dev, card, kernels, k3_check, ms, ms_e)
+    at(20)
+    graphs_phase(dev, card)
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:

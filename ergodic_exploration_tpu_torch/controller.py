@@ -32,6 +32,7 @@ from ergodic_exploration_tpu_torch.ops.dwa import dwa_control
 from ergodic_exploration_tpu_torch.ops.integrator import costate_solve, rollout
 from ergodic_exploration_tpu_torch.ops.patch import extract_patch
 from ergodic_exploration_tpu_torch.utils import prng
+from ergodic_exploration_tpu_torch.utils.device import constant
 
 
 class World(NamedTuple):
@@ -109,6 +110,19 @@ def drawn_history_sums(s_buf: torch.Tensor, n_hist: torch.Tensor, K: int, domain
     return basis.coefficients_cos(Cbx, Cby, w_buf, hk)
 
 
+def control_constants(cfg: EngineConfig, device):
+    """(1 / R (nu,), u_min (nu,), u_max (nu,)) as float32 tensors on
+    ``device``, made once per (configuration, device): 1 / R is the float32
+    division of 1 by float32(r), as K1's parameter block holds it."""
+    def make():
+        kw = dict(dtype=torch.float32, device=device)
+        return (1.0 / torch.tensor(cfg.r_diag, **kw), torch.tensor(cfg.u_min, **kw),
+                torch.tensor(cfg.u_max, **kw))
+
+    return constant(("controls", tuple(cfg.r_diag), tuple(cfg.u_min), tuple(cfg.u_max)),
+                    device, make)
+
+
 def descent(cfg: EngineConfig, model, x, U_warm, hist_sum, n_hist, phik, domain,
             patch, lam, hk):
     """One ergodic descent step for every scenario: rollout -> c_k ->
@@ -129,13 +143,12 @@ def descent(cfg: EngineConfig, model, x, U_warm, hist_sum, n_hist, phik, domain,
     gs = torch.cat([g_xy, torch.zeros_like(g_xy[..., :1])], dim=-1)
     rho = costate_solve(model.A(knots, U_warm), gs, cfg.dt)  # (S, H, 3)
     Bs = model.B(knots, U_warm)  # (S, H, 3, nu)
-    kw = dict(dtype=torch.float32, device=x.device)
-    r_inv = 1.0 / torch.tensor(cfg.r_diag, **kw)
+    r_inv, u_lo, u_hi = control_constants(cfg, x.device)
     # B^T rho summed in row order (as K1 sums it)
     bt = ((Bs[..., 0, :] * rho[..., 0:1] + Bs[..., 1, :] * rho[..., 1:2])
           + Bs[..., 2, :] * rho[..., 2:3])
     u_star = -bt * r_inv
-    U_new = torch.clamp(u_star, torch.tensor(cfg.u_min, **kw), torch.tensor(cfg.u_max, **kw))
+    U_new = torch.clamp(u_star, u_lo, u_hi)
     return U_new, basis.ergodic_metric(ck, phik, lam), bval.mean(dim=-1)
 
 

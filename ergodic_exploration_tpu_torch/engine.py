@@ -18,10 +18,18 @@ sharded over ranks (port of ``ergodic_exploration_tpu/engine.py``).
 ``Engine(config)`` runs on the CUDA device and raises when there is none;
 ``Engine(config, device="cpu")`` runs on the CPU, where every kernel wrapper
 takes its plain PyTorch version. Every tensor carries the scenario axis
-first. The tick runs eagerly: with ``use_fused_solve`` it is one launch of K1
+first. A tick is, with ``use_fused_solve``, one launch of K1
 (ops/solve_kernel.py) between small batched PyTorch stages, otherwise the
 batched controller step whose safety stage is the ``fused_safety`` kernel;
 ``phik_from_gmm`` with ``use_pallas`` goes through K2 (ops/gmm_kernel.py).
+The single-tick entry points (``replan``, ``replan_refresh``,
+``replan_refresh_mi``) run eagerly. On the card the closed loops run as the
+JAX package runs them, without the host in the loop: ``explore`` replays
+CUDA graphs of 10 ticks (and of 1 tick for the rest), and
+``explore_mapping_fused`` one graph per map refresh (utils/graphs.py), each
+captured once per shape; ``_explore_loop`` and
+``_explore_mapping_fused_loop`` are their plain Python loops, which the CPU
+runs.
 The mutual-information target is recomputed from the belief maps by
 ``phik_from_grid`` (dense on a shared domain, separable otherwise) and, in
 ``replan_refresh_mi(..., domain=<shared>, use_mi_kernel=True)``, by K3
@@ -66,7 +74,7 @@ from ergodic_exploration_tpu_torch.ops import basis
 from ergodic_exploration_tpu_torch.ops import target as target_ops
 from ergodic_exploration_tpu_torch.ops.distance import DistanceField
 from ergodic_exploration_tpu_torch.ops.integrator import rollout
-from ergodic_exploration_tpu_torch.utils import prng
+from ergodic_exploration_tpu_torch.utils import graphs, prng
 from ergodic_exploration_tpu_torch.utils.device import resolve_device
 
 # dtypes of the StepDiagnostics leaves, in field order
@@ -109,6 +117,7 @@ class Engine:
 
     SCENARIO_AXIS = "scenario"
     SAMPLE_AXIS = "sample"
+    GRAPH_BLOCK = 10  # ticks one captured explore graph holds
 
     def __init__(self, config: EngineConfig, device=None, mesh=None):
         if mesh is not None:
@@ -130,6 +139,7 @@ class Engine:
         self.model = self.controller.model
         self._validated = set()  # shared-geometry checks already made
         self._mi_operands = {}  # geometry key -> (tensors of the key, MiOperands)
+        self._graphs = graphs.GraphCache()  # the closed loops' static buffers and graphs
 
     # ------------------------------------------------------------------
     # shared-geometry contract guards (utils/validation.py)
@@ -656,26 +666,87 @@ class Engine:
         x_next = rollout(self.model, x, u[:, None, :], self.config.dt)[:, -1]
         return state, x_next, self.model.twist(u), u, diag
 
-    def explore(self, sc: Scenarios, phik, world: World, n_ticks: int) -> ExploreOutput:
-        """Closed-loop batched exploration on the engine's device: each tick
-        replans and applies the emitted control for one dt. The JAX
-        package's ``lax.scan`` is a Python loop here that writes into
-        preallocated (T, S, ...) tensors and never waits for the device."""
-        self._check_local(sc, phik=phik, world=world)
-        S, nu = sc.x.shape[0], self.config.nu
-        kw = dict(device=sc.x.device)
-        traj = torch.empty((n_ticks, S, 3), dtype=torch.float32, **kw)
-        ctrl = torch.empty((n_ticks, S, nu), dtype=torch.float32, **kw)
-        diags = StepDiagnostics(*(torch.empty((n_ticks, S), dtype=dt, **kw)
-                                  for dt in _DIAG_DTYPES))
-        state, x, vb = sc.state, sc.x, sc.vb
-        for t in range(n_ticks):
+    def _outputs(self, n: int, x: torch.Tensor):
+        """Empty (n, S, 3) trajectory, (n, S, nu) controls and
+        StepDiagnostics of (n, S) leaves on the device of the poses ``x``."""
+        S, kw = x.shape[0], dict(device=x.device)
+        return (torch.empty((n, S, 3), dtype=torch.float32, **kw),
+                torch.empty((n, S, self.config.nu), dtype=torch.float32, **kw),
+                StepDiagnostics(*(torch.empty((n, S), dtype=dt, **kw) for dt in _DIAG_DTYPES)))
+
+    def _ticks(self, n: int, sc: Scenarios, phik, world: World):
+        """``n`` closed-loop ticks from ``sc``, the body of both loops.
+        Returns (Scenarios after them, trajectory (n, S, 3), controls
+        (n, S, nu), StepDiagnostics of (n, S) leaves)."""
+        traj, ctrl, diags = self._outputs(n, sc.x)
+        state, x, vb = sc
+        for t in range(n):
             state, x, vb, u, diag = self._tick_batched(state, x, vb, phik, world)
             traj[t], ctrl[t] = x, u
             for rows, leaf in zip(diags, diag):
                 rows[t] = leaf
-        return ExploreOutput(scenarios=Scenarios(state=state, x=x, vb=vb), trajectory=traj,
-                             controls=ctrl, diag=diags)
+        return Scenarios(state=state, x=x, vb=vb), traj, ctrl, diags
+
+    def _make_graph(self, fn):
+        return graphs.Graph(fn, self.device)
+
+    @property
+    def graph_capture_s(self) -> float:
+        """Seconds this engine has spent capturing the closed loops' CUDA
+        graphs (their warm-ups excluded)."""
+        return self._graphs.capture_s
+
+    def explore(self, sc: Scenarios, phik, world: World, n_ticks: int) -> ExploreOutput:
+        """Closed-loop batched exploration on the engine's device: each tick
+        replans and applies the emitted control for one dt. On the card the
+        ticks are replays of captured CUDA graphs (:meth:`_explore_graphs`),
+        as the JAX package runs them in one ``lax.scan``; on the CPU they are
+        the plain loop, :meth:`_explore_loop`."""
+        self._check_local(sc, phik=phik, world=world)
+        if self.device.type == "cuda":
+            return self._explore_graphs(sc, phik, world, n_ticks, self._make_graph)
+        return self._explore_loop(sc, phik, world, n_ticks)
+
+    def _explore_loop(self, sc: Scenarios, phik, world: World, n_ticks: int) -> ExploreOutput:
+        """:meth:`explore` as a Python loop that dispatches every operation
+        of every tick: what the CPU runs, and on the card the plain version
+        that the graphs are held against (call it by name to debug a tick)."""
+        return ExploreOutput(*self._ticks(n_ticks, sc, phik, world))
+
+    def _explore_graphs(self, sc: Scenarios, phik, world: World, n_ticks: int,
+                        make_graph) -> ExploreOutput:
+        """:meth:`explore` as graph replays: ``n_ticks // GRAPH_BLOCK``
+        replays of a graph of GRAPH_BLOCK ticks, then one replay of a 1-tick
+        graph for each tick left. Both are captured over one set of static
+        buffers per input signature (``self._graphs``): (sc, phik, world) are
+        copied in on each call, each graph advances the static state in place
+        and returns its ticks' outputs, which are copied into the (T, S, ...)
+        outputs before the next replay; the final state is copied out.
+        ``make_graph(fn)`` makes the graph of ``fn`` (a
+        :class:`~ergodic_exploration_tpu_torch.utils.graphs.Graph`)."""
+        traj, ctrl, diags = self._outputs(n_ticks, sc.x)
+        if n_ticks == 0:
+            return ExploreOutput(sc, traj, ctrl, diags)
+        ins = (sc, phik, world)
+        entry = self._graphs.static(("explore", self.config, graphs.signature(ins)), ins)
+        st_sc, st_phik, st_world = entry.buffers
+
+        def block(n):
+            def fn():
+                out_sc, *per_tick = self._ticks(n, st_sc, st_phik, st_world)
+                graphs.copy_into(st_sc, out_sc)
+                return per_tick
+            return fn
+
+        B, t = self.GRAPH_BLOCK, 0
+        for n in [B] * (n_ticks // B) + [1] * (n_ticks % B):
+            got = entry.graph(n, block(n), make_graph)()
+            rows = (traj[t:t + n], ctrl[t:t + n], StepDiagnostics(*(d[t:t + n] for d in diags)))
+            graphs.copy_into(rows, got)
+            t += n
+        from ergodic_exploration_tpu_torch.parallel import map_tree
+
+        return ExploreOutput(map_tree(torch.clone, st_sc), traj, ctrl, diags)
 
     def explore_mapping(self, sc: Scenarios, truth: GridMap, n_ticks: int,
                         sensor_range: float = 1.5, refresh_every: int = 10,
@@ -727,34 +798,98 @@ class Engine:
         """:meth:`explore_mapping` with the ray-cast sensor and the dense MI
         refresh, for identically-shaped grids sharing one domain: each
         refresh = occlusion-aware reveal -> MI target (dense path) -> EDT
-        world rebuild -> ``refresh_every`` ticks of :meth:`explore`. The JAX
-        package runs it as one ``lax.scan``; here it is a Python loop that
-        never waits for the device (the coverage stays on it).
+        world rebuild -> ``refresh_every`` ticks (:meth:`_mapping_refresh`).
+        The JAX package runs it as one ``lax.scan``; on the card each refresh
+        here is one replay of a captured CUDA graph, and the host adds three
+        copies of its coverage, trajectory and metric (:meth:`_mapping_graphs`);
+        on the CPU it is the plain loop, :meth:`_explore_mapping_fused_loop`.
 
         Returns (Scenarios, belief GridMap, coverage (n_refreshes,),
         trajectory (n_refreshes, refresh_every, S, 3), ergodic metric
         (n_refreshes, refresh_every, S): the per-tick metric against each
         refresh's CURRENT target). Under a mesh ``truth`` is this rank's rows.
         """
+        args = (n_refreshes, refresh_every, sensor_range, sensor_radius_cells)
+        if self.device.type == "cuda":
+            return self._mapping_graphs(sc, truth, *args, make_graph=self._make_graph)
+        return self._explore_mapping_fused_loop(sc, truth, *args)
+
+    def _mapping_setup(self, sc: Scenarios, truth: GridMap, sensor_range: float):
+        """(truth on the device, the ray-cast window in cells): the host work
+        ahead of either mapping loop (the window reads the resolution)."""
         from ergodic_exploration_tpu_torch.ops import sensor
 
         self._check_local(sc, truth=truth)
         truth = self._grids_here(truth)
-        win = sensor.raycast_window_cells(sensor_range, float(truth.resolution.min()))
+        return truth, sensor.raycast_window_cells(sensor_range, float(truth.resolution.min()))
+
+    def _mapping_refresh(self, sc: Scenarios, belief: GridMap, truth: GridMap, win: int,
+                         refresh_every: int, sensor_range: float, sensor_radius_cells: int):
+        """One refresh of :meth:`explore_mapping_fused`, the body of both its
+        loops (the JAX ``chunk`` scan's body): ray-cast reveal -> dense MI
+        target -> world -> ``refresh_every`` ticks. Returns (Scenarios, belief,
+        coverage (), trajectory (E, S, 3), metric (E, S))."""
+        from ergodic_exploration_tpu_torch.ops import sensor
+
         dom = Domain(origin=truth.origin[0], lengths=truth.domain().lengths[0])
+        belief = sensor.reveal_raycast(belief, truth, sc.x, sensor_range, win,
+                                       occupied_threshold=self.config.occupied_threshold)
+        phik = self._phik_grid_batch_dense_fn(belief, dom, sensor_radius_cells)
+        world = self._world_batched(belief, belief.domain())
+        sc, traj, _, diags = self._ticks(refresh_every, sc, phik, world)
+        return sc, belief, sensor.fraction_known(belief), traj, diags.ergodic_metric
+
+    def _explore_mapping_fused_loop(self, sc: Scenarios, truth: GridMap, n_refreshes: int,
+                                    refresh_every: int = 10, sensor_range: float = 1.5,
+                                    sensor_radius_cells: int = 0):
+        """:meth:`explore_mapping_fused` as a Python loop over refreshes that
+        dispatches every operation: what the CPU runs, and on the card the
+        plain version the graphs are held against."""
+        truth, win = self._mapping_setup(sc, truth, sensor_range)
         belief = truth._replace(data=torch.full_like(truth.data, -1.0))
         coverage, traj, metric = [], [], []
         for _ in range(n_refreshes):
-            belief = sensor.reveal_raycast(belief, truth, sc.x, sensor_range, win,
-                                           occupied_threshold=self.config.occupied_threshold)
-            phik = self._phik_grid_batch_dense_fn(belief, dom, sensor_radius_cells)
-            world = self._world_batched(belief, belief.domain())
-            out = self.explore(sc, phik, world, refresh_every)
-            sc = out.scenarios
-            coverage.append(sensor.fraction_known(belief))
-            traj.append(out.trajectory)
-            metric.append(out.ergodic_metric)
+            sc, belief, cov, tr, m = self._mapping_refresh(sc, belief, truth, win, refresh_every,
+                                                           sensor_range, sensor_radius_cells)
+            coverage.append(cov)
+            traj.append(tr)
+            metric.append(m)
         return sc, belief, torch.stack(coverage), torch.stack(traj), torch.stack(metric)
+
+    def _mapping_graphs(self, sc: Scenarios, truth: GridMap, n_refreshes: int,
+                        refresh_every: int, sensor_range: float, sensor_radius_cells: int,
+                        make_graph):
+        """:meth:`explore_mapping_fused` as one graph replay a refresh,
+        captured over static (sc, belief, truth) buffers (copied in once a
+        call); each replay advances the static state and belief in place,
+        and its coverage, trajectory and metric are copied out before the
+        next. ``make_graph`` as for :meth:`_explore_graphs`."""
+        truth, win = self._mapping_setup(sc, truth, sensor_range)
+        ins = (sc, torch.full_like(truth.data, -1.0), truth)
+        key = ("mapping", self.config, graphs.signature(ins), win, refresh_every, sensor_range,
+               sensor_radius_cells)
+        entry = self._graphs.static(key, ins)
+        st_sc, st_belief, st_truth = entry.buffers
+
+        def refresh():
+            out_sc, belief, cov, tr, m = self._mapping_refresh(
+                st_sc, st_truth._replace(data=st_belief), st_truth, win, refresh_every,
+                sensor_range, sensor_radius_cells)
+            graphs.copy_into((st_sc, st_belief), (out_sc, belief.data))
+            return cov, tr, m
+
+        S = sc.x.shape[0]
+        kw = dict(dtype=torch.float32, device=self.device)
+        coverage = torch.empty((n_refreshes,), **kw)
+        traj = torch.empty((n_refreshes, refresh_every, S, 3), **kw)
+        metric = torch.empty((n_refreshes, refresh_every, S), **kw)
+        for i in range(n_refreshes):
+            got = entry.graph(refresh_every, refresh, make_graph)()
+            graphs.copy_into((coverage[i], traj[i], metric[i]), got)
+        from ergodic_exploration_tpu_torch.parallel import map_tree
+
+        return (map_tree(torch.clone, st_sc), truth._replace(data=st_belief.clone()), coverage,
+                traj, metric)
 
     # ------------------------------------------------------------------
     # startup
@@ -767,7 +902,10 @@ class Engine:
         on dummy data of ``S`` scenarios: ``init_scenarios``, ``prepare_world``
         with ``phik_from_grid`` and ``replan_refresh_mi`` (when ``map_shape``
         is given, else an empty world), ``phik_from_gmm``, ``replan``,
-        ``replan_refresh`` and ``explore`` for each length in ``n_ticks``.
+        ``replan_refresh`` and ``explore`` for each length in ``n_ticks``
+        (on a CUDA device that captures the graphs of that length, as the JAX
+        package compiles ``explore`` for it; ``capture_explore_<n>`` is the
+        part of ``explore_<n>`` spent capturing).
         ``S`` is the global count: under a mesh each rank warms its rows.
         ``persistent_cache`` (True for the default ``build/kernels/``, or a
         directory) is where the kernel libraries are built and loaded from
@@ -817,7 +955,10 @@ class Engine:
         timed("replan_refresh", lambda: self.replan_refresh(sc, self.shard_scenarios(gmm),
                                                             domain, world))
         for n in n_ticks:
+            captured = self.graph_capture_s
             timed(f"explore_{n}", lambda n=n: self.explore(sc, phik, world, n))
+            if self.device.type == "cuda":  # capturing its graphs, within the stage
+                timings[f"capture_explore_{n}"] = round(self.graph_capture_s - captured, 3)
         return timings
 
     # ------------------------------------------------------------------

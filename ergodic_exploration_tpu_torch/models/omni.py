@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import torch
 
 from ergodic_exploration_tpu_torch.models.base import rotate_body_to_world, true_div
+from ergodic_exploration_tpu_torch.utils.device import constant
 
 # mixing-matrix sign rows for (vx, vy, omega)
 _SX = (1.0, 1.0, 1.0, 1.0)
@@ -81,10 +82,13 @@ class Omni:
         L = self.lx + self.ly
         th = x[..., 2]
         c, s = torch.cos(th), torch.sin(th)
-        kw = dict(dtype=th.dtype, device=th.device)
-        sx = 0.25 * r * torch.tensor(_SX, **kw)
-        sy = 0.25 * r * torch.tensor(_SY, **kw)
-        sw = (0.25 * r / L) * torch.tensor(_SW, **kw)
+
+        def make():  # the scaled sign rows, once per (model, dtype, device)
+            kw = dict(dtype=th.dtype, device=th.device)
+            return (0.25 * r * torch.tensor(_SX, **kw), 0.25 * r * torch.tensor(_SY, **kw),
+                    (0.25 * r / L) * torch.tensor(_SW, **kw))
+
+        sx, sy, sw = constant(("omni_B", r, L, th.dtype), th.device, make)
         row0 = c[..., None] * sx - s[..., None] * sy
         row1 = s[..., None] * sx + c[..., None] * sy
         row2 = sw.expand(row0.shape)

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ergodic_exploration_tpu_torch.grid import rows
+from ergodic_exploration_tpu_torch.utils.device import constant
 
 
 def lambda_weights(K: int, device=None) -> torch.Tensor:
@@ -27,9 +28,15 @@ def lambda_weights(K: int, device=None) -> torch.Tensor:
 
 
 def hk_norm(K: int, lengths: torch.Tensor) -> torch.Tensor:
-    """L2 normalization h_k; lengths (..., 2) -> (..., K, K)."""
-    c = torch.full((K,), 0.5, dtype=torch.float32, device=lengths.device)
-    c[0] = 1.0
+    """L2 normalization h_k; lengths (..., 2) -> (..., K, K). The factors
+    c(k) are a constant of (K, device), made once; the rest is arithmetic on
+    the device."""
+    def make():
+        c = torch.full((K,), 0.5, dtype=torch.float32, device=lengths.device)
+        c[0] = 1.0
+        return c
+
+    c = constant(("hk_c", K), lengths.device, make)
     area = (lengths[..., 0] * lengths[..., 1])[..., None, None]
     return torch.sqrt(area * c[:, None] * c[None, :])
 

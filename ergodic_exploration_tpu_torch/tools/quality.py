@@ -146,6 +146,7 @@ class QualityRun(NamedTuple):
     trajectory: torch.Tensor  # (R, E, S, 3)
     metric: torch.Tensor  # (R, E, S) against each refresh's current target
     wall_s: float  # the loop alone, synchronised
+    capture_s: float  # the part of wall_s spent capturing CUDA graphs (0 on the CPU)
 
 
 def _sync(dev: torch.device) -> None:
@@ -170,7 +171,8 @@ def run(S: int = 256, n_refreshes: int = 500, refresh_every: int = 10,
         sc, truth, n_refreshes=n_refreshes, refresh_every=refresh_every,
         sensor_range=sensor_range)
     _sync(dev)
-    return QualityRun(x0, sc, belief, cov, traj, metric, time.perf_counter() - t0)
+    return QualityRun(x0, sc, belief, cov, traj, metric, time.perf_counter() - t0,
+                      engine.graph_capture_s)
 
 
 def summarize(coverage: np.ndarray, belief: np.ndarray, metric: np.ndarray,

@@ -1,0 +1,213 @@
+"""CUDA graphs of the closed loops: each block of work is captured once per
+shape and replayed, so the host issues one graph launch where it issued
+every kernel of every tick (``torch.cuda.graphs``).
+
+A :class:`Graph` wraps a function of no arguments that reads and writes
+tensors which outlive it (the static buffers of a :class:`Static`) and
+returns its per-block outputs. Its first call runs the function eagerly on a
+side stream (the warm-up: it builds the kernel libraries, allocates K1's
+refresh scratch, sets function attributes, creates the cuBLAS handle and
+workspace of that stream, makes the tick's constants) and then captures it
+on the same stream; the warm-up's results are real and are what the first
+call returns. Every later call replays the graph and returns the captured
+outputs, which the next replay overwrites. A capture, an instantiation or a
+replay that fails raises: there is no fallback to the eager function.
+
+Launch counts: a kernel wrapper (``K1``, ``K2``, ``K3``) counts a launch in
+Python where it calls its library. The warm-up's launches are real and
+count as they happen. Under capture nothing launches, so the counts the
+capture adds are taken back and kept as the graph's delta
+(:func:`count_captured`), and every replay adds that delta again
+(:func:`add_launches`): after any run the counts are the launches the device
+executed.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import Callable, Optional, Sequence
+
+import torch
+
+
+def _children(tree):
+    """The sub-trees of a tuple / NamedTuple / list node, else None."""
+    return tuple(tree) if isinstance(tree, (tuple, list)) else None
+
+
+def leaves(tree) -> list:
+    """The tensor leaves of a tree of NamedTuples, tuples and lists, in
+    order; ``None`` leaves are skipped."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [tree]
+    return [leaf for kid in kids for leaf in leaves(kid)]
+
+
+def signature(tree):
+    """What fixes a captured launch sequence on a tree of inputs: its
+    structure (node types, where a leaf is None) and each tensor's shape,
+    dtype and device."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    return (type(tree).__name__, tuple(signature(k) for k in kids))
+
+
+def copy_into(dst, src) -> None:
+    """Copy every leaf of ``src`` into the same leaf of ``dst`` (trees of
+    one signature); a leaf that already is its destination is skipped."""
+    for d, s in zip(leaves(dst), leaves(src), strict=True):
+        if d is not s:
+            d.copy_(s)
+
+
+class Static:
+    """Static buffers for one input signature: ``load`` copies a call's
+    inputs into them, a graph captured over them reads them on every
+    replay."""
+
+    def __init__(self, inputs):
+        from ergodic_exploration_tpu_torch.parallel import map_tree
+
+        self.buffers = map_tree(
+            lambda t: torch.empty_like(t, memory_format=torch.contiguous_format), inputs)
+        self.graphs = {}  # block length -> Graph
+
+    def load(self, inputs) -> None:
+        copy_into(self.buffers, inputs)
+
+    def graph(self, length: int, fn: Callable, make_graph: Callable):
+        """The graph of ``length`` over these buffers: on a miss,
+        ``make_graph(fn)``, which captures ``fn`` on its first call."""
+        g = self.graphs.get(length)
+        if g is None:
+            g = self.graphs[length] = make_graph(fn)
+        return g
+
+
+# ---------------------------------------------------------------------------
+# launch accounting
+# ---------------------------------------------------------------------------
+
+
+def kernel_wrappers() -> list:
+    """The kernel wrappers whose ``launches`` dicts count launches."""
+    from ergodic_exploration_tpu_torch.ops.gmm_kernel import K2
+    from ergodic_exploration_tpu_torch.ops.mi_kernel import K3
+    from ergodic_exploration_tpu_torch.ops.solve_kernel import K1
+
+    return [K1, K2, K3]
+
+
+def count_captured(fn: Callable, wrappers: Sequence):
+    """Run ``fn`` (a capture) and return (its result, the launches it
+    counted: one {variant: n} per wrapper). The wrappers' counts are left
+    as they were before, since a capture launches nothing. A wrapper's
+    ``launches`` dict is read at each use: ``reset_launches`` rebinds it."""
+    before = [dict(w.launches) for w in wrappers]
+    try:
+        out = fn()
+        after = [dict(w.launches) for w in wrappers]
+    finally:
+        for w, b in zip(wrappers, before):
+            w.launches.clear()
+            w.launches.update(b)
+    delta = [{v: n - b.get(v, 0) for v, n in a.items() if n != b.get(v, 0)}
+             for a, b in zip(after, before)]
+    return out, delta
+
+
+def add_launches(delta: Sequence[dict], wrappers: Sequence) -> None:
+    """Add one replay's launches (``count_captured``'s delta) to the counts."""
+    for w, d in zip(wrappers, delta):
+        for v, n in d.items():
+            w.launches[v] = w.launches.get(v, 0) + n
+
+
+# ---------------------------------------------------------------------------
+# capture and replay
+# ---------------------------------------------------------------------------
+
+class Graph:
+    """``fn`` captured as a CUDA graph on ``device`` (see the module
+    docstring). ``capture_s`` is the time the capture and instantiation took
+    (the warm-up excluded); ``launches`` the kernel launches of one replay
+    per wrapper."""
+
+    def __init__(self, fn: Callable, device, wrappers: Optional[Sequence] = None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.wrappers = kernel_wrappers() if wrappers is None else list(wrappers)
+        self.graph = None
+        self.outputs = None
+        self.launches = None
+        self.capture_s = 0.0
+
+    def __call__(self):
+        if self.graph is None:
+            return self._warm_up_and_capture()
+        self.graph.replay()
+        add_launches(self.launches, self.wrappers)
+        return self.outputs
+
+    def _warm_up_and_capture(self):
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(device=self.device)  # the warm-up's and the capture's
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            warm = self.fn()
+        cur.wait_stream(side)
+        for t in leaves(warm):  # consumed on the caller's stream
+            t.record_stream(cur)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph, stream=side):
+                return self.fn()
+
+        self.outputs, self.launches = count_captured(capture, self.wrappers)
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self.fn = graph, None  # the function is not needed again
+        return warm
+
+
+def _captured_s(entry: Static) -> float:
+    return sum(getattr(g, "capture_s", 0.0) for g in entry.graphs.values())
+
+
+class GraphCache:
+    """At most ``maxsize`` :class:`Static` entries, the least recently used
+    evicted first (its buffers and graphs are freed with it)."""
+
+    def __init__(self, maxsize: int = 8):
+        self.maxsize = maxsize
+        self._entries = OrderedDict()
+        self._evicted_s = 0.0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def capture_s(self) -> float:
+        """Seconds spent capturing every graph this cache has held."""
+        return self._evicted_s + sum(_captured_s(e) for e in self._entries.values())
+
+    def static(self, key, inputs) -> Static:
+        """The entry of ``key`` (made over ``inputs`` on a miss), with
+        ``inputs`` loaded into its buffers."""
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = Static(inputs)
+            while len(self._entries) > self.maxsize:
+                self._evicted_s += _captured_s(self._entries.popitem(last=False)[1])
+        self._entries.move_to_end(key)
+        entry.load(inputs)
+        return entry

@@ -31,7 +31,7 @@ def test_package_has_the_slice_modules():
               "node.py", "native.py", "viz.py", "utils/profiling.py",
               "examples/single_robot.py", "parallel/__init__.py", "graft_entry.py",
               "examples/batched_fleet.py", "examples/scaling.py", "tools/quality.py",
-              "tools/diag_plateau.py", "bench.py"):
+              "tools/diag_plateau.py", "bench.py", "utils/graphs.py"):
         assert m in names
     for src in ("solve_kernel.cu", "gmm_kernel.cu", "gmm_refresh.cuh", "mi_kernel.cu"):
         assert (PKG / "csrc" / src).exists()
