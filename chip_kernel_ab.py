@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Times K1 and K2 at the bench shape for the package of one tree, and saves
+their outputs, so that two trees can be compared on one card.
+
+    python3 chip_kernel_ab.py --root <tree> --tag <name> [--out <dir>]
+    python3 chip_kernel_ab.py --compare <dir>/<tag a>.pt <dir>/<tag b>.pt
+
+The first form imports ``ergodic_exploration_tpu_torch`` from ``<tree>``
+(built into ``<tree>/build/kernels``), drives path A of ``chip_smoke.py``
+(``bench.build_case`` at S = 4096: cart, K = 10, H = 20, a 100 x 100 lattice,
+J = 2) for WARM_TICKS ticks, then times by CUDA events, each the median of
+REPEATS runs of REPS calls:
+
+  - the refresh alone (``k1_refresh`` + ``k1_finish``) and ``k1_solve`` (K1
+    with phi_k given) on the state reached, and the whole K1 tick kernel;
+  - K2 unmasked at S = 512 (path C's size) and masked at S = 4096 (path B's),
+    on ``chip_smoke.distinct_case``'s mixtures and free masks.
+
+It prints one JSON line of those times with the card's name and power limit,
+and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
+unless two such files hold equal tensors bit for bit. To compare two trees,
+run them in turns in one call on one card (a, b, b, a). The case is made from
+this file's own copy of ``chip_smoke.py`` (the tree beside it), so both trees
+get the same inputs. Needs a CUDA device; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+S_BIG, S_SMALL = 4096, 512
+WARM_TICKS = 20
+REPS, REPEATS = 20, 5
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_ab", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def measure(root: Path, tag: str, out: Path) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_kernel_ab.py needs a CUDA device; none is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    import ergodic_exploration_tpu_torch as pkg
+
+    if Path(pkg.__file__).resolve().parents[1] != root:
+        raise RuntimeError(f"imported {pkg.__file__}, not the package under {root}")
+    from ergodic_exploration_tpu_torch import bench
+    from ergodic_exploration_tpu_torch.ops import basis
+    from ergodic_exploration_tpu_torch.ops import gmm_kernel as gk
+    from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
+    from ergodic_exploration_tpu_torch.utils import cuda_build
+
+    smoke = _smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    for name, built in cuda_build.build_all().items():
+        fn = ""
+        for line in built.log.splitlines():  # registers and spills of each kernel
+            m = re.search(r"_Z\d+(k\d_[a-z_]+)(I[^E]*E)?", line)
+            fn = m.group(1) + (m.group(2) or "") if m else fn
+            if "registers" in line or "spill" in line:
+                print(f"{tag} {name} {fn}: {line.replace('ptxas info    :', '').strip()}")
+
+    engine, sc, gmm, domain, world = bench.build_case(S_BIG, device=dev)
+    for _ in range(WARM_TICKS):
+        sc, u, _ = engine.replan_refresh(sc, gmm, domain, world)
+        sc = smoke.advance(engine, sc, u)
+    cfg = engine.config
+    inp2, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+    inp0 = inp2._replace(refresh=None, phik=sk.refresh_plain(inp2.refresh, inp2.dlen))
+    r = inp2.refresh
+
+    cfg_b, _, grids_b, gmm_b, dom_b = smoke.distinct_case(S_BIG, dev)
+    K = cfg_b.num_basis
+    pts = dom_b.sample_lattice(cfg_b.grid_samples)
+    D = basis.dense_table(basis.tables(pts, K, dom_b), basis.hk_norm(K, dom_b.lengths))
+    N = pts.shape[0]
+    free = (grids_b.occupancy_at(pts.expand(S_BIG, N, 2)) < cfg_b.occupied_threshold).float()
+    g_big = [t.contiguous() for t in gmm_b]
+    g_small = [t[:S_SMALL].contiguous() for t in gmm_b]
+
+    calls = {
+        "refresh": lambda: sk.K1.refresh(r, inp2.dlen),
+        "k1_solve": lambda: sk.K1(cfg, inp0),
+        "k1_tick": lambda: sk.K1(cfg, inp2),
+        "k2_unmasked_S512": lambda: gk.K2(*g_small, pts, D, None),
+        "k2_masked_S4096": lambda: gk.K2(*g_big, pts, D, free),
+    }
+    saved, times = {}, {}
+    for name, fn in calls.items():
+        res = fn()
+        torch.cuda.synchronize()
+        res = res._asdict() if hasattr(res, "_asdict") else {"out": res}
+        for k, v in res.items():
+            if v is not None:
+                saved[f"{name}.{k}"] = v.cpu()
+        runs = [smoke.events_ms(fn, REPS) for _ in range(REPEATS)]
+        times[name] = {"ms": statistics.median(runs), "runs": runs}
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save(saved, out / f"{tag}.pt")
+    print(json.dumps({"tag": tag, "root": str(root), "card": card, "times": times}))
+    return 0
+
+
+def compare(a: Path, b: Path) -> int:
+    import torch
+
+    ta, tb = torch.load(a), torch.load(b)
+    if ta.keys() != tb.keys():
+        print(f"different outputs: {sorted(ta.keys() ^ tb.keys())}")
+        return 1
+    diff = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    print(f"{a.name} vs {b.name}: {len(ta) - len(diff)} of {len(ta)} outputs equal bit for bit"
+          + (f"; differ: {diff}" if diff else ""))
+    return 1 if diff else 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path, help="the tree whose package is timed")
+    ap.add_argument("--tag", help="name of the saved outputs")
+    ap.add_argument("--out", type=Path, default=HERE / "build" / "kernel_ab")
+    ap.add_argument("--compare", type=Path, nargs=2, metavar=("A", "B"))
+    a = ap.parse_args()
+    if a.compare:
+        return compare(*a.compare)
+    if a.root is None or a.tag is None:
+        ap.error("--root and --tag are needed to measure")
+    return measure(a.root.resolve(), a.tag, a.out)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

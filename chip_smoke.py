@@ -109,6 +109,26 @@ Phases:
     ms a tick (or a refresh) of both by CUDA events, and under
     ``torch.profiler`` the host's CUDA runtime calls and the device's busy
     share; at most 10 host calls a tick on path B and 20 a refresh on path F
+21  K1 and K2 past K = 16, H = 64 and the mixture sizes of the other phases,
+    (K, H) in (17, 65), (20, 80), (32, 128), (40, 256), each with its
+    warps' tables in the global workspace: ``replan_refresh`` on path
+    A's inputs (S = 4096, the refresh inside K1 in slabs of 256
+    coefficients), then K1 vs plain with safety on and off (the solve fed
+    the kernel's own refresh, equal bit for bit to the tick with it inside;
+    U within 5e-5 of plain, or no further from it than plain with its sums
+    reversed is, a kernel fed phi_k in bfloat16 rejected by that budget)
+    and the refresh alone vs plain and vs the refresh in float64;
+    ``phik_from_gmm`` (K2 masked) and ``explore`` on S = 512 distinct maps,
+    then K1 on per-scenario maps with the drawn history vs plain; k1_solve's
+    two layouts (tables in shared memory, in the global workspace) timed
+    against each other and equal bit for bit at (K, H) = (20, 80), (10, 20),
+    (10, 40), (12, 40), (16, 64); K2 and the refresh vs plain at
+    J = 1, 3, 64 for K = 17, 20, 32, 40 (unmasked, masked, degenerate
+    mixtures); then the entry points that once refused these shapes, each on
+    the card vs on the CPU: ``phik_from_gmm`` masked and unmasked at K = 17,
+    20, 32, ``warmup(num_basis=17)``, ``replan``, ``replan_refresh`` and
+    ``explore`` at (20, 80) and (32, 128), the fused ``ExplorationNode`` at
+    H = 80; launches exact throughout
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``explore_mapping_fused``) runs as graph replays, the first call of a shape
@@ -174,6 +194,11 @@ LOOP_Q_GAPS = ("+0.00000", "+0.00483", "+0.00612", "+0.00754", "+0.00251", "+0.0
 LOOP_Q_P10_MEDIAN = ("0.8381", "0.9834")
 LAT_REPS, LAT_GROUP, LAT_CHAIN = 24, 8, 32  # phase 19: bench_latency's runs, groups, replans a run
 BENCH_TIMEOUT_S = 300  # phase 19: the entry point run as a subprocess
+WIDE_SHAPES = ((17, 65), (20, 80), (32, 128), (40, 256))  # phase 21: (K, H)
+WIDE_S, WIDE_TICKS = 512, 5  # phase 21: scenarios of all but path A's inputs; ticks driven
+WIDE_J = (1, 3, 64)  # phase 21: mixture components of the refresh and K2
+WIDE_CPU_SHAPES = ((20, 80), (32, 128))  # phase 21: the entry points on the card vs on the CPU
+LAYOUT_SHAPES = ((10, 20), (10, 40), (12, 40), (16, 64))  # phase 21: k1_solve's layouts timed
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -403,12 +428,12 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, k, p) -> float:
+def compare(name: str, k, p, tols=TOL) -> float:
     """K1 kernel vs plain outputs (with the safety outputs where the variant
-    has them); fails on a breach, returns max |U diff|."""
+    has them); fails on a breach of ``tols``, returns max |U diff|."""
     import torch
 
-    for field, tol in TOL.items():
+    for field, tol in tols.items():
         a, b = getattr(k, field), getattr(p, field)
         if a.shape != b.shape or not torch.isfinite(a).all():
             fail(f"{name}: {field} shape {tuple(a.shape)} vs {tuple(b.shape)} or non-finite")
@@ -425,6 +450,59 @@ def compare(name: str, k, p) -> float:
     else:
         compare_safety(name, (k.code, k.u_dwa, k.feasible), (p.code, p.u_dwa, p.feasible))
     return (k.U_new - p.U_new).abs().max().item()
+
+
+def plain_reversed(cfg, inp, enable_safety: bool = True):
+    """K1's plain version with its reductions taken in reverse order: the
+    refresh's lattice sum, c_k's sum over the knots and the gradient's sums
+    over the coefficients. The same tick in exact arithmetic; how far it is
+    from the plain version is how far float32 rounding alone moves the
+    outputs on these inputs."""
+    from ergodic_exploration_tpu_torch.ops import basis
+    from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
+
+    cc, eg, rp = basis.coefficients_cos, basis.ergodic_gradient, sk.refresh_plain
+
+    def cc_rev(Cx, Cy, w, hk):
+        return cc(Cx.flip(-2), Cy.flip(-2), w.flip(-1), hk)
+
+    def eg_rev(tbl, ck, phik, lam, hk, M):
+        both = lambda t: t.flip(-1).flip(-2)  # noqa: E731
+        return eg(type(tbl)(*(t.flip(-1) for t in tbl)), both(ck), both(phik), both(lam),
+                  both(hk), M)
+
+    def rp_rev(r, dlen):
+        return rp(r._replace(pts=r.pts.flip(0), D=r.D.flip(0)), dlen)
+
+    basis.coefficients_cos, basis.ergodic_gradient, sk.refresh_plain = cc_rev, eg_rev, rp_rev
+    try:
+        return sk.fused_solve_safety_plain(cfg, inp, enable_safety=enable_safety)
+    finally:
+        basis.coefficients_cos, basis.ergodic_gradient, sk.refresh_plain = cc, eg, rp
+
+
+def u_budget(name: str, u_k, u_p, u_r) -> bool:
+    """Phase 21's budget on U: within TOL's 5e-5 of the plain version
+    ``u_p``, or, where float32 rounding alone moves U further than that, no
+    further from it than the plain version with its sums reversed (``u_r``)
+    is: no larger a maximum and no more elements over 5e-5. Prints both;
+    returns whether it holds."""
+    atol = TOL["U_new"]["atol"]
+    d_k, d_r = (u_k - u_p).abs(), (u_r - u_p).abs()
+    n_k, n_r = int((d_k > atol).sum()), int((d_r > atol).sum())
+    print(f"  {name} U_new: |kernel - plain| max {d_k.max().item():.3e}, {n_k} elements over "
+          f"{atol}; |plain with its sums reversed - plain| max {d_r.max().item():.3e}, {n_r} "
+          f"over; of {u_k.numel()}")
+    return d_k.max().item() <= atol or (d_k.max().item() <= d_r.max().item() and n_k <= n_r)
+
+
+def compare_wide(name: str, k, p, rev) -> float:
+    """``compare`` for phase 21's shapes: every output but U at TOL, U by
+    ``u_budget`` against ``rev`` (``plain_reversed``)."""
+    err = compare(name, k, p, {f: t for f, t in TOL.items() if f != "U_new"})
+    if not u_budget(name, k.U_new, p.U_new, rev.U_new):
+        fail(f"{name}: U_new outside phase 21's budget")
+    return err
 
 
 def compare_safety(name: str, k, p) -> float:
@@ -1499,6 +1577,388 @@ def graph_case(name: str, engine, graph_run, loop_run, want: dict) -> None:
     same_as_loop(name + ", replays only", again, ref)
 
 
+def wide_case(S: int, device, K: int, H: int):
+    """Path A's inputs (``bench_case``) under the bench configuration with
+    num_basis K and horizon H: (engine, scenarios, world, gmm, domain)."""
+    from ergodic_exploration_tpu_torch.engine import Engine
+
+    cfg, x0, grids, gmm, domain = bench_case(S, device)
+    engine = Engine(cfg.replace(num_basis=K, horizon=H), device=device)
+    return engine, engine.init_scenarios(x0), engine.prepare_world(grids), gmm, domain
+
+
+def wide_phase(dev, card, entry, kernels) -> None:
+    """Phase 21: K1 and K2 at num_basis, horizon and mixture sizes past the
+    bounds they once had; adds the entries of the variants it drives."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.gmm_kernel as gk
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain
+    from ergodic_exploration_tpu_torch.node import ExplorationNode
+    from ergodic_exploration_tpu_torch.ops import basis
+    from ergodic_exploration_tpu_torch.ops.patch import extract_patch
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+
+    cpu = torch.device("cpu")
+    k1_at = "ergodic_exploration_tpu/ops/solve_kernel.py"
+    k2_at = "ergodic_exploration_tpu/ops/pallas_kernels.py:121"
+    print(f"== 21. K1 and K2 past K = 16, H = 64: (K, H) in {WIDE_SHAPES}, J in {WIDE_J}",
+          flush=True)
+    optin = sk.K1.smem_optin(dev)
+    plans = {(K, H): (sk.global_tables(K, H, 0, optin), sk.global_tables(K, H, 100, optin))
+             for K, H in WIDE_SHAPES}
+    print(f"  opt-in shared memory a block {optin} bytes; k1_solve's tables global (not in "
+          f"shared memory) with the history as sums / as 100 drawn positions: {plans}; refresh "
+          f"slabs {[sk.slab_blocks(K * K) for K, _ in WIDE_SHAPES]}")
+    if not all(all(v) for v in plans.values()):
+        fail("phase 21: k1_solve's layouts are not the planned ones")
+
+    def ticks_of(fn, n):
+        """ms a call of ``fn`` over n calls by CUDA events, and its last result."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n, out
+
+    def probes_of(cfg, eng, sc_, world):
+        P_ = min(cfg.patch_cells, *world.dist.dist.shape[-2:])
+        crop = extract_patch(world.dist, sc_.x[:, :2], P_).center_crop(
+            min(cfg.safety_patch_cells, P_))
+        return P_, dwa_probes_needed(cfg, eng.model, sc_.x, sc_.vb, world.domain, crop)
+
+    def time_layouts(tag, cfg, inp, ref, S_):
+        """k1_solve on ``inp`` with its tables in shared memory and in the
+        global workspace, in turns, each equal to ``ref`` bit for bit."""
+        plan, t = sk.global_tables, {}
+        for g in (False, True, True, False):
+            sk.global_tables = lambda *a, g=g: g
+            try:
+                got = sk.K1(cfg, inp)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, ref) if a is not None):
+                    fail(f"phase 21: k1_solve with global tables {g} differs from its planned "
+                         f"layout at {tag}")
+                t.setdefault(g, []).append(events_ms(lambda: sk.K1(cfg, inp), 10))
+            finally:
+                sk.global_tables = plan
+        print(f"  K1 at {tag}, S={S_}: ms with the tables in shared memory {t[False]}, in the "
+              f"global workspace {t[True]}, equal bit for bit {card}")
+
+    def check_refresh(tag, r, dlen):
+        """The refresh alone vs plain, two launches bit for bit: within
+        REFRESH_ATOL of the plain version, or of the refresh in float64 and
+        no further from it than the plain version is. Returns the error
+        against plain."""
+        a, again, ref = sk.K1.refresh(r, dlen), sk.K1.refresh(r, dlen), sk.refresh_plain(r, dlen)
+        exact = sk.refresh_plain(sk.Refresh(GaussianMixture(*(t.double() for t in r.gmm)),
+                                            r.pts.double(), r.D.double(), r.mask_ck.double(),
+                                            r.masked), dlen.double())
+        torch.cuda.synchronize()
+        e = (a - ref).abs().max().item()
+        e_k, e_p = (a - exact).abs().max().item(), (ref - exact).abs().max().item()
+        print(f"  refresh {tag}: max |kernel - plain| {e:.3e}, |kernel - float64| {e_k:.3e}, "
+              f"|plain - float64| {e_p:.3e} (atol {REFRESH_ATOL})")
+        near = e <= REFRESH_ATOL or (e_k <= REFRESH_ATOL and e_k <= e_p)
+        if not near or not torch.equal(a, again) or not torch.isfinite(a).all():
+            fail(f"phase 21, {tag}: the refresh is outside its budget, non-finite, or two "
+                 f"launches differ")
+        return e
+
+    # (a) path A's inputs at full width: replan_refresh, the refresh in slabs inside K1
+    for K, H in WIDE_SHAPES:
+        tag = f"K{K}_H{H}"
+        engine, sc, world, gmm, domain = wide_case(S_MAIN, dev, K, H)
+        cfg = engine.config
+        sc, u, _ = engine.replan_refresh(sc, gmm, domain, world)  # a first tick: scratch, tables
+        sc = advance(engine, sc, u)
+        torch.cuda.synchronize()
+        reset_counts()
+        diverged = torch.zeros(S_MAIN, dtype=torch.bool, device=dev)
+
+        def tick():
+            nonlocal sc, diverged
+            sc, u_, dg = engine.replan_refresh(sc, gmm, domain, world)
+            sc = advance(engine, sc, u_)
+            diverged |= dg.diverged
+            return u_, dg
+
+        tick_ms, (u, dg) = ticks_of(tick, WIDE_TICKS)
+        counts = read_counts()
+        expect_counts(f"phase 21, replan_refresh at {tag} (S={S_MAIN})", counts,
+                      {"fused_solve_safety": WIDE_TICKS})
+        if (u.shape != (S_MAIN, cfg.nu) or not torch.isfinite(u).all()
+                or not torch.isfinite(dg.ergodic_metric).all() or not torch.isfinite(sc.x).all()):
+            fail(f"phase 21, path A at {tag}: non-finite or mis-shaped outputs")
+        inp2, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+        inp0 = inp2._replace(refresh=None, phik=sk.refresh_plain(inp2.refresh, inp2.dlen))
+        # the refresh against its plain version; the solve against the plain
+        # version fed the kernel's phi_k: the plain refresh (a float32 matmul)
+        # is 4.8e-6 from the float64 one at K = 32, the kernel's 1e-7, and
+        # that alone moves the plain metric by more than TOL's rtol 1e-5
+        e_r = check_refresh(f"path A {tag}", inp2.refresh, inp2.dlen)
+        inp_k = inp2._replace(refresh=None, phik=sk.K1.refresh(inp2.refresh, inp2.dlen))
+        for safety in (False, True):  # the entry's variant last: its error
+            k = sk.K1(cfg, inp2, enable_safety=safety)
+            k0 = sk.K1(cfg, inp_k, enable_safety=safety)
+            p = sk.fused_solve_safety_plain(cfg, inp_k, enable_safety=safety)
+            rev = plain_reversed(cfg, inp_k, safety)
+            p2 = sk.fused_solve_safety_plain(cfg, inp2, enable_safety=safety)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(k, k0) if a is not None):
+                fail(f"phase 21, path A at {tag}: the tick with the refresh inside differs from "
+                     f"the tick fed that refresh's phi_k")
+            err = compare_wide(f"path A {tag} safety={safety}", k, p, rev)
+            print(f"  path A {tag} safety={safety}: metric against the plain version with its own "
+                  f"refresh: max rel {((k.metric - p2.metric).abs() / p2.metric).max().item():.3e}")
+        # a control the budget must reject: the kernel fed phi_k rounded to bfloat16
+        bad = sk.K1(cfg, inp_k._replace(phik=inp_k.phik.bfloat16().float()))
+        if u_budget(f"control: path A {tag}, phi_k in bfloat16", bad.U_new, p.U_new,
+                    rev.U_new):
+            fail(f"phase 21, path A at {tag}: the budget on U holds a kernel fed phi_k in "
+                 f"bfloat16")
+        k1_ms = events_ms(lambda: sk.K1(cfg, inp2), 10)
+        plain_ms = events_ms(lambda: sk.fused_solve_safety_plain(cfg, inp2), 2)
+        r_ms = events_ms(lambda: sk.K1.refresh(inp2.refresh, inp2.dlen), 10)
+        s_ms = events_ms(lambda: sk.K1(cfg, inp0), 10)
+        N, KK = int(np.prod(cfg.grid_samples)), K * K
+        P, probes = probes_of(cfg, engine, sc, world)
+        rf, rb = refresh_work(S_MAIN, N, KK, 2)
+        sf, sb = solve_work(cfg, S_MAIN, P, True, probes, map_cells=100 * 100)
+        print(f"  path A at {tag}: replan_refresh tick {tick_ms:.4f} ms ({int(diverged.sum())} "
+              f"scenarios diverged); the refresh (k1_refresh + k1_finish, "
+              f"{sk.slab_blocks(KK)} slab blocks) {r_ms:.4f} ms, max |refresh - plain| "
+              f"{e_r:.3e}; k1_solve (global tables) {s_ms:.4f} ms; refresh "
+              f"bound {bound(rf, rb)[0]:.5f} ms, solve bound {bound(sf, sb)[0]:.5f} ms {card}")
+        entry(f"fused_solve_safety_{tag}", "solve_kernel.cu", f"{k1_at}:602", err, k1_ms,
+              plain_ms, (rf + sf, rb + sb))
+        kernels[f"fused_solve_safety_{tag}"]["launches"] = counts["fused_solve_safety"]
+        if (K, H) == (20, 80):  # the largest of these shapes where 4 warps' tables fit a block
+            time_layouts(f"{tag}, path A, phi_k given", cfg, inp_k, k0, S_MAIN)
+        del engine, sc, world, inp0, inp2, k, p, rev, bad
+        torch.cuda.empty_cache()
+
+    # k1_solve's two layouts where four warps' tables fit shared memory
+    for K, H in LAYOUT_SHAPES:
+        engine, sc, world, gmm, domain = wide_case(S_MAIN, dev, K, H)
+        cfg = engine.config
+        inp2, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+        inp_k = inp2._replace(refresh=None, phik=sk.K1.refresh(inp2.refresh, inp2.dlen))
+        time_layouts(f"K{K}_H{H} ({4 * 4 * sk.solve_warp_floats(K, H, 0)} bytes of tables a "
+                     f"block of 4), path A, phi_k given", cfg, inp_k, sk.K1(cfg, inp_k), S_MAIN)
+        del engine, sc, world, inp2, inp_k
+    torch.cuda.empty_cache()
+
+    # (b) distinct maps: phik_from_gmm (K2 masked), explore (graph replays),
+    # then K1 on per-scenario maps with the drawn history vs plain
+    for K, H in WIDE_SHAPES:
+        tag = f"K{K}_H{H}"
+        cfg_b, x0_b, grids_b, gmm_b, dom_b = distinct_case(WIDE_S, dev, num_basis=K, horizon=H)
+        eng = Engine(cfg_b)
+        world_b = eng.prepare_world(grids_b)
+        reset_counts()
+        phik_b = eng.phik_from_gmm(gmm_b, dom_b, world_b)
+        out = eng.explore(eng.init_scenarios(x0_b), phik_b, world_b, WIDE_TICKS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"phase 21, phik_from_gmm + explore at {tag} (S={WIDE_S})", counts,
+                      {"phik_from_gmm_masked": 1, "fused_solve_safety_map_h0_nb": WIDE_TICKS})
+        if not (torch.isfinite(out.controls).all() and torch.isfinite(out.trajectory).all()
+                and torch.isfinite(phik_b).all()):
+            fail(f"phase 21, explore at {tag}: non-finite outputs")
+        sc_b = out.scenarios
+        inp, _, _ = sk.fused_tick_inputs(cfg_b, sc_b.state, sc_b.x, sc_b.vb, phik_b, world_b)
+        for safety in (False, True):  # the entry's variant last: its error and layout reference
+            k = sk.K1(cfg_b, inp, enable_safety=safety)
+            p = sk.fused_solve_safety_plain(cfg_b, inp, enable_safety=safety)
+            rev = plain_reversed(cfg_b, inp, safety)
+            torch.cuda.synchronize()
+            err = compare_wide(f"per-scenario maps {tag} safety={safety}", k, p, rev)
+        ms_ = events_ms(lambda: sk.K1(cfg_b, inp), 10)
+        P, probes = probes_of(cfg_b, eng, sc_b, world_b)
+        name = f"fused_solve_safety_map_h0_nb_{tag}"
+        entry(name, "solve_kernel.cu", f"{k1_at}:345", err, ms_,
+              events_ms(lambda: sk.fused_solve_safety_plain(cfg_b, inp), 2),
+              solve_work(cfg_b, WIDE_S, P, True, probes, map_cells=WIDE_S * P * P,
+                         nb=cfg_b.buffer_batch))
+        kernels[name]["launches"] = counts["fused_solve_safety_map_h0_nb"]
+        del eng, world_b, phik_b, out, sc_b, inp, k, p, rev
+        torch.cuda.empty_cache()
+
+    # (c) K2 and the refresh at J = 1, 3, 64
+    rng = np.random.default_rng(21)
+    dom = Domain.create(0.0, 0.0, 5.0, 5.0, device=dev)
+    for K in (17, 20, 32, 40):
+        cfg_k = default_config("cart").replace(num_basis=K)
+        pts = dom.sample_lattice(cfg_k.grid_samples)
+        D = basis.dense_table(basis.tables(pts, K, dom), basis.hk_norm(K, dom.lengths))
+        N = pts.shape[0]
+        mask = torch.from_numpy((rng.uniform(size=(WIDE_S, N)) > 0.3).astype(np.float32)).to(dev)
+        mask[::11] = 0.0
+        line = []
+        for J in WIDE_J:
+            means = rng.uniform(1.0, 4.0, (WIDE_S, J, 2)).astype(np.float32)
+            means[::7] = 400.0  # no mass: both fallbacks
+            g = GaussianMixture.create(
+                means, np.tile((0.3 * np.eye(2, dtype=np.float32))[None, None],
+                               (WIDE_S, J, 1, 1)),
+                rng.uniform(0.5, 1.5, (WIDE_S, J)).astype(np.float32), device=dev)
+            g = [t.contiguous() for t in g]
+            for m in (None, mask):
+                k_out, again = gk.K2(*g, pts, D, m), gk.K2(*g, pts, D, m)
+                e = (k_out - gk.phik_from_gmm_plain(*g, pts, D, m)).abs().max().item()
+                if (e > K2_ATOL or not torch.equal(k_out, again)
+                        or not torch.isfinite(k_out).all()):
+                    fail(f"phase 21: K2 at K={K}, J={J}, masked={m is not None} is {e:.3e} "
+                         f"from plain (atol {K2_ATOL}), non-finite, or two launches differ")
+                line.append(f"K2 J={J}{' masked' if m is not None else ''} {e:.2e} "
+                            f"{events_ms(lambda: gk.K2(*g, pts, D, m), 5):.4f} ms")
+            for m in (None, mask[1]):
+                r = sk.refresh_operands(cfg_k, GaussianMixture(*g), dom, m)
+                e = check_refresh(f"K={K}, J={J}", r, torch.full((WIDE_S, 2), 5.0, device=dev))
+                line.append(f"refresh J={J}{' masked' if m is not None else ''} {e:.2e}")
+        print(f"  K={K}, S={WIDE_S}: max |kernel - plain| and ms: {'; '.join(line)} {card}")
+
+    # (d) the entry points that once refused these shapes, on the card vs on the CPU
+    for K in (17, 20, 32):
+        res = {}
+        for d in (dev, cpu):
+            c, _, g_, gm_, dm_ = distinct_case(WIDE_S, d, num_basis=K)
+            e_ = Engine(c, device=d)
+            w_ = e_.prepare_world(g_)
+            reset_counts()
+            res[d.type] = (e_.phik_from_gmm(gm_, dm_, w_).cpu(), e_.phik_from_gmm(gm_, dm_).cpu())
+            if d.type == "cuda":
+                counts = read_counts()
+                expect_counts(f"phase 21, phik_from_gmm at K={K}", counts,
+                              {"phik_from_gmm_masked": 1, "phik_from_gmm": 1})
+                pts = dm_.sample_lattice(c.grid_samples)
+                D = basis.dense_table(basis.tables(pts, K, dm_), basis.hk_norm(K, dm_.lengths))
+                gl = [t.contiguous() for t in gm_]
+                for name, m in ((f"phik_from_gmm_masked_K{K}",
+                                 w_.free_mask.to(torch.float32).contiguous()),
+                                (f"phik_from_gmm_K{K}", None)):
+                    k_out = gk.K2(*gl, pts, D, m)
+                    e = (k_out - gk.phik_from_gmm_plain(*gl, pts, D, m)).abs().max().item()
+                    entry(name, "gmm_kernel.cu", k2_at, e,
+                          events_ms(lambda: gk.K2(*gl, pts, D, m), 10),
+                          events_ms(lambda: gk.phik_from_gmm_plain(*gl, pts, D, m), 3),
+                          refresh_work(WIDE_S, pts.shape[0], K * K, gl[2].shape[1],
+                                       m is not None))
+                    kernels[name]["launches"] = counts[
+                        "phik_from_gmm_masked" if m is not None else "phik_from_gmm"]
+        dm = max((a - b).abs().max().item() for a, b in zip(res[dev.type], res["cpu"]))
+        print(f"  phik_from_gmm at K={K} (masked and unmasked, S={WIDE_S}): max |card - cpu| "
+              f"{dm:.3e} (atol {K2_ATOL})")
+        if dm > K2_ATOL:
+            fail(f"phase 21: phik_from_gmm at K={K} on the card disagrees with the CPU")
+
+    eng17 = Engine(default_config("cart").replace(num_basis=17, use_fused_solve=True))
+    reset_counts()
+    warm = eng17.warmup(WIDE_S, dom, map_shape=(100, 100), gmm_components=2)
+    print(f"  warmup(num_basis=17): stages (s) {warm}; launches "
+          f"{ {k: v for k, v in read_counts().items() if v} }")
+    if not any(read_counts().values()):
+        fail("phase 21: warmup at num_basis=17 launched no kernel")
+    del eng17
+
+    def moved(tree, d):
+        """``tree`` (tensors in NamedTuples) on device ``d``."""
+        if isinstance(tree, torch.Tensor):
+            return tree.to(d)
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(moved(v, d) for v in tree))
+        return tree
+
+    def same_tick(what, card_out, cpu_out):
+        """(u, diag) of one tick on the card and on the CPU from one state:
+        codes and DWA choices equal but in CODE_MISMATCH_LIMIT scenarios,
+        controls within TOL's 5e-5 where they agree."""
+        (u_d, dg_d), (u_c, dg_c) = card_out, cpu_out
+        same = ((dg_d.dwa_active.cpu() == dg_c.dwa_active)
+                & (dg_d.collision_code.cpu() == dg_c.collision_code))
+        print(f"  {what}: code or DWA choice differs in {int((~same).sum())} scenarios (limit "
+              f"{CODE_MISMATCH_LIMIT})")
+        if int((~same).sum()) > CODE_MISMATCH_LIMIT:
+            fail(f"phase 21: {what} on the card disagrees with the CPU")
+        du = (u_d.cpu() - u_c).abs()[same].max().item()
+        print(f"  {what}: max |u_card - u_cpu| {du:.3e} (atol {TOL['U_new']['atol']})")
+        if du > TOL["U_new"]["atol"]:
+            fail(f"phase 21: {what}: the controls on the card disagree with the CPU's")
+        return same
+
+    # replan, explore and replan_refresh on the card, each tick held against
+    # the same entry point on the CPU from the card's state (one tick a call
+    # for explore: the states of two float32 loops part by rounding, and at
+    # K = 32, H = 128 that reaches 3.1e-3 in the controls by the third tick)
+    for K, H in WIDE_CPU_SHAPES:
+        tag = f"K{K}_H{H}"
+        c, x0_, g_, gm_, dm_ = distinct_case(WIDE_S, dev, seed=5, num_basis=K, horizon=H)
+        e_d, e_c = Engine(c, device=dev), Engine(c, device=cpu)
+        w_d = e_d.prepare_world(g_)
+        ph_d = e_d.phik_from_gmm(gm_, dm_, w_d)
+        w_c, ph_c = moved(w_d, cpu), ph_d.cpu()
+        sc_t = e_d.init_scenarios(x0_)
+        ea, sa, wa, ga, da = wide_case(WIDE_S, dev, K, H)
+        reset_counts()
+        out_d = {"replan": e_d.replan(sc_t, ph_d, w_d)[1:],
+                 "replan_refresh": ea.replan_refresh(sa, ga, da, wa)[1:]}
+        ticks = []
+        for _ in range(3):
+            o_ = e_d.explore(sc_t, ph_d, w_d, 1)
+            ticks.append((sc_t, o_))
+            sc_t = o_.scenarios
+        torch.cuda.synchronize()
+        expect_counts(f"phase 21, replan + explore + replan_refresh at {tag}", read_counts(),
+                      {"fused_solve_safety_map_h0_nb": 1 + 3, "fused_solve_safety": 1})
+        ec = Engine(ea.config, device=cpu)
+        same_tick(f"replan at {tag}", out_d["replan"],
+                  e_c.replan(moved(ticks[0][0], cpu), ph_c, w_c)[1:])
+        same_tick(f"replan_refresh at {tag}", out_d["replan_refresh"],
+                  ec.replan_refresh(*(moved(t, cpu) for t in (sa, ga, da, wa)))[1:])
+        for t, (sc_in, o_d) in enumerate(ticks):
+            o_c = e_c.explore(moved(sc_in, cpu), ph_c, w_c, 1)
+            same = same_tick(f"explore at {tag}, tick {t + 1} from the card's state",
+                             (o_d.controls[0], o_d.diag._replace(
+                                 **{f: getattr(o_d.diag, f)[0] for f in o_d.diag._fields})),
+                             (o_c.controls[0], o_c.diag._replace(
+                                 **{f: getattr(o_c.diag, f)[0] for f in o_c.diag._fields})))
+            dx = (o_d.trajectory[0].cpu() - o_c.trajectory[0]).abs()[same].max().item()
+            print(f"  explore at {tag}, tick {t + 1}: max |x_card - x_cpu| {dx:.3e} (atol 5e-5)")
+            if dx > 5e-5:
+                fail(f"phase 21: explore at {tag} on the card disagrees with the CPU")
+
+    gmm_np, base_map, _, _ = node_case()
+    stream = [[2.5 + 0.01 * i, 1.65 + 0.05 * i, 1.3] for i in range(NODE_CMP_TICKS)]
+    out = {}
+    for d in (dev, cpu):
+        node = ExplorationNode(default_config("cart").replace(use_fused_solve=True, horizon=80),
+                               target=GaussianMixture.create(*gmm_np), device=d)
+        node.on_map(base_map, resolution=0.05)
+        reset_counts()
+        steps = []
+        for pose in stream:
+            node.on_odom(pose)
+            steps.append(node.step())
+        if d.type == "cuda":
+            expect_counts("phase 21, the fused node at H=80", read_counts(),
+                          {"fused_solve_safety_map_h0_nb": NODE_CMP_TICKS})
+        out[d.type] = (np.stack([s_[0] for s_ in steps]),
+                       np.array([[int(s_[1].collision_code), int(s_[1].dwa_active)]
+                                 for s_ in steps]))
+    du = np.abs(out[dev.type][0] - out["cpu"][0]).max()
+    print(f"  the fused node at H=80: max |twist_card - twist_cpu| {du:.3e} (atol 5e-5) over "
+          f"{NODE_CMP_TICKS} ticks; codes {out[dev.type][1][:, 0].tolist()} (card), "
+          f"{out['cpu'][1][:, 0].tolist()} (CPU)")
+    if du > 5e-5 or not np.array_equal(out[dev.type][1], out["cpu"][1]):
+        fail("phase 21: the fused node at H=80 on the card disagrees with the CPU")
+
+
 def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int = EXPLORE_TICKS,
                  eager_ticks: int = 25, refreshes: int = MAP_REFRESHES) -> dict:
     """Phase 20: ``explore`` and ``explore_mapping_fused`` as graph replays
@@ -2557,6 +3017,8 @@ def run(dev) -> int:
     headline_phase(dev, card, kernels, k3_check, ms, ms_e)
     at(20)
     graphs_phase(dev, card)
+    at(21)
+    wide_phase(dev, card, entry, kernels)
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:

@@ -18,8 +18,9 @@
 // take less time than the operations.
 //
 // What the design does about it:
-//   k2_partial  grid (scenario tiles of 64) x (lattice splits). A block runs
-//               gmm_refresh.cuh's part over its share of the lattice (that
+//   k2_partial  grid (scenario tiles of 64) x (lattice splits) x (slabs of
+//               256 coefficients). A block runs gmm_refresh.cuh's part over
+//               its share of the lattice and its slab of the table (that
 //               header describes the tile: 8 x 4 register tiles fed by
 //               128-bit shared loads, the table staged by cp.async into two
 //               buffers, two blocks an SM). The TPU kernel carries its sums
@@ -62,16 +63,18 @@ struct K2Buffers {
     float *part_acc, *part_tot, *out;
 };
 
-template <int TILES>
+template <int TILES, bool CUT>
 __global__ void __launch_bounds__(RT_THREADS, TILES == 1 ? RT_MIN_BLOCKS : 1)
 k2_partial(K2Params p, K2Buffers b) {
     extern __shared__ __align__(16) float sm[];
     const int sp = blockIdx.y;
     const int n_begin = sp * p.chunks_per_split * RT_N;
     const int n_end = min(p.Npad, n_begin + p.chunks_per_split * RT_N);
-    gmm_refresh_part<TILES>(blockIdx.x * RT_S, p.S, p.J, p.KK, n_begin, n_end, b.means, b.covs,
-                            b.weights, b.pts, b.D, p.masked ? b.mask : nullptr, p.n_real, sm,
-                            b.part_acc + (size_t)sp * p.S * p.KK, b.part_tot + (size_t)sp * p.S);
+    gmm_refresh_part<TILES, CUT>(blockIdx.x * RT_S, p.S, p.J, p.KK, blockIdx.z, n_begin, n_end,
+                                 b.means, b.covs, b.weights, b.pts, b.D,
+                                 p.masked ? b.mask : nullptr, p.n_real, sm,
+                                 b.part_acc + (size_t)sp * p.S * p.KK,
+                                 b.part_tot + (size_t)sp * p.S);
 }
 
 __global__ void __launch_bounds__(FIN_THREADS) k2_finish(K2Params p, K2Buffers b) {
@@ -116,13 +119,17 @@ extern "C" int k2_phik_from_gmm(const K2Params* params, const K2Buffers* buffers
     K2Buffers b = *buffers;
     cudaStream_t st = (cudaStream_t)stream;
     if (p.S <= 0) return 0;
-    if (p.KK < 1 || refresh_tiles(p.KK) > 2 || p.J < 1 || p.Npad % RT_N || p.nsplit < 1 ||
-        p.nsplit > 65535 || p.nsplit * p.chunks_per_split * RT_N < p.Npad)
-        return (int)cudaErrorInvalidValue;
     const size_t smem = refresh_smem_floats(p.KK, p.J) * sizeof(float);
-    const dim3 grid((p.S + RT_S - 1) / RT_S, p.nsplit);
-    cudaError_t e = launch_kernel(refresh_tiles(p.KK) == 1 ? k2_partial<1> : k2_partial<2>, grid,
-                                  dim3(RT_THREADS), smem, st, p, b);
+    if (p.KK < 1 || p.J < 1 || p.Npad % RT_N || p.nsplit < 1 || p.nsplit > 65535 ||
+        p.nsplit * p.chunks_per_split * RT_N < p.Npad || refresh_slabs(p.KK) > 65535 ||
+        smem > (size_t)max_dynamic_smem())
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((p.S + RT_S - 1) / RT_S, p.nsplit, refresh_slabs(p.KK));
+    const bool cut = refresh_cut(p.KK, p.J);
+    cudaError_t e = launch_kernel(
+        refresh_tiles(p.KK) == 1 ? (cut ? k2_partial<1, true> : k2_partial<1, false>)
+                                 : (cut ? k2_partial<2, true> : k2_partial<2, false>),
+        grid, dim3(RT_THREADS), smem, st, p, b);
     if (e != cudaSuccess) return (int)e;
     e = launch_kernel(k2_finish, dim3(p.S), dim3(FIN_THREADS), 0, st, p, b);
     if (e != cudaSuccess) return (int)e;

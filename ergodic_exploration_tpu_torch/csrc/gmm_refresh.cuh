@@ -46,7 +46,15 @@
 //     measured slower), so one block's phi phase overlaps the other's
 //     contraction;
 //   - scenario groups beyond the batch are skipped, so S = 1 costs one
-//     scenario's phi and 25 tiles per block.
+//     scenario's phi and 25 tiles per block;
+//   - any K and J: the coefficients are cut into slabs of RT_SLAB = 256 (two
+//     register tiles a thread), and a block contracts one slab at a time,
+//     staging only that slab's columns of D and computing phi anew for each
+//     (J Gaussians per point against 256 products); the caller puts the slabs
+//     on the grid's z axis, one block a slab. The component constants are
+//     staged RT_JC = 16 components at a time, so shared memory is bounded (174 KB at most) whatever K and J are. K^2 <= 256 is one
+//     slab and J <= 16 one staging before the lattice loop: the arithmetic
+//     and its order are then those of a single pass.
 // Chunk partial sums are added to the running totals once per chunk, which
 // keeps the float32 rounding of the 10k-term sums at the level of a blocked
 // reduction.
@@ -70,6 +78,8 @@ constexpr int RT_GS = 4 * RT_SG;         // scenarios between a tile's groups of
 constexpr int RT_PS = RT_S + 4;  // floats between two points' phi rows (16-byte rows, and a
                                  // transposed store of the mask conflicts 4 ways, not 32)
 constexpr int RT_MIN_BLOCKS = 2;  // blocks meant to share an SM (TILES = 1; BLOCKS_PER_SM in Python)
+constexpr int RT_SLAB = 256;     // coefficients a block contracts in one pass (SLAB in Python)
+constexpr int RT_JC = 16;        // mixture components whose constants are staged at a time
 constexpr int GP = 7;            // per-component constants: mx, my, a, 2b, c, 1/det, norm
 constexpr float TWO_PI_F = 6.28318530717958647692f;
 constexpr int RT_PQ = RT_THREADS / RT_S;  // phi: threads per scenario = stride of a thread's points
@@ -83,18 +93,33 @@ static_assert(RT_TS % 4 == 0 && RT_TK % 4 == 0 && RT_S % RT_TS == 0, "register t
 // row with one 128-bit load each: every bank once.
 __host__ __device__ inline int tile_row(int sg, int i) { return (i / 4) * RT_GS + 4 * sg + i % 4; }
 
-// K^2 padded to whole groups of RT_TK coefficients
-__host__ __device__ inline int refresh_kkp(int KK) { return (KK + RT_TK - 1) / RT_TK * RT_TK; }
+// Slabs of at most RT_SLAB coefficients that K^2 = KK is cut into: slab l
+// holds coefficients [l RT_SLAB, min(KK, (l + 1) RT_SLAB)).
+__host__ __device__ inline int refresh_slabs(int KK) { return (KK + RT_SLAB - 1) / RT_SLAB; }
 
-// Register tiles a thread needs for K^2 = KK.
+// n coefficients padded to whole groups of RT_TK
+__host__ __device__ inline int refresh_pad(int n) { return (n + RT_TK - 1) / RT_TK * RT_TK; }
+
+// The widest slab of K^2 = KK, padded: the columns of a staged row of D.
+__host__ __device__ inline int refresh_kkp(int KK) {
+    return refresh_pad(KK < RT_SLAB ? KK : RT_SLAB);
+}
+
+// True where the refresh needs more than one pass: K^2 = KK over RT_SLAB
+// (more than one slab) or J over RT_JC (the constants staged in chunks).
+__host__ __device__ inline bool refresh_cut(int KK, int J) {
+    return refresh_slabs(KK) > 1 || J > RT_JC;
+}
+
+// Register tiles a thread needs for the widest slab of K^2 = KK (1 or 2).
 __host__ __device__ inline int refresh_tiles(int KK) {
     return (RT_SG * (refresh_kkp(KK) / RT_TK) + RT_THREADS - 1) / RT_THREADS;
 }
 
 // Shared-memory floats of one block for K^2 = KK and J components.
 __host__ __device__ inline size_t refresh_smem_floats(int KK, int J) {
-    return (size_t)2 * RT_N * refresh_kkp(KK) + (size_t)RT_N * RT_PS + (size_t)GP * J * RT_S +
-           RT_THREADS;
+    return (size_t)2 * RT_N * refresh_kkp(KK) + (size_t)RT_N * RT_PS +
+           (size_t)GP * (J < RT_JC ? J : RT_JC) * RT_S + RT_THREADS;
 }
 
 // Asynchronous copies global -> shared (cp.async), in groups.
@@ -129,62 +154,80 @@ __device__ __forceinline__ void cp_async_wait() {
 #endif
 }
 
-// One block's part of the refresh: scenarios s0 .. s0 + RT_S, lattice points
-// n_begin .. n_end (multiples of RT_N). part_acc (S, KK) and part_tot (S)
-// are this lattice split's rows of the scratch; rows of scenarios >= S are
-// not written. means (S, J, 2), covs (S, J, 2, 2), weights (S, J),
-// pts (Npad, 2), D (Npad, KK); mask (S, mask_n) or nullptr. `sm` is 16-byte
-// aligned shared memory of refresh_smem_floats(KK, J) floats. Must be called
-// by all RT_THREADS threads of the block; TILES >= refresh_tiles(KK).
-template <int TILES>
+// One block's part of the refresh for one slab of coefficients: scenarios
+// s0 .. s0 + RT_S, lattice points n_begin .. n_end (multiples of RT_N),
+// coefficients [slab RT_SLAB, min(KK, (slab + 1) RT_SLAB)). part_acc (S, KK)
+// and part_tot (S) are this lattice split's rows of the scratch; the slab's
+// columns of part_acc are written, part_tot by slab 0 alone; rows of
+// scenarios >= S are not written. means (S, J, 2), covs (S, J, 2, 2),
+// weights (S, J), pts (Npad, 2), D (Npad, KK); mask (S, mask_n) or nullptr.
+// `sm` is 16-byte aligned shared memory of refresh_smem_floats(KK, J)
+// floats. Must be called by all RT_THREADS threads of the block;
+// TILES >= refresh_tiles(KK). CUT = refresh_cut(KK, J); without it slab is
+// 0 and the block makes one pass with constant offsets (the instructions of
+// a refresh that has no slabs).
+template <int TILES, bool CUT>
 __device__ __forceinline__ void gmm_refresh_part(
-    int s0, int S, int J, int KK, int n_begin, int n_end,
+    int s0, int S, int J, int KK, int slab, int n_begin, int n_end,
     const float* __restrict__ means, const float* __restrict__ covs,
     const float* __restrict__ weights, const float* __restrict__ pts,
     const float* __restrict__ D, const float* __restrict__ mask, int mask_n,
     float* sm, float* __restrict__ part_acc, float* __restrict__ part_tot) {
     const int tid = threadIdx.x;
-    const int KKp = refresh_kkp(KK), KG = KKp / RT_TK;
-    float* Ds = sm;                        // 2 buffers of RT_N x KKp
-    float* phis = Ds + 2 * RT_N * KKp;     // RT_N x RT_PS, point-major
-    float* gp = phis + RT_N * RT_PS;       // GP x J x RT_S, component-major
-    float* tots = gp + GP * J * RT_S;      // RT_THREADS partial sums
+    const int k0 = CUT ? slab * RT_SLAB : 0;                     // the slab's first coefficient
+    const int KS = CUT ? (KK - k0 < RT_SLAB ? KK - k0 : RT_SLAB) : KK;  // and its width
+    const int KSp = refresh_pad(KS), KG = KSp / RT_TK;
+    const int JC = CUT ? (J < RT_JC ? J : RT_JC) : J;  // components staged at a time
+    const bool restage = CUT && J > RT_JC;              // more than one staging per chunk
+    float* Ds = sm;                                  // 2 buffers of RT_N x KSp
+    float* phis = Ds + 2 * RT_N * refresh_kkp(KK);   // RT_N x RT_PS, point-major
+    float* gp = phis + RT_N * RT_PS;                 // GP x JC x RT_S, component-major
+    float* tots = gp + GP * JC * RT_S;               // RT_THREADS partial sums
 
-    // per-component constants, with gmm_eval's expressions
-    for (int i = tid; i < RT_S * J; i += RT_THREADS) {
-        const int sl = i % RT_S, j = i / RT_S, s = s0 + sl;
-        float g[GP] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        if (s < S) {
-            const size_t sj = (size_t)s * J + j;
-            const float a = covs[sj * 4 + 0], b = covs[sj * 4 + 1], c = covs[sj * 4 + 3];
-            const float det = a * c - b * b;
-            g[0] = means[sj * 2 + 0];
-            g[1] = means[sj * 2 + 1];
-            g[2] = a;
-            g[3] = 2.0f * b;
-            g[4] = c;
-            g[5] = 1.0f / det;
-            g[6] = weights[sj] / (TWO_PI_F * sqrtf(det));
-        }
+    // constants of components j0 .. j0 + jn, with gmm_eval's expressions
+    auto stage_components = [&](int j0, int jn) {
+        for (int i = tid; i < RT_S * jn; i += RT_THREADS) {
+            const int sl = i % RT_S, jl = i / RT_S, s = s0 + sl;
+            float g[GP] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+            if (s < S) {
+                const size_t sj = (size_t)s * J + j0 + jl;
+                const float a = covs[sj * 4 + 0], b = covs[sj * 4 + 1], c = covs[sj * 4 + 3];
+                const float det = a * c - b * b;
+                g[0] = means[sj * 2 + 0];
+                g[1] = means[sj * 2 + 1];
+                g[2] = a;
+                g[3] = 2.0f * b;
+                g[4] = c;
+                g[5] = 1.0f / det;
+                g[6] = weights[sj] / (TWO_PI_F * sqrtf(det));
+            }
 #pragma unroll
-        for (int k = 0; k < GP; ++k) gp[(j * GP + k) * RT_S + sl] = g[k];
-    }
+            for (int k = 0; k < GP; ++k) gp[(jl * GP + k) * RT_S + sl] = g[k];
+        }
+    };
+    if (!restage) stage_components(0, J);
     // the pad columns of both table buffers stay zero (the copies never touch them)
-    if (KKp != KK)
+    if (KSp != KS)
         for (int i = tid; i < 2 * RT_N; i += RT_THREADS)
-            for (int k = KK; k < KKp; ++k) Ds[i * KKp + k] = 0.0f;
+            for (int k = KS; k < KSp; ++k) Ds[i * KSp + k] = 0.0f;
 
-    // 16-byte copies where every row of the table starts on 16 bytes
+    // 16-byte copies where every row of the table starts on 16 bytes (a
+    // slab starts on a multiple of RT_SLAB, so its rows do too)
     const bool vec = (KK & 3) == 0 && (reinterpret_cast<uintptr_t>(D) & 15) == 0;
     auto stage = [&](int n0, float* dst) {
-        const float* src = D + (size_t)n0 * KK;
+        const float* src = D + (size_t)n0 * KK + k0;
         if (vec) {
-            const int q4 = KK / 4;
-            for (int i = tid; i < RT_N * q4; i += RT_THREADS)
-                cp_async_16(dst + (i / q4) * KKp + 4 * (i % q4), src + 4 * i);
+            const int q4 = KS / 4;
+            for (int i = tid; i < RT_N * q4; i += RT_THREADS) {
+                const int n = i / q4, q = i % q4;
+                cp_async_16(dst + n * KSp + 4 * q,
+                            CUT ? src + (size_t)n * KK + 4 * q : src + 4 * i);
+            }
         } else {
-            for (int i = tid; i < RT_N * KK; i += RT_THREADS)
-                cp_async_4(dst + (i / KK) * KKp + i % KK, src + i);
+            for (int i = tid; i < RT_N * KS; i += RT_THREADS) {
+                const int n = i / KS, k = i % KS;
+                cp_async_4(dst + n * KSp + k, CUT ? src + (size_t)n * KK + k : src + i);
+            }
         }
         cp_async_commit();
     };
@@ -207,8 +250,8 @@ __device__ __forceinline__ void gmm_refresh_part(
 
     for (int c = 0; c < nchunks; ++c) {
         const int n0 = n_begin + c * RT_N;
-        const float* Dc = Ds + (c & 1) * RT_N * KKp;
-        if (c + 1 < nchunks) stage(n0 + RT_N, Ds + ((c + 1) & 1) * RT_N * KKp);
+        const float* Dc = Ds + (c & 1) * RT_N * KSp;
+        if (c + 1 < nchunks) stage(n0 + RT_N, Ds + ((c + 1) & 1) * RT_N * KSp);
         if (mask) {  // the chunk's mask tile, read along the lattice, stored point-major
             for (int i = tid; i < RT_S * RT_N; i += RT_THREADS) {
                 const int ms = i / RT_N, n = i % RT_N;
@@ -219,13 +262,15 @@ __device__ __forceinline__ void gmm_refresh_part(
             __syncthreads();
         }
         // phi of this thread's RT_PPT points: a component's constants are read
-        // once, then every point takes it (the sum over j stays in ascending j)
+        // once, then every point takes it (the sum over j stays in ascending
+        // j); past RT_JC components the constants are staged chunk by chunk
         float phv[RT_PPT];
 #pragma unroll
         for (int q = 0; q < RT_PPT; ++q) phv[q] = 0.0f;
-        if (live) {
+        auto accumulate = [&](int jn) {  // the jn components staged in gp
+            if (!live) return;
             const float2* pt2 = reinterpret_cast<const float2*>(pts) + n0 + nq;
-            for (int j = 0; j < J; ++j) {
+            for (int j = 0; j < jn; ++j) {
                 const float* gj = gp + j * GP * RT_S + sl;
                 const float mx = gj[0 * RT_S], my = gj[1 * RT_S], ca = gj[2 * RT_S],
                             cb2 = gj[3 * RT_S], cc = gj[4 * RT_S], idet = gj[5 * RT_S],
@@ -238,6 +283,19 @@ __device__ __forceinline__ void gmm_refresh_part(
                     const float qf = (cc * (dx * dx) - cb2 * dx * dy + ca * (dy * dy)) * idet;
                     phv[q] = phv[q] + nrm * expf(-0.5f * qf);
                 }
+            }
+        };
+        if (!CUT) {
+            accumulate(J);
+        } else {
+            for (int j0 = 0; j0 < J; j0 += JC) {
+                const int jn = J - j0 < JC ? J - j0 : JC;
+                if (restage) {
+                    if (j0 > 0) __syncthreads();  // every thread is done with the last chunk
+                    stage_components(j0, jn);
+                    __syncthreads();
+                }
+                accumulate(jn);
             }
         }
 #pragma unroll
@@ -274,7 +332,7 @@ __device__ __forceinline__ void gmm_refresh_part(
                     }
 #pragma unroll
                     for (int k = 0; k < RT_TK; k += 4) {
-                        const float4 v = *reinterpret_cast<const float4*>(dp + n * KKp + k);
+                        const float4 v = *reinterpret_cast<const float4*>(dp + n * KSp + k);
                         dv[k] = v.x, dv[k + 1] = v.y, dv[k + 2] = v.z, dv[k + 3] = v.w;
                     }
 #pragma unroll
@@ -304,13 +362,13 @@ __device__ __forceinline__ void gmm_refresh_part(
 #pragma unroll
                 for (int k = 0; k < RT_TK; ++k) {
                     const int kk = kg * RT_TK + k;
-                    if (s < S && kk < KK) part_acc[(size_t)s * KK + kk] = acc[t][i][k];
+                    if (s < S && kk < KS) part_acc[(size_t)s * KK + k0 + kk] = acc[t][i][k];
                 }
             }
         }
     }
     __syncthreads();
-    if (tid < RT_S && s0 + tid < S) {
+    if (slab == 0 && tid < RT_S && s0 + tid < S) {
         float tsum = 0.0f;
         for (int l = 0; l < RT_THREADS / RT_S; ++l) tsum += tots[tid + l * RT_S];
         part_tot[s0 + tid] = tsum;

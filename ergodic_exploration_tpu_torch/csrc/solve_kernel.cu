@@ -22,13 +22,14 @@
 // entry points at the end of this file from ops/solve_kernel.py.
 //
 // Launches on the caller's stream:
-//   k1_refresh  (J > 0) grid (scenario tiles of 64) x (lattice splits): a
-//               block contracts its share of the padded lattice with the
-//               basis table (gmm_refresh.cuh) and writes its partial
-//               (acc, tot) to the wrapper's scratch. The splits are chosen
-//               as K2's are (ops/solve_kernel.py::lattice_split), so S = 1 is
-//               a block per chunk (157 at a 100 x 100 lattice), not one block
-//               walking them all.
+//   k1_refresh  (J > 0) grid (scenario tiles of 64) x (lattice splits) x
+//               (slabs of 256 coefficients): a block contracts its share of
+//               the padded lattice with its slab of the basis table
+//               (gmm_refresh.cuh) and writes its partial (acc, tot) to the
+//               wrapper's scratch. The splits are chosen as K2's are
+//               (ops/solve_kernel.py::lattice_split), so S = 1 is a block per
+//               chunk (157 at a 100 x 100 lattice), not one block walking
+//               them all.
 //   k1_finish   (J > 0) a block per scenario adds the partials in split
 //               order (no atomics: two launches give the same bits) and
 //               normalizes as ops/solve_kernel.py::refresh_plain does (the
@@ -36,15 +37,24 @@
 //               is a launch of its own, not the head of k1_solve: one warp
 //               would add 157 partials for each of its 4 coefficients a lane
 //               at S = 1, and k1_solve keeps one form for J = 0 and J > 0.
-//   k1_solve    ONE WARP PER SCENARIO, SOLVE_WARPS warps a block, everything
-//               else, in this order: RK4 rollout; cos/sin basis tables;
-//               (nb > 0) the history sums over the drawn positions; c_k,
-//               metric and ergodic gradient; boundary + obstacle barrier with
-//               bilinear reads of the patch (values and the patch's own
-//               central-difference gradient, one-sided at the PATCH edges,
-//               FAR plateau zeroed); backward co-state; u = clip(-R^-1 B^T
-//               rho); ck_sum append; validation of u0 over val_horizon steps
-//               and the DWA sweep over every candidate and dwa_horizon steps.
+//   k1_solve    ONE WARP PER SCENARIO, everything else, in this order: RK4
+//               rollout; cos/sin basis tables; (nb > 0) the history sums over
+//               the drawn positions; c_k, metric and ergodic gradient;
+//               boundary + obstacle barrier with bilinear reads of the patch
+//               (values and the patch's own central-difference gradient,
+//               one-sided at the PATCH edges, FAR plateau zeroed); backward
+//               co-state; u = clip(-R^-1 B^T rho); ck_sum append; validation
+//               of u0 over val_horizon steps and the DWA sweep over every
+//               candidate and dwa_horizon steps.
+//               A warp's tables (solve_warp_floats: 6.5 KB at K = 10,
+//               H = 20) live in shared memory, 4 warps a block, where four
+//               such blocks share an SM (56 KB a block); past that (K = 16,
+//               H = 64 takes 121 KB a block) in a global workspace of
+//               S x solve_warp_floats floats, carved in the same way
+//               (k1_solve<true>, 4 warps a block, 126 registers: four blocks
+//               an SM, the tables cached in L1 / L2), which measured faster
+//               than fewer blocks an SM with shared tables
+//               (ops/solve_kernel.py::global_tables).
 //   k1_safety   one warp per scenario: that last stage alone.
 //
 // How a warp divides a scenario. Independent values go to the lanes, and
@@ -56,8 +66,9 @@
 //     positions): a lane per (knot, k) pair, into shared memory;
 //   - c_k, the history sums, metric terms, Wh and the ck_sum append: a lane
 //     owns the coefficients k = lane, lane + 32, ... and adds over t, then
-//     over j, in ascending order; the metric's sum over k is lane 0's, in
-//     ascending k;
+//     over j, in ascending order; the metric's sum over k (and the barrier's
+//     over t) is lane 0's, in ascending order, up to 256 terms, and past
+//     that a lane's every 32nd term added by a butterfly (warp_sum);
 //   - the gradient's two contractions: a lane per (knot, k1) pair; then a
 //     lane per knot for the sum over k1, the walls, the bilinear reads and
 //     the patch gradient (on per-scenario maps a warp reads one scenario's
@@ -85,14 +96,14 @@
 // J * Npad expf per scenario (4.1 G multiply-adds at S=4096, Npad=10,048, K=10):
 // float32 arithmetic fed from shared memory, bound by the shared-memory pipe
 // (gmm_refresh.cuh). The solve is bound by instruction issue: at S = 4096
-// an SM holds 20 warps (SOLVE_WARPS = 4 a block, 8 measured no faster; ptxas
-// gives k1_solve 96 registers, 32 bytes of stack and no spills, and a warp
-// 6.6 KB of shared memory at K = 10, H = 20: 122 KB a block at the limits
-// K = 16, H = 64 with nb > 0), which hide each other's latencies; what remains is the
+// an SM holds 20 warps (4 a block, 8 measured no faster; ptxas gives k1_solve
+// 96 registers, 32 bytes of stack and no spills, and a warp 6.6 KB of shared
+// memory at K = 10, H = 20: 122 KB a block at K = 16, H = 64 with nb > 0),
+// which hide each other's latencies; what remains is the
 // count of warp instructions a scenario needs: the accurate sinf / cosf of
 // the tables (4 K H + 2 K nb values over 32 lanes), the K^2 (H + nb)
 // multiply-adds of c_k over 32 lanes, and the serial stretches (heading,
-// position and co-state recurrences, the metric's K^2 ordered adds), which
+// position and co-state recurrences, the metric's <= 256 ordered adds), which
 // one lane runs while 31 idle. k1_safety: 64 registers, no shared memory.
 // k1_refresh: 128 registers, no spills, two blocks an SM.
 //
@@ -119,12 +130,11 @@
 
 namespace k1 {
 
-constexpr int KMAX = 16;   // num_basis
-constexpr int HMAX = 64;   // horizon
 constexpr int NUMAX = 4;   // controls
 constexpr int SOLVE_WARPS = 4;  // warps (scenarios) per block of k1_solve / k1_safety
 constexpr int HIST_CHUNK = 32;      // drawn positions whose cos tables are held at a time
 constexpr int SERIES = 18;          // per-step arrays of a warp (see k1_solve)
+constexpr int SERIAL_SUM = 256;     // most terms lane 0 adds alone (warp_sum)
 constexpr int FIN_THREADS = 128;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float PI_F = 3.14159265358979323846f;
@@ -157,6 +167,7 @@ struct K1Params {
     int safety;      // 0: k1_solve stops before validation + DWA (fused_solve)
     int nb;          // > 0: hist holds (S, nb, 2) drawn positions, not (S, K^2) sums
     int nsplit, chunks_per_split;  // lattice splits of the refresh (J > 0)
+    int global_tables;  // 1: k1_solve's tables in solve_ws; 0: in shared memory
     float dt, half_dt, dt6, gamma, beta, b_eps, b_weight, b_weight2, o_weight, o_weight_m2;
     float b_radius, d_safe, inv_d_safe, d_min, patch_hi, crop_hi, tw_a, tw_b, inv_a, inv_r;
     float val_dt, dwa_dt, two_pi;
@@ -176,13 +187,14 @@ struct K1Buffers {
     int* feasible;
     float* phik_buf;
     float *part_acc, *part_tot;  // (nsplit, S, K^2), (nsplit, S) partial sums of the refresh
+    float* solve_ws;             // (S, solve_warp_floats) tables of k1_solve (global_tables)
 };
 
 // ---------------------------------------------------------------------------
 // refresh
 // ---------------------------------------------------------------------------
 
-template <int TILES>
+template <int TILES, bool CUT>
 __global__ void __launch_bounds__(RT_THREADS, TILES == 1 ? RT_MIN_BLOCKS : 1)
 k1_refresh(K1Params p, K1Buffers b) {
     extern __shared__ __align__(16) float rsm[];
@@ -190,9 +202,10 @@ k1_refresh(K1Params p, K1Buffers b) {
     const int sp = blockIdx.y;
     const int n_begin = sp * p.chunks_per_split * RT_N;
     const int n_end = min(p.Npad, n_begin + p.chunks_per_split * RT_N);
-    gmm_refresh_part<TILES>(blockIdx.x * RT_S, p.S, p.J, KK, n_begin, n_end, b.means, b.covs,
-                            b.weights, b.pts, b.D, nullptr, 0, rsm,
-                            b.part_acc + (size_t)sp * p.S * KK, b.part_tot + (size_t)sp * p.S);
+    gmm_refresh_part<TILES, CUT>(blockIdx.x * RT_S, p.S, p.J, KK, blockIdx.z, n_begin, n_end,
+                                 b.means, b.covs, b.weights, b.pts, b.D, nullptr, 0, rsm,
+                                 b.part_acc + (size_t)sp * p.S * KK,
+                                 b.part_tot + (size_t)sp * p.S);
 }
 
 __global__ void __launch_bounds__(FIN_THREADS) k1_finish(K1Params p, K1Buffers b) {
@@ -238,6 +251,23 @@ __device__ __forceinline__ float hk_norm(float area, int k1, int k2) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// v[0] + ... + v[n - 1] for the warp: up to SERIAL_SUM terms lane 0 adds them
+// in ascending order (as the kernel always has: K <= 16, H <= 256); past
+// that a lane adds every 32nd term and a butterfly adds the lanes' sums,
+// whose rounding error grows with log n rather than n (the metric's K^2 =
+// 1024 terms at K = 32). Called by all 32 lanes; lane 0's result is the sum.
+__device__ __forceinline__ float warp_sum(const float* v, int n, int lane) {
+    float acc = 0.0f;
+    if (n <= SERIAL_SUM) {
+        if (lane == 0)
+            for (int i = 0; i < n; ++i) acc = acc + v[i];
+        return acc;
+    }
+    for (int i = lane; i < n; i += 32) acc = acc + v[i];
+    for (int o = 16; o > 0; o >>= 1) acc = acc + __shfl_xor_sync(FULL, acc, o);
+    return acc;
 }
 
 struct MapView {
@@ -461,6 +491,8 @@ __device__ __forceinline__ void safety_stage(const K1Params& p, const Crop& g, c
 // solve
 // ---------------------------------------------------------------------------
 
+// GLOBAL_TABLES: the warps' tables lie in b.solve_ws, not in shared memory.
+template <bool GLOBAL_TABLES>
 __global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_solve(K1Params p, K1Buffers b) {
     extern __shared__ float sm[];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -469,7 +501,9 @@ __global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_solve(K1Params p, K1Buffe
     const int H = p.H, K = p.K, KK = K * K, HK = H * K, nu = p.nu;
 
     // this warp's tables
-    float* WH = sm + (size_t)warp * solve_warp_floats(K, H, p.nb);  // Lambda (c - phi) / h
+    const size_t wf = solve_warp_floats(K, H, p.nb);
+    float* WH = GLOBAL_TABLES ? b.solve_ws + (size_t)s * wf  // Lambda (c - phi) / h
+                              : sm + (size_t)warp * wf;
     float* HS = WH + KK;                                 // history sums (nb > 0 only)
     float* CXT = HS + (p.nb > 0 ? KK : 0);               // cos, sin tables of the knots (H, K)
     float* CYT = CXT + HK;
@@ -591,11 +625,8 @@ __global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_solve(K1Params p, K1Buffe
         b.ck_out[(size_t)s * KK + k] = b.cks[(size_t)s * KK + k] + CXT[k1] * CYT[k2] / hk;
     }
     __syncwarp();
-    if (lane == 0) {  // the metric: the terms in ascending k
-        float metric = 0.0f;
-        for (int k = 0; k < KK; ++k) metric = metric + SCR[k];
-        b.metric[s] = metric;
-    }
+    const float metric = warp_sum(SCR, KK, lane);  // the metric: the terms in ascending k
+    if (lane == 0) b.metric[s] = metric;
     __syncwarp();
 
     // ---- 4-5. ergodic gradient + barrier at each knot
@@ -667,9 +698,8 @@ __global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_solve(K1Params p, K1Buffe
     // ---- 6. backward co-state (ops/integrator.py costate_rk4_step with the
     // model's A: A^T rho = (0, 0, a13 r1 + a23 r2), so k1 = k2 = k3 = k4 = g
     // for r1, r2 and k2 == k3 for r3) + u = clip(-(B^T rho) / r)
+    const float bsum = warp_sum(BV, H, lane);
     if (lane == 0) {
-        float bsum = 0.0f;
-        for (int t = 0; t < H; ++t) bsum = bsum + BV[t];
         b.bcost[s] = bsum / (float)H;
         float r1 = 0.0f, r2 = 0.0f, r3 = 0.0f;
         for (int t = H - 1; t >= 0; --t) {
@@ -751,14 +781,17 @@ __global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_safety(K1Params p, K1Buff
 // k1_refresh + k1_finish for p.S scenarios: phik_buf (S, K^2) from the mixtures.
 static cudaError_t launch_refresh(K1Params& p, K1Buffers& b, cudaStream_t st) {
     const int KK = p.K * p.K;
-    if (p.K > KMAX || refresh_tiles(KK) > 2 || p.J < 1 || p.Npad % RT_N || p.nsplit < 1 ||
-        p.nsplit > 65535 ||
-        p.nsplit * p.chunks_per_split * RT_N < p.Npad)
-        return cudaErrorInvalidValue;
     const size_t smem = refresh_smem_floats(KK, p.J) * sizeof(float);
-    const dim3 grid((p.S + RT_S - 1) / RT_S, p.nsplit);
-    cudaError_t e = launch_kernel(refresh_tiles(KK) == 1 ? k1_refresh<1> : k1_refresh<2>, grid,
-                                  dim3(RT_THREADS), smem, st, p, b);
+    if (p.K < 1 || p.J < 1 || p.Npad % RT_N || p.nsplit < 1 || p.nsplit > 65535 ||
+        p.nsplit * p.chunks_per_split * RT_N < p.Npad || refresh_slabs(KK) > 65535 ||
+        smem > (size_t)max_dynamic_smem())
+        return cudaErrorInvalidValue;
+    const dim3 grid((p.S + RT_S - 1) / RT_S, p.nsplit, refresh_slabs(KK));
+    const bool cut = refresh_cut(KK, p.J);
+    cudaError_t e = launch_kernel(
+        refresh_tiles(KK) == 1 ? (cut ? k1_refresh<1, true> : k1_refresh<1, false>)
+                               : (cut ? k1_refresh<2, true> : k1_refresh<2, false>),
+        grid, dim3(RT_THREADS), smem, st, p, b);
     if (e != cudaSuccess) return e;
     return launch_kernel(k1_finish, dim3(p.S), dim3(FIN_THREADS), 0, st, p, b);
 }
@@ -772,18 +805,30 @@ extern "C" int k1_fused_solve_safety(const K1Params* params, const K1Buffers* bu
     K1Buffers b = *buffers;
     cudaStream_t st = (cudaStream_t)stream;
     if (p.S <= 0) return 0;
-    if (p.K > KMAX || p.H > HMAX || p.nu > NUMAX || p.nb < 0) return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        p.global_tables ? 0 : (size_t)SOLVE_WARPS * solve_warp_floats(p.K, p.H, p.nb) * sizeof(float);
+    if (p.K < 1 || p.H < 1 || p.nu < 1 || p.nu > NUMAX || p.nb < 0 ||
+        (p.global_tables && b.solve_ws == nullptr) || smem > (size_t)max_dynamic_smem())
+        return (int)cudaErrorInvalidValue;
     cudaError_t e;
     if (p.J > 0) {
         e = launch_refresh(p, b, st);
         if (e != cudaSuccess) return (int)e;
     }
-    const size_t smem = (size_t)SOLVE_WARPS * solve_warp_floats(p.K, p.H, p.nb) * sizeof(float);
-    e = launch_kernel(k1_solve, dim3((p.S + SOLVE_WARPS - 1) / SOLVE_WARPS),
-                      dim3(32 * SOLVE_WARPS), smem, st, p, b);
+    e = launch_kernel(p.global_tables ? k1_solve<true> : k1_solve<false>,
+                      dim3((p.S + SOLVE_WARPS - 1) / SOLVE_WARPS), dim3(32 * SOLVE_WARPS), smem,
+                      st, p, b);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory a block may opt in to on the current device, in
+// bytes (the limit ops/solve_kernel.py::global_tables plans k1_solve against).
+extern "C" int k1_smem_optin(void) { return max_dynamic_smem(); }
+
+// Floats of one warp's tables of k1_solve (mirrored by
+// ops/solve_kernel.py::solve_warp_floats; the tests hold the two equal).
+extern "C" int k1_solve_warp_floats(int K, int H, int nb) { return solve_warp_floats(K, H, nb); }
 
 // Launch the refresh alone (k1_refresh + k1_finish): phik_buf (S, K^2) from
 // the mixtures, for timing and checking it apart from k1_solve. Returns the

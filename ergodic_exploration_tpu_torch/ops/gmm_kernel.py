@@ -34,10 +34,8 @@ import torch
 
 from ergodic_exploration_tpu_torch.ops.solve_kernel import (
     LATTICE_CHUNK, _check_operands, _on_cpu, _require_cuda, _sm_count, lattice_split, launch_on,
-    pad_lattice)
+    pad_lattice, slab_blocks)
 from ergodic_exploration_tpu_torch.ops.target import GaussianMixture, gmm_eval
-
-KK_MAX = 256  # K^2 the register tiles of the kernel cover
 
 
 def phik_from_gmm_plain(means, covs, weights, pts, D, free_mask=None) -> torch.Tensor:
@@ -103,8 +101,8 @@ class PhikFromGmm:
         _require_cuda(dev, "K2 kernel")
         S, J = weights.shape
         N, KK = D.shape
-        if KK > KK_MAX or J < 1:
-            raise ValueError(f"K2 supports K^2 <= {KK_MAX} and J >= 1, got K^2={KK}, J={J}")
+        if J < 1:
+            raise ValueError(f"K2 needs a mixture of J >= 1 components, got J={J}")
         shapes = dict(means=(S, J, 2), covs=(S, J, 2, 2), weights=(S, J), pts=(N, 2),
                       D=(N, KK))
         ops = dict(means=means, covs=covs, weights=weights, pts=pts, D=D)
@@ -114,7 +112,7 @@ class PhikFromGmm:
         # the mask is not padded: the kernel treats points >= N as masked out
         ops["pts"], ops["D"] = pad_lattice(pts, D)
         Npad = ops["pts"].shape[0]
-        nsplit, per = lattice_split(S, Npad // LATTICE_CHUNK, _sm_count(dev))
+        nsplit, per = lattice_split(S, Npad // LATTICE_CHUNK, _sm_count(dev), slab_blocks(KK))
         out = torch.empty((S, KK), dtype=torch.float32, device=dev)
         ops.update(part_acc=torch.empty((nsplit, S, KK), dtype=torch.float32, device=dev),
                    part_tot=torch.empty((nsplit, S), dtype=torch.float32, device=dev), out=out)

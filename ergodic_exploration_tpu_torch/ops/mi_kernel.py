@@ -46,12 +46,8 @@ import torch
 from ergodic_exploration_tpu_torch.ops import basis
 from ergodic_exploration_tpu_torch.ops import target as target_ops
 from ergodic_exploration_tpu_torch.ops.solve_kernel import (
-    _check_operands, _on_cpu, _require_cuda, launch_on)
+    MAX_SMEM, PAIR_SMEM, QUAD_SMEM, _check_operands, _on_cpu, _require_cuda, launch_on)
 
-MAX_SMEM = 232448  # dynamic shared memory one block can have on sm_90 (227 KB)
-# what each of n blocks on one SM can have: the SM's 228 KB split n ways, less
-# the 1 KB the hardware reserves for every block
-QUAD_SMEM, PAIR_SMEM = (233472 // n - 1024 for n in (4, 2))
 KMAX = 128  # the TPU kernel's limit on K
 # constants of csrc/mi_kernel.cu that its shared-memory layout depends on
 _WARPS, _KC, _RWIN = 8, 12, 3  # warps a block; coefficients a chunk; radius with a window

@@ -51,9 +51,16 @@ from ergodic_exploration_tpu_torch.ops.patch import gather_patch, patch_start
 from ergodic_exploration_tpu_torch.ops.target import GaussianMixture, gmm_eval
 from ergodic_exploration_tpu_torch.utils import prng
 
-KMAX, HMAX, NUMAX = 16, 64, 4  # static bounds of the CUDA kernel
+NUMAX = 4  # controls the CUDA kernel holds (both models have at most 4)
 LATTICE_CHUNK = 64  # lattice points per refresh step; N is padded to it
 TILE_S = 64  # scenarios per block of the refresh (RT_S in csrc/gmm_refresh.cuh)
+SLAB = 256  # coefficients a block of the refresh contracts in one pass (RT_SLAB)
+SOLVE_WARPS = 4  # warps (scenarios) a block of k1_solve holds
+HIST_CHUNK, SERIES = 32, 18  # k1_solve: drawn positions a chunk; per-step arrays of a warp
+MAX_SMEM = 232448  # dynamic shared memory one block can have on sm_90 (227 KB)
+# what each of n blocks on one SM can have: the SM's 228 KB split n ways, less
+# the 1 KB the hardware reserves for every block
+QUAD_SMEM, PAIR_SMEM = (233472 // n - 1024 for n in (4, 2))
 BLOCKS_PER_SM = 2  # blocks of the refresh that share an SM (its registers and shared memory)
 MAX_RUN = 32  # most chunks one block of the refresh adds up before its sums go to scratch
 PAD_POINT = 1.0e6  # pad points sit far away: phi underflows to exactly 0
@@ -274,7 +281,7 @@ class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "H", "K", "nu", "P", "Pc", "J", "Npad", "map_h", "map_w", "masked", "model",
         "cost_twist", "val_horizon", "dwa_horizon", "nvx", "nvy", "nw", "map_stride",
-        "safety", "nb", "nsplit", "chunks_per_split")] + [
+        "safety", "nb", "nsplit", "chunks_per_split", "global_tables")] + [
         (n, ctypes.c_float) for n in (
             "dt", "half_dt", "dt6", "gamma", "beta", "b_eps", "b_weight", "b_weight2",
             "o_weight", "o_weight_m2", "b_radius", "d_safe", "inv_d_safe", "d_min",
@@ -286,7 +293,7 @@ class _Params(ctypes.Structure):
 _BUFFERS = ("x", "U", "hist", "nh", "phik", "means", "covs", "weights", "pts", "D",
             "mask_ck", "dist", "pstart", "porigin", "pres", "dorigin", "dlen", "cks", "vb",
             "U_new", "metric", "bcost", "ck_out", "code", "u_dwa", "feasible", "phik_buf",
-            "part_acc", "part_tot")
+            "part_acc", "part_tot", "solve_ws")
 
 
 class _Buffers(ctypes.Structure):
@@ -295,14 +302,15 @@ class _Buffers(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
 
 
-def lattice_split(S: int, n_chunks: int, sm_count: int):
+def lattice_split(S: int, n_chunks: int, sm_count: int, slabs: int = 1):
     """(number of lattice splits, chunks per split) of the refresh's grid, for
     K1's refresh and for K2. The grid is ceil(S / TILE_S) scenario tiles x
-    splits blocks, of which BLOCKS_PER_SM * sm_count run at a time: the
-    splits fill whole rounds of those (one scenario would otherwise be one
-    block walking every chunk, and a round that is partly filled costs a whole
-    one), with at most MAX_RUN chunks a split and one split per chunk."""
-    tiles = -(-S // TILE_S)
+    splits x ``slabs`` blocks, of which BLOCKS_PER_SM * sm_count run at a
+    time: the splits fill whole rounds of those (one scenario would otherwise
+    be one block walking every chunk, and a round that is partly filled costs
+    a whole one), with at most MAX_RUN chunks a split and one split per
+    chunk."""
+    tiles = -(-S // TILE_S) * slabs
     slots = BLOCKS_PER_SM * sm_count
     least = -(-n_chunks // MAX_RUN)  # splits that MAX_RUN asks for
     rounds = max(1, -(-least * tiles // slots))
@@ -311,9 +319,41 @@ def lattice_split(S: int, n_chunks: int, sm_count: int):
     return -(-n_chunks // per), per
 
 
+def slab_blocks(KK: int) -> int:
+    """Blocks on the z axis of the refresh's grid (K1's and K2's) for
+    K^2 = KK: one per slab of SLAB coefficients (``refresh_slabs`` in
+    csrc/gmm_refresh.cuh)."""
+    return -(-KK // SLAB)
+
+
+def solve_warp_floats(K: int, H: int, nb: int) -> int:
+    """Floats of one warp's tables of k1_solve (``solve_warp_floats`` in
+    csrc/solve_kernel.cu): Wh and the history sums (K^2 each), the four
+    cos / sin tables of the knots (H K each), a scratch of the largest of
+    the two gradient contractions, the metric terms and a chunk of history
+    tables, SERIES arrays of H and the first controls."""
+    scratch = max(2 * H * K, K * K, 2 * K * HIST_CHUNK if nb > 0 else 0)
+    return K * K * (2 if nb > 0 else 1) + 4 * H * K + scratch + SERIES * H + NUMAX
+
+
+def global_tables(K: int, H: int, nb: int, max_smem: int = MAX_SMEM) -> bool:
+    """Whether k1_solve keeps its warps' tables for (K, H, nb) in a global
+    workspace of S x solve_warp_floats floats (True) or in shared memory
+    (False). Shared memory where the tables of a block of SOLVE_WARPS fit
+    four such blocks on an SM (QUAD_SMEM, and within ``max_smem``); past
+    that the global tables, whose blocks share an SM four at a time by
+    their registers. Phase 21 of chip_smoke.py times both layouts on an
+    H100 (PERF.md section 6): shared memory was the faster up to that fit,
+    the global tables beyond it, and also faster than blocks of 2 or 1
+    warps with shared tables."""
+    return SOLVE_WARPS * 4 * solve_warp_floats(K, H, nb) > min(max_smem, QUAD_SMEM)
+
+
 def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int,
-              safety: bool = True, nb: int = 0, split=(1, 0)) -> _Params:
-    """``split``: (lattice splits, chunks per split) of the refresh's grid."""
+              safety: bool = True, nb: int = 0, split=(1, 0),
+              tables_global: bool = False) -> _Params:
+    """``split``: (lattice splits, chunks per split) of the refresh's grid;
+    ``tables_global``: k1_solve's tables in the global workspace."""
     p = _Params()
     ints = dict(S=S, H=sp.H, K=sp.K, nu=sp.nu, P=sp.P, Pc=sps.Pc, J=sp.J, Npad=Npad,
                 map_h=sp.map_h, map_w=sp.map_w, masked=int(sp.masked_refresh),
@@ -323,7 +363,7 @@ def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int,
                 nw=sps.samples[2],
                 map_stride=sp.map_h * sp.map_w if sp.per_scenario_maps else 0,
                 safety=int(safety), nb=nb, nsplit=split[0],
-                chunks_per_split=split[1])
+                chunks_per_split=split[1], global_tables=int(tables_global))
     floats = dict(
         dt=sp.dt, half_dt=0.5 * sp.dt, dt6=sp.dt / 6.0, gamma=sp.gamma, beta=sp.beta,
         b_eps=sp.b_eps, b_weight=sp.b_weight, b_weight2=2.0 * sp.b_weight,
@@ -396,6 +436,8 @@ class FusedSolveSafety:
         self.built = None  # utils.cuda_build.Built once compiled
         self.launches = {}
         self._scratch = {}  # (device, nsplit, S, K^2) -> the refresh's partial sums
+        self._workspace = {}  # (device, floats) -> k1_solve's global tables
+        self._optin = {}  # device -> bytes of shared memory a block may opt in to
         self.reset_launches()
 
     def reset_launches(self) -> None:
@@ -413,6 +455,23 @@ class FusedSolveSafety:
                 torch.empty((nsplit, S), dtype=torch.float32, device=dev))
         return self._scratch[key]
 
+    def solve_workspace(self, dev, n: int) -> torch.Tensor:
+        """``n`` floats for k1_solve's tables in global memory (where
+        :func:`global_tables` says so), allocated once per size and reused by every later launch,
+        as the refresh's scratch is (a captured graph keeps its pointer)."""
+        key = (dev, n)
+        if key not in self._workspace:
+            self._workspace[key] = torch.empty((n,), dtype=torch.float32, device=dev)
+        return self._workspace[key]
+
+    def smem_optin(self, dev) -> int:
+        """Bytes of dynamic shared memory a block may opt in to on ``dev``,
+        as the library reads it from the device (once per device)."""
+        if dev not in self._optin:
+            with torch.cuda.device(dev):
+                self._optin[dev] = int(self.build().lib.k1_smem_optin())
+        return self._optin[dev]
+
     def build(self):
         if self.built is None:
             from ergodic_exploration_tpu_torch.utils.cuda_build import LIBRARIES, build
@@ -423,6 +482,8 @@ class FusedSolveSafety:
                 fn.argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(_Buffers),
                                ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            built.lib.k1_smem_optin.argtypes = []
+            built.lib.k1_smem_optin.restype = ctypes.c_int
             self.built = built
         return self.built
 
@@ -438,8 +499,8 @@ class FusedSolveSafety:
             self.launches[variant] += 1
 
     def _refresh_operands(self, r: Refresh, dlen, K: int, dev):
-        """Checked operands of the refresh with its scratch, and the
-        (splits, chunks per split) of its grid."""
+        """Checked operands of the refresh with its scratch, and its lattice
+        split: (splits, chunks per split)."""
         S, J = r.gmm.weights.shape
         Npad = r.pts.shape[0]
         if Npad % LATTICE_CHUNK:
@@ -449,7 +510,7 @@ class FusedSolveSafety:
         _check_operands("K1", ops, dict(means=(S, J, 2), covs=(S, J, 2, 2), weights=(S, J),
                                         pts=(Npad, 2), D=(Npad, K * K), mask_ck=(K * K,),
                                         dlen=(S, 2)), dev)
-        split = lattice_split(S, Npad // LATTICE_CHUNK, _sm_count(dev))
+        split = lattice_split(S, Npad // LATTICE_CHUNK, _sm_count(dev), slab_blocks(K * K))
         ops["part_acc"], ops["part_tot"] = self.refresh_scratch(dev, split[0], S, K * K)
         return ops, split
 
@@ -475,8 +536,8 @@ class FusedSolveSafety:
         _require_cuda(dev, "K1 kernel")
         S, H, nu = inp.U.shape
         K = cfg.num_basis
-        if K > KMAX or H > HMAX or nu > NUMAX:
-            raise ValueError(f"K1 supports K <= {KMAX}, H <= {HMAX}, nu <= {NUMAX}")
+        if nu > NUMAX:
+            raise ValueError(f"K1 supports nu <= {NUMAX}")
         per_scenario = inp.dist.dim() == 3
         if inp.dist.dim() not in (2, 3):
             raise ValueError(f"K1 dist: need (mh, mw) or (S, mh, mw), got "
@@ -518,12 +579,16 @@ class FusedSolveSafety:
         if r is not None:
             r_ops, split = self._refresh_operands(r, inp.dlen, K, dev)
             ops.update(r_ops)
+        tables_global = global_tables(K, H, nb, self.smem_optin(dev))
+        if tables_global:
+            ops["solve_ws"] = self.solve_workspace(dev, S * solve_warp_floats(K, H, nb))
         ops.update(U_new=out.U_new, metric=out.metric, bcost=out.barrier, ck_out=out.ck_sum,
                    code=out.code, u_dwa=out.u_dwa, feasible=out.feasible, phik_buf=phik_buf)
         variant = ("fused_solve_safety" if enable_safety else "fused_solve") + (
             "_map_h0" if per_scenario else "") + ("_nb" if nb else "")
         self._launch("k1_fused_solve_safety", variant,
-                     _c_params(sp, sps, S, Npad, enable_safety, nb, split), ops, dev)
+                     _c_params(sp, sps, S, Npad, enable_safety, nb, split, tables_global), ops,
+                     dev)
         return out
 
     def safety(self, cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen):

@@ -71,28 +71,28 @@ inline thread_local Warp* warp = nullptr;
 template <class F>
 void run(dim3 grid, dim3 block, size_t smem, F body) {
     const unsigned nthreads = block.x * block.y * block.z;
-    for (unsigned by = 0; by < grid.y; ++by)
-        for (unsigned bx = 0; bx < grid.x; ++bx) {
-            std::vector<float4> mem(smem / sizeof(float4) + 2);
-            memset(mem.data(), 0xFF, mem.size() * sizeof(float4));
-            std::barrier<> bar(nthreads);
-            std::vector<std::unique_ptr<Warp>> warps;
-            for (unsigned w = 0; w * 32 < nthreads; ++w)
-                warps.push_back(std::make_unique<Warp>((int)std::min(32u, nthreads - w * 32)));
-            std::vector<std::thread> threads;
-            for (unsigned t = 0; t < nthreads; ++t)
-                threads.emplace_back([&, t] {
-                    threadIdx = uint3{t % block.x, (t / block.x) % block.y, t / (block.x * block.y)};
-                    blockIdx = uint3{bx, by, 0};
-                    blockDim = block;
-                    gridDim = grid;
-                    dyn_smem = reinterpret_cast<unsigned char*>(mem.data());
-                    block_bar = &bar;
-                    warp = warps[t / 32].get();
-                    body();
-                });
-            for (auto& th : threads) th.join();
-        }
+    for (unsigned b = 0; b < grid.x * grid.y * grid.z; ++b) {
+        const unsigned bx = b % grid.x, by = (b / grid.x) % grid.y, bz = b / (grid.x * grid.y);
+        std::vector<float4> mem(smem / sizeof(float4) + 2);
+        memset(mem.data(), 0xFF, mem.size() * sizeof(float4));
+        std::barrier<> bar(nthreads);
+        std::vector<std::unique_ptr<Warp>> warps;
+        for (unsigned w = 0; w * 32 < nthreads; ++w)
+            warps.push_back(std::make_unique<Warp>((int)std::min(32u, nthreads - w * 32)));
+        std::vector<std::thread> threads;
+        for (unsigned t = 0; t < nthreads; ++t)
+            threads.emplace_back([&, t] {
+                threadIdx = uint3{t % block.x, (t / block.x) % block.y, t / (block.x * block.y)};
+                blockIdx = uint3{bx, by, bz};
+                blockDim = block;
+                gridDim = grid;
+                dyn_smem = reinterpret_cast<unsigned char*>(mem.data());
+                block_bar = &bar;
+                warp = warps[t / 32].get();
+                body();
+            });
+        for (auto& th : threads) th.join();
+    }
 }
 
 }  // namespace host_stub

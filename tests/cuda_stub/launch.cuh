@@ -6,6 +6,9 @@
 
 #include <cuda_runtime.h>
 
+// An H100's opt-in limit of dynamic shared memory a block (bytes).
+inline int max_dynamic_smem() { return 232448; }
+
 template <class P, class B>
 inline cudaError_t launch_kernel(void (*kernel)(P, B), dim3 grid, dim3 block, size_t smem,
                                  cudaStream_t, P& p, B& b) {

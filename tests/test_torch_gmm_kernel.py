@@ -8,6 +8,8 @@ Tolerance: atol 2e-5, the budget the JAX package holds its own kernel to
 (tests/test_engine.py); both sides sum 400 float32 terms in another order.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -126,6 +128,11 @@ def test_lattice_split_covers_every_chunk(S_, chunks, sms):
 def test_k2_params_mirror_the_c_struct():
     assert [f[0] for f in gk._Params._fields_] == [
         "S", "J", "KK", "Npad", "n_real", "nsplit", "chunks_per_split", "masked"]
+    # the struct in the source lists the same fields in the same order
+    src = open(gk.__file__.replace("ops/gmm_kernel.py", "csrc/gmm_kernel.cu")).read()
+    body = src[src.index("struct K2Params {"):src.index("// Mirror of ops/gmm_kernel.py::_Buffers")]
+    body = re.sub(r"//.*", "", body)
+    assert re.findall(r"\b([A-Za-z_]\w*)\s*[,;]", body) == [f[0] for f in gk._Params._fields_]
     assert [f[0] for f in gk._Buffers._fields_] == list(gk._BUFFERS)
     pts, D = gk.pad_lattice(torch.zeros(400, 2), torch.ones(400, 36))
     assert pts.shape == (448, 2) and D.shape == (448, 36) and (D[400:] == 0).all()

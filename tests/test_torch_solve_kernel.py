@@ -155,6 +155,8 @@ def test_kernel_params_mirror_the_c_struct():
     assert (p.nsplit, p.chunks_per_split) == (1, 0)
     q = sk._c_params(sp, sps, 7, 10240, split=(6, 27))
     assert (q.nsplit, q.chunks_per_split) == (6, 27)
+    assert p.global_tables == 0
+    assert sk._c_params(sp, sps, 7, 10240, split=(6, 27), tables_global=True).global_tables == 1
     assert [f[0] for f in sk._Buffers._fields_] == list(sk._BUFFERS)
     # the struct in the source lists the same fields in the same order
     src = open(sk.__file__.replace("ops/solve_kernel.py", "csrc/solve_kernel.cu")).read()
@@ -230,6 +232,30 @@ def test_refresh_scratch_is_allocated_once_per_shape():
     again = k1.refresh_scratch(cpu, 8, 4096, 100)
     assert again[0] is acc and again[1] is tot  # not per tick
     assert k1.refresh_scratch(cpu, 157, 1, 100)[0].shape == (157, 1, 100)
+
+
+def test_solve_workspace_is_allocated_once_per_size():
+    """k1_solve's global tables: one tensor per size, the same for every
+    later launch of that size (a graph captured on one keeps its pointer)."""
+    k1 = sk.FusedSolveSafety()
+    cpu = torch.device("cpu")
+    ws = k1.solve_workspace(cpu, 512 * sk.solve_warp_floats(40, 256, 40))
+    assert ws.numel() == 512 * 69252 and ws.dtype == torch.float32
+    assert k1.solve_workspace(cpu, 512 * 69252) is ws  # not per tick
+    assert k1.solve_workspace(cpu, 4 * 69252).numel() == 4 * 69252
+    assert k1.solve_workspace(cpu, 512 * 69252) is ws
+
+
+@pytest.mark.parametrize("S_,slabs", [(1, 2), (4096, 4), (4096, 7), (100, 2)])
+def test_lattice_split_counts_the_slabs(S_, slabs):
+    """The refresh's slabs on the grid's z axis count as blocks when the
+    lattice split fills rounds of the blocks that run at a time: one slab
+    is the split of before, more slabs take fewer splits."""
+    nsplit, per = sk.lattice_split(S_, 157, 132, slabs)
+    assert (nsplit - 1) * per < 157 <= nsplit * per and per <= sk.MAX_RUN
+    assert nsplit <= sk.lattice_split(S_, 157, 132)[0]
+    assert sk.lattice_split(S_, 157, 132, 1) == sk.lattice_split(S_, 157, 132)
+    assert sk.slab_blocks(100) == 1 and sk.slab_blocks(257) == 2 and sk.slab_blocks(1600) == 7
 
 
 def _refresh_split_and_finish(r, dlen, split):
