@@ -14,11 +14,13 @@ host's CUDA runtime calls a tick, and the kernels that take most of the
 device time:
 
   A  the bench tick (``replan_refresh``, shared map, K1 with the refresh),
-     one eager tick a call
+     one tick a call: the graph replay (the entry point) and the eager
+     function (``_refresh_and_replan_fn``)
   B  ``explore`` with K1 on 4096 distinct maps (the quick-start loop, fused),
      10 ticks a call: the graph replays and the plain loop (``_explore_loop``)
   C  the same for the default configuration (eager step + fused_safety), S=512
-  E  the MI tick (disc reveal + ``replan_refresh_mi`` with K3 + pose advance)
+  E  the MI tick (disc reveal + ``replan_refresh_mi`` with K3 + pose advance),
+     graph replay and eager function (``_refresh_mi_and_replan_fn``)
   F  the mapping loop: 10 ticks of ``explore`` on the beliefs' world after a
      ray-cast reveal, graphs and loop; two whole refreshes of
      ``explore_mapping_fused``, graphs and ``_explore_mapping_fused_loop``
@@ -115,13 +117,15 @@ def main() -> int:
     loops = []  # (name, fn, ticks or refreshes a call, unit)
 
     engine, sc, world, gmm, domain = cs.build_engine(cs.S_MAIN, dev)
-    state = [sc]
+    for kind, run in (("graph replay", engine.replan_refresh),
+                      ("eager", engine._refresh_and_replan_fn)):
+        state = [sc]
 
-    def tick_a():
-        s, u, _ = engine.replan_refresh(state[0], gmm, domain, world)
-        state[0] = cs.advance(engine, s, u)
+        def tick_a(run=run, state=state):
+            s, u, _ = run(state[0], gmm, domain, world)
+            state[0] = cs.advance(engine, s, u)
 
-    loops.append((f"A bench tick, S={cs.S_MAIN}", tick_a, 1, "tick"))
+        loops.append((f"A bench tick, S={cs.S_MAIN}, {kind}", tick_a, 1, "tick"))
 
     def explore_pair(tag, eng, sc, phik, world):
         """``explore`` (graphs) and ``_explore_loop``, BLOCK ticks a call,
@@ -154,16 +158,16 @@ def main() -> int:
                      eng.phik_from_gmm(gmm_b, dom_b, world_b), world_b)
 
     engine_e, sc_e, belief, truth_e, world_e, domain_e = cs.mi_case(cs.S_MAIN, dev)
-    st_e = [sc_e, belief]
+    for kind, run in (("graph replay", engine_e.replan_refresh_mi),
+                      ("eager", engine_e._refresh_mi_and_replan_fn)):
+        st_e = [sc_e, belief]
 
-    def tick_e():
-        b = sensor.reveal(st_e[1], truth_e, st_e[0].x, 0.75)
-        s, u, _ = engine_e.replan_refresh_mi(st_e[0], b, world_e,
-                                             sensor_radius_cells=cs.MI_RADIUS, domain=domain_e,
-                                             use_mi_kernel=True)
-        st_e[:] = [cs.advance(engine_e, s, u), b]
+        def tick_e(run=run, st_e=st_e):
+            b = sensor.reveal(st_e[1], truth_e, st_e[0].x, 0.75)
+            s, u, _ = run(st_e[0], b, world_e, cs.MI_RADIUS, domain_e, use_mi_kernel=True)
+            st_e[:] = [cs.advance(engine_e, s, u), b]
 
-    loops.append((f"E MI tick (K3 + K1), S={cs.S_MAIN}", tick_e, 1, "tick"))
+        loops.append((f"E MI tick (K3 + K1), S={cs.S_MAIN}, {kind}", tick_e, 1, "tick"))
 
     def mapping_loops(tag, eng, x0, truth, every):
         """After one refresh from unknown beliefs: BLOCK ticks on its world,

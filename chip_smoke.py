@@ -59,8 +59,12 @@ Phases:
 16  the single-robot node (``ExplorationNode``, ``default_config("cart")``, a
     100 x 100 map, native EDT): 300 ticks with a plant and a map update every
     50, eager (``fused_safety``), fused (K1 on the node's map, S = 1) and
-    fused with pipelining, p50 / p99 of ``step()`` against the 100 ms budget;
-    100 ticks of the MI target on a belief a disc sensor opens; the node on
+    fused with pipelining, each as a node whose ``step()`` replays its graph
+    and a node that takes the eager tick by name, in lockstep and equal bit
+    for bit on every tick, launches exact on the tick that captures and on
+    the replays, p50 / p99 of ``step()`` against the 100 ms budget and host
+    runtime calls a tick, graph against eager; 300 ticks of the MI target on
+    a belief a disc sensor opens, graph and eager in lockstep; the node on
     the card vs on the CPU over one odometry stream; K1 and ``fused_safety``
     vs plain on the node's inputs
 17  scale-out (path H), on ranks spawned with ``torch.multiprocessing`` and
@@ -92,11 +96,13 @@ Phases:
     ``bench._run()`` in process at full width (S = 4096, 50 ticks each of
     ``bench_throughput`` and ``bench_throughput_mi``; ``bench_latency``'s
     24 runs of 32 replans at S = 1), the launches of each of the three
-    counted apart; K1 (J = 2 at S = 4096 and S = 1; J = 0 fed by K3) and K3
-    vs plain on the states those loops reached; the line's values finite
-    and above 0, p99 under the 100 ms budget; this run's path A and path E
-    ticks printed beside it; ``python -m ergodic_exploration_tpu_torch.bench``
-    once as a subprocess, exit 0 and a line with the same keys
+    counted apart (each times graph replays of the entry point); K1 (J = 2
+    at S = 4096 and S = 1; J = 0 fed by K3) and K3 vs plain on the states
+    those loops reached; the three again on the eager functions, printed
+    beside the line (never in it); the line's values finite and above 0, p99
+    under the 100 ms budget; this run's path A and path E ticks printed
+    beside it; ``python -m ergodic_exploration_tpu_torch.bench`` once as a
+    subprocess, exit 0 and a line with the same keys
 
 20  the closed loops as CUDA graphs (``explore`` replays graphs of 10 ticks
     and of 1, ``explore_mapping_fused`` one graph a refresh) against their
@@ -129,11 +135,29 @@ Phases:
     20, 32, ``warmup(num_basis=17)``, ``replan``, ``replan_refresh`` and
     ``explore`` at (20, 80) and (32, 128), the fused ``ExplorationNode`` at
     H = 80; launches exact throughout
+22  the single-tick entry points as CUDA graphs (``replan``,
+    ``replan_refresh``, ``replan_refresh_mi`` replay a 1-tick graph) against
+    their eager functions called by name, from one state: path A at S = 4096
+    and S = 1, path E with K3 at S = 4096 (a disc reveal between ticks) and
+    S = 1, its dense path, its 200 x 200 row bands at S = 1024, path C
+    (``replan`` on the eager step, S = 512), path D (``fused_solve``), K1 on
+    per-scenario maps with the history summed in it (S = 4096) and
+    ``replan_refresh`` with K2 ahead of K1 (S = 512). Each: 10 chained ticks
+    equal bit for bit in the state, u and every diagnostic, launches exact on
+    the call that captures and on the replays; a tick with the inputs
+    unchanged and one after an in-place change to the world, the target or
+    the beliefs, still equal; the first call's outputs unchanged after the
+    later calls; then, graphs against eager with only the scenarios
+    changing, ms a tick by CUDA events and by host clock, the host's CUDA
+    runtime calls a tick (at most 20 on path A), the S = 1 latency p50 /
+    p99, the capture's seconds and the peak device memory
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
-``explore_mapping_fused``) runs as graph replays, the first call of a shape
-capturing its graphs; a graph's first call is its warm-up, whose launches
-are real and counted. Every path is driven with the launch counts set to 0
+``explore_mapping_fused``) and every call of a single-tick entry point
+(``replan``, ``replan_refresh``, ``replan_refresh_mi``, the node's
+``step``) runs as graph replays, the first call of a shape capturing its
+graphs; a graph's first call is its warm-up, whose launches are real and
+counted. Every path is driven with the launch counts set to 0
 just before it and read just after. The last two lines are a JSON line describing each kernel
 variant that a path launched (launches on its path; error against the plain
 version, time, the plain version's time and the least time the card could
@@ -178,7 +202,7 @@ MI_RADIUS = 3  # sensor_radius_cells of the MI tick
 MAP_REFRESHES, MAP_EVERY = 5, 10  # path F: refreshes and ticks per refresh
 REVEAL_PEAK_LIMIT = 8 * 2**30  # bytes reveal_raycast may hold at S_MAIN
 NODE_TICKS, NODE_MAP_EVERY = 300, 50  # phase 16: ticks after one warm-up tick; map cadence
-NODE_MI_TICKS, NODE_REVEAL_EVERY = 100, 10  # phase 16's MI loop
+NODE_MI_TICKS, NODE_REVEAL_EVERY = 300, 10  # phase 16's MI loop
 NODE_CMP_TICKS = 10  # phase 16: ticks of the node on the card vs on the CPU
 BUDGET_MS = 100.0  # the 10 Hz loop's period
 REVEAL_RANGE = 0.75  # m: the disc a scenario's sensor reveals around its pose each MI tick
@@ -199,6 +223,11 @@ WIDE_S, WIDE_TICKS = 512, 5  # phase 21: scenarios of all but path A's inputs; t
 WIDE_J = (1, 3, 64)  # phase 21: mixture components of the refresh and K2
 WIDE_CPU_SHAPES = ((20, 80), (32, 128))  # phase 21: the entry points on the card vs on the CPU
 LAYOUT_SHAPES = ((10, 20), (10, 40), (12, 40), (16, 64))  # phase 21: k1_solve's layouts timed
+ENTRY_TICKS = 10  # phase 22: chained ticks of each path, graphs against eager
+# ticks of an eager function or plain loop under torch.profiler (phases 16,
+# 20, 22): its host calls are the same every tick, and the host reads a
+# profile's events one by one, thousands a tick
+PROFILE_LOOP_TICKS = 3
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -667,110 +696,171 @@ def node_phase(dev, card, entry, kernels) -> None:
         return ExplorationNode(c, target=GaussianMixture.create(*gmm_np), use_native=True,
                                pipeline=pipeline, device=d, **kw)
 
-    def node_loop(fused, pipeline):
-        """NODE_TICKS ticks after one warm-up tick: step(), then a plant that
-        applies the twist through the port's rollout; a map update every
-        NODE_MAP_EVERY ticks, paid by the next step()."""
-        node = make_node(None, fused, pipeline)
-        if node.device.type != dev.type or not node.use_native:
+    def node_pair(fused, pipeline, **kw):
+        """Two nodes on the card from one configuration: the first's step()
+        replays its graph, the second takes the eager tick by name."""
+        pair = [make_node(None, fused, pipeline, **kw) for _ in range(2)]
+        if any(n.device.type != dev.type or not n.use_native for n in pair):
             fail("the node is not on the card or not on the native runtime")
-        node.on_map(base_map, resolution=0.05)
-        node.on_odom(start)
-        pose = torch.tensor(start, dtype=torch.float32, device=dev)
+        return pair, (pair[0].step, lambda: pair[1]._step(pair[1]._eager_tick))
 
-        def plant(tw):
-            nonlocal pose
-            u = node.model.from_twist(torch.as_tensor(tw, device=dev))
-            pose = rollout(node.model, pose, u[None], node.config.dt)[-1]
-            return pose, tw
+    def same_step(what, i, got, ref):
+        """A tick of the graph node against the eager node's: bit for bit."""
+        (tw_g, d_g), (tw_e, d_e) = got, ref
+        if (d_g is None) != (d_e is None) or not np.array_equal(tw_g, tw_e) or d_g != d_e:
+            fail(f"{what}: tick {i} of the node's graph {tw_g} {d_g} differs from its eager "
+                 f"tick {tw_e} {d_e}")
 
-        t0 = time.perf_counter()
-        node.step()  # the first tick: world, target, nothing warm yet
+    def node_loop(fused, pipeline):
+        """NODE_TICKS ticks after one warm-up tick (which captures the
+        graph): step(), then a plant that applies the twist through the
+        port's rollout; a map update every NODE_MAP_EVERY ticks, paid by the
+        next step(). The graph node and the eager node run in lockstep, each
+        with its own plant, and must agree bit for bit on every tick; then
+        20 steps of each are profiled."""
+        what = f"node (fused={fused}, pipeline={pipeline})"
+        (node, node_e), steps = node_pair(fused, pipeline)
+        poses = []
+        for n in (node, node_e):
+            n.on_map(base_map, resolution=0.05)
+            n.on_odom(start)
+            poses.append(torch.tensor(start, dtype=torch.float32, device=dev))
+
+        def plant(k, n, tw):
+            u = n.model.from_twist(torch.as_tensor(tw, device=dev))
+            poses[k] = rollout(n.model, poses[k], u[None], n.config.dt)[-1]
+            n.on_odom(poses[k], tw)
+
         torch.cuda.synchronize()
-        first_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         reset_counts()
-        lat, map_lat, dwa, n_diag = [], [], 0, 0
+        first_ms = []
+        for k, step in enumerate(steps):  # the first tick: world, target, the graph's capture
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            first_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = read_counts()
+        variant = "fused_solve_safety_map_h0_nb" if fused else "fused_safety"
+        expect_counts(f"phase 16, {what}, the first tick of each (the graph's captured)",
+                      counts, {variant: 2})
+        reset_counts()
+        lat, map_lat, dwa, n_diag = ([], []), ([], []), 0, 0
         for i in range(NODE_TICKS):
             update = i > 0 and i % NODE_MAP_EVERY == 0
-            if update:
-                node.on_map(map_update(i), resolution=0.05)
-            t0 = time.perf_counter()
-            tw, diag = node.step()
-            ms = 1e3 * (time.perf_counter() - t0)
-            (map_lat if update else lat).append(ms)
+            outs = []
+            for k, (n, step) in enumerate(zip((node, node_e), steps)):
+                if update:
+                    n.on_map(map_update(i), resolution=0.05)
+                t0 = time.perf_counter()
+                outs.append(step())
+                ms = 1e3 * (time.perf_counter() - t0)
+                (map_lat if update else lat)[k].append(ms)
+            same_step(what, i, *outs)
+            tw, diag = outs[0]
             if diag is not None:
                 n_diag += 1
                 dwa += int(diag.dwa_active)
                 if diag.diverged or not np.isfinite(tw).all():
-                    fail(f"node (fused={fused}, pipeline={pipeline}): tick {i} diverged")
-            node.on_odom(*plant(tw))
-        if pipeline and node.flush() is None:
-            fail("the pipelined node had no tail to flush")
+                    fail(f"{what}: tick {i} diverged")
+            for k, n in enumerate((node, node_e)):
+                plant(k, n, outs[k][0])
+        if pipeline:
+            tails = [node.flush(), node_e.flush()]
+            if tails[0] is None:
+                fail("the pipelined node had no tail to flush")
+            same_step(what, NODE_TICKS, *tails)
         torch.cuda.synchronize()
-        counts = read_counts()
-        every = np.asarray(lat + map_lat)
-        p = {q: float(np.percentile(every, q)) for q in (50, 90, 99)}
-        final = pose.tolist()
-        print(f"  fused={fused} pipeline={pipeline}: step() p50 {p[50]:.4f} ms, p90 {p[90]:.4f}, "
-              f"p99 {p[99]:.4f}, max {every.max():.4f} over {len(every)} ticks (budget "
-              f"{BUDGET_MS} ms); steady ticks p50 {np.percentile(lat, 50):.4f}, p99 "
-              f"{np.percentile(lat, 99):.4f}; the {len(map_lat)} map-update ticks "
-              f"{[round(v, 4) for v in map_lat]} ms; the first tick {first_ms:.1f} ms; "
-              f"achievable {1e3 / p[50]:.1f} Hz; DWA rate {dwa / max(n_diag, 1):.4f}; final pose "
-              f"{[round(v, 3) for v in final]} {card}")
-        if p[99] >= BUDGET_MS:
-            fail(f"node (fused={fused}, pipeline={pipeline}): p99 {p[99]:.2f} ms reaches the "
-                 f"{BUDGET_MS} ms budget")
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: v // 2 for k, v in read_counts().items()}  # each node's
+        expect_counts(f"phase 16, {what}, {NODE_TICKS} ticks of each node",
+                      read_counts(), {variant: 2 * NODE_TICKS})
+        final = poses[0].tolist()
+        res = []
+        for k, route in enumerate(("graph", "eager")):
+            every = np.asarray(lat[k] + map_lat[k])
+            p = {q: float(np.percentile(every, q)) for q in (50, 90, 99)}
+            res.append(p)
+            print(f"  fused={fused} pipeline={pipeline}, {route}: step() p50 {p[50]:.4f} ms, p90 "
+                  f"{p[90]:.4f}, p99 {p[99]:.4f}, max {every.max():.4f} over {len(every)} ticks "
+                  f"(budget {BUDGET_MS} ms); steady ticks p50 {np.percentile(lat[k], 50):.4f}, "
+                  f"p99 {np.percentile(lat[k], 99):.4f}; the {len(map_lat[k])} map-update ticks "
+                  f"{[round(v, 4) for v in map_lat[k]]} ms; the first tick {first_ms[k]:.1f} ms; "
+                  f"achievable {1e3 / p[50]:.1f} Hz {card}")
+            if p[99] >= BUDGET_MS:
+                fail(f"{what}, {route}: p99 {p[99]:.2f} ms reaches the {BUDGET_MS} ms budget")
+        prof = []
+        for step, n in zip(steps, (20, PROFILE_LOOP_TICKS)):
+            calls, busy, wall = runtime_profile(lambda step=step: [step() for _ in range(n)])
+            prof.append((sum(calls.values()) / n, busy / n, wall / n))
+        print(f"  fused={fused} pipeline={pipeline}: graph vs eager, host CUDA runtime calls a "
+              f"tick {prof[0][0]:.2f} vs {prof[1][0]:.2f}, device busy {prof[0][1]:.4f} vs "
+              f"{prof[1][1]:.4f} ms a tick (profiled run {prof[0][2]:.4f} vs {prof[1][2]:.4f} ms "
+              f"a tick); capture {node._graph.capture_s:.3f} s; peak device memory of both "
+              f"nodes above what was held before {(peak - base) / 2**20:.1f} MiB; {NODE_TICKS} "
+              f"ticks equal bit for "
+              f"bit; DWA rate {dwa / max(n_diag, 1):.4f}; final pose "
+              f"{[round(v, 3) for v in final]} {card}", flush=True)
         if not np.isfinite(final).all():
             fail("node: non-finite final pose")
         return node, counts
 
     node_e, counts_e = node_loop(False, False)
-    expect_counts("phase 16, eager node", counts_e, {"fused_safety": NODE_TICKS})
     node_f, counts_f = node_loop(True, False)
-    expect_counts("phase 16, fused node", counts_f, {"fused_solve_safety_map_h0_nb": NODE_TICKS})
-    _, counts_p = node_loop(True, True)
-    expect_counts("phase 16, fused pipelined node", counts_p,
-                  {"fused_solve_safety_map_h0_nb": NODE_TICKS})
+    node_loop(True, True)
 
     # the MI target on a belief a disc sensor opens every NODE_REVEAL_EVERY
-    # ticks (examples/single_robot.py's world and start), fused
+    # ticks (examples/single_robot.py's world and start), fused; a graph node
+    # and an eager node fed the same map updates and odometry, in lockstep
     truth_np = np.zeros((100, 100), np.float32)
     truth_np[48:52, 10:60] = 1.0
     truth_np[48:52, 75:95] = 1.0
     truth_np[20:28, 70:78] = 1.0
     truth = GridMap.create(truth_np, 0.0, 0.0, 0.05, device=dev)
     belief = truth._replace(data=torch.full_like(truth.data, -1.0))
-    node = ExplorationNode(default_config("cart").replace(use_fused_solve=True,
-                                                          ergodic_weight=50.0), target="mi",
-                           device=dev)
+    pair = [ExplorationNode(default_config("cart").replace(use_fused_solve=True,
+                                                           ergodic_weight=50.0), target="mi",
+                            device=dev) for _ in range(2)]
+    mi_steps = (pair[0].step, lambda: pair[1]._step(pair[1]._eager_tick))
     pose = torch.tensor([1.0, 1.0, 0.3], device=dev)
-    node.on_odom(pose)
-    step_t = torch.tensor([node.config.dt], device=dev)
+    for n in pair:
+        n.on_odom(pose)
+    step_t = torch.tensor([pair[0].config.dt], device=dev)
     reset_counts()
-    lat, map_lat, poses = [], [], []
+    lat, map_lat, poses = ([], []), ([], []), []
     for t in range(NODE_MI_TICKS):
         update = t % NODE_REVEAL_EVERY == 0
         if update:
             belief = sensor.reveal(belief, truth, pose, 1.2)
-            node.on_map(belief.data, 0.0, 0.0, 0.05)
-        t0 = time.perf_counter()
-        tw, diag = node.step()
-        (map_lat if update else lat).append(1e3 * (time.perf_counter() - t0))
+        outs = []
+        for k, (n, step) in enumerate(zip(pair, mi_steps)):
+            if update:
+                n.on_map(belief.data, 0.0, 0.0, 0.05)
+            t0 = time.perf_counter()
+            outs.append(step())
+            (map_lat if update else lat)[k].append(1e3 * (time.perf_counter() - t0))
+        same_step("the MI node", t, *outs)
+        tw = outs[0][0]
         pose = constant_twist_poses(pose, torch.as_tensor(tw, device=dev), step_t)[0]
-        node.on_odom(pose, tw)
+        for n in pair:
+            n.on_odom(pose, tw)
         poses.append(pose)
     poses = torch.stack(poses).cpu()
-    expect_counts("phase 16, MI node", read_counts(),
-                  {"fused_solve_safety_map_h0_nb": NODE_MI_TICKS})
+    expect_counts("phase 16, MI node (graph and eager)", read_counts(),
+                  {"fused_solve_safety_map_h0_nb": 2 * NODE_MI_TICKS})
     inside = bool(((poses[:, :2] >= 0.0) & (poses[:, :2] <= 5.0)).all())
     if not torch.isfinite(poses).all() or not inside:
         fail("the MI node's poses are non-finite or left the domain")
-    print(f"  MI node, {NODE_MI_TICKS} ticks: steady step() p50 {np.percentile(lat, 50):.4f} ms, "
-          f"p99 {np.percentile(lat, 99):.4f}; reveal ticks (first excluded) p50 "
-          f"{np.percentile(map_lat[1:], 50):.4f} ms, max {max(map_lat[1:]):.4f}; moved "
+    for k, route in enumerate(("graph", "eager")):
+        print(f"  MI node, {route}, {NODE_MI_TICKS} ticks: steady step() p50 "
+              f"{np.percentile(lat[k], 50):.4f} ms, p99 {np.percentile(lat[k], 99):.4f}; reveal "
+              f"ticks (first excluded) p50 {np.percentile(map_lat[k][1:], 50):.4f} ms, max "
+              f"{max(map_lat[k][1:]):.4f} {card}")
+    print(f"  MI node: graph and eager equal bit for bit on every tick; moved "
           f"{(poses[-1, :2] - poses[0, :2]).norm().item():.3f} m; belief known "
-          f"{(belief.data >= 0).float().mean().item():.4f} {card}")
+          f"{(belief.data >= 0).float().mean().item():.4f}; the graph captured once "
+          f"({pair[0]._graph.capture_s:.3f} s) {card}")
 
     # the node on the card against the node on the CPU, one fixed odometry
     # stream that ends inside the footprint of the wall (barrier, validation, DWA)
@@ -1448,6 +1538,28 @@ def headline_phase(dev, card, kernels, k3_check, tick_a_ms, tick_e_ms) -> None:
             sk.fused_solve_safety_plain(engine.config, inp0))
     del reached, r, engine, sc, belief, phik, inp0, inp2
     torch.cuda.empty_cache()
+    # the same three timed functions on the eager functions (by name), for
+    # the record beside the line's graph replays; launches as exact
+    t0 = time.perf_counter()
+    reset_counts()
+    solves_e = bench.bench_throughput(S=S_MAIN, iters=TIMED_TICKS, device=dev, eager=True)
+    expect_counts("headline, bench_throughput, eager", read_counts(), {"fused_solve_safety": n})
+    reset_counts()
+    mi_e, _ = bench.bench_throughput_mi(S=S_MAIN, iters=TIMED_TICKS, device=dev, eager=True)
+    expect_counts("headline, bench_throughput_mi, eager", read_counts(),
+                  {"phik_from_grid_fc": n, "fused_solve_safety": n})
+    reset_counts()
+    lat_e = bench.bench_latency(reps=LAT_REPS, group=LAT_GROUP, chain=LAT_CHAIN, device=dev,
+                                eager=True)
+    expect_counts("headline, bench_latency, eager", read_counts(),
+                  {"fused_solve_safety": 1 + LAT_CHAIN * (LAT_REPS + 1)})
+    print(f"  the eager functions (in {time.perf_counter() - t0:.1f} s) beside the line's graph "
+          f"replays: {solves_e:.1f} vs {line['value']:.1f} solves/s (GMM), {mi_e:.1f} vs "
+          f"{line['mi_solves_per_s_per_chip']:.1f} (MI); S=1 latency p50 {lat_e['p50']:.4f} vs "
+          f"{line['p50_replan_latency_ms']:.4f} ms, p99 {lat_e['p99']:.4f} vs "
+          f"{line['p99_replan_latency_ms']:.4f} ms, spread {lat_e['min']:.4f}-{lat_e['max']:.4f} "
+          f"vs {line['latency_spread_ms'][0]:.4f}-{line['latency_spread_ms'][1]:.4f} ms {card}")
+    torch.cuda.empty_cache()
     nums = [v for v in line.values() if isinstance(v, (int, float))] + line["latency_spread_ms"]
     if not all(np.isfinite(v) and v > 0 for v in nums):
         fail(f"the headline line holds a value that is not finite and above 0: {line}")
@@ -1990,9 +2102,13 @@ def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int 
         graph_case(tag, eng, *runs, want)
         (entry,) = eng._graphs._entries.values()
         nbytes = sum(t.numel() * t.element_size() for t in graphs.leaves(entry.buffers))
+        full = events_ms(lambda: graphs.copy_leaves(graphs.leaves(entry.buffers),
+                                                    graphs.leaves((sc, phik, world))), 5)
         print(f"  {tag}: the copy-in of (sc, phik, world) a call, {nbytes / 2**20:.1f} MiB: "
-              f"{events_ms(lambda: entry.load((sc, phik, world)), 5):.4f} ms {card}")
-        short = min(n, eng.GRAPH_BLOCK)
+              f"{full:.4f} ms when every leaf is new; "
+              f"{events_ms(lambda: entry.load((sc, phik, world)), 5):.4f} ms when none changed "
+              f"(skipped by version) {card}")
+        short = min(n, PROFILE_LOOP_TICKS)
         cases.append((tag, *runs, n, "tick",
                       lambda: eng._explore_loop(sc, phik, world, short), short))
 
@@ -2072,6 +2188,276 @@ def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int 
         fail(f"phase 20: the graphs made {b['calls']:.2f} host calls a tick on path B (limit 10) "
              f"and {f['calls']:.2f} a refresh on path F (limit 20)")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the single-tick entry points as CUDA graphs against their eager
+# functions
+# ---------------------------------------------------------------------------
+
+
+def same_ticks(name: str, got, ref) -> None:
+    """Fail unless the ticks ``got`` (graph route) equal ``ref`` (the eager
+    function) bit for bit, leaf by leaf: the state, u and every diagnostic."""
+    import torch
+
+    for t, (g, r) in enumerate(zip(got, ref, strict=True)):
+        for (k, a), (_, b) in zip(named_leaves(g), named_leaves(r), strict=True):
+            if not (a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)):
+                err = ((a.float() - b.float()).abs().max().item() if a.shape == b.shape
+                       else float("inf"))
+                fail(f"phase 22, {name}: tick {t} leaf {k} differs from the eager function "
+                     f"(max |diff| {err:.3e})")
+    print(f"  {name}: {len(got)} ticks equal to the eager function bit for bit in all "
+          f"{len(named_leaves(got[0]))} leaves of (state, u, diagnostics) each")
+
+
+def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: dict,
+               mutate, card: str, evolve=None, ticks: int = ENTRY_TICKS, latency: bool = False):
+    """One path of phase 22. ``graph_step(sc, ins)`` is the public entry
+    point (a graph replay), ``eager_step(sc, ins)`` its eager function called
+    by name; both return (sc, u, diag). From ``sc0``: ``ticks`` chained ticks
+    of each (a pose advance between them, ``evolve(ins, sc)`` making the next
+    tick's inputs when given), equal bit for bit, with exact launch counts on
+    the call that captures and on the replays; a tick with the inputs
+    unchanged; ``mutate(ins)``, an in-place change, and one more tick; the
+    first call's outputs unchanged at the end. Then, with only the scenarios
+    changing: ms a tick by CUDA events and by host clock, the host's CUDA
+    runtime calls a tick, and with ``latency`` the p50 / p99 from the call to
+    the controls on the host, graphs against eager."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.parallel import map_tree
+    from ergodic_exploration_tpu_torch.utils import graphs
+
+    def chain(step, n, sc, ins_):
+        outs = []
+        for _ in range(n):
+            sc, u, d = step(sc, ins_)
+            outs.append((sc, u, d))
+            sc = advance(engine, sc, u)
+            if evolve is not None:
+                ins_ = evolve(ins_, sc)
+        return outs, sc, ins_
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    ref, sc_e, ins_e = chain(eager_step, ticks, sc0, dict(ins))
+    torch.cuda.synchronize()
+    expect_counts(f"phase 22, {name}, eager", read_counts(), {k: ticks * n for k, n in want.items()})
+    peak_e = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    captured = engine.graph_capture_s
+    first, sc_g, ins_g = chain(graph_step, 1, sc0, dict(ins))
+    torch.cuda.synchronize()
+    capture_s = engine.graph_capture_s - captured
+    expect_counts(f"phase 22, {name}, the call that captures", read_counts(), want)
+    kept = map_tree(torch.clone, first[0])
+    reset_counts()
+    rest, sc_g, ins_g = chain(graph_step, ticks - 1, sc_g, ins_g)
+    torch.cuda.synchronize()
+    expect_counts(f"phase 22, {name}, replays only", read_counts(),
+                  {k: (ticks - 1) * n for k, n in want.items()})
+    peak_g = torch.cuda.max_memory_allocated() - base
+    same_ticks(f"{name}, {ticks} chained ticks", first + rest, ref)
+    # the inputs unchanged, then changed in place: each tick still equals
+    # eager, and the change moved the eager tick (against the same tick on
+    # the inputs before it)
+    g1, e1 = graph_step(sc_g, ins_g), eager_step(sc_e, ins_e)
+    same_ticks(f"{name}, one more tick, the inputs unchanged", [g1], [e1])
+    before = eager_step(e1[0], ins_e)
+    mutate(ins_g)
+    mutate(ins_e)
+    g2, e2 = graph_step(g1[0], ins_g), eager_step(e1[0], ins_e)
+    same_ticks(f"{name}, one more tick after an in-place change to an input", [g2], [e2])
+    if before[1].equal(e2[1]) and before[2].ergodic_metric.equal(e2[2].ergodic_metric):
+        fail(f"phase 22, {name}: the in-place change moved neither u nor the metric")
+    same_ticks(f"{name}, the first call's outputs after {ticks + 1} more calls", [first[0]],
+               [kept])
+    sc_e = e2[0]
+
+    # only the scenarios change: timed and profiled, graphs against eager
+    res = {}
+    for kind, step in (("graphs", graph_step), ("eager", eager_step)):
+        box = [sc_e]
+
+        def one(step=step, box=box):
+            box[0] = step(box[0], ins_e)[0]
+
+        ev = events_ms(one, 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            one()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t0) / 20
+        n = 10 if kind == "graphs" else PROFILE_LOOP_TICKS
+        calls, busy, _ = runtime_profile(lambda: [one() for _ in range(n)])
+        res[kind] = dict(ms=ev, host_ms=host, calls=sum(calls.values()) / n, busy=busy / n)
+        if latency:
+            lat, s = [], box[0]
+            for _ in range(LATENCY_TICKS):
+                t0 = time.perf_counter()
+                s, u, _ = step(s, ins_e)
+                u.cpu()
+                lat.append(1e3 * (time.perf_counter() - t0))
+            res[kind].update(p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99)))
+        res[kind]["by_name"] = calls
+    g, e = res["graphs"], res["eager"]
+    # the copy-out that keeps a call's outputs from the next replay (what a
+    # second set of static buffers would save, at the cost of handing out
+    # outputs that the call after next overwrites)
+    copied = (g2[0].state, g2[1], g2[2])
+    out_mib = sum(t.numel() * t.element_size() for t in tree_leaves(copied)) / 2**20
+    g["copy_out_ms"] = events_ms(lambda: graphs.clone(copied), 20)
+    print(f"  {name}: the copy-out of the state, u and diagnostics, {out_mib:.1f} MiB: "
+          f"{g['copy_out_ms']:.4f} ms a tick {card}")
+    print(f"  {name}: ms a tick by events {g['ms']:.4f} (graphs) vs {e['ms']:.4f} (eager), by "
+          f"host clock {g['host_ms']:.4f} vs {e['host_ms']:.4f}; host CUDA runtime calls a tick "
+          f"{g['calls']:.2f} vs {e['calls']:.2f} ({g['by_name']}); device busy "
+          f"{g['busy']:.4f} vs {e['busy']:.4f} ms a tick (profiled); capture {capture_s:.3f} s; "
+          f"peak device memory over the ticks above the inputs {peak_e / 2**20:.1f} MiB (eager) "
+          f"-> {peak_g / 2**20:.1f} MiB (graphs) {card}", flush=True)
+    if latency:
+        print(f"  {name}: latency from the call to the controls on the host over "
+              f"{LATENCY_TICKS} ticks: p50 {g['p50']:.4f} / p99 {g['p99']:.4f} ms (graphs) vs "
+              f"p50 {e['p50']:.4f} / p99 {e['p99']:.4f} ms (eager) {card}")
+    return res
+
+
+def entry_graphs_phase(dev, card) -> dict:
+    """Phase 22: ``replan``, ``replan_refresh`` and ``replan_refresh_mi`` as
+    1-tick graph replays against their eager functions (``entry_case``):
+    path A at S = 4096 and S = 1, path E (K3) at S = 4096 (a disc reveal
+    between ticks) and S = 1, its dense path, its 200 x 200 row bands at S =
+    1024, path C (``replan`` on the eager step, S = 512), path D
+    (``fused_solve``), per-scenario maps with the history summed in K1
+    (S = 4096) and ``replan_refresh`` with K2 ahead of K1 (S = 512). Fails
+    on a difference, a launch count off, or more than 20 host runtime calls
+    a tick on path A."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain
+    from ergodic_exploration_tpu_torch.ops import sensor
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+
+    print("== 22. the single-tick entry points as CUDA graphs vs their eager functions",
+          flush=True)
+    out = {}
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # path A: replan_refresh, the refresh inside K1
+    for S_ in (S_MAIN, 1):
+        engine, sc, world, gmm, domain = build_engine(S_, dev)
+
+        def bump(ins):  # part of the shared map's free mask closed, every row alike
+            ins["world"].free_mask[:, :2000] = 0.0
+
+        out[f"A{S_}"] = entry_case(
+            f"path A (replan_refresh, S={S_})", engine, sc, dict(world=world),
+            lambda s, i: engine.replan_refresh(s, gmm, domain, i["world"]),
+            lambda s, i: engine._refresh_and_replan_fn(s, gmm, domain, i["world"]),
+            {"fused_solve_safety": 1}, bump, card, latency=S_ == 1)
+        del engine, sc, world, gmm
+        free()
+    for S_ in (S_MAIN, 1):
+        if out[f"A{S_}"]["graphs"]["calls"] > 20:
+            fail(f"phase 22: {out[f'A{S_}']['graphs']['calls']:.2f} host runtime calls a tick "
+                 f"on path A at S={S_} as graphs (limit 20)")
+
+    # path E: replan_refresh_mi with K3 (a disc reveal between ticks at S = 4096)
+    def mi_path(tag, S_, cells, use_kernel, want, evolve, latency=False):
+        engine, sc, grids, truth, world, domain = mi_case(S_, dev, cells=cells)
+        grids = grids._replace(data=grids.data.contiguous())
+        c = cells
+
+        def reveal(ins, s):
+            return dict(belief=sensor.reveal(ins["belief"], truth, s.x, REVEAL_RANGE))
+
+        def open_box(ins):  # a box of the unknown part becomes known free, in place
+            ins["belief"].data[:, int(0.6 * c):int(0.7 * c), int(0.6 * c):int(0.7 * c)] = 0.0
+
+        def step(fn):
+            return lambda s, i: fn(s, i["belief"], world, MI_RADIUS, domain,
+                                   use_mi_kernel=use_kernel)
+
+        out[tag] = entry_case(
+            f"path E ({'K3' if use_kernel else 'the dense path'}, {c} x {c}, S={S_})", engine, sc,
+            dict(belief=grids), step(engine.replan_refresh_mi),
+            step(engine._refresh_mi_and_replan_fn), want, open_box, card,
+            evolve=reveal if evolve else None, latency=latency)
+        free()
+
+    k1 = {"fused_solve_safety": 1}
+    mi_path(f"E{S_MAIN}", S_MAIN, 100, True, {"phik_from_grid_fc": 1, **k1}, True)
+    mi_path("E1", 1, 100, True, {"phik_from_grid_fc": 1, **k1}, False, latency=True)
+    mi_path("E-dense", S_MAIN, 100, False, k1, False)
+    mi_path("E200", S_BIG, CELLS_BIG, True, {"phik_from_grid_fc_banded": 1, **k1}, False)
+
+    # replan on given targets: C (the eager step), D (fused_solve, empty
+    # world), per-scenario maps with the history summed in K1
+    def replan_path(tag, name, cfg, x0, world_of, phik_of, want, mutate):
+        engine = Engine(cfg, device=dev)
+        world = world_of(engine)
+        phik = phik_of(engine, world)
+        out[tag] = entry_case(
+            name, engine, engine.init_scenarios(x0), dict(world=world, phik=phik),
+            lambda s, i: engine.replan(s, i["phik"], i["world"]),
+            lambda s, i: engine._replan_fn(s, i["phik"], i["world"]), want, mutate, card)
+        free()
+
+    def flatten(ins):  # the target's coefficients past the first two rows zeroed
+        ins["phik"][:, 2:] = 0.0
+
+    def wall(ins):  # the target flattened and a wall more in every scenario's field
+        flatten(ins)
+        ins["world"].dist.dist[:, 40:46, 40:60] = 0.0
+
+    cfg_c, x0_c, grids_c, gmm_c, dom_c = distinct_case(512, dev, seed=3, use_fused_solve=False)
+    replan_path("C", "path C (replan, the eager step, S=512)", cfg_c, x0_c,
+                lambda e: e.prepare_world(grids_c), lambda e, w: e.phik_from_gmm(gmm_c, dom_c),
+                {"fused_safety": 1}, wall)
+    rng = np.random.default_rng(4)
+    x0_d = np.concatenate([rng.uniform(0.05, 4.95, (S_MAIN, 2)),
+                           rng.uniform(-np.pi, np.pi, (S_MAIN, 1))], axis=1).astype(np.float32)
+    gmm_d = GaussianMixture.create(np.full((S_MAIN, 1, 2), 2.5, np.float32),
+                                   np.tile((0.4 * np.eye(2, dtype=np.float32))[None, None],
+                                           (S_MAIN, 1, 1, 1)), device=dev)
+    dom_d = Domain.create(0.0, 0.0, 5.0, 5.0, device=dev)
+    cfg_d = default_config("cart").replace(use_fused_solve=True, enable_safety=False,
+                                           shared_maps=True, shared_history_draw=True)
+    replan_path("D", f"path D (replan, fused_solve, empty world, S={S_MAIN})", cfg_d, x0_d,
+                lambda e: e.empty_world(dom_d, S_MAIN), lambda e, w: e.phik_from_gmm(gmm_d, dom_d),
+                {"fused_solve": 1}, flatten)
+    cfg_b, x0_b, grids_b, gmm_b, dom_b = distinct_case(S_MAIN, dev)
+    replan_path("B", f"per-scenario maps (replan, K1 with the history summed in it, "
+                f"S={S_MAIN})", cfg_b, x0_b, lambda e: e.prepare_world(grids_b),
+                lambda e, w: e.phik_from_gmm(gmm_b, dom_b, w),
+                {"fused_solve_safety_map_h0_nb": 1}, wall)
+    del grids_b, gmm_b
+
+    # replan_refresh with K2 ahead of K1 (per-scenario maps: no refresh inside K1)
+    cfg_k, x0_k, grids_k, gmm_k, dom_k = distinct_case(512, dev, seed=6)
+    engine = Engine(cfg_k, device=dev)
+    world_k = engine.prepare_world(grids_k)
+    out["K2"] = entry_case(
+        "replan_refresh with K2 ahead of K1 (per-scenario maps, S=512)", engine,
+        engine.init_scenarios(x0_k), dict(world=world_k),
+        lambda s, i: engine.replan_refresh(s, gmm_k, dom_k, i["world"]),
+        lambda s, i: engine._refresh_and_replan_fn(s, gmm_k, dom_k, i["world"]),
+        {"phik_from_gmm_masked": 1, "fused_solve_safety_map_h0_nb": 1},
+        lambda i: i["world"].free_mask[:, :2000].zero_(), card)
+    del engine, world_k
+    free()
+    return out
 
 
 def main() -> int:
@@ -2245,12 +2631,13 @@ def run(dev) -> int:
     print(f"DWA-active share {torch.stack(dwa).mean().item():.4f}, mean ergodic metric "
           f"{torch.stack(metric).mean().item():.6f}")
 
-    # the same ticks with the plain version in K1's place (comparison only)
-    plain_tick = engine.replan_refresh.__func__
+    # the same ticks with the plain version in K1's place (comparison only):
+    # the eager function by name, since the entry point replays its graph
     sk_fn = sk.fused_solve_safety
     sk.fused_solve_safety = sk.fused_solve_safety_plain
     try:
-        plain_tick_ms = events_ms(lambda: plain_tick(engine, sc, gmm, domain, world), 5)
+        plain_tick_ms = events_ms(lambda: engine._refresh_and_replan_fn(sc, gmm, domain, world),
+                                  5)
     finally:
         sk.fused_solve_safety = sk_fn
     print(f"tick with the plain version in K1's place: {plain_tick_ms:.4f} ms vs "
@@ -3019,6 +3406,8 @@ def run(dev) -> int:
     graphs_phase(dev, card)
     at(21)
     wide_phase(dev, card, entry, kernels)
+    at(22)
+    entry_graphs_phase(dev, card)
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:

@@ -14,15 +14,24 @@ the GMM target refresh over the 10 000-point lattice, the RK4 rollout
 (H = 20), the history-augmented c_k, the ergodic gradient, the barrier
 against a real obstacle map's distance field, the co-state sweep, the
 saturated update, validation and the DWA fallback. With the fused solve on
-a shared map the refresh runs inside K1, so a tick is one launch. Three
+a shared map the refresh runs inside K1, so a tick is one launch. Each tick
+is a call of the engine's entry point, which on the card replays the CUDA
+graph of the tick (``Engine._graph_tick``): the twin of the JAX bench's
+``jax.jit(engine._refresh_and_replan_fn, donate_argnums=(0,))``. Three
 things are timed:
 
-- ``bench_throughput``: the tick at S = 4096, by host clock over ``iters``
-  dependent ticks that end in one read of the controls' sum;
-- ``bench_throughput_mi``: the config-4 tick at S = 4096, the MI target
-  recomputed from the beliefs every tick by K3 (frontier-masked), then K1;
+- ``bench_throughput``: ``Engine.replan_refresh`` at S = 4096, by host clock
+  over ``iters`` dependent ticks that end in one read of the controls' sum;
+- ``bench_throughput_mi``: the config-4 tick, ``Engine.replan_refresh_mi``
+  at S = 4096, the MI target recomputed from the beliefs every tick by K3
+  (frontier-masked), then K1;
 - ``bench_latency``: the replan latency at S = 1, each replan timed alone
   from the call to the controls on the host.
+
+Each takes ``eager=True`` to time the eager functions instead
+(``_refresh_and_replan_fn``, ``_refresh_mi_and_replan_fn``), which dispatch
+every operation from Python; ``chip_smoke.py`` prints those beside the
+graphs' numbers, never in the headline line.
 
 How it differs from the JAX ``bench.py``:
 
@@ -136,6 +145,15 @@ def build_case_mi(S: int, seed: int = 0, device=None):
     return engine, sc, grids, engine.prepare_world(grids), domain
 
 
+def _gmm_tick(engine, world, eager: bool):
+    """The timed GMM tick: ``Engine.replan_refresh`` (a graph replay on the
+    card), or with ``eager`` its checks and then ``_refresh_and_replan_fn``."""
+    if not eager:
+        return engine.replan_refresh
+    engine._check_shared_world(world)
+    return engine._refresh_and_replan_fn
+
+
 def _run_chain(step, sc, *args, iters):
     """Time ``iters`` dependent ticks by host clock; the one read of the
     controls' sum at the end waits for the whole chain."""
@@ -150,14 +168,15 @@ def _run_chain(step, sc, *args, iters):
     return dt, sc
 
 
-def bench_throughput(S: int = 4096, iters: int = 50, device=None, reached=None) -> float:
-    """Solves/s of ``Engine._refresh_and_replan_fn`` (the GMM refresh and the
-    solve in one K1 launch) at S scenarios. The poses are not advanced.
-    ``reached``: a dict that receives the case and the state the timed loop
-    reached."""
+def bench_throughput(S: int = 4096, iters: int = 50, device=None, reached=None,
+                     eager: bool = False) -> float:
+    """Solves/s of ``Engine.replan_refresh`` (the GMM refresh and the solve
+    in one K1 launch; ``eager``: ``_refresh_and_replan_fn``) at S scenarios.
+    The poses are not advanced. ``reached``: a dict that receives the case
+    and the state the timed loop reached."""
     engine, sc, gmm, domain, world = build_case(S, device=device)
-    sc, u, _ = engine.replan_refresh(sc, gmm, domain, world)  # checks; builds the libraries
-    step = engine._refresh_and_replan_fn
+    step = _gmm_tick(engine, world, eager)
+    sc, u, _ = step(sc, gmm, domain, world)  # builds the libraries; captures the graph
     sc, u, _ = step(sc, gmm, domain, world)  # warm
     float(u.sum())
     dt, sc = _run_chain(step, sc, gmm, domain, world, iters=iters)
@@ -167,18 +186,22 @@ def bench_throughput(S: int = 4096, iters: int = 50, device=None, reached=None) 
 
 
 def bench_throughput_mi(S: int = 4096, iters: int = 50, sensor_radius_cells: int = 3,
-                        device=None, reached=None):
-    """(solves/s, mi_frontier_cells) of the config-4 tick: the MI target
-    recomputed from the beliefs every tick by K3, then K1 on it. The frontier
-    cells are read from the engine that was benched."""
+                        device=None, reached=None, eager: bool = False):
+    """(solves/s, mi_frontier_cells) of the config-4 tick,
+    ``Engine.replan_refresh_mi`` (``eager``: ``_refresh_mi_and_replan_fn``):
+    the MI target recomputed from the beliefs every tick by K3, then K1 on
+    it. The frontier cells are read from the engine that was benched."""
     engine, sc, grids, world, domain = build_case_mi(S, device=device)
-    sc, u, _ = engine.replan_refresh_mi(sc, grids, world, sensor_radius_cells, domain,
-                                        use_mi_kernel=True)  # checks; builds the libraries
+    tick = engine.replan_refresh_mi
+    if eager:  # the entry point's checks, then its eager function
+        engine._check_shared_world(world)
+        engine._check_shared_grids(grids)
+        tick = engine._refresh_mi_and_replan_fn
 
     def step(s, g, w):
-        return engine._refresh_mi_and_replan_fn(s, g, w, sensor_radius_cells, domain,
-                                                use_mi_kernel=True)
+        return tick(s, g, w, sensor_radius_cells, domain, use_mi_kernel=True)
 
+    sc, u, _ = step(sc, grids, world)  # builds the libraries; captures the graph
     sc, u, _ = step(sc, grids, world)  # warm
     float(u.sum())
     dt, sc = _run_chain(step, sc, grids, world, iters=iters)
@@ -188,18 +211,19 @@ def bench_throughput_mi(S: int = 4096, iters: int = 50, sensor_radius_cells: int
 
 
 def bench_latency(reps: int = 24, group: int = 8, chain: int = 32, device=None,
-                  reached=None) -> dict:
-    """Replan latency at S = 1 in ms: ``reps`` runs of ``chain`` dependent
-    replans after a warm-up, each replan timed alone by host clock from the
-    call to its controls on the host (``u.cpu()``). p50 and p99 are over all
-    replans; the spread is the least and the greatest median of the
+                  reached=None, eager: bool = False) -> dict:
+    """Replan latency at S = 1 in ms of ``Engine.replan_refresh``
+    (``eager``: ``_refresh_and_replan_fn``): ``reps`` runs of ``chain``
+    dependent replans after a warm-up, each replan timed alone by host clock
+    from the call to its controls on the host (``u.cpu()``). p50 and p99 are
+    over all replans; the spread is the least and the greatest median of the
     ``reps // group`` groups of ``group`` runs. Each run starts from the
     warm state."""
     if reps % group:
         raise ValueError(f"reps {reps} is not a multiple of group {group}")
     engine, sc, gmm, domain, world = build_case(1, device=device)
-    sc, u, _ = engine.replan_refresh(sc, gmm, domain, world)  # checks; builds the libraries
-    step = engine._refresh_and_replan_fn
+    step = _gmm_tick(engine, world, eager)
+    sc, u, _ = step(sc, gmm, domain, world)  # builds the libraries; captures the graph
     _run_chain(step, sc, gmm, domain, world, iters=chain)  # warm
     ms = np.empty((reps, chain))
     for i in range(reps):

@@ -22,14 +22,19 @@ first. A tick is, with ``use_fused_solve``, one launch of K1
 (ops/solve_kernel.py) between small batched PyTorch stages, otherwise the
 batched controller step whose safety stage is the ``fused_safety`` kernel;
 ``phik_from_gmm`` with ``use_pallas`` goes through K2 (ops/gmm_kernel.py).
-The single-tick entry points (``replan``, ``replan_refresh``,
-``replan_refresh_mi``) run eagerly. On the card the closed loops run as the
-JAX package runs them, without the host in the loop: ``explore`` replays
-CUDA graphs of 10 ticks (and of 1 tick for the rest), and
-``explore_mapping_fused`` one graph per map refresh (utils/graphs.py), each
-captured once per shape; ``_explore_loop`` and
-``_explore_mapping_fused_loop`` are their plain Python loops, which the CPU
-runs.
+On the card every entry point runs as one compiled program, as the JAX
+package's ``jax.jit`` runs it: the single-tick entry points (``replan``,
+``replan_refresh``, ``replan_refresh_mi``) each replay a CUDA graph of one
+tick (:meth:`Engine._graph_tick`), ``explore`` replays graphs of 10 ticks
+(and of 1 tick for the rest), and ``explore_mapping_fused`` one graph per
+map refresh (utils/graphs.py), each captured once per shape. The eager
+functions are their plain versions, which the CPU runs and which can be
+called by name on the card: ``_replan_fn``, ``_refresh_and_replan_fn``,
+``_refresh_mi_and_replan_fn``, ``_explore_loop`` and
+``_explore_mapping_fused_loop``. A tick with collectives (``replan_refresh``
+and ``replan_refresh_mi`` on a mesh with a populated ``sample`` dim, whose
+two ``all_reduce`` a graph cannot hold under gloo) runs eagerly; the choice
+is made by the mesh's shape, never by a failed capture.
 The mutual-information target is recomputed from the belief maps by
 ``phik_from_grid`` (dense on a shared domain, separable otherwise) and, in
 ``replan_refresh_mi(..., domain=<shared>, use_mi_kernel=True)``, by K3
@@ -140,6 +145,7 @@ class Engine:
         self._validated = set()  # shared-geometry checks already made
         self._mi_operands = {}  # geometry key -> (tensors of the key, MiOperands)
         self._graphs = graphs.GraphCache()  # the closed loops' static buffers and graphs
+        self._tick_graphs = graphs.GraphCache()  # the single-tick entry points'
 
     # ------------------------------------------------------------------
     # shared-geometry contract guards (utils/validation.py)
@@ -502,14 +508,14 @@ class Engine:
         fallback = (D.sum(dim=0) / float(pts.shape[0])).view(K, K)
         return torch.where(total > 1e-12, ck_raw / torch.clamp(total, min=1e-12), fallback)
 
-    def _phik_grid_kernel(self, grids: GridMap, domain: Domain,
-                          sensor_radius_cells: int) -> torch.Tensor:
-        """MI target coefficients through K3 (ops/mi_kernel.py). Its operands
-        depend on the geometry alone and are built once per (grids' origin and
-        resolution tensors, domain tensors, map shape)."""
-        from ergodic_exploration_tpu_torch.ops.mi_kernel import mi_operands, phik_from_grid
+    def _mi_ops(self, grids: GridMap, domain: Domain):
+        """K3's operands (ops/mi_kernel.py::MiOperands) for the geometry of
+        ``grids`` on ``domain``: they depend on it alone and are built once
+        per (grids' origin and resolution tensors, domain tensors, map
+        shape). Reads the host (the cache's key, the build), so a graph's
+        tick takes them as an input."""
+        from ergodic_exploration_tpu_torch.ops.mi_kernel import mi_operands
 
-        cfg = self.config
         held = (grids.origin, grids.resolution, domain.origin, domain.lengths)
         key = (tuple((t.data_ptr(), t._version) for t in held), grids.shape)
         hit = self._mi_operands.get(key)
@@ -519,9 +525,20 @@ class Engine:
             g0 = GridMap(grids.data[0], grids.origin[0], grids.resolution[0])
             # the tensors are kept with the entry, so their storage is not
             # handed to other tensors while the key is in use
-            hit = (held, mi_operands(g0, domain, cfg.num_basis, cfg.grid_samples))
+            hit = (held, mi_operands(g0, domain, self.config.num_basis,
+                                     self.config.grid_samples))
             self._mi_operands[key] = hit
-        return phik_from_grid(grids.data.contiguous(), hit[1], sensor_radius_cells,
+        return hit[1]
+
+    def _phik_grid_kernel(self, grids: GridMap, domain: Domain, sensor_radius_cells: int,
+                          ops=None) -> torch.Tensor:
+        """MI target coefficients through K3 (ops/mi_kernel.py) on the
+        operands ``ops`` (:meth:`_mi_ops` of the geometry when None)."""
+        from ergodic_exploration_tpu_torch.ops.mi_kernel import phik_from_grid
+
+        cfg = self.config
+        ops = self._mi_ops(grids, domain) if ops is None else ops
+        return phik_from_grid(grids.data.contiguous(), ops, sensor_radius_cells,
                               cfg.mi_frontier_cells, cfg.occupied_threshold)
 
     def _phik_grid_sharded_fn(self, grids: GridMap, sensor_radius_cells: int = 0) -> torch.Tensor:
@@ -587,9 +604,12 @@ class Engine:
 
     def replan(self, sc: Scenarios, phik, world: World):
         """One batched replan tick: (S,) solves -> (S, nu) controls. Does not
-        advance the poses (the caller owns the plant)."""
+        advance the poses (the caller owns the plant). On the card a replay
+        of the 1-tick graph of :meth:`_replan_fn` (:meth:`_graph_tick`)."""
         self._check_local(sc, phik=phik, world=world)
         self._check_shared_world(world)
+        if self._on_graphs():
+            return self._graph_tick("replan", self._replan_fn, (sc, phik, world), ())
         return self._replan_fn(sc, phik, world)
 
     def _refresh_and_replan_fn(self, sc: Scenarios, gmm, domain: Domain, world: World):
@@ -613,25 +633,31 @@ class Engine:
     def replan_refresh(self, sc: Scenarios, gmm, domain: Domain, world: World):
         """One batched tick including the per-tick GMM target refresh (the
         tick ``bench.py`` times in the JAX package). Under a mesh ``gmm`` is
-        this rank's rows (``shard_scenarios``)."""
+        this rank's rows (``shard_scenarios``). On the card a replay of the
+        1-tick graph of :meth:`_refresh_and_replan_fn`, except on a populated
+        ``sample`` dim (module docstring)."""
         self._check_local(sc, gmm=gmm, world=world)
         self._check_shared_world(world)
-        return self._refresh_and_replan_fn(sc, self._here(gmm), self._here(domain), world)
+        ins = (sc, self._here(gmm), self._here(domain), world)
+        if self._on_graphs(collective=True):
+            return self._graph_tick("replan_refresh", self._refresh_and_replan_fn, ins, ())
+        return self._refresh_and_replan_fn(*ins)
 
     def _refresh_mi_and_replan_fn(self, sc: Scenarios, grids: GridMap, world: World,
                                   sensor_radius_cells: int, domain: Optional[Domain] = None,
-                                  use_mi_kernel: bool = False):
+                                  use_mi_kernel: bool = False, mi_ops=None):
         """MI target refresh from the evolving occupancy grids + batched
         solve: config 4's full per-tick work. A mesh with a populated
         ``sample`` dim takes the sample-sharded reduction; else, on a shared
-        ``domain``, the refresh is K3 (one launch from the (S, h, w) beliefs)
-        when ``use_mi_kernel`` is set, else the dense path; without a shared
+        ``domain``, the refresh is K3 (one launch from the (S, h, w) beliefs,
+        on the operands ``mi_ops``, :meth:`_mi_ops` when None) when
+        ``use_mi_kernel`` is set, else the dense path; without a shared
         domain, the per-scenario separable contraction."""
         shared = domain is not None and domain.origin.dim() == 1
         if self._sample_ranks() > 1:
             phik = self._phik_grid_sharded_fn(grids, sensor_radius_cells)
         elif use_mi_kernel and shared:
-            phik = self._phik_grid_kernel(grids, domain, sensor_radius_cells)
+            phik = self._phik_grid_kernel(grids, domain, sensor_radius_cells, mi_ops)
         elif shared:
             phik = self._phik_grid_batch_dense_fn(grids, domain, sensor_radius_cells)
         else:
@@ -645,16 +671,74 @@ class Engine:
         refresh (config 4's hot path). ``world`` carries the distance field
         built from the same beliefs at map cadence. Pass the shared ``domain``
         when all grids span it; ``use_mi_kernel`` then selects K3. Under a
-        mesh ``grids`` is this rank's rows (``shard_scenarios``)."""
+        mesh ``grids`` is this rank's rows (``shard_scenarios``). On the card a
+        replay of the 1-tick graph of :meth:`_refresh_mi_and_replan_fn`, one
+        graph per (``sensor_radius_cells``, shared domain or not,
+        ``use_mi_kernel``), except on a populated ``sample`` dim (module
+        docstring); K3's operands are built outside the graph and copied in."""
         self._check_local(sc, grids=grids, world=world)
         self._check_shared_world(world)
         grids = self._grids_here(grids)
+        shared = False
         if domain is not None:
             domain = self._here(domain)
-            if domain.origin.dim() == 1:
+            shared = domain.origin.dim() == 1
+            if shared:
                 self._check_shared_grids(grids)  # scenario-0 geometry
-        return self._refresh_mi_and_replan_fn(sc, grids, world, sensor_radius_cells, domain,
-                                              use_mi_kernel)
+        if not self._on_graphs(collective=True):
+            return self._refresh_mi_and_replan_fn(sc, grids, world, sensor_radius_cells, domain,
+                                                  use_mi_kernel)
+        r = sensor_radius_cells
+        ops = self._mi_ops(grids, domain) if use_mi_kernel and shared else None
+
+        def body(sc_, grids_, world_, domain_, ops_):
+            return self._refresh_mi_and_replan_fn(sc_, grids_, world_, r, domain_,
+                                                  use_mi_kernel, ops_)
+
+        return self._graph_tick("replan_refresh_mi", body, (sc, grids, world, domain, ops),
+                                (r, shared, use_mi_kernel))
+
+    # ------------------------------------------------------------------
+    # the single-tick entry points as graphs
+    # ------------------------------------------------------------------
+
+    def _on_graphs(self, collective: bool = False) -> bool:
+        """Whether a single-tick entry point replays its graph: on the card,
+        unless the tick is ``collective`` (a refresh, whose target a
+        populated ``sample`` dim combines with two ``all_reduce``) on such a
+        mesh."""
+        return self.device.type == "cuda" and not (collective and self._sample_ranks() > 1)
+
+    def _graph_tick(self, name: str, body, ins: tuple, static: tuple):
+        """One tick of the entry point ``name`` as a replay of its 1-tick
+        graph, the twin of the JAX package's ``jax.jit(..., donate=(0,))``:
+        ``body(*ins)``, the eager function (``ins[0]`` the Scenarios; it
+        returns (Scenarios, u, diag)), captured over static copies of
+        ``ins``, keyed on (``name``, the configuration, the signature of
+        ``ins``, ``static``: the entry's arguments that are not tensors) in
+        a cache of its own (``self._tick_graphs``), so that it never evicts
+        the closed loops' graphs. A call copies in the leaves that changed
+        (``graphs.Static.load``), replays, and copies the new state, u and
+        diagnostics out, so that nothing a call returns is changed by a
+        later call; the poses and twists it returns are the caller's own, as
+        the eager function returns them. The state copied out is recorded as
+        what the static state holds, so a chain of ticks copies no state in.
+        The graph is made by :meth:`_make_graph` (a test substitutes it)."""
+        entry = self._tick_graphs.static((name, self.config, graphs.signature(ins), static), ins)
+        st = entry.buffers
+        st_state = st[0].state
+        entry.holds(st_state)  # written below
+
+        def fn():
+            out_sc, u, diag = body(*st)
+            graphs.copy_into(st_state, out_sc.state)
+            return u, diag
+
+        u, diag = entry.graph(1, fn, self._make_graph)()
+        state, u, diag = graphs.clone((st_state, u, diag))
+        entry.holds(st_state, state)
+        sc = ins[0]
+        return Scenarios(state=state, x=sc.x, vb=sc.vb), u, diag
 
     # ------------------------------------------------------------------
     # the closed loop
@@ -692,9 +776,9 @@ class Engine:
 
     @property
     def graph_capture_s(self) -> float:
-        """Seconds this engine has spent capturing the closed loops' CUDA
-        graphs (their warm-ups excluded)."""
-        return self._graphs.capture_s
+        """Seconds this engine has spent capturing CUDA graphs, the closed
+        loops' and the single-tick entry points' (their warm-ups excluded)."""
+        return self._graphs.capture_s + self._tick_graphs.capture_s
 
     def explore(self, sc: Scenarios, phik, world: World, n_ticks: int) -> ExploreOutput:
         """Closed-loop batched exploration on the engine's device: each tick
@@ -730,6 +814,7 @@ class Engine:
         ins = (sc, phik, world)
         entry = self._graphs.static(("explore", self.config, graphs.signature(ins)), ins)
         st_sc, st_phik, st_world = entry.buffers
+        entry.holds(st_sc)  # the graphs advance it
 
         def block(n):
             def fn():
@@ -744,9 +829,9 @@ class Engine:
             rows = (traj[t:t + n], ctrl[t:t + n], StepDiagnostics(*(d[t:t + n] for d in diags)))
             graphs.copy_into(rows, got)
             t += n
-        from ergodic_exploration_tpu_torch.parallel import map_tree
-
-        return ExploreOutput(map_tree(torch.clone, st_sc), traj, ctrl, diags)
+        out_sc = graphs.clone(st_sc)
+        entry.holds(st_sc, out_sc)
+        return ExploreOutput(out_sc, traj, ctrl, diags)
 
     def explore_mapping(self, sc: Scenarios, truth: GridMap, n_ticks: int,
                         sensor_range: float = 1.5, refresh_every: int = 10,
@@ -870,6 +955,7 @@ class Engine:
                sensor_radius_cells)
         entry = self._graphs.static(key, ins)
         st_sc, st_belief, st_truth = entry.buffers
+        entry.holds((st_sc, st_belief))  # the graph advances them
 
         def refresh():
             out_sc, belief, cov, tr, m = self._mapping_refresh(
@@ -886,10 +972,9 @@ class Engine:
         for i in range(n_refreshes):
             got = entry.graph(refresh_every, refresh, make_graph)()
             graphs.copy_into((coverage[i], traj[i], metric[i]), got)
-        from ergodic_exploration_tpu_torch.parallel import map_tree
-
-        return (map_tree(torch.clone, st_sc), truth._replace(data=st_belief.clone()), coverage,
-                traj, metric)
+        out_sc, belief = graphs.clone((st_sc, st_belief))
+        entry.holds((st_sc, st_belief), (out_sc, belief))
+        return out_sc, truth._replace(data=belief), coverage, traj, metric
 
     # ------------------------------------------------------------------
     # startup
@@ -902,10 +987,12 @@ class Engine:
         on dummy data of ``S`` scenarios: ``init_scenarios``, ``prepare_world``
         with ``phik_from_grid`` and ``replan_refresh_mi`` (when ``map_shape``
         is given, else an empty world), ``phik_from_gmm``, ``replan``,
-        ``replan_refresh`` and ``explore`` for each length in ``n_ticks``
-        (on a CUDA device that captures the graphs of that length, as the JAX
-        package compiles ``explore`` for it; ``capture_explore_<n>`` is the
-        part of ``explore_<n>`` spent capturing).
+        ``replan_refresh`` and ``explore`` for each length in ``n_ticks``.
+        On a CUDA device this captures the graphs of ``replan``,
+        ``replan_refresh``, ``replan_refresh_mi`` and of ``explore`` at each
+        length, as the JAX package compiles them, so that the first real tick
+        of those shapes does not stall; ``capture_<stage>`` is the part of
+        the stage spent capturing.
         ``S`` is the global count: under a mesh each rank warms its rows.
         ``persistent_cache`` (True for the default ``build/kernels/``, or a
         directory) is where the kernel libraries are built and loaded from
@@ -919,12 +1006,15 @@ class Engine:
 
             set_build_dir(None if persistent_cache is True else persistent_cache)
 
-        def timed(name, fn):
+        def timed(name, fn, captures=False):
+            captured = self.graph_capture_s
             t0 = time.perf_counter()
             out = fn()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             timings[name] = round(time.perf_counter() - t0, 3)
+            if captures and self.device.type == "cuda":  # capturing its graphs, within the stage
+                timings[f"capture_{name}"] = round(self.graph_capture_s - captured, 3)
             return out
 
         if self.device.type == "cuda":
@@ -947,18 +1037,15 @@ class Engine:
             world = timed("prepare_world", lambda: self.prepare_world(grids))
             timed("phik_from_grid", lambda: self.phik_from_grid(grids))
             timed("replan_refresh_mi", lambda: self.replan_refresh_mi(
-                sc, self.shard_scenarios(grids), world, domain=domain))
+                sc, self.shard_scenarios(grids), world, domain=domain), captures=True)
         else:
             world = self.empty_world(domain, S)
         phik = timed("phik_from_gmm", lambda: self.phik_from_gmm(gmm, domain, world.free_mask))
-        timed("replan", lambda: self.replan(sc, phik, world))
+        timed("replan", lambda: self.replan(sc, phik, world), captures=True)
         timed("replan_refresh", lambda: self.replan_refresh(sc, self.shard_scenarios(gmm),
-                                                            domain, world))
+                                                            domain, world), captures=True)
         for n in n_ticks:
-            captured = self.graph_capture_s
-            timed(f"explore_{n}", lambda n=n: self.explore(sc, phik, world, n))
-            if self.device.type == "cuda":  # capturing its graphs, within the stage
-                timings[f"capture_explore_{n}"] = round(self.graph_capture_s - captured, 3)
+            timed(f"explore_{n}", lambda n=n: self.explore(sc, phik, world, n), captures=True)
         return timings
 
     # ------------------------------------------------------------------

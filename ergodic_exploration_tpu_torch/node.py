@@ -16,8 +16,16 @@ odometry go in as arrays, body twists come out.
 The robot is one scenario (S = 1) of the batched controller. The tick is
 ``ops.solve_kernel.replan_batched_fused`` (K1 on the node's own map) under
 ``use_fused_solve``, else the eager ``ErgodicController.step`` (its safety
-stage is the ``fused_safety`` kernel). A map update is applied at the next
-tick: the EDT + gradient on the host through the native runtime
+stage is the ``fused_safety`` kernel). On the card ``step`` replays a CUDA
+graph of that tick, as the JAX node runs it as one jitted computation: the
+graph reads buffers the node owns (the state, which it advances in place;
+the pose and twist, which ``on_odom`` writes in place; the target and the
+world, which a map update copies into) and packs the twist and the
+diagnostics into one tensor, so that a tick is one replay and one
+device-to-host copy. It is captured on the first tick and again only when
+the map's shape changes. ``_eager_tick`` is its plain version, which the CPU
+runs (``node._step(node._eager_tick)`` runs it on the card). A map update is
+applied at the next tick: the EDT + gradient on the host through the native runtime
 (``native.py``) followed by one host-to-device copy, or
 ``DistanceField.from_grid`` on the device without it; then the target (the
 dense MI map of ``ops.target.mi_target_values``, or the GMM over the free
@@ -41,6 +49,7 @@ from ergodic_exploration_tpu_torch.controller import ErgodicController, StepDiag
 from ergodic_exploration_tpu_torch.grid import Domain, GridMap
 from ergodic_exploration_tpu_torch.ops import target as target_ops
 from ergodic_exploration_tpu_torch.ops.distance import DistanceField
+from ergodic_exploration_tpu_torch.utils import graphs
 from ergodic_exploration_tpu_torch.utils.device import resolve_device
 
 # one tick's host read: the twist (3) then the seven StepDiagnostics leaves,
@@ -97,6 +106,8 @@ class ExplorationNode:
         self._stale = True
         self._pose = torch.zeros(3, dtype=torch.float32, device=dev)
         self._twist = torch.zeros(3, dtype=torch.float32, device=dev)
+        self._graph = None  # the tick's graph on the card (made on the next tick when None)
+        self._graph_state = None  # the state tree it advances in place
         self.ticks = 0
         # pipelining: two pinned host slots (tick t writes slot t % 2 while
         # tick t-1's is read) and an event recorded after each slot's copy
@@ -129,10 +140,18 @@ class ExplorationNode:
             i += a.size
         return out
 
-    def _vec3(self, v) -> torch.Tensor:
+    def _set_vec3(self, dst: torch.Tensor, v) -> None:
+        """Write the 3-vector ``v`` into ``dst`` in place (the tick's graph
+        reads ``dst``): a host array through one copy from pinned memory that
+        does not wait for the device."""
         if isinstance(v, torch.Tensor):
-            return v.detach().to(self.device, torch.float32).reshape(3).clone()
-        return self._upload(np.reshape(v, 3))[0]
+            dst.copy_(v.detach().reshape(3))
+            return
+        host = torch.from_numpy(np.asarray(v, dtype=np.float32).reshape(3))
+        if self.device.type == "cuda":
+            dst.copy_(host.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(host)
 
     # ------------------------------------------------------------------
     # callbacks (reference: mapCallback / odomCallback)
@@ -159,9 +178,9 @@ class ExplorationNode:
 
     def on_odom(self, pose, twist=None) -> None:
         """Cache the latest pose (x, y, yaw) and body twist (vx, vy, w)."""
-        self._pose = self._vec3(pose)
+        self._set_vec3(self._pose, pose)
         if twist is not None:
-            self._twist = self._vec3(twist)
+            self._set_vec3(self._twist, twist)
 
     # ------------------------------------------------------------------
     # preprocessing (reference: work triggered by mapCallback, 4.3)
@@ -187,7 +206,7 @@ class ExplorationNode:
                 grid = GridMap(*self._upload(data, [x0, y0], resolution))
                 df = DistanceField.from_grid(grid, cfg.occupied_threshold)
             world = World(domain=self.domain, dist=df)
-        self._world = World(domain=_batch1(world.domain), dist=_batch1(world.dist))
+        world = World(domain=_batch1(world.domain), dist=_batch1(world.dist))
 
         pts = self.domain.sample_lattice(cfg.grid_samples)
         if isinstance(self.target, str) and self.target == "mi":
@@ -202,15 +221,29 @@ class ExplorationNode:
             if grid is not None:
                 free_mask = grid.occupancy_at(pts) < cfg.occupied_threshold
             phi = target_ops.gmm_target_values(pts, self.target, free_mask=free_mask)
-        self._phik = self.controller.target_coefficients(phi, pts, self.domain)[None]
+        self._install(self.controller.target_coefficients(phi, pts, self.domain)[None], world)
         self._stale = False
+
+    def _install(self, phik, world: World) -> None:
+        """Make (phik, world) the tick's: copied into the node's buffers,
+        which the tick's graph reads, where they have the shapes of the last
+        map's, else copied into new buffers (and the graph is captured anew
+        at the next tick)."""
+        new = (phik, world)
+        if self._phik is not None and graphs.signature(new) == graphs.signature(
+                (self._phik, self._world)):
+            graphs.copy_into((self._phik, self._world), new)
+        else:
+            self._phik, self._world = graphs.clone(new)
+            self._graph = None
 
     # ------------------------------------------------------------------
     # the tick (reference: the frequency-Hz control loop, 4.2)
     # ------------------------------------------------------------------
 
     def step(self):
-        """One replan at the latest pose.
+        """One replan at the latest pose: on the card a replay of the tick's
+        graph (:meth:`_graph_tick`), on the CPU the eager tick.
 
         Returns (twist (3,) np.ndarray, the ``cmd_vel`` body twist;
         StepDiagnostics of numpy scalars). With ``pipeline=True`` they belong
@@ -218,21 +251,57 @@ class ExplorationNode:
         tick): the current solve is enqueued and its device-to-host copy
         drains while the plant applies the previous command.
         """
-        if self._stale:
-            self._refresh()
+        return self._step(self._graph_tick if self.device.type == "cuda" else self._eager_tick)
+
+    def _tick(self, state):
+        """The tick, the body of both routes: (the state after it, the twist
+        (3,) and the seven diagnostics packed as float32 (_PACKED,))."""
         cfg = self.config
         x, vb = self._pose[None], self._twist[None]
         if cfg.use_fused_solve:
             from ergodic_exploration_tpu_torch.ops.solve_kernel import replan_batched_fused
 
-            self.state, u, diag = replan_batched_fused(cfg, self.model, self.state, x, vb,
-                                                       self._phik, self._world)
+            state, u, diag = replan_batched_fused(cfg, self.model, state, x, vb, self._phik,
+                                                  self._world)
         else:
-            self.state, u, diag = self.controller.step(self.state, x, vb, self._phik,
-                                                       self._world)
-        self.ticks += 1
+            state, u, diag = self.controller.step(state, x, vb, self._phik, self._world)
         packed = torch.cat([self.model.twist(u)[0],
                             torch.stack([leaf[0].to(torch.float32) for leaf in diag])])
+        return state, packed
+
+    def _eager_tick(self) -> torch.Tensor:
+        """The tick dispatched op by op: what the CPU runs, and on the card
+        the plain version the graph is held against."""
+        self.state, packed = self._tick(self.state)
+        return packed
+
+    def _graph_tick(self, make_graph=None) -> torch.Tensor:
+        """The tick as a replay of its graph (made by ``make_graph(fn)``, a
+        ``utils.graphs.Graph`` by default, captured on its first call),
+        which advances the node's state in place. A state the node was handed
+        since (an eager tick's, a caller's) is copied in first."""
+        if self._graph is None:
+            self._graph_state = graphs.clone(self.state)
+            st = self._graph_state
+
+            def fn():
+                state, packed = self._tick(st)
+                graphs.copy_into(st, state)
+                return packed
+
+            self._graph = (make_graph or (lambda f: graphs.Graph(f, self.device)))(fn)
+        elif self.state is not self._graph_state:
+            graphs.copy_into(self._graph_state, self.state)
+        self.state = self._graph_state
+        return self._graph()
+
+    def _step(self, tick):
+        """:meth:`step` through ``tick`` (:meth:`_graph_tick` or
+        :meth:`_eager_tick`)."""
+        if self._stale:
+            self._refresh()
+        packed = tick()
+        self.ticks += 1
         if not self.pipeline:
             return _unpack(packed.cpu().numpy())
         slot = self.ticks % 2

@@ -20,11 +20,25 @@ capture adds are taken back and kept as the graph's delta
 (:func:`count_captured`), and every replay adds that delta again
 (:func:`add_launches`): after any run the counts are the launches the device
 executed.
+
+Copy-in: a :class:`Static` copies into its buffers only the leaves whose
+source changed. It records, for each leaf, the tensor it was last loaded from
+and that tensor's ``_version``; the same tensor with the same version is not
+copied again. An in-place write (``add_``, ``copy_``, indexing assignment,
+through any view of the tensor) bumps the version, so it is seen. What
+escapes it: a write through ``.data``, through DLPack or another library
+that shares the storage (``t.numpy()`` on the CPU, a ctypes pointer), which
+PyTorch does not count; and an inference tensor, which keeps no version, is
+copied on every call. A leaf that a graph writes (the state a tick advances)
+is recorded by :meth:`Static.holds` as what was last copied out of it. The
+leaves that change are copied with one ``torch._foreach_copy_`` a dtype
+(:func:`copy_leaves`), so a call costs a few launches, not one a leaf.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from collections import OrderedDict
 from typing import Callable, Optional, Sequence
 
@@ -67,20 +81,82 @@ def copy_into(dst, src) -> None:
             d.copy_(s)
 
 
+def copy_leaves(dsts: Sequence, srcs: Sequence) -> None:
+    """``d.copy_(s)`` for each pair, as one ``torch._foreach_copy_`` per
+    destination dtype."""
+    groups = {}
+    for d, s in zip(dsts, srcs, strict=True):
+        ds, ss = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def _empty_like(tree):
+    """A tree of the same structure with an uninitialised contiguous tensor
+    in place of each leaf."""
+    from ergodic_exploration_tpu_torch.parallel import map_tree
+
+    return map_tree(lambda t: torch.empty_like(t, memory_format=torch.contiguous_format), tree)
+
+
+def clone(tree):
+    """A contiguous copy of every leaf of ``tree``, in a tree of the same
+    structure (:func:`copy_leaves`: a few launches for any number of leaves)."""
+    new = _empty_like(tree)
+    copy_leaves(leaves(new), leaves(tree))
+    return new
+
+
+def _version(t):
+    """``t._version``, or None for a tensor that keeps no version (an
+    inference tensor): such a source is copied on every load."""
+    try:
+        return t._version
+    except RuntimeError:
+        return None
+
+
 class Static:
     """Static buffers for one input signature: ``load`` copies a call's
-    inputs into them, a graph captured over them reads them on every
-    replay."""
+    inputs into them (those that changed, see the module docstring), a graph
+    captured over them reads them on every replay."""
 
     def __init__(self, inputs):
-        from ergodic_exploration_tpu_torch.parallel import map_tree
-
-        self.buffers = map_tree(
-            lambda t: torch.empty_like(t, memory_format=torch.contiguous_format), inputs)
+        self.buffers = _empty_like(inputs)
+        self._leaves = leaves(self.buffers)
+        self._index = {id(t): i for i, t in enumerate(self._leaves)}
+        self._held = [None] * len(self._leaves)  # (weakref to the source, its version)
         self.graphs = {}  # block length -> Graph
 
-    def load(self, inputs) -> None:
-        copy_into(self.buffers, inputs)
+    def load(self, inputs) -> int:
+        """Copy the leaves of ``inputs`` that are not what their buffer
+        holds; returns how many were copied."""
+        dsts, srcs = [], []
+        for i, (d, s) in enumerate(zip(self._leaves, leaves(inputs), strict=True)):
+            if d is s:
+                continue
+            v, held = _version(s), self._held[i]
+            if v is not None and held is not None and held[1] == v and held[0]() is s:
+                continue
+            dsts.append(d)
+            srcs.append(s)
+            self._held[i] = (weakref.ref(s), v)
+        if dsts:
+            copy_leaves(dsts, srcs)
+        return len(dsts)
+
+    def holds(self, buffers, sources=None) -> None:
+        """Record what the leaves of ``buffers`` (a sub-tree of
+        :attr:`buffers` that a graph wrote) now hold: the values of the
+        same leaves of ``sources`` (copies of them, made since the write),
+        or with ``sources`` None nothing known, so the next load copies."""
+        bufs = leaves(buffers)
+        srcs = [None] * len(bufs) if sources is None else leaves(sources)
+        for d, s in zip(bufs, srcs, strict=True):
+            v = None if s is None else _version(s)
+            self._held[self._index[id(d)]] = None if v is None else (weakref.ref(s), v)
 
     def graph(self, length: int, fn: Callable, make_graph: Callable):
         """The graph of ``length`` over these buffers: on a miss,

@@ -23,7 +23,6 @@ import contextlib
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from ergodic_exploration_tpu_torch.config import default_config
 from ergodic_exploration_tpu_torch.engine import Engine
@@ -31,6 +30,7 @@ from ergodic_exploration_tpu_torch.grid import Domain, GridMap
 from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
 from ergodic_exploration_tpu_torch.parallel import map_tree
 from ergodic_exploration_tpu_torch.utils import graphs
+from torch_graph_helpers import StandIn
 
 torch.set_num_threads(1)
 S, CELLS = 4, 24
@@ -41,39 +41,6 @@ CASES = [(m, f) for m in ("cart", "omni") for f in (True, False)]
 
 def _id(case):
     return f"{case[0]}-{'fused' if case[1] else 'eager'}"
-
-
-class NoSync(TorchDispatchMode):
-    """Refuses the operations that copy from host memory
-    (``lift_fresh``) or make the host wait for the device (a scalar read,
-    ``nonzero``, ``masked_select``)."""
-
-    REFUSED = {"lift_fresh", "lift_fresh_copy", "_local_scalar_dense", "nonzero",
-               "masked_select"}
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket.__name__ in self.REFUSED:
-            raise AssertionError(f"{func} copies from the host or waits for the device")
-        return func(*args, **(kwargs or {}))
-
-
-class StandIn:
-    """A graph's stand-in on the CPU (see the module docstring)."""
-
-    def __init__(self, fn):
-        self.fn, self.calls, self.outputs = fn, 0, None
-
-    def __call__(self):
-        self.calls += 1
-        if self.calls == 1:  # the warm-up
-            return self.fn()
-        with NoSync():
-            out = self.fn()
-        if self.outputs is None:
-            self.outputs = out
-        else:
-            graphs.copy_into(self.outputs, out)
-        return self.outputs
 
 
 def _case(model, fused, seed=3):
