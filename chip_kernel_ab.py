@@ -83,7 +83,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
         sc, u, _ = engine.replan_refresh(sc, gmm, domain, world)
         sc = smoke.advance(engine, sc, u)
     cfg = engine.config
-    inp2, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+    inp2, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
     inp0 = inp2._replace(refresh=None, phik=sk.refresh_plain(inp2.refresh, inp2.dlen))
     r = inp2.refresh
 

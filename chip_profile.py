@@ -27,6 +27,12 @@ device time:
   Q  the same for the quality run (``default_config("omni")``, S=256, its
      spawns)
 
+A, B, C and Q's ticks run twice more as graphs: with the tick's glue
+(``ops/tick_glue.py``, two kernels a tick) and with its plain versions in
+their place (``chip_smoke.with_plain_glue``: the glue as plain PyTorch
+ops), each on an engine of its own, so each captures its own graphs; the
+glue's share of the device time is printed where its kernels run.
+
 The cases are those of ``chip_smoke.py``. Needs a CUDA device.
 """
 
@@ -83,12 +89,14 @@ def profile(name, fn, ms_call, card, units, unit="tick", calls=CALLS):
     n = calls * units
     kernels = {k: v for k, v in by_name.items() if not k.startswith(("Memcpy", "Memset"))}
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    glue_ms = sum(us for k, (_, us) in by_name.items() if k.startswith("glue_")) / 1e3
     launches = sum(c for c, _ in kernels.values()) / n
     print(f"== {name}: {ms_call / units:.4f} ms a {unit} (CUDA events, unprofiled); device busy "
           f"{busy_ms / n:.4f} ms a {unit} ({100 * busy_ms / n / (ms_call / units):.1f} % of the "
           f"unprofiled {unit}, {100 * busy_ms / wall_ms:.1f} % of the profiled run); "
           f"kernels run {launches:.1f} a {unit}; host CUDA runtime calls {(host - 3) / n:.2f} a "
-          f"{unit} {card}")
+          f"{unit}; the glue kernels {glue_ms / n:.4f} ms a {unit} "
+          f"({100 * glue_ms / max(busy_ms, 1e-9):.1f} % of busy) {card}")
     if not by_name:
         print("   the profiler recorded no device time")
     for key, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
@@ -116,27 +124,39 @@ def main() -> int:
     print(card)
     loops = []  # (name, fn, ticks or refreshes a call, unit)
 
+    def plain_glue(call):
+        return lambda: cs.with_plain_glue(call)
+
     engine, sc, world, gmm, domain = cs.build_engine(cs.S_MAIN, dev)
-    for kind, run in (("graph replay", engine.replan_refresh),
-                      ("eager", engine._refresh_and_replan_fn)):
+    engine_p = cs.build_engine(cs.S_MAIN, dev)[0]  # its graph holds the plain glue
+    for kind, eng_a, run, wrap in (
+            ("graph replay", engine, engine.replan_refresh, None),
+            ("eager", engine, engine._refresh_and_replan_fn, None),
+            ("graph replay, the glue's plain versions", engine_p, engine_p.replan_refresh,
+             plain_glue)):
         state = [sc]
 
-        def tick_a(run=run, state=state):
+        def tick_a(run=run, state=state, eng_a=eng_a):
             s, u, _ = run(state[0], gmm, domain, world)
-            state[0] = cs.advance(engine, s, u)
+            state[0] = cs.advance(eng_a, s, u)
 
-        loops.append((f"A bench tick, S={cs.S_MAIN}, {kind}", tick_a, 1, "tick"))
+        loops.append((f"A bench tick, S={cs.S_MAIN}, {kind}", wrap(tick_a) if wrap else tick_a,
+                      1, "tick"))
 
-    def explore_pair(tag, eng, sc, phik, world):
+    def explore_pair(tag, eng, sc, phik, world, eng_plain=None):
         """``explore`` (graphs) and ``_explore_loop``, BLOCK ticks a call,
-        each carrying its own state on."""
-        for kind, run in (("graphs", eng.explore), ("plain loop", eng._explore_loop)):
+        each carrying its own state on; with ``eng_plain`` also ``explore``
+        on that engine with the glue's plain versions."""
+        runs = [("graphs", eng.explore, None), ("plain loop", eng._explore_loop, None)]
+        if eng_plain is not None:
+            runs.append(("graphs, the glue's plain versions", eng_plain.explore, plain_glue))
+        for kind, run, wrap in runs:
             st = [sc]
 
             def call(run=run, st=st):
                 st[0] = run(st[0], phik, world, BLOCK).scenarios
 
-            loops.append((f"{tag}, {kind}", call, BLOCK, "tick"))
+            loops.append((f"{tag}, {kind}", wrap(call) if wrap else call, BLOCK, "tick"))
 
     def refresh_pair(tag, eng, sc, truth, every):
         for kind, run in (("graphs", eng.explore_mapping_fused),
@@ -155,7 +175,7 @@ def main() -> int:
         eng = Engine(cfg)
         world_b = eng.prepare_world(grids)
         explore_pair(name, eng, eng.init_scenarios(x0),
-                     eng.phik_from_gmm(gmm_b, dom_b, world_b), world_b)
+                     eng.phik_from_gmm(gmm_b, dom_b, world_b), world_b, Engine(cfg))
 
     engine_e, sc_e, belief, truth_e, world_e, domain_e = cs.mi_case(cs.S_MAIN, dev)
     for kind, run in (("graph replay", engine_e.replan_refresh_mi),
@@ -169,15 +189,16 @@ def main() -> int:
 
         loops.append((f"E MI tick (K3 + K1), S={cs.S_MAIN}, {kind}", tick_e, 1, "tick"))
 
-    def mapping_loops(tag, eng, x0, truth, every):
-        """After one refresh from unknown beliefs: BLOCK ticks on its world,
-        then whole refreshes from unknown beliefs."""
+    def mapping_loops(tag, eng, x0, truth, every, eng_plain=None):
+        """After one refresh from unknown beliefs: BLOCK ticks on its world
+        (with ``eng_plain`` also on the glue's plain versions), then whole
+        refreshes from unknown beliefs."""
         sc, belief, _, _, _ = eng.explore_mapping_fused(eng.init_scenarios(x0), truth,
                                                         n_refreshes=1, refresh_every=every)
         world = eng.prepare_world(belief)
         phik = eng.phik_from_grid(belief, domain=Domain(truth.origin[0],
                                                          truth.domain().lengths[0]))
-        explore_pair(f"{tag}: ticks on the beliefs' world", eng, sc, phik, world)
+        explore_pair(f"{tag}: ticks on the beliefs' world", eng, sc, phik, world, eng_plain)
         refresh_pair(f"{tag}: refreshes from unknown beliefs (reveal + MI target + world + "
                      f"{every} ticks)", eng, eng.init_scenarios(x0), truth, every)
 
@@ -186,7 +207,8 @@ def main() -> int:
     eng_q = Engine(default_config("omni"))
     truth_q = quality.build_truth(cs.Q_S, dev)
     mapping_loops(f"Q quality run (omni, eager), S={cs.Q_S}", eng_q,
-                  quality.spawn_poses(eng_q.config, truth_q, cs.Q_S), truth_q, cs.Q_EVERY)
+                  quality.spawn_poses(eng_q.config, truth_q, cs.Q_S), truth_q, cs.Q_EVERY,
+                  Engine(default_config("omni")))
 
     # every loop timed before the first profiler session; a call of B, C,
     # F or Q holds 10 ticks or 2 refreshes, so one call is profiled

@@ -151,6 +151,19 @@ Phases:
     changing, ms a tick by CUDA events and by host clock, the host's CUDA
     runtime calls a tick (at most 20 on path A), the S = 1 latency p50 /
     p99, the capture's seconds and the peak device memory
+23  the tick's glue (G, ``csrc/tick_glue.cu``): ``glue_pre`` and
+    ``glue_post`` against their plain versions on the states of paths A, B,
+    D and E at S = 4096 and at S = 1 and on path Q's omni state, a ring that
+    just wrapped and NaN / inf put into U_new and u_dwa included: keys,
+    draws, drawn positions, orbit flags, warm and patch starts, codes,
+    flags, rings and counters equal, the shared draw's sums within 1e-6
+    (bit for bit against cuBLAS at S = 4096; at S = 1, where cuBLAS sums in
+    another order, against the full batch's), the advanced poses within
+    1e-6; one tick of A and of B on the glue's plain versions against the
+    kernels (U within 5e-5, metric and barrier rtol 1e-5, codes and flags
+    equal); the kernels and copies a tick of A's 1-tick ``replan_refresh``
+    graph (at most 20) and of B's ``explore`` graph (at most 25), with the
+    glue's share of the device time
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``explore_mapping_fused``) and every call of a single-tick entry point
@@ -158,7 +171,9 @@ Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``step``) runs as graph replays, the first call of a shape capturing its
 graphs; a graph's first call is its warm-up, whose launches are real and
 counted. Every path is driven with the launch counts set to 0
-just before it and read just after. The last two lines are a JSON line describing each kernel
+just before it and read just after; the glue's counts (G) are read apart
+from K1, K2 and K3's (``read_glue``) and checked on paths A and B (phases 4
+and 7) and in phases 16, 20, 22 and 23. The last two lines are a JSON line describing each kernel
 variant that a path launched (launches on its path; error against the plain
 version, time, the plain version's time and the least time the card could
 take for the same work, all on that path's own inputs) and the result line
@@ -228,6 +243,12 @@ ENTRY_TICKS = 10  # phase 22: chained ticks of each path, graphs against eager
 # 20, 22): its host calls are the same every tick, and the host reads a
 # profile's events one by one, thousands a tick
 PROFILE_LOOP_TICKS = 3
+# phase 23: the shared draw's history sums, the glue kernel's fused
+# multiply-adds in ascending order against the plain version's batched
+# product; the most kernels (copies included) a tick of A's 1-tick
+# replan_refresh graph and of B's explore graph
+GLUE_SUM_ATOL = 1e-6
+GLUE_KERNELS_A, GLUE_KERNELS_B = 20, 25
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -556,10 +577,12 @@ def reset_counts() -> None:
     from ergodic_exploration_tpu_torch.ops import gmm_kernel as gk
     from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
     from ergodic_exploration_tpu_torch.ops import mi_kernel as mk
+    from ergodic_exploration_tpu_torch.ops import tick_glue as tg
 
     sk.K1.reset_launches()
     gk.K2.reset_launches()
     mk.K3.reset_launches()
+    tg.G.reset_launches()
 
 
 def read_counts() -> dict:
@@ -568,6 +591,25 @@ def read_counts() -> dict:
     from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
 
     return {**sk.K1.launches, **gk.K2.launches, **mk.K3.launches}
+
+
+def read_glue() -> dict:
+    """The glue's launches (G), read apart from K1, K2 and K3's: the paths
+    that check them (4, 7, 16, 20, 22, 23) name them, the others check the
+    solve and target kernels alone."""
+    from ergodic_exploration_tpu_torch.ops import tick_glue as tg
+
+    return dict(tg.G.launches)
+
+
+def glue_want(cfg, ticks: int, advance: bool = False) -> dict:
+    """G's launches over ``ticks`` ticks of ``cfg``: one glue_pre of the
+    configuration's history mode and one glue_post (``advance`` in the
+    closed loops) a tick."""
+    from ergodic_exploration_tpu_torch.ops import tick_glue as tg
+
+    pre = tg.TickGlue.PRE_VARIANTS[tg.history_mode(cfg, fused=cfg.use_fused_solve)]
+    return {pre: ticks, "glue_post_advance" if advance else "glue_post": ticks}
 
 
 def expect_counts(path: str, got: dict, want: dict) -> None:
@@ -745,6 +787,8 @@ def node_phase(dev, card, entry, kernels) -> None:
         variant = "fused_solve_safety_map_h0_nb" if fused else "fused_safety"
         expect_counts(f"phase 16, {what}, the first tick of each (the graph's captured)",
                       counts, {variant: 2})
+        expect_counts(f"phase 16, {what}, the first tick of each, the glue", read_glue(),
+                      glue_want(node.config, 2))
         reset_counts()
         lat, map_lat, dwa, n_diag = ([], []), ([], []), 0, 0
         for i in range(NODE_TICKS):
@@ -776,6 +820,8 @@ def node_phase(dev, card, entry, kernels) -> None:
         counts = {k: v // 2 for k, v in read_counts().items()}  # each node's
         expect_counts(f"phase 16, {what}, {NODE_TICKS} ticks of each node",
                       read_counts(), {variant: 2 * NODE_TICKS})
+        expect_counts(f"phase 16, {what}, {NODE_TICKS} ticks of each node, the glue",
+                      read_glue(), glue_want(node.config, 2 * NODE_TICKS))
         final = poses[0].tolist()
         res = []
         for k, route in enumerate(("graph", "eager")):
@@ -849,6 +895,8 @@ def node_phase(dev, card, entry, kernels) -> None:
     poses = torch.stack(poses).cpu()
     expect_counts("phase 16, MI node (graph and eager)", read_counts(),
                   {"fused_solve_safety_map_h0_nb": 2 * NODE_MI_TICKS})
+    expect_counts("phase 16, MI node (graph and eager), the glue", read_glue(),
+                  glue_want(pair[0].config, 2 * NODE_MI_TICKS))
     inside = bool(((poses[:, :2] >= 0.0) & (poses[:, :2] <= 5.0)).all())
     if not torch.isfinite(poses).all() or not inside:
         fail("the MI node's poses are non-finite or left the domain")
@@ -902,7 +950,7 @@ def node_phase(dev, card, entry, kernels) -> None:
     # each kernel of the node's path against its plain version on the node's inputs
     cfg_n = node_f.config
     x1, vb1 = node_f._pose[None], node_f._twist[None]
-    inp, _, _ = sk.fused_tick_inputs(cfg_n, node_f.state, x1, vb1, node_f._phik, node_f._world)
+    inp, _ = sk.fused_tick_inputs(cfg_n, node_f.state, x1, vb1, node_f._phik, node_f._world)
     k, p = sk.K1(cfg_n, inp), sk.fused_solve_safety_plain(cfg_n, inp)
     torch.cuda.synchronize()
     e = compare("node fused_solve_safety_map_h0_nb (S=1)", k, p)
@@ -1046,7 +1094,7 @@ def _leg_a(tmp, card):
           + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" {card}", flush=True)
 
     # K1 against its plain version on this rank's inputs (the mesh path's state)
-    inp, _, _ = sk.fused_tick_inputs(cfg, sc_m.state, sc_m.x, sc_m.vb, None, world_m, gmm_m,
+    inp, _ = sk.fused_tick_inputs(cfg, sc_m.state, sc_m.x, sc_m.vb, None, world_m, gmm_m,
                                      domain)
     k, p = sk.K1(cfg, inp), sk.fused_solve_safety_plain(cfg, inp)
     torch.cuda.synchronize()
@@ -1525,7 +1573,7 @@ def headline_phase(dev, card, kernels, k3_check, tick_a_ms, tick_e_ms) -> None:
     for name, S_ in (("throughput", S_MAIN), ("latency", 1)):
         r = reached[name]
         cfg = r["engine"].config
-        inp2, _, _ = sk.fused_tick_inputs(cfg, r["sc"].state, r["sc"].x, r["sc"].vb, None,
+        inp2, _ = sk.fused_tick_inputs(cfg, r["sc"].state, r["sc"].x, r["sc"].vb, None,
                                           r["world"], r["gmm"], r["domain"])
         compare(f"headline {name} K1 J=2 S={S_}", sk.K1(cfg, inp2),
                 sk.fused_solve_safety_plain(cfg, inp2))
@@ -1533,7 +1581,7 @@ def headline_phase(dev, card, kernels, k3_check, tick_a_ms, tick_e_ms) -> None:
     engine, sc, belief, domain = r["engine"], r["sc"], r["grids"], r["domain"]
     k3_check("the headline MI tick's beliefs", belief.data.contiguous(), engine, domain, MI_RADIUS)
     phik = engine._phik_grid_kernel(belief, domain, MI_RADIUS)
-    inp0, _, _ = sk.fused_tick_inputs(engine.config, sc.state, sc.x, sc.vb, phik, r["world"])
+    inp0, _ = sk.fused_tick_inputs(engine.config, sc.state, sc.x, sc.vb, phik, r["world"])
     compare(f"headline mi K1 J=0 S={S_MAIN}", sk.K1(engine.config, inp0),
             sk.fused_solve_safety_plain(engine.config, inp0))
     del reached, r, engine, sc, belief, phik, inp0, inp2
@@ -1662,12 +1710,14 @@ def same_as_loop(name: str, got, ref) -> None:
           f"{len(named_leaves(ref)) - len(differ)} of {len(named_leaves(ref))} leaves")
 
 
-def graph_case(name: str, engine, graph_run, loop_run, want: dict) -> None:
+def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int) -> None:
     """The checks of one case of phase 20: the first graph run (which
     captures) and the second (replays only), each with exact launch counts
-    and each against the plain loop bit for bit."""
+    (the glue's: ``ticks`` of each kernel) and each against the plain loop
+    bit for bit."""
     import torch
 
+    glue = glue_want(engine.config, ticks, advance=True)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1675,10 +1725,12 @@ def graph_case(name: str, engine, graph_run, loop_run, want: dict) -> None:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     expect_counts(f"phase 20, {name}, the run that captures", read_counts(), want)
+    expect_counts(f"phase 20, {name}, the run that captures, the glue", read_glue(), glue)
     reset_counts()
     again = graph_run()
     torch.cuda.synchronize()
     expect_counts(f"phase 20, {name}, replays only", read_counts(), want)
+    expect_counts(f"phase 20, {name}, replays only, the glue", read_glue(), glue)
     captured = {n: [d for d in g.launches if d] for e in engine._graphs._entries.values()
                 for n, g in e.graphs.items()}
     print(f"  {name}: launches a replay of each graph (by its ticks) {captured}; capture "
@@ -1807,7 +1859,7 @@ def wide_phase(dev, card, entry, kernels) -> None:
         if (u.shape != (S_MAIN, cfg.nu) or not torch.isfinite(u).all()
                 or not torch.isfinite(dg.ergodic_metric).all() or not torch.isfinite(sc.x).all()):
             fail(f"phase 21, path A at {tag}: non-finite or mis-shaped outputs")
-        inp2, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+        inp2, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
         inp0 = inp2._replace(refresh=None, phik=sk.refresh_plain(inp2.refresh, inp2.dlen))
         # the refresh against its plain version; the solve against the plain
         # version fed the kernel's phi_k: the plain refresh (a float32 matmul)
@@ -1859,7 +1911,7 @@ def wide_phase(dev, card, entry, kernels) -> None:
     for K, H in LAYOUT_SHAPES:
         engine, sc, world, gmm, domain = wide_case(S_MAIN, dev, K, H)
         cfg = engine.config
-        inp2, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+        inp2, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
         inp_k = inp2._replace(refresh=None, phik=sk.K1.refresh(inp2.refresh, inp2.dlen))
         time_layouts(f"K{K}_H{H} ({4 * 4 * sk.solve_warp_floats(K, H, 0)} bytes of tables a "
                      f"block of 4), path A, phi_k given", cfg, inp_k, sk.K1(cfg, inp_k), S_MAIN)
@@ -1884,7 +1936,7 @@ def wide_phase(dev, card, entry, kernels) -> None:
                 and torch.isfinite(phik_b).all()):
             fail(f"phase 21, explore at {tag}: non-finite outputs")
         sc_b = out.scenarios
-        inp, _, _ = sk.fused_tick_inputs(cfg_b, sc_b.state, sc_b.x, sc_b.vb, phik_b, world_b)
+        inp, _ = sk.fused_tick_inputs(cfg_b, sc_b.state, sc_b.x, sc_b.vb, phik_b, world_b)
         for safety in (False, True):  # the entry's variant last: its error and layout reference
             k = sk.K1(cfg_b, inp, enable_safety=safety)
             p = sk.fused_solve_safety_plain(cfg_b, inp, enable_safety=safety)
@@ -2099,7 +2151,7 @@ def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int 
         sc = eng.init_scenarios(x0)
         runs = (lambda: eng.explore(sc, phik, world, n),
                 lambda: eng._explore_loop(sc, phik, world, n))
-        graph_case(tag, eng, *runs, want)
+        graph_case(tag, eng, *runs, want, n)
         (entry,) = eng._graphs._entries.values()
         nbytes = sum(t.numel() * t.element_size() for t in graphs.leaves(entry.buffers))
         full = events_ms(lambda: graphs.copy_leaves(graphs.leaves(entry.buffers),
@@ -2147,7 +2199,7 @@ def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int 
                                     fn(sc, truth, n, every, 1.5)))
 
         runs = (run(eng.explore_mapping_fused), run(eng._explore_mapping_fused_loop))
-        graph_case(tag, eng, *runs, want)
+        graph_case(tag, eng, *runs, want, n_ref * every)
         cases.append((tag, *runs, n_ref, "refresh", run(eng._explore_mapping_fused_loop, 1), 1))
 
     mapping(f"path F (explore_mapping_fused, S={S_big}, {refreshes} refreshes)",
@@ -2240,6 +2292,7 @@ def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: 
                 ins_ = evolve(ins_, sc)
         return outs, sc, ins_
 
+    glue = glue_want(engine.config, 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2247,6 +2300,8 @@ def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: 
     ref, sc_e, ins_e = chain(eager_step, ticks, sc0, dict(ins))
     torch.cuda.synchronize()
     expect_counts(f"phase 22, {name}, eager", read_counts(), {k: ticks * n for k, n in want.items()})
+    expect_counts(f"phase 22, {name}, eager, the glue", read_glue(),
+                  {k: ticks * n for k, n in glue.items()})
     peak_e = torch.cuda.max_memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2255,12 +2310,15 @@ def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: 
     torch.cuda.synchronize()
     capture_s = engine.graph_capture_s - captured
     expect_counts(f"phase 22, {name}, the call that captures", read_counts(), want)
+    expect_counts(f"phase 22, {name}, the call that captures, the glue", read_glue(), glue)
     kept = map_tree(torch.clone, first[0])
     reset_counts()
     rest, sc_g, ins_g = chain(graph_step, ticks - 1, sc_g, ins_g)
     torch.cuda.synchronize()
     expect_counts(f"phase 22, {name}, replays only", read_counts(),
                   {k: (ticks - 1) * n for k, n in want.items()})
+    expect_counts(f"phase 22, {name}, replays only, the glue", read_glue(),
+                  {k: (ticks - 1) * n for k, n in glue.items()})
     peak_g = torch.cuda.max_memory_allocated() - base
     same_ticks(f"{name}, {ticks} chained ticks", first + rest, ref)
     # the inputs unchanged, then changed in place: each tick still equals
@@ -2460,6 +2518,408 @@ def entry_graphs_phase(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the tick's glue (G) against its plain versions
+# ---------------------------------------------------------------------------
+
+
+def with_plain_glue(fn):
+    """``fn()`` with the glue's plain versions in its kernels' place: the
+    tick with its glue as plain PyTorch ops (a graph captured inside it
+    holds them)."""
+    import ergodic_exploration_tpu_torch.ops.tick_glue as tg
+
+    saved = tg.glue_pre, tg.glue_post
+    tg.glue_pre, tg.glue_post = tg.glue_pre_plain, tg.glue_post_plain
+    try:
+        return fn()
+    finally:
+        tg.glue_pre, tg.glue_post = saved
+
+
+def glue_pre_work(cfg, S: int, mode, H: int, nu: int):
+    """(operations, bytes) of glue_pre for S scenarios: the split (20
+    threefry rounds, ~100 integer operations), the guard and the warm reset
+    (H nu selects); per drawn position two lowbias32 hashes and the index
+    (~30); in mode "sums" per position 2 K angles and cosines (3 each) and
+    K^2 fused multiply-adds (2 each). Bytes: the drawn ring entries and the
+    guard's (2 nb + 2 floats), the pose, cursor, count, U, the domain and map
+    geometry read once; the history, count, flag, warm start and patch start
+    written once."""
+    K, nb = cfg.num_basis, (cfg.buffer_batch or 0) if mode else 0
+    flops = S * (100 + H * nu + 30 * nb + (6 * K * nb + 2 * K * K * nb if mode == "sums" else 0))
+    out = K * K if mode == "sums" else 2 * nb
+    nbytes = S * (4 * (2 * nb + 2 + 3 + 2 + H * nu + 4 + 3) + 16)
+    nbytes += S * (4 * (out + (1 if mode else 0) + H * nu + 2) + 1)
+    return flops, nbytes
+
+
+def glue_post_work(cfg, S: int, H: int, nu: int, safety: bool, advance: bool):
+    """(operations, bytes) of glue_post for S scenarios: the finiteness of
+    U_new and the command (H nu + nu), the next key (~100 integer
+    operations), the counters; with ``advance`` one RK4 step (6 sin / cos,
+    ~40 more) and the twist. Bytes: U_new, the safety outputs, the ring (2
+    cap floats), its counters, the key and the pose read once; the shifted
+    warm start, the new ring, counters, key, command, code and flags (and
+    the pose and twist) written once."""
+    cap = cfg.buffer_capacity
+    flops = S * (H * nu + nu + 110 + (50 if advance else 0))
+    nbytes = S * (4 * (H * nu + (2 + nu if safety else 0) + 2 * cap + 3 + 3) + 16)
+    nbytes += S * (4 * (H * nu + 2 * cap + 3 + nu + 1 + (6 if advance else 0)) + 16 + 3)
+    return flops, nbytes
+
+
+def kernel_profile(fn, units: int):
+    """Run ``fn`` twice under ``torch.profiler`` and read the second run:
+    (the device's operations a unit, kernels and copies alike, its busy ms a
+    unit, the glue kernels' busy ms a unit, the largest items by device
+    time). The first run inside the profiler is not read: the profiler was
+    seen to miss device events of the first graph replays it traces (0.8 of
+    a kernel a tick). A spin of the device (``torch.cuda._sleep``) between
+    the two runs marks where the second starts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(dev) if "spin" in e.name or "sleep" in e.name]
+    if not marks:
+        fail("phase 23: the profiler recorded no spin between the two runs")
+    by_name = {}
+    for e in dev[marks[-1] + 1:]:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    ops = sum(n for n, _ in by_name.values())
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    glue = sum(us for k, (_, us) in by_name.items() if k.startswith("glue_")) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return (ops / units, busy / units, glue / units,
+            [(k[:60], n / units, us / 1e3 / units) for k, (n, us) in top])
+
+
+def glue_phase(dev, card, entry) -> dict:
+    """Phase 23: glue_pre and glue_post (G, csrc/tick_glue.cu) against their
+    plain versions on the card, on the states paths A, B, D and E reach at
+    S = 4096 and their first scenario (S = 1), and on path Q's omni state:
+    keys, draws, drawn positions, orbit flags, warm starts, patch starts,
+    codes, flags, rings, counters equal; the shared draw's sums within
+    GLUE_SUM_ATOL; the advanced poses within 1e-6 and their twists equal.
+    One tick of A and of B with the glue's plain versions in its place: U
+    within 5e-5, metric and barrier within rtol 1e-5, the rest equal. Then
+    the kernels a tick (copies included) of A's 1-tick ``replan_refresh``
+    graph and of B's ``explore`` graph (fails past GLUE_KERNELS_A /
+    GLUE_KERNELS_B). Adds the
+    entries of the four variants those paths launch; returns the kernel
+    counts."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    import ergodic_exploration_tpu_torch.ops.tick_glue as tg
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine, Scenarios
+    from ergodic_exploration_tpu_torch.grid import Domain
+    from ergodic_exploration_tpu_torch.ops.buffer import RingBuffer
+    from ergodic_exploration_tpu_torch.ops.patch import extract_patch
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+    from ergodic_exploration_tpu_torch.tools import quality
+
+    print("== 23. the tick's glue (G) vs its plain versions; kernels a tick", flush=True)
+    PRE_REPLACES = "ergodic_exploration_tpu/ops/solve_kernel.py:664"
+    POST_REPLACES = "ergodic_exploration_tpu/ops/solve_kernel.py:919"
+
+    def operands(cfg, sc, world, U_new, safety, fused=True):
+        """(glue_pre's operands, glue_post's operands) on a path's state."""
+        st, x = sc.state, sc.x.contiguous()
+        dom = Domain(world.domain.origin.contiguous(), world.domain.lengths.contiguous())
+        patch = None
+        if fused:
+            P = min(cfg.patch_cells, *world.dist.dist.shape[-2:])
+            patch = tg.PatchGeometry(world.dist.origin.contiguous(),
+                                     world.dist.resolution.contiguous(), P)
+        pre = (cfg, tg.history_mode(cfg, fused), st.rng, st.buffer, st.U, x, dom, patch)
+        post = (cfg, fused and cfg.shared_history_draw, U_new, safety, st.buffer, st.hist_count,
+                st.rng, x)
+        return pre, post
+
+    def first(args):
+        """The operands of scenario 0 alone (S = 1)."""
+        def one(a):
+            if isinstance(a, torch.Tensor):
+                return a[:1].contiguous()
+            if isinstance(a, (RingBuffer, Domain)):
+                return type(a)(*(one(t) for t in a))
+            if isinstance(a, tg.PatchGeometry):
+                return a._replace(origin=one(a.origin), resolution=one(a.resolution))
+            if isinstance(a, tuple):
+                return tuple(one(t) for t in a)
+            return a
+        return tuple(one(a) for a in args)
+
+    def equal(tag, what, a, b):
+        if (a is None) != (b is None) or (a is not None and not (
+                a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b))):
+            fail(f"phase 23, {tag}: {what} of the kernel differs from the plain version")
+
+    def check_pre(tag, args, full=None):
+        """glue_pre against its plain version on ``args``. ``full``: the
+        kernel's and the plain version's sums of these rows in the path's
+        full batch. cuBLAS reduces a batch of one in another order than a
+        batch of 4096, so the plain version's sums of a scenario move with
+        the batch; the kernel's must not: at S = 1 they are held equal to the
+        kernel's in the full batch and within GLUE_SUM_ATOL of the plain
+        version's there, and the plain version's own move is printed."""
+        k, p = tg.G.pre(*args), tg.glue_pre_plain(*args)
+        torch.cuda.synchronize()
+        for f in ("orbiting", "U", "pstart", "nh"):
+            equal(tag, f"glue_pre {f}", getattr(k, f), getattr(p, f))
+        mode, err = args[1], 0.0
+        if mode == "nb":
+            equal(tag, "glue_pre drawn positions", k.hist, p.hist.contiguous())
+        elif mode == "sums":
+            ref = p.hist if full is None else full[1]
+            d = (k.hist - ref).abs()
+            err = d.max().item()
+            print(f"  {tag} glue_pre sums: max |kernel - plain| {err:.3e} (atol {GLUE_SUM_ATOL}), "
+                  f"{int((d > 0).sum())} of {d.numel()} not bit-equal"
+                  + ("" if full is None else
+                     f" (the plain version in the full batch); the kernel's equal to its own in "
+                     f"the full batch: {torch.equal(k.hist, full[0])}; the plain version at this "
+                     f"batch moves by {(p.hist - full[1]).abs().max().item():.3e}, the kernel "
+                     f"differs from it by {(k.hist - p.hist).abs().max().item():.3e}"))
+            if err > GLUE_SUM_ATOL or (full is not None and not torch.equal(k.hist, full[0])):
+                fail(f"phase 23, {tag}: the history sums are outside {GLUE_SUM_ATOL} or move "
+                     f"with the batch")
+        print(f"  {tag} glue_pre ({mode}): warm starts, patch starts, orbit flags "
+              f"({int(k.orbiting.sum())} of {k.orbiting.numel()} set), counts"
+              f"{', drawn positions' if mode == 'nb' else ''} equal")
+        return err, k, p
+
+    def check_post(tag, args, advance):
+        k, p = tg.G.post(*args, advance), tg.glue_post_plain(*args, advance)
+        torch.cuda.synchronize()
+        for f in ("U", "hist_count", "rng", "u", "code", "dwa_active", "feasible", "diverged",
+                  "vb"):
+            equal(tag, f"glue_post {f}", getattr(k, f), getattr(p, f))
+        for f, a, b in zip(RingBuffer._fields, k.buffer, p.buffer):
+            equal(tag, f"glue_post ring {f}", a, b)
+        dx = 0.0 if k.x is None else (k.x - p.x).abs().max().item()
+        if dx > 1e-6:
+            fail(f"phase 23, {tag}: the advanced poses differ by {dx:.3e} (limit 1e-6)")
+        print(f"  {tag} glue_post{' (advance)' if advance else ''}: shifted warm starts, rings, "
+              f"counters, keys, commands, codes, flags ({int(k.dwa_active.sum())} DWA, "
+              f"{int(k.diverged.sum())} diverged) equal"
+              + (f"; poses max |diff| {dx:.3e}, twists equal" if advance else ""))
+        return dx
+
+    def guard_case(tag, post):
+        """glue_post with NaN / inf put into a copy of U_new (and u_dwa)."""
+        U_bad = post[2].clone()
+        U_bad[::97, 3, 0] = float("nan")
+        U_bad[5::211, 0, -1] = float("inf")
+        safety = post[3]
+        if safety is not None:
+            u_dwa = safety[1].clone()
+            u_dwa[7::101, 0] = float("-inf")
+            safety = (safety[0], u_dwa, safety[2])
+        return check_post(tag + ", NaN / inf injected", post[:2] + (U_bad, safety) + post[4:],
+                          False)
+
+    def wrap_case(tag, pre):
+        """glue_pre on a copy of the ring that just wrapped (cursor < W, count
+        = cap) with every other pose 1 cm from the pose W ticks back: the
+        orbit guard's floor-mod read, and flags both set and clear."""
+        cfg_, buf, x = pre[0], pre[3], pre[5]
+        S_, cap = x.shape[0], buf.capacity
+        W = min(cfg_.orbit_window, cap)
+        cursor = (torch.arange(S_, device=x.device, dtype=torch.int32) % W).contiguous()
+        back = ((cursor - W) % cap).long()
+        prev = buf.states.gather(2, back[:, None, None].expand(S_, 2, 1))[..., 0]
+        x2 = x.clone()
+        x2[::2, :2] = prev[::2] + 0.01
+        wrapped = RingBuffer(buf.states, cursor, torch.full_like(buf.count, cap))
+        args = pre[:3] + (wrapped, pre[4], x2) + pre[6:]
+        k = check_pre(tag + ", the ring just wrapped", args)[1]
+        if not (k.orbiting[::2].all() and not k.orbiting[1::2].any()):
+            fail(f"phase 23, {tag}: the orbit guard after a wrap set {int(k.orbiting.sum())} "
+                 f"flags, expected every other one of {S_}")
+
+    def k1_out(cfg, sc, world, phik=None, gmm=None, domain=None):
+        inp, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, phik, world, gmm, domain)
+        out = sk.K1(cfg, inp, enable_safety=cfg.enable_safety)
+        return out.U_new, ((out.code, out.u_dwa, out.feasible) if cfg.enable_safety else None)
+
+    def both(tag, pre, post, advance):
+        wrap_case(f"{tag}, S={pre[5].shape[0]}", pre)
+        e, k, p = check_pre(f"{tag}, S={pre[5].shape[0]}", pre)
+        check_post(f"{tag}, S={pre[5].shape[0]}", post, advance)
+        guard_case(f"{tag}, S={pre[5].shape[0]}", post)
+        full = None if pre[1] != "sums" else (k.hist[:1], p.hist[:1])
+        e1 = check_pre(f"{tag}, S=1", first(pre), full)[0]
+        check_post(f"{tag}, S=1", first(post), advance)
+        return max(e, e1)
+
+    def tick_vs_plain_glue(tag, run):
+        """One eager tick with the glue's kernels and with their plain versions."""
+        k, p = run(), with_plain_glue(run)
+        torch.cuda.synchronize()
+        (ks, ku, kd), (ps, pu, pd) = k[:3], p[:3]
+        dU = max((ks.state.U - ps.state.U).abs().max().item(), (ku - pu).abs().max().item())
+        if dU > 5e-5:
+            fail(f"phase 23, {tag}: U differs by {dU:.3e} from the tick on the plain glue")
+        for f in ("ergodic_metric", "barrier_cost"):
+            a, b = getattr(kd, f), getattr(pd, f)
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-7):
+                fail(f"phase 23, {tag}: {f} outside rtol 1e-5 of the tick on the plain glue")
+        for f in ("collision_code", "dwa_active", "dwa_feasible", "diverged", "orbit_reset"):
+            equal(tag, f, getattr(kd, f), getattr(pd, f))
+        for f in ("rng", "hist_count"):
+            equal(tag, f, getattr(ks.state, f), getattr(ps.state, f))
+        bit = all(torch.equal(a, b) for a, b in zip(tree_leaves(k), tree_leaves(p)))
+        print(f"  {tag}: one tick on the glue kernels vs on their plain versions: max |U diff| "
+              f"{dU:.3e} (atol 5e-5); codes, flags, keys equal; "
+              f"{'bit for bit in every leaf' if bit else 'not bit for bit'}")
+
+    res = {}
+    # path A: the bench tick (shared map, shared draw: the sums in glue_pre)
+    engine, sc, world, gmm, domain = build_engine(S_MAIN, dev)
+    for _ in range(3):
+        sc, u, _ = engine.replan_refresh(sc, gmm, domain, world)
+        sc = advance(engine, sc, u)
+    cfg = engine.config
+    U_new, safety = k1_out(cfg, sc, world, gmm=gmm, domain=domain)
+    pre_a, post_a = operands(cfg, sc, world, U_new, safety)
+    err_pre_a = both("path A", pre_a, post_a, False)
+    tick_vs_plain_glue("path A tick (replan_refresh, eager)",
+                       lambda: engine._refresh_and_replan_fn(sc, gmm, domain, world))
+    entry("glue_pre_sums", "tick_glue.cu", PRE_REPLACES, err_pre_a,
+          events_ms(lambda: tg.G.pre(*pre_a), 20), events_ms(lambda: tg.glue_pre_plain(*pre_a), 5),
+          glue_pre_work(cfg, S_MAIN, "sums", cfg.horizon, cfg.nu))
+    entry("glue_post", "tick_glue.cu", POST_REPLACES, 0.0,
+          events_ms(lambda: tg.G.post(*post_a), 20),
+          events_ms(lambda: tg.glue_post_plain(*post_a), 5),
+          glue_post_work(cfg, S_MAIN, cfg.horizon, cfg.nu, True, False))
+    pre1, post1 = first(pre_a), first(post_a)
+    print(f"  glue_pre at S=1: {events_ms(lambda: tg.G.pre(*pre1), 50):.4f} ms/call; "
+          f"glue_post at S=1: {events_ms(lambda: tg.G.post(*post1), 50):.4f} ms/call {card}")
+    # the kernels a tick of A's 1-tick replan_refresh graph (the entry point,
+    # its copies in and out included)
+    box = [sc]
+
+    def tick_a(n=10):
+        for _ in range(n):
+            box[0] = engine.replan_refresh(box[0], gmm, domain, world)[0]
+
+    tick_a(3)
+    res["A"] = kernel_profile(tick_a, 10)
+    del engine, sc, world, pre_a, post_a, U_new, safety
+    torch.cuda.empty_cache()
+
+    # path B: explore on distinct maps (per-scenario draws, the advance)
+    cfg_b, x0_b, grids_b, gmm_b, dom_b = distinct_case(S_MAIN, dev)
+    eng_b = Engine(cfg_b)
+    world_b = eng_b.prepare_world(grids_b)
+    phik_b = eng_b.phik_from_gmm(gmm_b, dom_b, world_b)
+    sc_b = eng_b.explore(eng_b.init_scenarios(x0_b), phik_b, world_b, 3).scenarios
+    U_new, safety = k1_out(cfg_b, sc_b, world_b, phik=phik_b)
+    pre_b, post_b = operands(cfg_b, sc_b, world_b, U_new, safety)
+    err_pre_b = both("path B", pre_b, post_b, True)
+    err_post_b = check_post("path B, S=4096, the entry's check", post_b, True)
+    def tick_b():
+        st, x1, vb1, u_, d_ = eng_b._tick_batched(sc_b.state, sc_b.x, sc_b.vb, phik_b, world_b)
+        return Scenarios(st, x1, vb1), u_, d_
+
+    tick_vs_plain_glue("path B tick (explore's tick with its advance, eager)", tick_b)
+    entry("glue_pre_nb", "tick_glue.cu", PRE_REPLACES, err_pre_b,
+          events_ms(lambda: tg.G.pre(*pre_b), 20), events_ms(lambda: tg.glue_pre_plain(*pre_b), 5),
+          glue_pre_work(cfg_b, S_MAIN, "nb", cfg_b.horizon, cfg_b.nu))
+    entry("glue_post_advance", "tick_glue.cu", POST_REPLACES, err_post_b,
+          events_ms(lambda: tg.G.post(*post_b, True), 20),
+          events_ms(lambda: tg.glue_post_plain(*post_b, True), 5),
+          glue_post_work(cfg_b, S_MAIN, cfg_b.horizon, cfg_b.nu, True, True))
+    box_b = [sc_b]
+
+    def ticks_b():
+        box_b[0] = eng_b.explore(box_b[0], phik_b, world_b, 10).scenarios
+
+    ticks_b()
+    res["B"] = kernel_profile(ticks_b, 10)
+    del eng_b, world_b, phik_b, sc_b, grids_b, pre_b, post_b, U_new, safety
+    torch.cuda.empty_cache()
+
+    # path D: fused_solve on one shared empty map (the sums, safety off)
+    rng = np.random.default_rng(4)
+    x0_d = np.concatenate([rng.uniform(0.05, 4.95, (S_MAIN, 2)),
+                           rng.uniform(-np.pi, np.pi, (S_MAIN, 1))], axis=1).astype(np.float32)
+    gmm_d = GaussianMixture.create(np.full((S_MAIN, 1, 2), 2.5, np.float32),
+                                   np.tile((0.4 * np.eye(2, dtype=np.float32))[None, None],
+                                           (S_MAIN, 1, 1, 1)), device=dev)
+    dom_d = Domain.create(0.0, 0.0, 5.0, 5.0, device=dev)
+    cfg_d = default_config("cart").replace(use_fused_solve=True, enable_safety=False,
+                                           shared_maps=True, shared_history_draw=True)
+    eng_d = Engine(cfg_d)
+    world_d = eng_d.empty_world(dom_d, S_MAIN)
+    phik_d = eng_d.phik_from_gmm(gmm_d, dom_d)
+    sc_d = eng_d.explore(eng_d.init_scenarios(x0_d), phik_d, world_d, 3).scenarios
+    both("path D", *operands(cfg_d, sc_d, world_d, *k1_out(cfg_d, sc_d, world_d, phik=phik_d)),
+         True)
+    del eng_d, world_d, phik_d, sc_d
+    torch.cuda.empty_cache()
+
+    # path E: the MI tick (K3 ahead of K1; the sums)
+    eng_e, sc_e, belief, truth, world_e, dom_e = mi_case(S_MAIN, dev)
+    for _ in range(2):
+        sc_e, u, _ = eng_e.replan_refresh_mi(sc_e, belief, world_e, MI_RADIUS, dom_e,
+                                             use_mi_kernel=True)
+        sc_e = advance(eng_e, sc_e, u)
+    phik_e = eng_e._phik_grid_kernel(belief, dom_e, MI_RADIUS)
+    both("path E", *operands(eng_e.config, sc_e, world_e,
+                             *k1_out(eng_e.config, sc_e, world_e, phik=phik_e)), False)
+    del eng_e, sc_e, belief, truth, world_e, phik_e
+    torch.cuda.empty_cache()
+
+    # path Q's state: default_config("omni"), the eager step (per-scenario
+    # draws, no patch start), one refresh of its loop; the safety stage on it
+    cfg_q = default_config("omni")
+    eng_q = Engine(cfg_q)
+    truth_q = quality.build_truth(Q_S, dev)
+    sc_q, belief_q, _, _, _ = eng_q.explore_mapping_fused(
+        eng_q.init_scenarios(quality.spawn_poses(cfg_q, truth_q, Q_S)), truth_q, 1, Q_EVERY)
+    world_q = eng_q.prepare_world(belief_q)
+    P = min(cfg_q.patch_cells, *world_q.dist.dist.shape[-2:])
+    crop = extract_patch(world_q.dist, sc_q.x[:, :2], P).center_crop(cfg_q.safety_patch_cells)
+    U_q = sc_q.state.U
+    safety_q = sk.fused_safety(cfg_q, sc_q.x.contiguous(), sc_q.vb.contiguous(),
+                               U_q[:, 0].contiguous(), crop.dist.contiguous(),
+                               crop.start.to(torch.int32), crop.origin.contiguous(),
+                               crop.resolution.contiguous(), world_q.domain.origin.contiguous(),
+                               world_q.domain.lengths.contiguous())
+    pre_q, post_q = operands(cfg_q, sc_q, world_q, U_q, safety_q, fused=False)
+    check_pre(f"path Q (omni, eager), S={Q_S}", pre_q)
+    check_post(f"path Q (omni, eager), S={Q_S}", post_q, True)
+    guard_case(f"path Q (omni, eager), S={Q_S}", post_q)
+    del eng_q, truth_q, sc_q, belief_q, world_q, crop
+
+    for path, limit in (("A", GLUE_KERNELS_A), ("B", GLUE_KERNELS_B)):
+        n, busy, glue, top = res[path]
+        what = (f"A's 1-tick replan_refresh graph (copies in and out included), S={S_MAIN}"
+                if path == "A" else f"B's explore graph (10 ticks a replay), S={S_MAIN}")
+        print(f"  {what}: {n:.1f} kernels and copies a tick (limit {limit}), device busy "
+              f"{busy:.4f} ms a tick, of which the glue {glue:.4f} ms "
+              f"({100 * glue / max(busy, 1e-9):.1f} %) {card}")
+        for name, cnt, ms in top:
+            print(f"     {ms:9.4f} ms  x{cnt:5.1f}  {name}")
+        if n > limit:
+            fail(f"phase 23: {what} runs {n:.1f} kernels a tick (limit {limit})")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2476,6 +2936,7 @@ def run(dev) -> int:
     import ergodic_exploration_tpu_torch.ops.gmm_kernel as gk
     import ergodic_exploration_tpu_torch.ops.mi_kernel as mk
     import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    import ergodic_exploration_tpu_torch.ops.tick_glue as tg
     from ergodic_exploration_tpu_torch.config import default_config
     from ergodic_exploration_tpu_torch.engine import Engine
     from ergodic_exploration_tpu_torch.grid import Domain, GridMap
@@ -2528,13 +2989,14 @@ def run(dev) -> int:
         print(f"{name}: nvcc {built.seconds:.2f} s -> {built.path.relative_to(ROOT)}")
         fn = ""
         for line in built.log.splitlines():
-            m = re.search(r"_Z\d+(k\d_[a-z_]+)(?:ILi(\d)E)?", line)
+            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+)(?:ILi(\d)E)?", line)
             fn = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else fn
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {fn}: {line.replace('ptxas info    :', '').strip()}")
     sk.K1.build()
     gk.K2.build()
     mk.K3.build()
+    tg.G.build()
     print(f"all libraries built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. K1 (shared map) against its plain version at path A's shapes
@@ -2544,7 +3006,7 @@ def run(dev) -> int:
         sc, u, diag = engine.replan_refresh(sc, gmm, domain, world)
         sc = advance(engine, sc, u)
     cfg = engine.config
-    inp2, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+    inp2, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
     inp0 = inp2._replace(refresh=None, phik=sk.refresh_plain(inp2.refresh, inp2.dlen))
     err = 0.0
     for name, inp in (("J=2", inp2), ("J=0", inp0)):
@@ -2617,8 +3079,10 @@ def run(dev) -> int:
     end.record()
     torch.cuda.synchronize()
     counts = read_counts()
+    glue_a = read_glue()
     ms = start.elapsed_time(end) / TIMED_TICKS
     expect_counts("path A", counts, {"fused_solve_safety": TIMED_TICKS})
+    expect_counts("path A, the glue", glue_a, glue_want(cfg, TIMED_TICKS))
     kernels["fused_solve_safety"]["launches"] = counts["fused_solve_safety"]
     if u.shape != (S_MAIN, cfg.nu) or not bool(finite) or not torch.isfinite(sc.x).all():
         fail("path A produced non-finite or mis-shaped outputs")
@@ -2661,9 +3125,10 @@ def run(dev) -> int:
         if bool(diag.diverged.any()) or not bool(torch.isfinite(u).all()):
             fail("S=1 tick diverged or produced non-finite controls")
     expect_counts("path A, S=1", read_counts(), {"fused_solve_safety": LATENCY_TICKS})
+    expect_counts("path A, S=1, the glue", read_glue(), glue_want(cfg, LATENCY_TICKS))
     print(f"S=1 replan latency over {LATENCY_TICKS} ticks: p50 {np.percentile(lat, 50):.4f} ms, "
           f"p99 {np.percentile(lat, 99):.4f} ms (budget 100 ms) {card}")
-    inp2, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+    inp2, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
     inp0 = inp2._replace(refresh=None, phik=sk.refresh_plain(inp2.refresh, inp2.dlen))
     refresh_and_solve("S=1", inp2, inp0, 50)
     del inp2, inp0
@@ -2771,9 +3236,11 @@ def run(dev) -> int:
     end.record()
     torch.cuda.synchronize()
     counts = read_counts()
+    glue_b = read_glue()
     ms_b = start.elapsed_time(end) / EXPLORE_TICKS
     expect_counts("path B", counts, {"phik_from_gmm_masked": 1,
                                      "fused_solve_safety_map_h0_nb": EXPLORE_TICKS})
+    expect_counts("path B, the glue", glue_b, glue_want(cfg_b, EXPLORE_TICKS, advance=True))
     print(f"  (warmup before it launched {({k: v for k, v in warm_counts.items() if v})})")
     nu = cfg_b.nu
     shapes_ok = (out.trajectory.shape == (EXPLORE_TICKS, S_MAIN, 3)
@@ -2834,7 +3301,7 @@ def run(dev) -> int:
 
         c = eng.config
         S_ = sc.x.shape[0]
-        inp_nb, _, _ = sk.fused_tick_inputs(c, sc.state, sc.x, sc.vb, phik, world)
+        inp_nb, _ = sk.fused_tick_inputs(c, sc.state, sc.x, sc.vb, phik, world)
         nb = inp_nb.hist.shape[1]
         sums = drawn_history_sums(inp_nb.hist, inp_nb.nh, c.num_basis, world.domain,
                                   basis.hk_norm(c.num_basis, world.domain.lengths))
@@ -3004,7 +3471,7 @@ def run(dev) -> int:
               f"{out_d.diag.barrier_cost.max().item():.4f}); tick "
               f"{start.elapsed_time(end) / T_D:.4f} ms (the first call, capture included) {card}")
         # the variant against its plain version on the state this path reached
-        inp, _, _ = sk.fused_tick_inputs(cfg_d, out_d.scenarios.state, out_d.scenarios.x,
+        inp, _ = sk.fused_tick_inputs(cfg_d, out_d.scenarios.state, out_d.scenarios.x,
                                          out_d.scenarios.vb, phik_d, world_d)
         k = sk.K1(cfg_d, inp, enable_safety=False)
         p = sk.fused_solve_safety_plain(cfg_d, inp, enable_safety=False)
@@ -3408,6 +3875,11 @@ def run(dev) -> int:
     wide_phase(dev, card, entry, kernels)
     at(22)
     entry_graphs_phase(dev, card)
+    at(23)
+    glue_phase(dev, card, entry)
+    for name, n in list(glue_a.items()) + list(glue_b.items()):  # launched on paths A and B
+        if name in kernels and n:
+            kernels[name]["launches"] = n
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:

@@ -10,7 +10,12 @@ The descent and safety stages are shared with the plain version of the
 fused kernel (ops/solve_kernel.py). In the eager :meth:`ErgodicController.step`
 the descent is batched PyTorch ops (the JAX package has no kernel there
 either); its safety stage goes through ``ops.solve_kernel.fused_safety``: the
-CUDA kernel for CUDA tensors, :func:`safety_on_crop` for CPU tensors.
+CUDA kernel for CUDA tensors, :func:`safety_on_crop` for CPU tensors. The
+glue around the descent, in the eager step and in the fused tick alike, goes
+through ``ops.tick_glue``: ``glue_pre`` (the draw key of the RNG split, the
+history draw, the orbit guard's warm-start reset) and ``glue_post``
+(:func:`finish_tick`: the DWA select, the divergence guard, the warm-start
+shift, the ring append, the next keys), kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -26,12 +31,11 @@ from ergodic_exploration_tpu_torch.models import make_model
 from ergodic_exploration_tpu_torch.ops import basis
 from ergodic_exploration_tpu_torch.ops.barrier import barrier
 from ergodic_exploration_tpu_torch.ops.buffer import RingBuffer
-from ergodic_exploration_tpu_torch.ops.collision import CRASH, validate_control
+from ergodic_exploration_tpu_torch.ops.collision import validate_control
 from ergodic_exploration_tpu_torch.ops.distance import DistanceField
 from ergodic_exploration_tpu_torch.ops.dwa import dwa_control
 from ergodic_exploration_tpu_torch.ops.integrator import costate_solve, rollout
 from ergodic_exploration_tpu_torch.ops.patch import extract_patch
-from ergodic_exploration_tpu_torch.utils import prng
 from ergodic_exploration_tpu_torch.utils.device import constant
 
 
@@ -84,20 +88,15 @@ def orbit_guard(cfg: EngineConfig, buffer: RingBuffer, p_now: torch.Tensor) -> t
     return (buffer.count >= W) & (disp2 < cfg.orbit_eps * cfg.orbit_eps)
 
 
-def history_sums(cfg: EngineConfig, state: ControllerState, sub: torch.Tensor,
-                 domain: Domain, hk: torch.Tensor):
-    """History term of c_k: (sum of F_k over the history (S, K, K), its
-    state count (S,)) for the ring (sampled batch or full) or accumulate
-    mode. ``sub`` (S, 2) are this tick's draw keys."""
-    K = cfg.num_basis
+def history_sums(cfg: EngineConfig, state: ControllerState, domain: Domain, hk: torch.Tensor):
+    """History term of c_k where no draw feeds it (``glue_pre``'s history
+    mode None): the full ring (``buffer_batch`` None) or the accumulate mode.
+    Returns (sum of F_k over the history (S, K, K), its state count (S,))."""
     if cfg.history == "accumulate":
         return state.ck_sum, state.hist_count.to(torch.float32)
     buf = state.buffer
-    if cfg.buffer_batch is not None:
-        s_buf, n_hist = buf.sample_states(cfg.buffer_batch, sub)
-        return drawn_history_sums(s_buf, n_hist, K, domain, hk), n_hist
-    Cbx, Cby = basis.cos_tables(buf.positions, K, domain)
-    w_buf = buf.sample_mask(None, sub)
+    Cbx, Cby = basis.cos_tables(buf.positions, cfg.num_basis, domain)
+    w_buf = buf.valid_mask()
     return basis.coefficients_cos(Cbx, Cby, w_buf, hk), w_buf.sum(dim=-1)
 
 
@@ -167,43 +166,33 @@ def safety(cfg: EngineConfig, model, x, vb, u0, domain, patch):
                           patch.center_crop(cfg.safety_patch_cells))
 
 
-def finish_tick(cfg: EngineConfig, state: ControllerState, x, U_new, u0, safety_out,
-                ck_sum, rng, metric, bcost, orbiting):
-    """Shared tail of a tick: DWA select, divergence guard, warm-start
-    shift, ring append. ``safety_out`` is (code, u_dwa, feasible) or None
-    (safety disabled)."""
-    S = x.shape[0]
-    if safety_out is not None:
-        code, u_dwa, feasible = safety_out
-        use_dwa = code >= CRASH
-        u_cmd = torch.where(use_dwa[:, None], u_dwa, u0)
-    else:
-        code = torch.zeros(S, dtype=torch.int32, device=x.device)
-        feasible = torch.ones(S, dtype=torch.bool, device=x.device)
-        use_dwa = torch.zeros(S, dtype=torch.bool, device=x.device)
-        u_cmd = u0
-    # divergence guard: a non-finite solve resets THIS scenario's controls
-    diverged = ~(torch.isfinite(U_new).all(dim=(1, 2)) & torch.isfinite(u_cmd).all(dim=1))
-    U_new = torch.where(diverged[:, None, None], torch.zeros_like(U_new), U_new)
-    u_cmd = torch.where(diverged[:, None], torch.zeros_like(u_cmd), u_cmd)
-    U_next = torch.cat([U_new[:, 1:], torch.zeros_like(U_new[:, :1])], dim=1)
-    new_state = ControllerState(
-        U=U_next,
-        buffer=state.buffer.append(x[:, :2]),
-        ck_sum=ck_sum,
-        hist_count=state.hist_count + 1,
-        rng=rng,
-    )
+def finish_tick(cfg: EngineConfig, state: ControllerState, x, U_new, safety_out, ck_sum,
+                metric, bcost, orbiting, shared_key: bool = False, advance: bool = False):
+    """Shared tail of a tick (``glue_post``: the DWA select, the divergence
+    guard, the warm-start shift, the ring append, ``hist_count + 1`` and the
+    next keys; a kernel on the card). ``safety_out`` is (code, u_dwa,
+    feasible (int32)) or None (safety disabled); with ``shared_key`` every
+    row's next key is row 0's. Returns (new_state, u_cmd, diag), and with
+    ``advance`` also the poses one dt on through the true kinematics and their
+    body twists."""
+    from ergodic_exploration_tpu_torch.ops.tick_glue import glue_post
+
+    post = glue_post(cfg, shared_key, U_new, safety_out, state.buffer, state.hist_count,
+                     state.rng, x, advance)
+    new_state = ControllerState(U=post.U, buffer=post.buffer, ck_sum=ck_sum,
+                                hist_count=post.hist_count, rng=post.rng)
     diag = StepDiagnostics(
         ergodic_metric=metric,
         barrier_cost=bcost,
-        collision_code=code,
-        dwa_active=use_dwa,
-        dwa_feasible=feasible,
-        diverged=diverged,
+        collision_code=post.code,
+        dwa_active=post.dwa_active,
+        dwa_feasible=post.feasible,
+        diverged=post.diverged,
         orbit_reset=orbiting,
     )
-    return new_state, u_cmd, diag
+    if advance:
+        return new_state, post.u, diag, post.x, post.vb
+    return new_state, post.u, diag
 
 
 @dataclass(frozen=True)
@@ -240,12 +229,16 @@ class ErgodicController:
         tbl = basis.tables(points, K, domain)
         return basis.coefficients(tbl, phi_vals, basis.hk_norm(K, domain.lengths))
 
-    def step(self, state: ControllerState, x, vb, phik, world: World):
+    def step(self, state: ControllerState, x, vb, phik, world: World, advance: bool = False):
         """One ergodic-MPC tick for every scenario.
 
         x (S, 3) poses, vb (S, 3) body twists, phik (S, K, K) targets.
-        Returns (new_state, u_cmd (S, nu), StepDiagnostics).
+        Returns (new_state, u_cmd (S, nu), StepDiagnostics), and with
+        ``advance`` also the poses one dt on and their twists (see
+        :func:`finish_tick`).
         """
+        from ergodic_exploration_tpu_torch.ops.tick_glue import glue_pre, history_mode
+
         cfg = self.config
         model = self.model
         K = cfg.num_basis
@@ -254,32 +247,34 @@ class ErgodicController:
         hk = basis.hk_norm(K, domain.lengths)
         patch = extract_patch(world.dist, x[:, :2], cfg.patch_cells)
 
-        orbiting = orbit_guard(cfg, state.buffer, x[:, :2])
-        U_warm = torch.where(orbiting[:, None, None], torch.zeros_like(state.U), state.U)
-
-        keys = prng.split(state.rng)  # (S, 2, 2)
-        rng, sub = keys[:, 0], keys[:, 1]
-        hist_sum, n_hist = history_sums(cfg, state, sub, domain, hk)
-        U_new, metric, bcost = descent(cfg, model, x, U_warm, hist_sum, n_hist, phik,
+        # glue_pre: the orbit guard's warm-start reset and each scenario's
+        # history draw (under its key's split)
+        x = x.contiguous()
+        mode = history_mode(cfg, fused=False)
+        pre = glue_pre(cfg, mode, state.rng, state.buffer, state.U, x, domain)
+        if mode is None:
+            hist_sum, n_hist = history_sums(cfg, state, domain, hk)
+        else:
+            hist_sum = drawn_history_sums(pre.hist, pre.nh, K, domain, hk)
+            n_hist = pre.nh
+        U_new, metric, bcost = descent(cfg, model, x, pre.U, hist_sum, n_hist, phik,
                                        domain, patch, lam, hk)
-        u0 = U_new[:, 0]
         safety_out = None
         if cfg.enable_safety:
             from ergodic_exploration_tpu_torch.ops.solve_kernel import fused_safety
 
             crop = patch.center_crop(cfg.safety_patch_cells)
-            code, u_dwa, feas = fused_safety(
-                cfg, x.contiguous(), vb.contiguous(), u0.contiguous(), crop.dist.contiguous(),
+            safety_out = fused_safety(
+                cfg, x, vb.contiguous(), U_new[:, 0].contiguous(), crop.dist.contiguous(),
                 crop.start.to(torch.int32), crop.origin.contiguous(),
                 crop.resolution.contiguous(), domain.origin.contiguous(),
                 domain.lengths.contiguous())
-            safety_out = (code, u_dwa, feas.to(torch.bool))
 
         # history: the running basis sum gains F_k at the ACTUAL current pose
         Cnx, Cny = basis.cos_tables(x[:, None, :2], K, domain)
         ck_sum = state.ck_sum + basis.coefficients_cos(Cnx, Cny, torch.ones_like(x[:, :1]), hk)
-        return finish_tick(cfg, state, x, U_new, u0, safety_out, ck_sum, rng, metric,
-                           bcost, orbiting)
+        return finish_tick(cfg, state, x, U_new, safety_out, ck_sum, metric, bcost,
+                           pre.orbiting, advance=advance)
 
     def predicted_path(self, state: ControllerState, x) -> torch.Tensor:
         """(S, H+1, 3) forward-simulated path of each scenario's control

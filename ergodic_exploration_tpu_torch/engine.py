@@ -19,8 +19,11 @@ sharded over ranks (port of ``ergodic_exploration_tpu/engine.py``).
 ``Engine(config, device="cpu")`` runs on the CPU, where every kernel wrapper
 takes its plain PyTorch version. Every tensor carries the scenario axis
 first. A tick is, with ``use_fused_solve``, one launch of K1
-(ops/solve_kernel.py) between small batched PyTorch stages, otherwise the
-batched controller step whose safety stage is the ``fused_safety`` kernel;
+(ops/solve_kernel.py) between the tick's two glue kernels (ops/tick_glue.py:
+the RNG split, the history draw and the orbit guard ahead of it; the DWA
+select, the guards, the ring append and, in the closed loops, the pose
+advance after it), otherwise the batched controller step between the same
+two glue kernels, whose safety stage is the ``fused_safety`` kernel;
 ``phik_from_gmm`` with ``use_pallas`` goes through K2 (ops/gmm_kernel.py).
 On the card every entry point runs as one compiled program, as the JAX
 package's ``jax.jit`` runs it: the single-tick entry points (``replan``,
@@ -78,7 +81,6 @@ from ergodic_exploration_tpu_torch.grid import Domain, GridMap
 from ergodic_exploration_tpu_torch.ops import basis
 from ergodic_exploration_tpu_torch.ops import target as target_ops
 from ergodic_exploration_tpu_torch.ops.distance import DistanceField
-from ergodic_exploration_tpu_torch.ops.integrator import rollout
 from ergodic_exploration_tpu_torch.utils import graphs, prng
 from ergodic_exploration_tpu_torch.utils.device import resolve_device
 
@@ -144,6 +146,7 @@ class Engine:
         self.model = self.controller.model
         self._validated = set()  # shared-geometry checks already made
         self._mi_operands = {}  # geometry key -> (tensors of the key, MiOperands)
+        self._lattices = {}  # refresh geometry key -> (tensors of the key, Lattice)
         self._graphs = graphs.GraphCache()  # the closed loops' static buffers and graphs
         self._tick_graphs = graphs.GraphCache()  # the single-tick entry points'
 
@@ -591,12 +594,15 @@ class Engine:
     # the batched API
     # ------------------------------------------------------------------
 
-    def _replan_batched(self, state, x, vb, phik, world):
+    def _replan_batched(self, state, x, vb, phik, world, advance: bool = False):
+        """One tick: (state, u, diag), and with ``advance`` also the poses
+        one dt on through the true kinematics and their twists."""
         if self.config.use_fused_solve:
             from ergodic_exploration_tpu_torch.ops.solve_kernel import replan_batched_fused
 
-            return replan_batched_fused(self.config, self.model, state, x, vb, phik, world)
-        return self.controller.step(state, x, vb, phik, world)
+            return replan_batched_fused(self.config, self.model, state, x, vb, phik, world,
+                                        advance=advance)
+        return self.controller.step(state, x, vb, phik, world, advance=advance)
 
     def _replan_fn(self, sc: Scenarios, phik, world: World):
         state, u, diag = self._replan_batched(sc.state, sc.x, sc.vb, phik, world)
@@ -612,20 +618,49 @@ class Engine:
             return self._graph_tick("replan", self._replan_fn, (sc, phik, world), ())
         return self._replan_fn(sc, phik, world)
 
-    def _refresh_and_replan_fn(self, sc: Scenarios, gmm, domain: Domain, world: World):
+    def _refresh_in_kernel(self, domain: Domain) -> bool:
+        """Whether the GMM refresh of a tick on ``domain`` runs inside K1."""
+        cfg = self.config
+        return (cfg.use_fused_solve and cfg.shared_maps and domain.origin.dim() == 1
+                and not self._use_sample_sharding(domain))
+
+    def _lattice_ops(self, domain: Domain, free_mask):
+        """The in-kernel refresh's lattice operands
+        (ops/solve_kernel.py::Lattice) for ``domain`` and ``free_mask``: they
+        depend on those (and the configuration) alone and are built once per
+        (their tensors and ``_version``). Reads the host (the cache's key, the
+        build), so a graph's tick takes them as an input."""
+        from ergodic_exploration_tpu_torch.ops.solve_kernel import lattice_operands
+
+        held = (domain.origin, domain.lengths) + ((free_mask,) if free_mask is not None else ())
+        key = tuple((t.data_ptr(), t._version) for t in held)
+        hit = self._lattices.get(key)
+        if hit is None:
+            if len(self._lattices) >= 16:
+                self._lattices.clear()
+            # the tensors are kept with the entry, so their storage is not
+            # handed to other tensors while the key is in use
+            hit = self._lattices[key] = (held, lattice_operands(self.config, domain, free_mask))
+        return hit[1]
+
+    def _refresh_and_replan_fn(self, sc: Scenarios, gmm, domain: Domain, world: World,
+                               lattice=None):
         """GMM target refresh + batched solve: the full per-tick work. With
         the fused solve + shared maps on a shared domain the refresh runs
-        inside K1 — the whole tick is one kernel launch, also on a scenario
-        mesh (this rank's slice; reads of row 0 see the local row 0, the same
-        map by the shared contracts). A populated ``sample`` dim keeps the
+        inside K1 on the ``lattice`` operands (:meth:`_lattice_ops` when
+        None), between the tick's two glue kernels, also on a scenario mesh
+        (this rank's slice; reads of row 0 see the local row 0, the same map
+        by the shared contracts). A populated ``sample`` dim keeps the
         sample-sharded refresh ahead of the solve."""
         cfg = self.config
-        if (cfg.use_fused_solve and cfg.shared_maps and domain.origin.dim() == 1
-                and not self._use_sample_sharding(domain)):
+        if self._refresh_in_kernel(domain):
             from ergodic_exploration_tpu_torch.ops.solve_kernel import replan_batched_fused
 
+            if lattice is None:
+                lattice = self._lattice_ops(domain, world.free_mask)
             state, u, diag = replan_batched_fused(cfg, self.model, sc.state, sc.x, sc.vb,
-                                                  None, world, gmm=gmm, domain=domain)
+                                                  None, world, gmm=gmm, domain=domain,
+                                                  lattice=lattice)
             return Scenarios(state=state, x=sc.x, vb=sc.vb), u, diag
         phik = self._phik_from_gmm_fn(gmm, domain, world.free_mask)
         return self._replan_fn(sc, phik, world)
@@ -635,12 +670,18 @@ class Engine:
         tick ``bench.py`` times in the JAX package). Under a mesh ``gmm`` is
         this rank's rows (``shard_scenarios``). On the card a replay of the
         1-tick graph of :meth:`_refresh_and_replan_fn`, except on a populated
-        ``sample`` dim (module docstring)."""
+        ``sample`` dim (module docstring); the in-kernel refresh's lattice
+        operands are built outside the graph (:meth:`_lattice_ops`) and
+        copied in."""
         self._check_local(sc, gmm=gmm, world=world)
         self._check_shared_world(world)
         ins = (sc, self._here(gmm), self._here(domain), world)
         if self._on_graphs(collective=True):
-            return self._graph_tick("replan_refresh", self._refresh_and_replan_fn, ins, ())
+            domain = ins[2]
+            lattice = (self._lattice_ops(domain, world.free_mask)
+                       if self._refresh_in_kernel(domain) else None)
+            return self._graph_tick("replan_refresh", self._refresh_and_replan_fn,
+                                    ins + (lattice,), ())
         return self._refresh_and_replan_fn(*ins)
 
     def _refresh_mi_and_replan_fn(self, sc: Scenarios, grids: GridMap, world: World,
@@ -745,10 +786,11 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _tick_batched(self, state, x, vb, phik, world):
-        """One replan + one dt of real motion through the true kinematics."""
-        state, u, diag = self._replan_batched(state, x, vb, phik, world)
-        x_next = rollout(self.model, x, u[:, None, :], self.config.dt)[:, -1]
-        return state, x_next, self.model.twist(u), u, diag
+        """One replan + one dt of real motion through the true kinematics
+        (the tick's ``glue_post`` advances the poses: ``advance``)."""
+        state, u, diag, x_next, vb_next = self._replan_batched(state, x, vb, phik, world,
+                                                               advance=True)
+        return state, x_next, vb_next, u, diag
 
     def _outputs(self, n: int, x: torch.Tensor):
         """Empty (n, S, 3) trajectory, (n, S, nu) controls and

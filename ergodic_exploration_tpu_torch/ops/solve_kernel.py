@@ -33,7 +33,9 @@ ring, accumulate), or the ``nb`` positions drawn from each scenario's ring
 buffer (``history="ring"`` with ``buffer_batch`` and per-scenario draws: the
 JAX kernel's ``nb > 0`` variant), whose cos tables and outer-product sums are
 then computed inside the kernel. Those launches count under the variant's
-name with ``_nb`` appended.
+name with ``_nb`` appended. The shared draw's sums and the drawn positions
+come from ``glue_pre`` (ops/tick_glue.py), which with ``glue_post`` carries
+the rest of the tick around K1 (:func:`replan_batched_fused`).
 """
 
 from __future__ import annotations
@@ -47,9 +49,8 @@ import torch
 
 from ergodic_exploration_tpu_torch.grid import Domain
 from ergodic_exploration_tpu_torch.ops import basis
-from ergodic_exploration_tpu_torch.ops.patch import gather_patch, patch_start
+from ergodic_exploration_tpu_torch.ops.patch import gather_patch
 from ergodic_exploration_tpu_torch.ops.target import GaussianMixture, gmm_eval
-from ergodic_exploration_tpu_torch.utils import prng
 
 NUMAX = 4  # controls the CUDA kernel holds (both models have at most 4)
 LATTICE_CHUNK = 64  # lattice points per refresh step; N is padded to it
@@ -667,119 +668,112 @@ def pad_lattice(pts: torch.Tensor, D: torch.Tensor):
     return pts.contiguous(), D.contiguous()
 
 
-def refresh_operands(cfg, gmm: GaussianMixture, domain: Domain, free_mask) -> Refresh:
-    """Shared lattice, mask-folded dense basis table and fallback for the
-    in-kernel refresh; the lattice is padded to LATTICE_CHUNK with far-away
-    points whose D rows are zero."""
+class Lattice(NamedTuple):
+    """The refresh's operands that depend on the geometry alone: the shared
+    lattice, the mask-folded dense basis table and the degenerate-target
+    fallback (the fields of :class:`Refresh` after its mixture)."""
+
+    pts: torch.Tensor  # (Npad, 2)
+    D: torch.Tensor  # (Npad, K^2)
+    mask_ck: torch.Tensor  # (K^2,)
+
+
+def lattice_operands(cfg, domain: Domain, free_mask) -> Lattice:
+    """The shared lattice, the mask-folded dense basis table and the fallback
+    of the in-kernel refresh on the unbatched ``domain`` (with row 0 of
+    ``free_mask`` folded in, or none); the lattice is padded to LATTICE_CHUNK
+    with far-away points whose D rows are zero. They depend on (domain, free
+    mask, K, grid_samples) alone: the engine builds them once for those,
+    outside any graph (``Engine._lattice_ops``), as the JAX package's jit
+    builds them inside its trace."""
     K = cfg.num_basis
     pts = domain.sample_lattice(cfg.grid_samples)  # (N, 2)
     N = pts.shape[0]
     D = basis.dense_table(basis.tables(pts, K, domain), basis.hk_norm(K, domain.lengths))
-    masked = free_mask is not None
-    if masked:
+    if free_mask is not None:
         m1 = free_mask[0] if free_mask.dim() == 2 else free_mask  # one shared mask
         D = D * m1.to(D.dtype)[:, None]
         mask_ck = D.sum(dim=0) / torch.clamp(m1.sum(), min=1.0)
     else:
         mask_ck = D.sum(dim=0) / float(N)
     pts, D = pad_lattice(pts, D)
+    return Lattice(pts, D, mask_ck.contiguous())
+
+
+def refresh_operands(cfg, gmm: GaussianMixture, domain: Domain, free_mask,
+                     lattice: Optional[Lattice] = None) -> Refresh:
+    """Operands of the in-kernel refresh: the mixtures with the
+    :class:`Lattice` (:func:`lattice_operands`, built here when None)."""
+    lat = lattice_operands(cfg, domain, free_mask) if lattice is None else lattice
     g = GaussianMixture(*(t.contiguous() for t in gmm))
-    return Refresh(g, pts, D, mask_ck.contiguous(), masked)
+    return Refresh(g, *lat, free_mask is not None)
 
 
-def _shared_draw_history(cfg, state, sub0, bdom, hk):
-    """Shared-draw compaction: ONE index draw for every scenario (they hold
-    the same key and tick together, so their counts are equal), gathered
-    from every buffer; the reduction is one batched (K, nb) @ (nb, K)
-    product. Returns (hist sums (S, K, K), n_hist (S,))."""
-    buf = state.buffer
-    nb, K = cfg.buffer_batch, cfg.num_basis
-    cap = buf.capacity
-    u = prng.uniform01(sub0, nb)  # (nb,)
-    n0 = torch.clamp(buf.count[0], min=1).to(u.dtype)
-    idx = torch.floor(u * n0).to(torch.int64)
-    s_buf = buf.states.index_select(2, idx).transpose(1, 2)  # (S, nb, 2)
-    n_hist = torch.where(buf.count > 0, float(nb), 0.0)
-    Cbx, Cby = basis.cos_tables(s_buf, K, bdom)
-    w = (n_hist > 0).to(torch.float32)[:, None, None]
-    return torch.bmm(Cbx.transpose(1, 2), Cby) * (w / hk), n_hist
-
-
-def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None):
-    """The batched glue ahead of K1: the RNG split, the history draw and
-    reduction, the orbit guard and the patch starts. Returns (K1Inputs,
-    the next keys (S, 2), orbiting (S,))."""
-    from ergodic_exploration_tpu_torch.controller import history_sums, orbit_guard
+def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None, lattice=None):
+    """The batched glue ahead of K1 (``glue_pre``: the draw key of the RNG
+    split, the history draw, the orbit guard, the warm-start reset and the
+    patch starts; a kernel on the card). The history reaches K1 as the sums
+    of one shared draw (``shared_history_draw``), as each scenario's drawn
+    positions (K1 sums them), or, for the full ring and the accumulate mode,
+    as sums of plain torch. Returns (K1Inputs, orbiting (S,))."""
+    from ergodic_exploration_tpu_torch.controller import history_sums
+    from ergodic_exploration_tpu_torch.ops.tick_glue import PatchGeometry, glue_pre, history_mode
 
     S = x.shape[0]
     K = cfg.num_basis
-    bdom = world.domain  # (S, 2) leaves
-    hk = basis.hk_norm(K, bdom.lengths)
-
-    # RNG: under shared_history_draw every row holds the same key, so one
-    # split of row 0 is broadcast (bit-identical to per-row splits); the
-    # reads of row 0 stay on the device, no host sync per tick.
-    if cfg.shared_history_draw:
-        s2 = prng.split(state.rng[0])  # (2, 2)
-        rng, sub = s2[0].expand(S, 2).clone(), s2[1].expand(S, 2)
-    else:
-        keys = prng.split(state.rng)
-        rng, sub = keys[:, 0], keys[:, 1]
-
-    # history: one shared draw reduced to sums here; per-scenario draws
-    # handed to K1 as positions (it computes their tables and sums); the
-    # full ring and the accumulate mode as sums
-    if cfg.history == "ring" and cfg.buffer_batch and cfg.shared_history_draw:
-        hist, n_hist = _shared_draw_history(cfg, state, sub[0], bdom, hk)
-        hist = hist.reshape(S, K * K)
-    elif cfg.history == "ring" and cfg.buffer_batch:
-        hist, n_hist = state.buffer.sample_states(cfg.buffer_batch, sub)  # (S, nb, 2)
-    else:
-        hist, n_hist = history_sums(cfg, state, sub, bdom, hk)
-        hist = hist.reshape(S, K * K)
-    orbiting = orbit_guard(cfg, state.buffer, x[:, :2])
-    U_warm = torch.where(orbiting[:, None, None], torch.zeros_like(state.U), state.U)
-
+    bdom = Domain(world.domain.origin.contiguous(), world.domain.lengths.contiguous())
     dist = world.dist
     d = dist.dist[0] if cfg.shared_maps else dist.dist
     P = min(cfg.patch_cells, *d.shape[-2:])
+    x = x.contiguous()
+    mode = history_mode(cfg, fused=True)
+    pre = glue_pre(cfg, mode, state.rng, state.buffer, state.U, x, bdom,
+                   PatchGeometry(dist.origin.contiguous(), dist.resolution.contiguous(), P))
+    if mode is None:
+        hist, nh = history_sums(cfg, state, bdom, basis.hk_norm(K, bdom.lengths))
+        hist = hist.reshape(S, K * K)
+    else:
+        hist, nh = pre.hist, pre.nh
     refresh = None
     if gmm is not None:
         if not cfg.shared_maps or domain is None or domain.origin.dim() != 1:
             raise ValueError("in-kernel refresh needs cfg.shared_maps and an unbatched domain")
-        refresh = refresh_operands(cfg, gmm, domain, world.free_mask)
+        refresh = refresh_operands(cfg, gmm, domain, world.free_mask, lattice)
     inp = K1Inputs(
-        x=x.contiguous(), U=U_warm.contiguous(), hist=hist.contiguous(),
-        nh=n_hist.contiguous(),
+        x=x, U=pre.U, hist=hist.contiguous(), nh=nh.contiguous(),
         phik=None if refresh is not None else phik.reshape(S, K * K).contiguous(),
-        refresh=refresh, dist=d.contiguous(),
-        pstart=patch_start(dist, x[:, :2], P).to(torch.int32),
+        refresh=refresh, dist=d.contiguous(), pstart=pre.pstart,
         porigin=dist.origin.contiguous(), pres=dist.resolution.contiguous(),
-        dorigin=bdom.origin.contiguous(), dlen=bdom.lengths.contiguous(),
+        dorigin=bdom.origin, dlen=bdom.lengths,
         cks=state.ck_sum.reshape(S, K * K).contiguous(), vb=vb.contiguous(),
     )
-    return inp, rng, orbiting
+    return inp, pre.orbiting
 
 
-def replan_batched_fused(cfg, model, state, x, vb, phik, world, gmm=None, domain=None):
+def replan_batched_fused(cfg, model, state, x, vb, phik, world, gmm=None, domain=None,
+                         lattice=None, advance: bool = False):
     """One batched replan tick with K1 as its core — the counterpart of the
     JAX ``replan_batched_fused`` (same signature, scenario axis leading).
 
     With ``gmm`` + an unbatched ``domain`` in place of ``phik`` (pass
     phik=None; needs cfg.shared_maps) the GMM target refresh runs inside K1
-    too. Around the kernel: the glue of :func:`fused_tick_inputs` before
-    it, and after it the DWA select, the divergence guard, the warm-start
-    shift and the ring append.
+    too, on the ``lattice`` operands (:func:`lattice_operands`, built here
+    when None). Around the kernel: ``glue_pre`` before it
+    (:func:`fused_tick_inputs`) and ``glue_post`` after it (the DWA select,
+    the divergence guard, the warm-start shift, the ring append, the next
+    keys; ``controller.finish_tick``). Returns (state, u, diag), and with
+    ``advance`` also the poses one dt on and their twists (the closed loops'
+    plant step, inside ``glue_post``).
     """
     from ergodic_exploration_tpu_torch.controller import finish_tick
 
     S, K = x.shape[0], cfg.num_basis
-    inp, rng, orbiting = fused_tick_inputs(cfg, state, x, vb, phik, world, gmm, domain)
+    inp, orbiting = fused_tick_inputs(cfg, state, x, vb, phik, world, gmm, domain, lattice)
     if cfg.enable_safety:
         out = fused_solve_safety(cfg, inp)
-        safety_out = (out.code, out.u_dwa, out.feasible.to(torch.bool))
+        safety_out = (out.code, out.u_dwa, out.feasible)
     else:
         out = fused_solve(cfg, inp)
         safety_out = None
-    return finish_tick(cfg, state, x, out.U_new, out.U_new[:, 0], safety_out,
-                       out.ck_sum.view(S, K, K), rng, out.metric, out.barrier, orbiting)
+    return finish_tick(cfg, state, inp.x, out.U_new, safety_out, out.ck_sum.view(S, K, K),
+                       out.metric, out.barrier, orbiting, cfg.shared_history_draw, advance)

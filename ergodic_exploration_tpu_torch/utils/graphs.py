@@ -13,9 +13,9 @@ call returns. Every later call replays the graph and returns the captured
 outputs, which the next replay overwrites. A capture, an instantiation or a
 replay that fails raises: there is no fallback to the eager function.
 
-Launch counts: a kernel wrapper (``K1``, ``K2``, ``K3``) counts a launch in
-Python where it calls its library. The warm-up's launches are real and
-count as they happen. Under capture nothing launches, so the counts the
+Launch counts: a kernel wrapper (``K1``, ``K2``, ``K3``, ``G``) counts a
+launch in Python where it calls its library. The warm-up's launches are
+real and count as they happen. Under capture nothing launches, so the counts the
 capture adds are taken back and kept as the graph's delta
 (:func:`count_captured`), and every replay adds that delta again
 (:func:`add_launches`): after any run the counts are the launches the device
@@ -75,15 +75,20 @@ def signature(tree):
 
 def copy_into(dst, src) -> None:
     """Copy every leaf of ``src`` into the same leaf of ``dst`` (trees of
-    one signature); a leaf that already is its destination is skipped."""
-    for d, s in zip(leaves(dst), leaves(src), strict=True):
-        if d is not s:
-            d.copy_(s)
+    one signature; :func:`copy_leaves`, a few launches for any number of
+    leaves); a leaf that already is its destination is skipped."""
+    pairs = [(d, s) for d, s in zip(leaves(dst), leaves(src), strict=True) if d is not s]
+    if pairs:
+        _foreach_copy(*zip(*pairs))
 
 
 def copy_leaves(dsts: Sequence, srcs: Sequence) -> None:
     """``d.copy_(s)`` for each pair, as one ``torch._foreach_copy_`` per
     destination dtype."""
+    _foreach_copy(dsts, srcs)
+
+
+def _foreach_copy(dsts: Sequence, srcs: Sequence) -> None:
     groups = {}
     for d, s in zip(dsts, srcs, strict=True):
         ds, ss = groups.setdefault(d.dtype, ([], []))
@@ -177,8 +182,9 @@ def kernel_wrappers() -> list:
     from ergodic_exploration_tpu_torch.ops.gmm_kernel import K2
     from ergodic_exploration_tpu_torch.ops.mi_kernel import K3
     from ergodic_exploration_tpu_torch.ops.solve_kernel import K1
+    from ergodic_exploration_tpu_torch.ops.tick_glue import G
 
-    return [K1, K2, K3]
+    return [K1, K2, K3, G]
 
 
 def count_captured(fn: Callable, wrappers: Sequence):

@@ -12,6 +12,7 @@
 #include <string.h>
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <memory>
 #include <thread>
@@ -63,6 +64,7 @@ struct Warp {
 
 inline thread_local unsigned char* dyn_smem = nullptr;
 inline thread_local std::barrier<>* block_bar = nullptr;
+inline thread_local std::atomic<int>* block_or = nullptr;  // __syncthreads_or's accumulator
 inline thread_local Warp* warp = nullptr;
 
 // Run `body` once per thread of every block of the grid, blocks in sequence.
@@ -76,6 +78,7 @@ void run(dim3 grid, dim3 block, size_t smem, F body) {
         std::vector<float4> mem(smem / sizeof(float4) + 2);
         memset(mem.data(), 0xFF, mem.size() * sizeof(float4));
         std::barrier<> bar(nthreads);
+        std::atomic<int> any(0);
         std::vector<std::unique_ptr<Warp>> warps;
         for (unsigned w = 0; w * 32 < nthreads; ++w)
             warps.push_back(std::make_unique<Warp>((int)std::min(32u, nthreads - w * 32)));
@@ -88,6 +91,7 @@ void run(dim3 grid, dim3 block, size_t smem, F body) {
                 gridDim = grid;
                 dyn_smem = reinterpret_cast<unsigned char*>(mem.data());
                 block_bar = &bar;
+                block_or = &any;
                 warp = warps[t / 32].get();
                 body();
             });
@@ -99,6 +103,18 @@ void run(dim3 grid, dim3 block, size_t smem, F body) {
 
 inline void __syncthreads() { host_stub::block_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { host_stub::warp->bar.arrive_and_wait(); }
+
+// nonzero where `pred` is nonzero for any thread of the block; a barrier too
+inline int __syncthreads_or(int pred) {
+    std::atomic<int>& any = *host_stub::block_or;
+    host_stub::block_bar->arrive_and_wait();  // the previous call's readers are done
+    if (pred) any.fetch_or(1);
+    host_stub::block_bar->arrive_and_wait();
+    const int r = any.load();
+    host_stub::block_bar->arrive_and_wait();
+    if (threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0) any.store(0);
+    return r;
+}
 
 template <class T>
 inline T __shfl_sync(unsigned, T v, int src) {

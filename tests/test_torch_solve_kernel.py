@@ -116,7 +116,7 @@ def test_per_scenario_history_draws_reach_k1_as_positions(shared_maps):
     world = interop.world_from_numpy(jax.tree.map(np.asarray, jw), device="cpu")
     sc = interop.scenarios_from_numpy(jax.tree.map(np.asarray, jsc), device="cpu")
     tphik = torch.from_numpy(np.array(phik))
-    inp, _, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, tphik, world)
+    inp, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, tphik, world)
     assert inp.hist.shape == (S, 24, 2) and inp.dist.dim() == (2 if shared_maps else 3)
     assert (inp.nh == 24.0).all()
     st, u, dg = interop.to_numpy(sk.replan_batched_fused(cfg, eng.model, sc.state, sc.x, sc.vb,
