@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times K1 and K2 at the bench shape for the package of one tree, and saves
-their outputs, so that two trees can be compared on one card.
+"""Times K1, K2 and the tick's glue G at the bench shape for the package of
+one tree, and saves their outputs, so that two trees can be compared on one
+card.
 
     python3 chip_kernel_ab.py --root <tree> --tag <name> [--out <dir>]
     python3 chip_kernel_ab.py --compare <dir>/<tag a>.pt <dir>/<tag b>.pt
@@ -14,11 +15,17 @@ REPEATS runs of REPS calls:
   - the refresh alone (``k1_refresh`` + ``k1_finish``) and ``k1_solve`` (K1
     with phi_k given) on the state reached, and the whole K1 tick kernel;
   - K2 unmasked at S = 512 (path C's size) and masked at S = 4096 (path B's),
-    on ``chip_smoke.distinct_case``'s mixtures and free masks.
+    on ``chip_smoke.distinct_case``'s mixtures and free masks;
+  - G on the state reached: ``glue_pre`` on the shared draw (path A) and
+    with per-scenario draws (path B's distinct maps after 3 ``explore``
+    ticks), ``glue_post`` and ``glue_post`` with the advance, at S = 4096
+    and on the first scenario alone (S = 1); where the tree's G has them,
+    the in-place variants too, on a copy of the ring.
 
 It prints one JSON line of those times with the card's name and power limit,
 and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
-unless two such files hold equal tensors bit for bit. To compare two trees,
+unless the outputs both files hold are equal bit for bit (an output that one
+tree's kernels have and the other's lack is listed). To compare two trees,
 run them in turns in one call on one card (a, b, b, a). The case is made from
 this file's own copy of ``chip_smoke.py`` (the tree beside it), so both trees
 get the same inputs. Needs a CUDA device; exits 2 without one.
@@ -60,9 +67,11 @@ def measure(root: Path, tag: str, out: Path) -> int:
     if Path(pkg.__file__).resolve().parents[1] != root:
         raise RuntimeError(f"imported {pkg.__file__}, not the package under {root}")
     from ergodic_exploration_tpu_torch import bench
+    from ergodic_exploration_tpu_torch.engine import Engine
     from ergodic_exploration_tpu_torch.ops import basis
     from ergodic_exploration_tpu_torch.ops import gmm_kernel as gk
     from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
+    from ergodic_exploration_tpu_torch.ops import tick_glue as tg
     from ergodic_exploration_tpu_torch.utils import cuda_build
 
     smoke = _smoke()
@@ -73,7 +82,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
     for name, built in cuda_build.build_all().items():
         fn = ""
         for line in built.log.splitlines():  # registers and spills of each kernel
-            m = re.search(r"_Z\d+(k\d_[a-z_]+)(I[^E]*E)?", line)
+            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+)(I[^E]*E)?", line)
             fn = m.group(1) + (m.group(2) or "") if m else fn
             if "registers" in line or "spill" in line:
                 print(f"{tag} {name} {fn}: {line.replace('ptxas info    :', '').strip()}")
@@ -87,7 +96,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
     inp0 = inp2._replace(refresh=None, phik=sk.refresh_plain(inp2.refresh, inp2.dlen))
     r = inp2.refresh
 
-    cfg_b, _, grids_b, gmm_b, dom_b = smoke.distinct_case(S_BIG, dev)
+    cfg_b, x0_b, grids_b, gmm_b, dom_b = smoke.distinct_case(S_BIG, dev)
     K = cfg_b.num_basis
     pts = dom_b.sample_lattice(cfg_b.grid_samples)
     D = basis.dense_table(basis.tables(pts, K, dom_b), basis.hk_norm(K, dom_b.lengths))
@@ -103,14 +112,33 @@ def measure(root: Path, tag: str, out: Path) -> int:
         "k2_unmasked_S512": lambda: gk.K2(*g_small, pts, D, None),
         "k2_masked_S4096": lambda: gk.K2(*g_big, pts, D, free),
     }
+    U_new = sk.K1(cfg, inp2)
+    pre_a, post_a = glue_operands(tg, cfg, sc, world, U_new)
+    eng_b = Engine(cfg_b)
+    world_b = eng_b.prepare_world(grids_b)
+    phik_b = eng_b.phik_from_gmm(gmm_b, dom_b, world_b)
+    sc_b = eng_b.explore(eng_b.init_scenarios(x0_b), phik_b, world_b, 3).scenarios
+    inp_b, _ = sk.fused_tick_inputs(cfg_b, sc_b.state, sc_b.x, sc_b.vb, phik_b, world_b)
+    pre_b, post_b = glue_operands(tg, cfg_b, sc_b, world_b, sk.K1(cfg_b, inp_b))
+    in_place = "glue_post_inplace" in tg.TickGlue.VARIANTS
+    for mode, pre, post, adv in (("sums", pre_a, post_a, False), ("nb", pre_b, post_b, True)):
+        for S_, p_, q_ in ((S_BIG, pre, post), (1, first(pre), first(post))):
+            calls[f"glue_pre_{mode}_S{S_}"] = lambda p_=p_: tg.G.pre(*p_)
+            post_name = "glue_post_advance" if adv else "glue_post"
+            calls[f"{post_name}_S{S_}"] = lambda q_=q_, adv=adv: tg.G.post(*q_, adv)
+            if in_place:
+                own = own_ring(q_)
+                calls[f"{post_name}_inplace_S{S_}"] = (
+                    lambda own=own, adv=adv: tg.G.post(*own, adv, True))
     saved, times = {}, {}
     for name, fn in calls.items():
         res = fn()
         torch.cuda.synchronize()
         res = res._asdict() if hasattr(res, "_asdict") else {"out": res}
         for k, v in res.items():
-            if v is not None:
-                saved[f"{name}.{k}"] = v.cpu()
+            for i, t in enumerate(v if isinstance(v, tuple) else (v,)):  # the ring's three
+                if t is not None:
+                    saved[f"{name}.{k}" + (f".{i}" if isinstance(v, tuple) else "")] = t.cpu()
         runs = [smoke.events_ms(fn, REPS) for _ in range(REPEATS)]
         times[name] = {"ms": statistics.median(runs), "runs": runs}
     out.mkdir(parents=True, exist_ok=True)
@@ -119,17 +147,57 @@ def measure(root: Path, tag: str, out: Path) -> int:
     return 0
 
 
+def glue_operands(tg, cfg, sc, world, k1_out):
+    """(glue_pre's operands, glue_post's operands) of the fused tick on the
+    state ``sc`` with K1's outputs ``k1_out`` (chip_smoke.py's phase 23)."""
+    from ergodic_exploration_tpu_torch.grid import Domain
+
+    st, x = sc.state, sc.x.contiguous()
+    dom = Domain(world.domain.origin.contiguous(), world.domain.lengths.contiguous())
+    P = min(cfg.patch_cells, *world.dist.dist.shape[-2:])
+    patch = tg.PatchGeometry(world.dist.origin.contiguous(), world.dist.resolution.contiguous(), P)
+    safety = (k1_out.code, k1_out.u_dwa, k1_out.feasible)
+    pre = (cfg, tg.history_mode(cfg, True), st.rng, st.buffer, st.U, x, dom, patch)
+    post = (cfg, cfg.shared_history_draw, k1_out.U_new, safety, st.buffer, st.hist_count, st.rng,
+            x)
+    return pre, post
+
+
+def first(args):
+    """The operands of scenario 0 alone (S = 1)."""
+    import torch
+
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return a[:1].contiguous()
+        if hasattr(a, "P"):  # a PatchGeometry: its patch size stays
+            return a._replace(origin=one(a.origin), resolution=one(a.resolution))
+        if hasattr(a, "_fields"):
+            return type(a)(*map(one, a))
+        if isinstance(a, tuple):
+            return tuple(map(one, a))
+        return a
+    return tuple(map(one, args))
+
+
+def own_ring(args):
+    """glue_post's operands with a copy of the ring, which the in-place
+    variant writes, call after call."""
+    buf = args[4]
+    return args[:4] + (buf._replace(states=buf.states.clone()),) + args[5:]
+
+
 def compare(a: Path, b: Path) -> int:
     import torch
 
     ta, tb = torch.load(a), torch.load(b)
-    if ta.keys() != tb.keys():
-        print(f"different outputs: {sorted(ta.keys() ^ tb.keys())}")
-        return 1
-    diff = [k for k in ta if not torch.equal(ta[k], tb[k])]
-    print(f"{a.name} vs {b.name}: {len(ta) - len(diff)} of {len(ta)} outputs equal bit for bit"
-          + (f"; differ: {diff}" if diff else ""))
-    return 1 if diff else 0
+    both = [k for k in ta if k in tb]
+    diff = [k for k in both if not torch.equal(ta[k], tb[k])]
+    only = sorted(ta.keys() ^ tb.keys())
+    print(f"{a.name} vs {b.name}: {len(both) - len(diff)} of {len(both)} outputs both hold "
+          f"equal bit for bit" + (f"; differ: {diff}" if diff else "")
+          + (f"; held by one only: {only}" if only else ""))
+    return 1 if diff or not both else 0
 
 
 def main() -> int:

@@ -38,11 +38,15 @@ The cases are those of ``chip_smoke.py``. Needs a CUDA device.
 
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# the profiler's name of a glue kernel: "glue_pre_kernel(...)", or with
+# template arguments "void glue_post_kernel<false, true>(...)"
+GLUE_KERNEL = re.compile(r"(?:void )?glue_(?:pre|post)_kernel\b")
 CALLS = 10  # calls of a one-tick loop timed and profiled, after as many warm ones
 BLOCK = 10  # ticks a call of B, C, F and Q
 
@@ -89,7 +93,7 @@ def profile(name, fn, ms_call, card, units, unit="tick", calls=CALLS):
     n = calls * units
     kernels = {k: v for k, v in by_name.items() if not k.startswith(("Memcpy", "Memset"))}
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
-    glue_ms = sum(us for k, (_, us) in by_name.items() if k.startswith("glue_")) / 1e3
+    glue_ms = sum(us for k, (_, us) in by_name.items() if GLUE_KERNEL.match(k)) / 1e3
     launches = sum(c for c, _ in kernels.values()) / n
     print(f"== {name}: {ms_call / units:.4f} ms a {unit} (CUDA events, unprofiled); device busy "
           f"{busy_ms / n:.4f} ms a {unit} ({100 * busy_ms / n / (ms_call / units):.1f} % of the "

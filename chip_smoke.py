@@ -152,18 +152,20 @@ Phases:
     runtime calls a tick (at most 20 on path A), the S = 1 latency p50 /
     p99, the capture's seconds and the peak device memory
 23  the tick's glue (G, ``csrc/tick_glue.cu``): ``glue_pre`` and
-    ``glue_post`` against their plain versions on the states of paths A, B,
-    D and E at S = 4096 and at S = 1 and on path Q's omni state, a ring that
-    just wrapped and NaN / inf put into U_new and u_dwa included: keys,
-    draws, drawn positions, orbit flags, warm and patch starts, codes,
-    flags, rings and counters equal, the shared draw's sums within 1e-6
-    (bit for bit against cuBLAS at S = 4096; at S = 1, where cuBLAS sums in
-    another order, against the full batch's), the advanced poses within
-    1e-6; one tick of A and of B on the glue's plain versions against the
-    kernels (U within 5e-5, metric and barrier rtol 1e-5, codes and flags
-    equal); the kernels and copies a tick of A's 1-tick ``replan_refresh``
-    graph (at most 20) and of B's ``explore`` graph (at most 25), with the
-    glue's share of the device time
+    ``glue_post`` (copying and in place) against their plain versions on
+    the states of paths A, B, D and E at S = 4096 and at S = 1 and on path
+    Q's omni state, a ring that just wrapped and NaN / inf put into U_new
+    and u_dwa included: keys, draws, drawn positions, orbit flags, warm and
+    patch starts, codes, flags, rings and counters equal, the in-place
+    kernel's ring equal to the copying kernel's and the copying kernel's
+    input ring unchanged, the shared draw's sums within 1e-6 (bit for bit
+    against cuBLAS at S = 4096; at S = 1, where cuBLAS sums in another
+    order, against the full batch's), the advanced poses within 1e-6; one
+    tick of A and of B on the glue's plain versions against the kernels (U
+    within 5e-5, metric and barrier rtol 1e-5, codes and flags equal); the
+    kernels and copies a tick of A's 1-tick ``replan_refresh`` graph (at
+    most 20) and of B's ``explore`` graph (at most 25), with the glue's
+    share of the device time
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``explore_mapping_fused``) and every call of a single-tick entry point
@@ -173,7 +175,11 @@ graphs; a graph's first call is its warm-up, whose launches are real and
 counted. Every path is driven with the launch counts set to 0
 just before it and read just after; the glue's counts (G) are read apart
 from K1, K2 and K3's (``read_glue``) and checked on paths A and B (phases 4
-and 7) and in phases 16, 20, 22 and 23. The last two lines are a JSON line describing each kernel
+and 7) and in phases 16, 20, 22 and 23. A graph's tick appends its ring in
+place (``glue_post_inplace``, ``glue_post_advance_inplace``); the copying
+variants run in the eager functions and plain loops, and their launches in
+the kernels line are those of phase 20's plain loop of path B and phase
+22's eager function of path A. The last two lines are a JSON line describing each kernel
 variant that a path launched (launches on its path; error against the plain
 version, time, the plain version's time and the least time the card could
 take for the same work, all on that path's own inputs) and the result line
@@ -249,6 +255,10 @@ PROFILE_LOOP_TICKS = 3
 # replan_refresh graph and of B's explore graph
 GLUE_SUM_ATOL = 1e-6
 GLUE_KERNELS_A, GLUE_KERNELS_B = 20, 25
+
+# the profiler's name of a glue kernel: "glue_pre_kernel(...)", or with
+# template arguments "void glue_post_kernel<false, true>(...)"
+GLUE_KERNEL = re.compile(r"(?:void )?glue_(?:pre|post)_kernel\b")
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -602,14 +612,38 @@ def read_glue() -> dict:
     return dict(tg.G.launches)
 
 
-def glue_want(cfg, ticks: int, advance: bool = False) -> dict:
+def glue_want(cfg, ticks: int, advance: bool = False, in_place: bool = False) -> dict:
     """G's launches over ``ticks`` ticks of ``cfg``: one glue_pre of the
-    configuration's history mode and one glue_post (``advance`` in the
-    closed loops) a tick."""
+    configuration's history mode and one glue_post a tick, its variant by
+    ``advance`` (the closed loops) and ``in_place`` (a graph's tick, whose
+    ring is its own static buffer)."""
     from ergodic_exploration_tpu_torch.ops import tick_glue as tg
 
     pre = tg.TickGlue.PRE_VARIANTS[tg.history_mode(cfg, fused=cfg.use_fused_solve)]
-    return {pre: ticks, "glue_post_advance" if advance else "glue_post": ticks}
+    return {pre: ticks, tg.TickGlue.POST_VARIANTS[advance, in_place]: ticks}
+
+
+def glue_sum(*wants: dict) -> dict:
+    """The launches of several runs together (``glue_want``'s dicts added)."""
+    out = {}
+    for w in wants:
+        for k, n in w.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+# variant -> (its launches, the path): the first counted run of a path that
+# launched it, for the kernels line (phases 4 and 7 the main paths; the
+# copying glue_post variants from phase 20's plain loop of path B and phase
+# 22's eager function of path A, since every tick of phases 4 and 7 is a
+# graph's, which appends in place)
+LAUNCHES = {}
+
+
+def note_launches(path: str, got: dict) -> None:
+    for name, n in got.items():
+        if n and name not in LAUNCHES:
+            LAUNCHES[name] = (n, path)
 
 
 def expect_counts(path: str, got: dict, want: dict) -> None:
@@ -788,7 +822,8 @@ def node_phase(dev, card, entry, kernels) -> None:
         expect_counts(f"phase 16, {what}, the first tick of each (the graph's captured)",
                       counts, {variant: 2})
         expect_counts(f"phase 16, {what}, the first tick of each, the glue", read_glue(),
-                      glue_want(node.config, 2))
+                      glue_sum(glue_want(node.config, 1, in_place=True),
+                               glue_want(node.config, 1)))
         reset_counts()
         lat, map_lat, dwa, n_diag = ([], []), ([], []), 0, 0
         for i in range(NODE_TICKS):
@@ -821,7 +856,8 @@ def node_phase(dev, card, entry, kernels) -> None:
         expect_counts(f"phase 16, {what}, {NODE_TICKS} ticks of each node",
                       read_counts(), {variant: 2 * NODE_TICKS})
         expect_counts(f"phase 16, {what}, {NODE_TICKS} ticks of each node, the glue",
-                      read_glue(), glue_want(node.config, 2 * NODE_TICKS))
+                      read_glue(), glue_sum(glue_want(node.config, NODE_TICKS, in_place=True),
+                                            glue_want(node.config, NODE_TICKS)))
         final = poses[0].tolist()
         res = []
         for k, route in enumerate(("graph", "eager")):
@@ -896,7 +932,8 @@ def node_phase(dev, card, entry, kernels) -> None:
     expect_counts("phase 16, MI node (graph and eager)", read_counts(),
                   {"fused_solve_safety_map_h0_nb": 2 * NODE_MI_TICKS})
     expect_counts("phase 16, MI node (graph and eager), the glue", read_glue(),
-                  glue_want(pair[0].config, 2 * NODE_MI_TICKS))
+                  glue_sum(glue_want(pair[0].config, NODE_MI_TICKS, in_place=True),
+                           glue_want(pair[0].config, NODE_MI_TICKS)))
     inside = bool(((poses[:, :2] >= 0.0) & (poses[:, :2] <= 5.0)).all())
     if not torch.isfinite(poses).all() or not inside:
         fail("the MI node's poses are non-finite or left the domain")
@@ -1713,11 +1750,12 @@ def same_as_loop(name: str, got, ref) -> None:
 def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int) -> None:
     """The checks of one case of phase 20: the first graph run (which
     captures) and the second (replays only), each with exact launch counts
-    (the glue's: ``ticks`` of each kernel) and each against the plain loop
-    bit for bit."""
+    (the glue's: ``ticks`` of each kernel, the ring appended in place) and
+    each against the plain loop bit for bit, whose launches are exact too
+    (the ring copied)."""
     import torch
 
-    glue = glue_want(engine.config, ticks, advance=True)
+    glue = glue_want(engine.config, ticks, advance=True, in_place=True)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1736,7 +1774,14 @@ def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int) -
     print(f"  {name}: launches a replay of each graph (by its ticks) {captured}; capture "
           f"{engine.graph_capture_s:.3f} s; the first run {first_s:.3f} s (warm-up and capture "
           f"included)", flush=True)
+    reset_counts()
     ref = loop_run()
+    torch.cuda.synchronize()
+    expect_counts(f"phase 20, {name}, the plain loop", read_counts(), want)
+    loop_glue = read_glue()
+    expect_counts(f"phase 20, {name}, the plain loop, the glue", loop_glue,
+                  glue_want(engine.config, ticks, advance=True))
+    note_launches(f"phase 20, {name}, the plain loop", loop_glue)
     same_as_loop(name + ", the run that captured", first, ref)
     same_as_loop(name + ", replays only", again, ref)
 
@@ -2292,7 +2337,7 @@ def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: 
                 ins_ = evolve(ins_, sc)
         return outs, sc, ins_
 
-    glue = glue_want(engine.config, 1)
+    glue = glue_want(engine.config, 1, in_place=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2300,8 +2345,10 @@ def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: 
     ref, sc_e, ins_e = chain(eager_step, ticks, sc0, dict(ins))
     torch.cuda.synchronize()
     expect_counts(f"phase 22, {name}, eager", read_counts(), {k: ticks * n for k, n in want.items()})
-    expect_counts(f"phase 22, {name}, eager, the glue", read_glue(),
-                  {k: ticks * n for k, n in glue.items()})
+    eager_glue = read_glue()
+    expect_counts(f"phase 22, {name}, eager, the glue", eager_glue,
+                  glue_want(engine.config, ticks))
+    note_launches(f"phase 22, {name}, eager", eager_glue)
     peak_e = torch.cuda.max_memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2554,18 +2601,21 @@ def glue_pre_work(cfg, S: int, mode, H: int, nu: int):
     return flops, nbytes
 
 
-def glue_post_work(cfg, S: int, H: int, nu: int, safety: bool, advance: bool):
+def glue_post_work(cfg, S: int, H: int, nu: int, safety: bool, advance: bool,
+                   in_place: bool = False):
     """(operations, bytes) of glue_post for S scenarios: the finiteness of
     U_new and the command (H nu + nu), the next key (~100 integer
     operations), the counters; with ``advance`` one RK4 step (6 sin / cos,
     ~40 more) and the twist. Bytes: U_new, the safety outputs, the ring (2
-    cap floats), its counters, the key and the pose read once; the shifted
-    warm start, the new ring, counters, key, command, code and flags (and
-    the pose and twist) written once."""
-    cap = cfg.buffer_capacity
+    cap floats; ``in_place``: none), its counters, the key and the pose read
+    once; the shifted warm start, the new ring (``in_place``: the 2 floats of
+    the cursor's slot), counters, key, command, code and flags (and the pose
+    and twist) written once."""
+    ring = 2 if in_place else 2 * cfg.buffer_capacity
     flops = S * (H * nu + nu + 110 + (50 if advance else 0))
-    nbytes = S * (4 * (H * nu + (2 + nu if safety else 0) + 2 * cap + 3 + 3) + 16)
-    nbytes += S * (4 * (H * nu + 2 * cap + 3 + nu + 1 + (6 if advance else 0)) + 16 + 3)
+    nbytes = S * (4 * (H * nu + (2 + nu if safety else 0) + (0 if in_place else ring) + 3 + 3)
+                  + 16)
+    nbytes += S * (4 * (H * nu + ring + 3 + nu + 1 + (6 if advance else 0)) + 16 + 3)
     return flops, nbytes
 
 
@@ -2598,7 +2648,7 @@ def kernel_profile(fn, units: int):
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     ops = sum(n for n, _ in by_name.values())
     busy = sum(us for _, us in by_name.values()) / 1e3
-    glue = sum(us for k, (_, us) in by_name.items() if k.startswith("glue_")) / 1e3
+    glue = sum(us for k, (_, us) in by_name.items() if GLUE_KERNEL.match(k)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return (ops / units, busy / units, glue / units,
             [(k[:60], n / units, us / 1e3 / units) for k, (n, us) in top])
@@ -2626,6 +2676,7 @@ def glue_phase(dev, card, entry) -> dict:
     from ergodic_exploration_tpu_torch.engine import Engine, Scenarios
     from ergodic_exploration_tpu_torch.grid import Domain
     from ergodic_exploration_tpu_torch.ops.buffer import RingBuffer
+    from ergodic_exploration_tpu_torch.utils import prng
     from ergodic_exploration_tpu_torch.ops.patch import extract_patch
     from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
     from ergodic_exploration_tpu_torch.tools import quality
@@ -2701,20 +2752,44 @@ def glue_phase(dev, card, entry) -> dict:
               f"{', drawn positions' if mode == 'nb' else ''} equal")
         return err, k, p
 
+    def own_ring(args):
+        """``args`` with a copy of the ring in it: what the in-place append
+        may write (a graph's static ring stands in for it)."""
+        buf = args[4]
+        return args[:4] + (buf._replace(states=buf.states.clone()),) + args[5:]
+
     def check_post(tag, args, advance):
+        """The copying and the in-place glue_post against their plain
+        versions: every output equal (the poses within 1e-6); the in-place
+        kernel's ring is the copy it was given, equal to the copying
+        kernel's new ring; the copying kernel leaves its input ring as it
+        was."""
+        ring_before = args[4].states.clone()
         k, p = tg.G.post(*args, advance), tg.glue_post_plain(*args, advance)
+        ki_args, pi_args = own_ring(args), own_ring(args)
+        ki = tg.G.post(*ki_args, advance, True)
+        pi = tg.glue_post_plain(*pi_args, advance, True)
         torch.cuda.synchronize()
-        for f in ("U", "hist_count", "rng", "u", "code", "dwa_active", "feasible", "diverged",
-                  "vb"):
-            equal(tag, f"glue_post {f}", getattr(k, f), getattr(p, f))
-        for f, a, b in zip(RingBuffer._fields, k.buffer, p.buffer):
-            equal(tag, f"glue_post ring {f}", a, b)
-        dx = 0.0 if k.x is None else (k.x - p.x).abs().max().item()
+        dx = 0.0
+        for what, kk, pp in (("", k, p), (" in place", ki, pi)):
+            for f in ("U", "hist_count", "rng", "u", "code", "dwa_active", "feasible",
+                      "diverged", "vb"):
+                equal(tag, f"glue_post{what} {f}", getattr(kk, f), getattr(pp, f))
+            for f, a, b in zip(RingBuffer._fields, kk.buffer, pp.buffer):
+                equal(tag, f"glue_post{what} ring {f}", a, b)
+            dx = max(dx, 0.0 if kk.x is None else (kk.x - pp.x).abs().max().item())
+        equal(tag, "the in-place kernel's ring against the copying kernel's", ki.buffer.states,
+              k.buffer.states)
+        equal(tag, "the copying kernel's input ring after the call", args[4].states, ring_before)
+        if ki.buffer.states is not ki_args[4].states or k.buffer.states is args[4].states:
+            fail(f"phase 23, {tag}: the in-place append did not write the ring it was given, "
+                 f"or the copying one did")
         if dx > 1e-6:
             fail(f"phase 23, {tag}: the advanced poses differ by {dx:.3e} (limit 1e-6)")
-        print(f"  {tag} glue_post{' (advance)' if advance else ''}: shifted warm starts, rings, "
-              f"counters, keys, commands, codes, flags ({int(k.dwa_active.sum())} DWA, "
-              f"{int(k.diverged.sum())} diverged) equal"
+        print(f"  {tag} glue_post{' (advance)' if advance else ''}, copying and in place: "
+              f"shifted warm starts, rings, counters, keys, commands, codes, flags "
+              f"({int(k.dwa_active.sum())} DWA, {int(k.diverged.sum())} diverged) equal; the "
+              f"in-place ring equal to the copy's"
               + (f"; poses max |diff| {dx:.3e}, twists equal" if advance else ""))
         return dx
 
@@ -2801,13 +2876,28 @@ def glue_phase(dev, card, entry) -> dict:
     entry("glue_pre_sums", "tick_glue.cu", PRE_REPLACES, err_pre_a,
           events_ms(lambda: tg.G.pre(*pre_a), 20), events_ms(lambda: tg.glue_pre_plain(*pre_a), 5),
           glue_pre_work(cfg, S_MAIN, "sums", cfg.horizon, cfg.nu))
+    # the gather at the granularity of the memory system: the distinct
+    # 32-byte sectors the shared draw reads from each ring's two rows
+    u = prng.uniform01(prng.split(pre_a[2][0])[1], cfg.buffer_batch)
+    idx = torch.floor(u * torch.clamp(pre_a[3].count[0], min=1).float()).long()
+    sectors = 2 * int(torch.unique(idx // 8).numel())
+    print(f"  glue_pre_sums: the gather reads {sectors} 32-byte sectors a scenario, "
+          f"{S_MAIN * sectors * 32 / 2**20:.2f} MiB, {S_MAIN * sectors * 32 / PEAK_BYTES * 1e3:.5f} "
+          f"ms at {PEAK_BYTES / 1e12:.2f} TB/s (the bound counts its 4-byte floats)")
     entry("glue_post", "tick_glue.cu", POST_REPLACES, 0.0,
           events_ms(lambda: tg.G.post(*post_a), 20),
           events_ms(lambda: tg.glue_post_plain(*post_a), 5),
           glue_post_work(cfg, S_MAIN, cfg.horizon, cfg.nu, True, False))
+    own_a = own_ring(post_a)  # the in-place variant writes this copy's ring, call after call
+    entry("glue_post_inplace", "tick_glue.cu", POST_REPLACES, 0.0,
+          events_ms(lambda: tg.G.post(*own_a, False, True), 20),
+          events_ms(lambda: tg.glue_post_plain(*own_a, False, True), 5),
+          glue_post_work(cfg, S_MAIN, cfg.horizon, cfg.nu, True, False, in_place=True))
     pre1, post1 = first(pre_a), first(post_a)
+    own1 = own_ring(post1)
     print(f"  glue_pre at S=1: {events_ms(lambda: tg.G.pre(*pre1), 50):.4f} ms/call; "
-          f"glue_post at S=1: {events_ms(lambda: tg.G.post(*post1), 50):.4f} ms/call {card}")
+          f"glue_post at S=1: {events_ms(lambda: tg.G.post(*post1), 50):.4f} ms/call, in place "
+          f"{events_ms(lambda: tg.G.post(*own1, False, True), 50):.4f} ms/call {card}")
     # the kernels a tick of A's 1-tick replan_refresh graph (the entry point,
     # its copies in and out included)
     box = [sc]
@@ -2818,7 +2908,7 @@ def glue_phase(dev, card, entry) -> dict:
 
     tick_a(3)
     res["A"] = kernel_profile(tick_a, 10)
-    del engine, sc, world, pre_a, post_a, U_new, safety
+    del engine, sc, world, pre_a, post_a, own_a, U_new, safety
     torch.cuda.empty_cache()
 
     # path B: explore on distinct maps (per-scenario draws, the advance)
@@ -2843,6 +2933,11 @@ def glue_phase(dev, card, entry) -> dict:
           events_ms(lambda: tg.G.post(*post_b, True), 20),
           events_ms(lambda: tg.glue_post_plain(*post_b, True), 5),
           glue_post_work(cfg_b, S_MAIN, cfg_b.horizon, cfg_b.nu, True, True))
+    own_b = own_ring(post_b)
+    entry("glue_post_advance_inplace", "tick_glue.cu", POST_REPLACES, err_post_b,
+          events_ms(lambda: tg.G.post(*own_b, True, True), 20),
+          events_ms(lambda: tg.glue_post_plain(*own_b, True, True), 5),
+          glue_post_work(cfg_b, S_MAIN, cfg_b.horizon, cfg_b.nu, True, True, in_place=True))
     box_b = [sc_b]
 
     def ticks_b():
@@ -2850,7 +2945,7 @@ def glue_phase(dev, card, entry) -> dict:
 
     ticks_b()
     res["B"] = kernel_profile(ticks_b, 10)
-    del eng_b, world_b, phik_b, sc_b, grids_b, pre_b, post_b, U_new, safety
+    del eng_b, world_b, phik_b, sc_b, grids_b, pre_b, post_b, own_b, U_new, safety
     torch.cuda.empty_cache()
 
     # path D: fused_solve on one shared empty map (the sums, safety off)
@@ -2989,8 +3084,9 @@ def run(dev) -> int:
         print(f"{name}: nvcc {built.seconds:.2f} s -> {built.path.relative_to(ROOT)}")
         fn = ""
         for line in built.log.splitlines():
-            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+)(?:ILi(\d)E)?", line)
-            fn = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else fn
+            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+)(I(?:L[a-z]\d+E)+E)?", line)
+            args = re.findall(r"L[a-z](\d+)E", m.group(2) or "") if m else []
+            fn = (m.group(1) + (f"<{', '.join(args)}>" if args else "")) if m else fn
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {fn}: {line.replace('ptxas info    :', '').strip()}")
     sk.K1.build()
@@ -3082,7 +3178,8 @@ def run(dev) -> int:
     glue_a = read_glue()
     ms = start.elapsed_time(end) / TIMED_TICKS
     expect_counts("path A", counts, {"fused_solve_safety": TIMED_TICKS})
-    expect_counts("path A, the glue", glue_a, glue_want(cfg, TIMED_TICKS))
+    expect_counts("path A, the glue", glue_a, glue_want(cfg, TIMED_TICKS, in_place=True))
+    note_launches("path A", glue_a)
     kernels["fused_solve_safety"]["launches"] = counts["fused_solve_safety"]
     if u.shape != (S_MAIN, cfg.nu) or not bool(finite) or not torch.isfinite(sc.x).all():
         fail("path A produced non-finite or mis-shaped outputs")
@@ -3125,7 +3222,8 @@ def run(dev) -> int:
         if bool(diag.diverged.any()) or not bool(torch.isfinite(u).all()):
             fail("S=1 tick diverged or produced non-finite controls")
     expect_counts("path A, S=1", read_counts(), {"fused_solve_safety": LATENCY_TICKS})
-    expect_counts("path A, S=1, the glue", read_glue(), glue_want(cfg, LATENCY_TICKS))
+    expect_counts("path A, S=1, the glue", read_glue(),
+                  glue_want(cfg, LATENCY_TICKS, in_place=True))
     print(f"S=1 replan latency over {LATENCY_TICKS} ticks: p50 {np.percentile(lat, 50):.4f} ms, "
           f"p99 {np.percentile(lat, 99):.4f} ms (budget 100 ms) {card}")
     inp2, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
@@ -3240,7 +3338,9 @@ def run(dev) -> int:
     ms_b = start.elapsed_time(end) / EXPLORE_TICKS
     expect_counts("path B", counts, {"phik_from_gmm_masked": 1,
                                      "fused_solve_safety_map_h0_nb": EXPLORE_TICKS})
-    expect_counts("path B, the glue", glue_b, glue_want(cfg_b, EXPLORE_TICKS, advance=True))
+    expect_counts("path B, the glue", glue_b,
+                  glue_want(cfg_b, EXPLORE_TICKS, advance=True, in_place=True))
+    note_launches("path B", glue_b)
     print(f"  (warmup before it launched {({k: v for k, v in warm_counts.items() if v})})")
     nu = cfg_b.nu
     shapes_ok = (out.trajectory.shape == (EXPLORE_TICKS, S_MAIN, 3)
@@ -3877,9 +3977,10 @@ def run(dev) -> int:
     entry_graphs_phase(dev, card)
     at(23)
     glue_phase(dev, card, entry)
-    for name, n in list(glue_a.items()) + list(glue_b.items()):  # launched on paths A and B
-        if name in kernels and n:
+    for name, (n, path) in LAUNCHES.items():
+        if name in kernels:
             kernels[name]["launches"] = n
+            print(f"{name}: {n} launches on {path}")
 
     missing = [k for k, v in kernels.items() if v["launches"] < 1]
     if missing:

@@ -167,18 +167,21 @@ def safety(cfg: EngineConfig, model, x, vb, u0, domain, patch):
 
 
 def finish_tick(cfg: EngineConfig, state: ControllerState, x, U_new, safety_out, ck_sum,
-                metric, bcost, orbiting, shared_key: bool = False, advance: bool = False):
+                metric, bcost, orbiting, shared_key: bool = False, advance: bool = False,
+                ring_in_place: bool = False):
     """Shared tail of a tick (``glue_post``: the DWA select, the divergence
     guard, the warm-start shift, the ring append, ``hist_count + 1`` and the
     next keys; a kernel on the card). ``safety_out`` is (code, u_dwa,
     feasible (int32)) or None (safety disabled); with ``shared_key`` every
     row's next key is row 0's. Returns (new_state, u_cmd, diag), and with
     ``advance`` also the poses one dt on through the true kinematics and their
-    body twists."""
+    body twists. With ``ring_in_place`` the pose is appended into
+    ``state.buffer.states`` itself, which the new state shares: for a state
+    its caller owns and advances (a graph's static buffers)."""
     from ergodic_exploration_tpu_torch.ops.tick_glue import glue_post
 
     post = glue_post(cfg, shared_key, U_new, safety_out, state.buffer, state.hist_count,
-                     state.rng, x, advance)
+                     state.rng, x, advance, ring_in_place)
     new_state = ControllerState(U=post.U, buffer=post.buffer, ck_sum=ck_sum,
                                 hist_count=post.hist_count, rng=post.rng)
     diag = StepDiagnostics(
@@ -229,13 +232,14 @@ class ErgodicController:
         tbl = basis.tables(points, K, domain)
         return basis.coefficients(tbl, phi_vals, basis.hk_norm(K, domain.lengths))
 
-    def step(self, state: ControllerState, x, vb, phik, world: World, advance: bool = False):
+    def step(self, state: ControllerState, x, vb, phik, world: World, advance: bool = False,
+             ring_in_place: bool = False):
         """One ergodic-MPC tick for every scenario.
 
         x (S, 3) poses, vb (S, 3) body twists, phik (S, K, K) targets.
         Returns (new_state, u_cmd (S, nu), StepDiagnostics), and with
         ``advance`` also the poses one dt on and their twists (see
-        :func:`finish_tick`).
+        :func:`finish_tick`, also for ``ring_in_place``).
         """
         from ergodic_exploration_tpu_torch.ops.tick_glue import glue_pre, history_mode
 
@@ -274,7 +278,7 @@ class ErgodicController:
         Cnx, Cny = basis.cos_tables(x[:, None, :2], K, domain)
         ck_sum = state.ck_sum + basis.coefficients_cos(Cnx, Cny, torch.ones_like(x[:, :1]), hk)
         return finish_tick(cfg, state, x, U_new, safety_out, ck_sum, metric, bcost,
-                           pre.orbiting, advance=advance)
+                           pre.orbiting, advance=advance, ring_in_place=ring_in_place)
 
     def predicted_path(self, state: ControllerState, x) -> torch.Tensor:
         """(S, H+1, 3) forward-simulated path of each scenario's control

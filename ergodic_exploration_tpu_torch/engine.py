@@ -30,8 +30,10 @@ package's ``jax.jit`` runs it: the single-tick entry points (``replan``,
 ``replan_refresh``, ``replan_refresh_mi``) each replay a CUDA graph of one
 tick (:meth:`Engine._graph_tick`), ``explore`` replays graphs of 10 ticks
 (and of 1 tick for the rest), and ``explore_mapping_fused`` one graph per
-map refresh (utils/graphs.py), each captured once per shape. The eager
-functions are their plain versions, which the CPU runs and which can be
+map refresh (utils/graphs.py), each captured once per shape. A graph
+appends each tick's pose into its static state's ring in place, the twin of
+the JAX engine's donated state; the eager functions write a new ring and
+change none of their inputs. The eager functions are their plain versions, which the CPU runs and which can be
 called by name on the card: ``_replan_fn``, ``_refresh_and_replan_fn``,
 ``_refresh_mi_and_replan_fn``, ``_explore_loop`` and
 ``_explore_mapping_fused_loop``. A tick with collectives (``replan_refresh``
@@ -594,18 +596,23 @@ class Engine:
     # the batched API
     # ------------------------------------------------------------------
 
-    def _replan_batched(self, state, x, vb, phik, world, advance: bool = False):
+    def _replan_batched(self, state, x, vb, phik, world, advance: bool = False,
+                        ring_in_place: bool = False):
         """One tick: (state, u, diag), and with ``advance`` also the poses
-        one dt on through the true kinematics and their twists."""
+        one dt on through the true kinematics and their twists. With
+        ``ring_in_place`` (the graph bodies, whose state is a static buffer
+        the graph advances) the ring append writes into ``state``'s ring."""
         if self.config.use_fused_solve:
             from ergodic_exploration_tpu_torch.ops.solve_kernel import replan_batched_fused
 
             return replan_batched_fused(self.config, self.model, state, x, vb, phik, world,
-                                        advance=advance)
-        return self.controller.step(state, x, vb, phik, world, advance=advance)
+                                        advance=advance, ring_in_place=ring_in_place)
+        return self.controller.step(state, x, vb, phik, world, advance=advance,
+                                    ring_in_place=ring_in_place)
 
-    def _replan_fn(self, sc: Scenarios, phik, world: World):
-        state, u, diag = self._replan_batched(sc.state, sc.x, sc.vb, phik, world)
+    def _replan_fn(self, sc: Scenarios, phik, world: World, ring_in_place: bool = False):
+        state, u, diag = self._replan_batched(sc.state, sc.x, sc.vb, phik, world,
+                                              ring_in_place=ring_in_place)
         return Scenarios(state=state, x=sc.x, vb=sc.vb), u, diag
 
     def replan(self, sc: Scenarios, phik, world: World):
@@ -644,7 +651,7 @@ class Engine:
         return hit[1]
 
     def _refresh_and_replan_fn(self, sc: Scenarios, gmm, domain: Domain, world: World,
-                               lattice=None):
+                               lattice=None, ring_in_place: bool = False):
         """GMM target refresh + batched solve: the full per-tick work. With
         the fused solve + shared maps on a shared domain the refresh runs
         inside K1 on the ``lattice`` operands (:meth:`_lattice_ops` when
@@ -660,10 +667,10 @@ class Engine:
                 lattice = self._lattice_ops(domain, world.free_mask)
             state, u, diag = replan_batched_fused(cfg, self.model, sc.state, sc.x, sc.vb,
                                                   None, world, gmm=gmm, domain=domain,
-                                                  lattice=lattice)
+                                                  lattice=lattice, ring_in_place=ring_in_place)
             return Scenarios(state=state, x=sc.x, vb=sc.vb), u, diag
         phik = self._phik_from_gmm_fn(gmm, domain, world.free_mask)
-        return self._replan_fn(sc, phik, world)
+        return self._replan_fn(sc, phik, world, ring_in_place)
 
     def replan_refresh(self, sc: Scenarios, gmm, domain: Domain, world: World):
         """One batched tick including the per-tick GMM target refresh (the
@@ -686,7 +693,8 @@ class Engine:
 
     def _refresh_mi_and_replan_fn(self, sc: Scenarios, grids: GridMap, world: World,
                                   sensor_radius_cells: int, domain: Optional[Domain] = None,
-                                  use_mi_kernel: bool = False, mi_ops=None):
+                                  use_mi_kernel: bool = False, mi_ops=None,
+                                  ring_in_place: bool = False):
         """MI target refresh from the evolving occupancy grids + batched
         solve: config 4's full per-tick work. A mesh with a populated
         ``sample`` dim takes the sample-sharded reduction; else, on a shared
@@ -703,7 +711,7 @@ class Engine:
             phik = self._phik_grid_batch_dense_fn(grids, domain, sensor_radius_cells)
         else:
             phik = self._phik_grid_one(grids, sensor_radius_cells)
-        return self._replan_fn(sc, phik, world)
+        return self._replan_fn(sc, phik, world, ring_in_place)
 
     def replan_refresh_mi(self, sc: Scenarios, grids: GridMap, world: World,
                           sensor_radius_cells: int = 0, domain: Optional[Domain] = None,
@@ -732,9 +740,9 @@ class Engine:
         r = sensor_radius_cells
         ops = self._mi_ops(grids, domain) if use_mi_kernel and shared else None
 
-        def body(sc_, grids_, world_, domain_, ops_):
+        def body(sc_, grids_, world_, domain_, ops_, ring_in_place=False):
             return self._refresh_mi_and_replan_fn(sc_, grids_, world_, r, domain_,
-                                                  use_mi_kernel, ops_)
+                                                  use_mi_kernel, ops_, ring_in_place)
 
         return self._graph_tick("replan_refresh_mi", body, (sc, grids, world, domain, ops),
                                 (r, shared, use_mi_kernel))
@@ -753,9 +761,10 @@ class Engine:
     def _graph_tick(self, name: str, body, ins: tuple, static: tuple):
         """One tick of the entry point ``name`` as a replay of its 1-tick
         graph, the twin of the JAX package's ``jax.jit(..., donate=(0,))``:
-        ``body(*ins)``, the eager function (``ins[0]`` the Scenarios; it
-        returns (Scenarios, u, diag)), captured over static copies of
-        ``ins``, keyed on (``name``, the configuration, the signature of
+        ``body(*ins, ring_in_place=True)``, the eager function (``ins[0]``
+        the Scenarios; it returns (Scenarios, u, diag)) with the ring
+        appended in place in the static state, captured over static copies
+        of ``ins``, keyed on (``name``, the configuration, the signature of
         ``ins``, ``static``: the entry's arguments that are not tensors) in
         a cache of its own (``self._tick_graphs``), so that it never evicts
         the closed loops' graphs. A call copies in the leaves that changed
@@ -771,8 +780,8 @@ class Engine:
         entry.holds(st_state)  # written below
 
         def fn():
-            out_sc, u, diag = body(*st)
-            graphs.copy_into(st_state, out_sc.state)
+            out_sc, u, diag = body(*st, ring_in_place=True)
+            graphs.copy_into(st_state, out_sc.state)  # the ring is already there
             return u, diag
 
         u, diag = entry.graph(1, fn, self._make_graph)()
@@ -785,11 +794,11 @@ class Engine:
     # the closed loop
     # ------------------------------------------------------------------
 
-    def _tick_batched(self, state, x, vb, phik, world):
+    def _tick_batched(self, state, x, vb, phik, world, ring_in_place: bool = False):
         """One replan + one dt of real motion through the true kinematics
         (the tick's ``glue_post`` advances the poses: ``advance``)."""
-        state, u, diag, x_next, vb_next = self._replan_batched(state, x, vb, phik, world,
-                                                               advance=True)
+        state, u, diag, x_next, vb_next = self._replan_batched(
+            state, x, vb, phik, world, advance=True, ring_in_place=ring_in_place)
         return state, x_next, vb_next, u, diag
 
     def _outputs(self, n: int, x: torch.Tensor):
@@ -800,14 +809,15 @@ class Engine:
                 torch.empty((n, S, self.config.nu), dtype=torch.float32, **kw),
                 StepDiagnostics(*(torch.empty((n, S), dtype=dt, **kw) for dt in _DIAG_DTYPES)))
 
-    def _ticks(self, n: int, sc: Scenarios, phik, world: World):
-        """``n`` closed-loop ticks from ``sc``, the body of both loops.
-        Returns (Scenarios after them, trajectory (n, S, 3), controls
-        (n, S, nu), StepDiagnostics of (n, S) leaves)."""
+    def _ticks(self, n: int, sc: Scenarios, phik, world: World, ring_in_place: bool = False):
+        """``n`` closed-loop ticks from ``sc``, the body of both loops (the
+        graphs' with ``ring_in_place``: their static ring is appended in
+        place). Returns (Scenarios after them, trajectory (n, S, 3),
+        controls (n, S, nu), StepDiagnostics of (n, S) leaves)."""
         traj, ctrl, diags = self._outputs(n, sc.x)
         state, x, vb = sc
         for t in range(n):
-            state, x, vb, u, diag = self._tick_batched(state, x, vb, phik, world)
+            state, x, vb, u, diag = self._tick_batched(state, x, vb, phik, world, ring_in_place)
             traj[t], ctrl[t] = x, u
             for rows, leaf in zip(diags, diag):
                 rows[t] = leaf
@@ -846,7 +856,7 @@ class Engine:
         graph for each tick left. Both are captured over one set of static
         buffers per input signature (``self._graphs``): (sc, phik, world) are
         copied in on each call, each graph advances the static state in place
-        and returns its ticks' outputs, which are copied into the (T, S, ...)
+        (its ring appended in place, ``ring_in_place``) and returns its ticks' outputs, which are copied into the (T, S, ...)
         outputs before the next replay; the final state is copied out.
         ``make_graph(fn)`` makes the graph of ``fn`` (a
         :class:`~ergodic_exploration_tpu_torch.utils.graphs.Graph`)."""
@@ -860,7 +870,7 @@ class Engine:
 
         def block(n):
             def fn():
-                out_sc, *per_tick = self._ticks(n, st_sc, st_phik, st_world)
+                out_sc, *per_tick = self._ticks(n, st_sc, st_phik, st_world, True)
                 graphs.copy_into(st_sc, out_sc)
                 return per_tick
             return fn
@@ -951,11 +961,13 @@ class Engine:
         return truth, sensor.raycast_window_cells(sensor_range, float(truth.resolution.min()))
 
     def _mapping_refresh(self, sc: Scenarios, belief: GridMap, truth: GridMap, win: int,
-                         refresh_every: int, sensor_range: float, sensor_radius_cells: int):
+                         refresh_every: int, sensor_range: float, sensor_radius_cells: int,
+                         ring_in_place: bool = False):
         """One refresh of :meth:`explore_mapping_fused`, the body of both its
         loops (the JAX ``chunk`` scan's body): ray-cast reveal -> dense MI
-        target -> world -> ``refresh_every`` ticks. Returns (Scenarios, belief,
-        coverage (), trajectory (E, S, 3), metric (E, S))."""
+        target -> world -> ``refresh_every`` ticks (``ring_in_place``: the
+        graph's). Returns (Scenarios, belief, coverage (), trajectory
+        (E, S, 3), metric (E, S))."""
         from ergodic_exploration_tpu_torch.ops import sensor
 
         dom = Domain(origin=truth.origin[0], lengths=truth.domain().lengths[0])
@@ -963,7 +975,7 @@ class Engine:
                                        occupied_threshold=self.config.occupied_threshold)
         phik = self._phik_grid_batch_dense_fn(belief, dom, sensor_radius_cells)
         world = self._world_batched(belief, belief.domain())
-        sc, traj, _, diags = self._ticks(refresh_every, sc, phik, world)
+        sc, traj, _, diags = self._ticks(refresh_every, sc, phik, world, ring_in_place)
         return sc, belief, sensor.fraction_known(belief), traj, diags.ergodic_metric
 
     def _explore_mapping_fused_loop(self, sc: Scenarios, truth: GridMap, n_refreshes: int,
@@ -1002,7 +1014,7 @@ class Engine:
         def refresh():
             out_sc, belief, cov, tr, m = self._mapping_refresh(
                 st_sc, st_truth._replace(data=st_belief), st_truth, win, refresh_every,
-                sensor_range, sensor_radius_cells)
+                sensor_range, sensor_radius_cells, ring_in_place=True)
             graphs.copy_into((st_sc, st_belief), (out_sc, belief.data))
             return cov, tr, m
 

@@ -253,18 +253,21 @@ class ExplorationNode:
         """
         return self._step(self._graph_tick if self.device.type == "cuda" else self._eager_tick)
 
-    def _tick(self, state):
+    def _tick(self, state, ring_in_place: bool = False):
         """The tick, the body of both routes: (the state after it, the twist
-        (3,) and the seven diagnostics packed as float32 (_PACKED,))."""
+        (3,) and the seven diagnostics packed as float32 (_PACKED,)). The
+        graph's passes ``ring_in_place``: its state is the node's own
+        buffers, whose ring the append writes in place."""
         cfg = self.config
         x, vb = self._pose[None], self._twist[None]
         if cfg.use_fused_solve:
             from ergodic_exploration_tpu_torch.ops.solve_kernel import replan_batched_fused
 
             state, u, diag = replan_batched_fused(cfg, self.model, state, x, vb, self._phik,
-                                                  self._world)
+                                                  self._world, ring_in_place=ring_in_place)
         else:
-            state, u, diag = self.controller.step(state, x, vb, self._phik, self._world)
+            state, u, diag = self.controller.step(state, x, vb, self._phik, self._world,
+                                                  ring_in_place=ring_in_place)
         packed = torch.cat([self.model.twist(u)[0],
                             torch.stack([leaf[0].to(torch.float32) for leaf in diag])])
         return state, packed
@@ -285,7 +288,7 @@ class ExplorationNode:
             st = self._graph_state
 
             def fn():
-                state, packed = self._tick(st)
+                state, packed = self._tick(st, ring_in_place=True)
                 graphs.copy_into(st, state)
                 return packed
 

@@ -50,6 +50,22 @@ class RingBuffer(NamedTuple):
             count=torch.clamp(self.count + 1, max=cap),
         )
 
+    def append_(self, p: torch.Tensor) -> "RingBuffer":
+        """:meth:`append` in place: writes each scenario's position (S, 2)
+        into the cursor's slot of ``states`` itself (``states[s, :, cursor[s]]
+        = p[s]``) and returns the ring with that tensor and the advanced
+        cursor and count. Only for a ring its caller owns and advances (a
+        graph's static state, where the JAX engine donates its state); the
+        values are :meth:`append`'s bit for bit."""
+        cap = self.capacity
+        slot = self.cursor.to(torch.int64)[:, None, None].expand(-1, 2, 1)
+        self.states.scatter_(2, slot, p[:, :2, None].to(self.states.dtype))
+        return RingBuffer(
+            states=self.states,
+            cursor=(self.cursor + 1) % cap,
+            count=torch.clamp(self.count + 1, max=cap),
+        )
+
     def valid_mask(self) -> torch.Tensor:
         """(S, capacity) float mask of live entries."""
         idx = torch.arange(self.capacity, device=self.count.device)

@@ -751,7 +751,7 @@ def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None, lat
 
 
 def replan_batched_fused(cfg, model, state, x, vb, phik, world, gmm=None, domain=None,
-                         lattice=None, advance: bool = False):
+                         lattice=None, advance: bool = False, ring_in_place: bool = False):
     """One batched replan tick with K1 as its core — the counterpart of the
     JAX ``replan_batched_fused`` (same signature, scenario axis leading).
 
@@ -763,7 +763,9 @@ def replan_batched_fused(cfg, model, state, x, vb, phik, world, gmm=None, domain
     the divergence guard, the warm-start shift, the ring append, the next
     keys; ``controller.finish_tick``). Returns (state, u, diag), and with
     ``advance`` also the poses one dt on and their twists (the closed loops'
-    plant step, inside ``glue_post``).
+    plant step, inside ``glue_post``). ``ring_in_place``: the pose is
+    appended into ``state``'s ring itself (a graph's static state; see
+    ``controller.finish_tick``).
     """
     from ergodic_exploration_tpu_torch.controller import finish_tick
 
@@ -776,4 +778,5 @@ def replan_batched_fused(cfg, model, state, x, vb, phik, world, gmm=None, domain
         out = fused_solve(cfg, inp)
         safety_out = None
     return finish_tick(cfg, state, inp.x, out.U_new, safety_out, out.ck_sum.view(S, K, K),
-                       out.metric, out.barrier, orbiting, cfg.shared_history_draw, advance)
+                       out.metric, out.barrier, orbiting, cfg.shared_history_draw, advance,
+                       ring_in_place)

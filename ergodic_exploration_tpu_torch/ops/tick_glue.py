@@ -17,6 +17,12 @@ fusions. Here that work is two launches:
               the ring append, ``hist_count + 1``, the next keys and, with
               ``advance`` (the closed loops), one RK4 step of ``dt`` of the
               poses through the model's kinematics and their body twists.
+              The append copies the ring, or with ``ring_in_place`` writes
+              the pose into the cursor's slot of the ring itself: what the
+              graph bodies pass, whose ring is a static buffer the graph
+              advances (the twin of the JAX engine's donated state). Every
+              other caller keeps its state: an eager call changes none of
+              its inputs.
 
 The CUDA source is ``csrc/tick_glue.cu`` (its header says what bounds it on
 an H100 and its rounding contract). Beside it live the plain PyTorch
@@ -68,7 +74,7 @@ class GluePre(NamedTuple):
 
 class GluePost(NamedTuple):
     U: torch.Tensor  # (S, H, nu) shifted warm start
-    buffer: RingBuffer  # the ring after the append
+    buffer: RingBuffer  # the ring after the append (its states the input's with ring_in_place)
     hist_count: torch.Tensor  # (S,) int32
     rng: torch.Tensor  # (S, 2) int64 next keys
     u: torch.Tensor  # (S, nu) emitted controls
@@ -139,11 +145,13 @@ def glue_pre_plain(cfg, mode: Optional[str], rng, buffer: RingBuffer, U, x, doma
 
 
 def glue_post_plain(cfg, shared_key: bool, U_new, safety, buffer: RingBuffer, hist_count, rng,
-                    x, advance: bool = False) -> GluePost:
+                    x, advance: bool = False, ring_in_place: bool = False) -> GluePost:
     """glue_post's plain version: U_new (S, H, nu) from the descent,
     ``safety`` (code (S,) int32, u_dwa (S, nu), feasible (S,) int32) or None
     (safety off), the ring, ``hist_count``, the keys ``rng`` (S, 2) (with
-    ``shared_key`` every row's next key is row 0's), poses x (S, 3)."""
+    ``shared_key`` every row's next key is row 0's), poses x (S, 3). With
+    ``ring_in_place`` the pose is written into ``buffer.states`` itself
+    (:meth:`RingBuffer.append_`), else into a new ring."""
     S = x.shape[0]
     u0 = U_new[:, 0]
     if safety is not None:
@@ -173,8 +181,9 @@ def glue_post_plain(cfg, shared_key: bool, U_new, safety, buffer: RingBuffer, hi
         model = make_model(cfg)
         x_next = rollout(model, x, u_cmd[:, None, :], cfg.dt)[:, -1]
         vb_next = model.twist(u_cmd)
-    return GluePost(U_next, buffer.append(x[:, :2]), hist_count + 1, nxt, u_cmd, code, use_dwa,
-                    feasible, diverged, x_next, vb_next)
+    ring = buffer.append_(x[:, :2]) if ring_in_place else buffer.append(x[:, :2])
+    return GluePost(U_next, ring, hist_count + 1, nxt, u_cmd, code, use_dwa, feasible, diverged,
+                    x_next, vb_next)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +198,7 @@ class _Params(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "H", "nu", "K", "nb", "cap", "mode", "W", "P", "safety", "shared_key", "advance",
-        "model")] + [(n, ctypes.c_float) for n in (
+        "model", "in_place", "block")] + [(n, ctypes.c_float) for n in (
             "orbit_eps2", "dt", "half_dt", "dt6", "tw_a", "tw_b", "two_pi")]
 
 
@@ -243,14 +252,24 @@ class TickGlue:
     """The G wrapper: builds ``csrc/tick_glue.cu`` on first use and counts
     its launches per variant (``launches[variant]`` grows by one per launch
     of that variant, nowhere else): ``glue_pre_sums``, ``glue_pre_nb``,
-    ``glue_pre_nohist`` by history mode, ``glue_post`` and
-    ``glue_post_advance``."""
+    ``glue_pre_nohist`` by history mode; ``glue_post``,
+    ``glue_post_advance``, ``glue_post_inplace`` and
+    ``glue_post_advance_inplace`` by ``advance`` and ``ring_in_place``.
+
+    Layout: a warp per scenario, four a block; up to ``block_max_s``
+    scenarios, a block of four warps per scenario (a small batch's work
+    spread over the block; the host tests lower it to reach the warp layout
+    at small S)."""
 
     PRE_VARIANTS = {"sums": "glue_pre_sums", "nb": "glue_pre_nb", None: "glue_pre_nohist"}
-    VARIANTS = tuple(PRE_VARIANTS.values()) + ("glue_post", "glue_post_advance")
+    POST_VARIANTS = {(False, False): "glue_post", (True, False): "glue_post_advance",
+                     (False, True): "glue_post_inplace", (True, True): "glue_post_advance_inplace"}
+    VARIANTS = tuple(PRE_VARIANTS.values()) + tuple(POST_VARIANTS.values())
+    BLOCK_MAX_S = 512
 
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
+        self.block_max_s = self.BLOCK_MAX_S
         self.launches = {}
         self.reset_launches()
 
@@ -304,14 +323,15 @@ class TickGlue:
         ops.update(hist=out.hist, nh=out.nh, orbiting=out.orbiting, U_warm=out.U,
                    pstart=out.pstart)
         params = _c_params(cfg, S, H, nu, cap, nb=nb, mode=MODES[mode],
-                           W=orbit_window(cfg, cap), P=patch.P if patch is not None else 0)
+                           W=orbit_window(cfg, cap), P=patch.P if patch is not None else 0,
+                           block=int(S <= self.block_max_s))
         bufs = _PreBuffers(**{n: (ops[n].data_ptr() if ops.get(n) is not None else None)
                               for n in _PRE})
         self._launch("glue_pre", self.PRE_VARIANTS[mode], params, bufs, dev)
         return out
 
     def post(self, cfg, shared_key: bool, U_new, safety, buffer: RingBuffer, hist_count, rng,
-             x, advance: bool = False) -> GluePost:
+             x, advance: bool = False, ring_in_place: bool = False) -> GluePost:
         """Launch glue_post (see :func:`glue_post_plain` for the operands)."""
         dev = x.device
         _require_cuda(dev, "glue_post kernel")
@@ -319,6 +339,8 @@ class TickGlue:
         cap = buffer.capacity
         if nu > 4:
             raise ValueError("glue_post supports nu <= 4")
+        if ring_in_place and not buffer.states.is_contiguous():
+            raise ValueError("glue_post: an in-place append needs a contiguous ring")
         ops = dict(U_new=U_new, states=buffer.states, cursor=buffer.cursor, count=buffer.count,
                    hist_count=hist_count, rng=rng, x=x)
         want = dict(U_new=((S, H, nu), _F32), states=((S, 2, cap), _F32), cursor=((S,), _I32),
@@ -332,7 +354,7 @@ class TickGlue:
         f32 = dict(dtype=_F32, **kw)
         out = GluePost(
             U=torch.empty((S, H, nu), **f32),
-            buffer=RingBuffer(torch.empty((S, 2, cap), **f32),
+            buffer=RingBuffer(buffer.states if ring_in_place else torch.empty((S, 2, cap), **f32),
                               torch.empty((S,), dtype=_I32, **kw),
                               torch.empty((S,), dtype=_I32, **kw)),
             hist_count=torch.empty((S,), dtype=_I32, **kw),
@@ -349,11 +371,11 @@ class TickGlue:
                    feasible_out=out.feasible, diverged=out.diverged, x_next=out.x,
                    vb_next=out.vb)
         params = _c_params(cfg, S, H, nu, cap, safety=int(safety is not None),
-                           shared_key=int(shared_key), advance=int(advance))
+                           shared_key=int(shared_key), advance=int(advance),
+                           in_place=int(ring_in_place), block=int(S <= self.block_max_s))
         bufs = _PostBuffers(**{n: (ops[n].data_ptr() if ops.get(n) is not None else None)
                                for n in _POST})
-        self._launch("glue_post", "glue_post_advance" if advance else "glue_post", params, bufs,
-                     dev)
+        self._launch("glue_post", self.POST_VARIANTS[advance, ring_in_place], params, bufs, dev)
         return out
 
 
@@ -370,10 +392,12 @@ def glue_pre(cfg, mode: Optional[str], rng, buffer: RingBuffer, U, x, domain: Do
 
 
 def glue_post(cfg, shared_key: bool, U_new, safety, buffer: RingBuffer, hist_count, rng, x,
-              advance: bool = False) -> GluePost:
+              advance: bool = False, ring_in_place: bool = False) -> GluePost:
     """glue_post: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors (raises for anything else)."""
+    tensors (raises for anything else). ``ring_in_place`` only where the
+    ring is a buffer the caller owns and advances (a graph's static state)."""
     if _on_cpu(x, "glue_post"):
         return glue_post_plain(cfg, shared_key, U_new, safety, buffer, hist_count, rng, x,
-                               advance)
-    return G.post(cfg, shared_key, U_new, safety, buffer, hist_count, rng, x, advance)
+                               advance, ring_in_place)
+    return G.post(cfg, shared_key, U_new, safety, buffer, hist_count, rng, x, advance,
+                  ring_in_place)

@@ -146,6 +146,7 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 
 inline bool __any_sync(unsigned m, int pred) { return __ballot_sync(m, pred) != 0u; }
+inline bool __all_sync(unsigned m, int pred) { return __ballot_sync(m, !pred) == 0u; }
 
 // low 32 bits of (hi:lo) >> (shift & 31)
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
@@ -154,3 +155,19 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
 
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+
+// the CUDA math intrinsics with an explicit rounding (to nearest even, the
+// host's default mode; -ffp-contract=off keeps a product a product)
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __int_as_float(int i) {
+    float f;
+    memcpy(&f, &i, sizeof f);
+    return f;
+}
+inline int __float_as_int(float f) {
+    int i;
+    memcpy(&i, &f, sizeof i);
+    return i;
+}
