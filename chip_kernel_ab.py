@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times K1, K2 and the tick's glue G at the bench shape for the package of
-one tree, and saves their outputs, so that two trees can be compared on one
-card.
+"""Times K1, K2, the tick's glue G and the map kernels (the reveal R, the EDT
+E) at the bench shape for the package of one tree, and saves their outputs,
+so that two trees can be compared on one card.
 
     python3 chip_kernel_ab.py --root <tree> --tag <name> [--out <dir>]
     python3 chip_kernel_ab.py --compare <dir>/<tag a>.pt <dir>/<tag b>.pt
@@ -20,7 +20,12 @@ REPEATS runs of REPS calls:
     with per-scenario draws (path B's distinct maps after 3 ``explore``
     ticks), ``glue_post`` and ``glue_post`` with the advance, at S = 4096
     and on the first scenario alone (S = 1); where the tree's G has them,
-    the in-place variants too, on a copy of the ring.
+    the in-place variants too, on a copy of the ring;
+  - where the tree has R and E (``ops/reveal_kernel.py``, ``ops/edt_kernel.py``):
+    the ray-cast reveal (sensor range 1.5 m) and the EDT + gradient
+    (``DistanceField.from_grid``) on path F's beliefs after one reveal
+    (``chip_smoke.mapping_case``), at S = 4096 and on the first scenario
+    alone; a tree without them lists them under ``absent``.
 
 It prints one JSON line of those times with the card's name and power limit,
 and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
@@ -82,7 +87,8 @@ def measure(root: Path, tag: str, out: Path) -> int:
     for name, built in cuda_build.build_all().items():
         fn = ""
         for line in built.log.splitlines():  # registers and spills of each kernel
-            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+)(I[^E]*E)?", line)
+            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+|reveal_kernel|edt_kernel)(I[^E]*E)?",
+                          line)
             fn = m.group(1) + (m.group(2) or "") if m else fn
             if "registers" in line or "spill" in line:
                 print(f"{tag} {name} {fn}: {line.replace('ptxas info    :', '').strip()}")
@@ -130,6 +136,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
                 own = own_ring(q_)
                 calls[f"{post_name}_inplace_S{S_}"] = (
                     lambda own=own, adv=adv: tg.G.post(*own, adv, True))
+    absent = map_calls(calls, smoke, dev)
     saved, times = {}, {}
     for name, fn in calls.items():
         res = fn()
@@ -143,8 +150,41 @@ def measure(root: Path, tag: str, out: Path) -> int:
         times[name] = {"ms": statistics.median(runs), "runs": runs}
     out.mkdir(parents=True, exist_ok=True)
     torch.save(saved, out / f"{tag}.pt")
-    print(json.dumps({"tag": tag, "root": str(root), "card": card, "times": times}))
+    print(json.dumps({"tag": tag, "root": str(root), "card": card, "times": times,
+                      "absent": absent}))
     return 0
+
+
+MAP_CALLS = ("reveal_raycast_S4096", "edt_S4096", "reveal_raycast_S1", "edt_S1")
+
+
+def map_calls(calls: dict, smoke, dev) -> list:
+    """Add the map kernels' calls on path F's beliefs where the imported
+    package has them; returns the names of those it lacks."""
+    import importlib.util
+
+    import torch
+
+    if importlib.util.find_spec("ergodic_exploration_tpu_torch.ops.reveal_kernel") is None:
+        return list(MAP_CALLS)
+    from ergodic_exploration_tpu_torch.grid import GridMap
+    from ergodic_exploration_tpu_torch.ops import sensor
+    from ergodic_exploration_tpu_torch.ops.distance import DistanceField
+
+    cfg, x0, truth = smoke.mapping_case(S_BIG, dev)
+    thr, win = cfg.occupied_threshold, sensor.raycast_window_cells(1.5, 0.05)
+    x = torch.as_tensor(x0, device=dev)
+    belief = sensor.reveal_raycast(truth._replace(data=torch.full_like(truth.data, -1.0)), truth,
+                                   x, 1.5, win, occupied_threshold=thr)
+    moved = x.clone()
+    moved[:, :2] = torch.clamp(moved[:, :2] + 0.3, 0.3, 4.7)  # the next refresh's poses
+    for S_ in (S_BIG, 1):
+        b, t = (GridMap(*(f[:S_] for f in g)) for g in (belief, truth))
+        p = moved[:S_]
+        calls[f"reveal_raycast_S{S_}"] = lambda b=b, t=t, p=p: sensor.reveal_raycast(
+            b, t, p, 1.5, win, occupied_threshold=thr).data
+        calls[f"edt_S{S_}"] = lambda b=b: tuple(DistanceField.from_grid(b, thr)[:2])
+    return []
 
 
 def glue_operands(tg, cfg, sc, world, k1_out):

@@ -53,8 +53,10 @@ Phases:
     place; a short run without the frontier mask; a short run on 200 x 200
     beliefs (S = 1024), which launches the row-band form
 14  path F, the mapping loop at full width: ``explore_mapping_fused`` (ray-cast
-    reveal -> dense MI target -> world rebuild -> 10 ticks of K1 on
-    per-scenario maps), S = 4096, 5 refreshes, two rooms and a pillar
+    reveal (R) -> dense MI target -> world rebuild (E + the free mask) -> 10
+    ticks of K1 on per-scenario maps), S = 4096, 5 refreshes, two rooms and a
+    pillar; one R and one E launch a refresh; the split of a refresh, each
+    kernel beside its plain version
 15  the MI tick (S = 64) and the mapping loop (S = 16) on the card vs on the CPU
 16  the single-robot node (``ExplorationNode``, ``default_config("cart")``, a
     100 x 100 map, native EDT): 300 ticks with a plant and a map update every
@@ -166,6 +168,16 @@ Phases:
     kernels and copies a tick of A's 1-tick ``replan_refresh`` graph (at
     most 20) and of B's ``explore`` graph (at most 25), with the glue's
     share of the device time
+24  the map kernels against their plain versions (``csrc/reveal_kernel.cu``,
+    ``csrc/edt_kernel.cu``): the reveal cell for cell on path F's beliefs
+    over its five refreshes (from the poses each refresh revealed from, ending
+    at path F's final belief), at S = 1 (batched and one map), on poses at the
+    maps' edges and corners, at sensor ranges 0.75, 1.5 and 3.0 m, with 97
+    bins, with the bin table in device memory, on 40 x 40 maps under the
+    window and on 200 x 200 beliefs (S = 1024); the EDT bit for bit in dist
+    and grad on path B's 4096 distinct maps, path F's beliefs, an empty map, a full one, 60 x 140 maps, 200 x
+    200 beliefs and 512 x 512 maps (the global-memory form); two launches of
+    each equal bit for bit; both timed and bounded on path F's inputs
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``explore_mapping_fused``) and every call of a single-tick entry point
@@ -175,7 +187,9 @@ graphs; a graph's first call is its warm-up, whose launches are real and
 counted. Every path is driven with the launch counts set to 0
 just before it and read just after; the glue's counts (G) are read apart
 from K1, K2 and K3's (``read_glue``) and checked on paths A and B (phases 4
-and 7) and in phases 16, 20, 22 and 23. A graph's tick appends its ring in
+and 7) and in phases 16, 20, 22 and 23; the map kernels' (R, E) too
+(``read_map``), checked in phases 4 and 7 (``prepare_world``), 14, 18, 20
+and 24. A graph's tick appends its ring in
 place (``glue_post_inplace``, ``glue_post_advance_inplace``); the copying
 variants run in the eager functions and plain loops, and their launches in
 the kernels line are those of phase 20's plain loop of path B and phase
@@ -589,10 +603,15 @@ def reset_counts() -> None:
     from ergodic_exploration_tpu_torch.ops import mi_kernel as mk
     from ergodic_exploration_tpu_torch.ops import tick_glue as tg
 
+    from ergodic_exploration_tpu_torch.ops import edt_kernel as ek
+    from ergodic_exploration_tpu_torch.ops import reveal_kernel as rk
+
     sk.K1.reset_launches()
     gk.K2.reset_launches()
     mk.K3.reset_launches()
     tg.G.reset_launches()
+    rk.R.reset_launches()
+    ek.E.reset_launches()
 
 
 def read_counts() -> dict:
@@ -610,6 +629,22 @@ def read_glue() -> dict:
     from ergodic_exploration_tpu_torch.ops import tick_glue as tg
 
     return dict(tg.G.launches)
+
+
+def read_map() -> dict:
+    """The map kernels' launches (the reveal R and the EDT E), read apart
+    from K1, K2, K3 and the glue's: the paths that launch them (4, 7, 14, 18,
+    20, 24) name them."""
+    from ergodic_exploration_tpu_torch.ops import edt_kernel as ek
+    from ergodic_exploration_tpu_torch.ops import reveal_kernel as rk
+
+    return {**rk.R.launches, **ek.E.launches}
+
+
+def map_want(reveals: int, edts: int) -> dict:
+    """R's and E's launches of a run: ``reveals`` ray-cast reveals and
+    ``edts`` world rebuilds (EDT + gradient), each one launch at any S."""
+    return {"reveal_raycast": reveals, "edt": edts}
 
 
 def glue_want(cfg, ticks: int, advance: bool = False, in_place: bool = False) -> dict:
@@ -1479,6 +1514,9 @@ def quality_phase(dev, card, entry, kernels) -> None:
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     expect_counts("phase 18 (a)", counts, {"fused_safety": n_ticks})
+    # a reveal and a world rebuild a refresh; one more EDT: the spawns' (spawn_poses)
+    expect_counts("phase 18 (a), the map kernels", read_map(),
+                  map_want(Q_REFRESHES, Q_REFRESHES + 1))
     truth = quality.build_truth(Q_S, dev)
     # the CPU's spawns are the JAX tool's (tests/test_torch_quality.py), and
     # each lies inside the domain with an EDT above the margin by construction
@@ -1540,6 +1578,8 @@ def quality_phase(dev, card, entry, kernels) -> None:
     reset_counts()
     speed, coverage, rise = quality.multiroom_floors(eng, Q_EVERY)
     expect_counts("phase 18 (b)", read_counts(), {"fused_safety": quality.MULTIROOM_TICKS})
+    chunks = quality.MULTIROOM_TICKS // Q_EVERY  # explore_mapping: a reveal and prepare_world each
+    expect_counts("phase 18 (b), the map kernels", read_map(), map_want(chunks, chunks))
     print(f"  mean speed {speed:.4f} m/s (floor {quality.FLOOR_SPEED}); coverage {coverage:.4f} "
           f"(floor {quality.FLOOR_COVERAGE}); second-half rise {rise:.4f} "
           f"(floor {quality.FLOOR_RISE})")
@@ -1747,12 +1787,13 @@ def same_as_loop(name: str, got, ref) -> None:
           f"{len(named_leaves(ref)) - len(differ)} of {len(named_leaves(ref))} leaves")
 
 
-def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int) -> None:
+def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int,
+               maps: dict = None) -> None:
     """The checks of one case of phase 20: the first graph run (which
     captures) and the second (replays only), each with exact launch counts
-    (the glue's: ``ticks`` of each kernel, the ring appended in place) and
-    each against the plain loop bit for bit, whose launches are exact too
-    (the ring copied)."""
+    (the glue's: ``ticks`` of each kernel, the ring appended in place; the
+    map kernels': ``maps``, none by default) and each against the plain
+    loop bit for bit, whose launches are exact too (the ring copied)."""
     import torch
 
     glue = glue_want(engine.config, ticks, advance=True, in_place=True)
@@ -1764,11 +1805,14 @@ def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int) -
     first_s = time.perf_counter() - t0
     expect_counts(f"phase 20, {name}, the run that captures", read_counts(), want)
     expect_counts(f"phase 20, {name}, the run that captures, the glue", read_glue(), glue)
+    expect_counts(f"phase 20, {name}, the run that captures, the map kernels", read_map(),
+                  maps or {})
     reset_counts()
     again = graph_run()
     torch.cuda.synchronize()
     expect_counts(f"phase 20, {name}, replays only", read_counts(), want)
     expect_counts(f"phase 20, {name}, replays only, the glue", read_glue(), glue)
+    expect_counts(f"phase 20, {name}, replays only, the map kernels", read_map(), maps or {})
     captured = {n: [d for d in g.launches if d] for e in engine._graphs._entries.values()
                 for n, g in e.graphs.items()}
     print(f"  {name}: launches a replay of each graph (by its ticks) {captured}; capture "
@@ -1782,6 +1826,7 @@ def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int) -
     expect_counts(f"phase 20, {name}, the plain loop, the glue", loop_glue,
                   glue_want(engine.config, ticks, advance=True))
     note_launches(f"phase 20, {name}, the plain loop", loop_glue)
+    expect_counts(f"phase 20, {name}, the plain loop, the map kernels", read_map(), maps or {})
     same_as_loop(name + ", the run that captured", first, ref)
     same_as_loop(name + ", replays only", again, ref)
 
@@ -2244,7 +2289,7 @@ def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int 
                                     fn(sc, truth, n, every, 1.5)))
 
         runs = (run(eng.explore_mapping_fused), run(eng._explore_mapping_fused_loop))
-        graph_case(tag, eng, *runs, want, n_ref * every)
+        graph_case(tag, eng, *runs, want, n_ref * every, maps=map_want(n_ref, n_ref))
         cases.append((tag, *runs, n_ref, "refresh", run(eng._explore_mapping_fused_loop, 1), 1))
 
     mapping(f"path F (explore_mapping_fused, S={S_big}, {refreshes} refreshes)",
@@ -3015,6 +3060,243 @@ def glue_phase(dev, card, entry) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the map kernels (the reveal R and the EDT E) against their plain
+# versions
+# ---------------------------------------------------------------------------
+
+REVEAL_RANGES = (0.75, 1.5, 3.0)  # phase 24: sensor ranges (m) of the reveal cases
+MAP_BIG_S, MAP_HUGE = 1024, (4, 512, 512)  # phase 24: 200 x 200 maps; maps past shared memory
+
+
+def reveal_work(belief, truth, pose, win: int, n_bins: int, thr: float):
+    """(flops, bytes) of the reveal on these inputs. Per window cell and pass
+    ~25 operations (its centre, radius, atan2, bin and step, each counted as
+    one); per occupied window cell ~8 more (its half-width) and ~8 for each
+    bin it tests (the bins within the kernel's margin of its own: this run's
+    data decides how many). Bytes: the beliefs read and written once, the
+    truth in the windows, the poses, geometry and bin centres."""
+    import torch
+
+    B, h, w = belief.data.shape
+    P = min(win, h, w)
+    res, origin = belief.resolution, belief.origin
+    start = torch.round((pose[:, :2] - origin) / res[:, None] - 0.5).long() - P // 2
+    ii = torch.arange(P, device=pose.device)
+    rows = torch.clamp(start[:, 1:2] + ii, 0, h - 1)
+    cols = torch.clamp(start[:, 0:1] + ii, 0, w - 1)
+    bi = torch.arange(B, device=pose.device)[:, None, None]
+    occ = truth.data[bi, rows[:, :, None], cols[:, None, :]] >= thr
+    dx = (origin[:, 0:1] + (cols.float() + 0.5) * res[:, None])[:, None, :] - pose[:, 0, None, None]
+    dy = (origin[:, 1:2] + (rows.float() + 0.5) * res[:, None])[:, :, None] - pose[:, 1, None, None]
+    rc = torch.sqrt(dx * dx + dy * dy) / res[:, None, None]
+    half = torch.atan(0.55 / torch.clamp(rc, min=0.5))
+    m = torch.floor(half * n_bins / (2 * np.pi)) + 3
+    tests = torch.clamp(2 * m + 1, max=n_bins)[occ].sum().item()
+    cells = B * P * P
+    flops = cells * 50 + occ.sum().item() * 8 + tests * 8
+    return flops, 4 * (2 * B * h * w + cells + 5 * B + n_bins)
+
+
+def edt_work(dist, res):
+    """(flops, bytes) of the EDT and gradient on maps whose field is
+    ``dist``. Per cell ~6 operations of the column sweeps, ~3 to finish
+    (sqrt, product, test) and ~6 of the gradient; the row pass examines, on
+    each side of a cell, the offsets whose square is under its squared
+    distance (the whole row on an empty map): 3 each. Bytes: the maps read
+    and dist and grad written once, the resolutions."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.ops.distance import FAR
+
+    S, h, w = dist.shape
+    offs = torch.where(dist >= FAR, torch.full_like(dist, w),
+                       torch.clamp(torch.ceil(dist / res[:, None, None]), max=w))
+    return S * h * w * 15 + 2 * 3 * offs.sum().item(), 4 * (4 * S * h * w + S)
+
+
+def map_kernels_phase(dev, card, entry, f_run) -> None:
+    """Phase 24: the reveal kernel cell for cell and the EDT kernel bit for
+    bit against their plain versions on the card; each case twice, the two
+    launches equal bit for bit. The reveal: F's beliefs over its five
+    refreshes (the poses each refresh revealed from, ending at F's final
+    belief), S = 1 (batched and one map), poses at the maps' edges and
+    corners, sensor ranges 0.75, 1.5 and 3.0 m, 97 bins, the bin table in
+    device memory (the layout past 58112 bins), a 40 x 40 map under the
+    window, 200 x 200 beliefs (S = 1024). The EDT: B's 4096 distinct
+    maps, F's beliefs, an empty map, a full one, 60 x 140, 200 x 200 and
+    512 x 512 maps (the global-memory form); the node without the native EDT
+    (one E launch a map update). Adds both kernels' entries, timed and
+    bounded on path F's inputs."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    from ergodic_exploration_tpu_torch.grid import GridMap
+    from ergodic_exploration_tpu_torch.ops import edt_kernel as ek
+    from ergodic_exploration_tpu_torch.ops import reveal_kernel as rk
+    from ergodic_exploration_tpu_torch.ops import sensor
+    from ergodic_exploration_tpu_torch.ops.distance import FAR, DistanceField
+
+    print("== 24. the map kernels vs their plain versions: the reveal (R) cell for cell, the "
+          "EDT (E) bit for bit", flush=True)
+    truth, thr, win = f_run["truth"], f_run["thr"], f_run["win"]
+    errs = {"reveal": 0.0, "edt": 0.0}
+
+    def reveal_case(name, belief, truth_, pose, rng_m=1.5, n_bins=256):
+        w_ = sensor.raycast_window_cells(rng_m, float(belief.resolution.min()))
+        args = (belief, truth_, pose, rng_m, w_, n_bins, thr)
+        k, again = sensor.reveal_raycast(*args), sensor.reveal_raycast(*args)
+        p = sensor.reveal_raycast_plain(*args)
+        torch.cuda.synchronize()
+        n_diff = int((k.data != p.data).sum())
+        seen = int(((k.data != -1.0) & (belief.data == -1.0)).sum())
+        print(f"  reveal, {name}: {n_diff} of {p.data.numel()} cells differ from the plain "
+              f"version; two launches equal: {torch.equal(k.data, again.data)}; "
+              f"{seen} cells newly seen")
+        if n_diff or not torch.equal(k.data, again.data) or seen == 0:
+            fail(f"phase 24: the reveal kernel, {name}, disagrees with its plain version")
+        errs["reveal"] = max(errs["reveal"], (k.data - p.data).abs().max().item())
+        return k
+
+    def edt_case(name, grid):
+        k, again = DistanceField.from_grid(grid, thr), DistanceField.from_grid(grid, thr)
+        d, g = ek.edt_field_plain(grid.data, grid.resolution, thr)
+        torch.cuda.synchronize()
+        same = torch.equal(k.dist, d) and torch.equal(k.grad, g)
+        twice = torch.equal(k.dist, again.dist) and torch.equal(k.grad, again.grad)
+        print(f"  EDT, {name}: dist and grad equal to the plain version bit for bit: {same}; two "
+              f"launches equal: {twice}; FAR cells {int((k.dist >= FAR).sum())} of "
+              f"{k.dist.numel()}")
+        if not (same and twice):
+            fail(f"phase 24: the EDT kernel, {name}, differs from its plain version")
+        errs["edt"] = max(errs["edt"], (k.dist - d).abs().max().item(),
+                          (k.grad - g).abs().max().item())
+        return k
+
+    ek.E.reset_launches()
+    # the reveal along path F, and the EDT on each of its beliefs
+    belief = truth._replace(data=torch.full_like(truth.data, -1.0))
+    beliefs = []
+    for r, x in enumerate(f_run["x"]):
+        prev = belief
+        belief = reveal_case(f"path F refresh {r + 1}, S={S_MAIN}", belief, truth, x)
+        beliefs.append(belief)
+        edt_case(f"path F's belief after refresh {r + 1}", belief)
+    if not torch.equal(belief.data, f_run["belief"]):
+        fail("phase 24: the reveals from path F's poses do not end at path F's belief")
+    print("  the five reveals from path F's poses end at path F's final belief, bit for bit")
+    x_last = f_run["x"][-1]
+    r_ms = events_ms(lambda: sensor.reveal_raycast(prev, truth, x_last, 1.5, win,
+                                                   occupied_threshold=thr), 20)
+    r_plain = events_ms(lambda: sensor.reveal_raycast_plain(prev, truth, x_last, 1.5, win,
+                                                            occupied_threshold=thr), 2)
+    entry("reveal_raycast", "reveal_kernel.cu", "ergodic_exploration_tpu/ops/sensor.py:50",
+          errs["reveal"], r_ms, r_plain, reveal_work(prev, truth, x_last, win, 256, thr))
+    e_ms = events_ms(lambda: DistanceField.from_grid(belief, thr), 20)
+    e_plain = events_ms(lambda: ek.edt_field_plain(belief.data, belief.resolution, thr), 2)
+    field = DistanceField.from_grid(belief, thr)
+    entry("edt", "edt_kernel.cu", "ergodic_exploration_tpu/ops/distance.py:43", errs["edt"],
+          e_ms, e_plain, edt_work(field.dist, belief.resolution))
+
+    # S = 1, an unknown belief: batched and one map
+    t1 = GridMap(truth.data[:1], truth.origin[:1], truth.resolution[:1])
+    one = t1._replace(data=torch.full_like(t1.data, -1.0))
+    reveal_case("S=1", one, t1, x_last[:1])
+    reveal_case("one (h, w) map", GridMap(one.data[0], one.origin[0], one.resolution[0]),
+                GridMap(t1.data[0], t1.origin[0], t1.resolution[0]), x_last[0])
+    print(f"  at S=1: the reveal kernel "
+          f"{events_ms(lambda: sensor.reveal_raycast(one, t1, x_last[:1], 1.5, win), 50):.4f} ms, "
+          f"the EDT kernel {events_ms(lambda: DistanceField.from_grid(one, thr), 50):.4f} ms "
+          f"{card}")
+    # poses on the edges and at the corners (clamped windows), some past the map
+    rng = np.random.default_rng(24)
+    side = rng.integers(0, 4, S_MAIN)
+    along = rng.uniform(-0.2, 5.2, S_MAIN)
+    off = rng.uniform(-0.1, 0.06, S_MAIN)
+    edge = np.stack([np.where(side == 0, off, np.where(side == 1, 5.0 - off, along)),
+                     np.where(side == 2, off, np.where(side == 3, 5.0 - off, along)),
+                     rng.uniform(-np.pi, np.pi, S_MAIN)], axis=1).astype(np.float32)
+    edge[:4, :2] = [[0.01, 0.01], [4.99, 0.01], [0.01, 4.99], [4.99, 4.99]]
+    reveal_case("poses on the edges and corners", prev, truth, torch.from_numpy(edge).to(dev))
+    for rng_m in REVEAL_RANGES:
+        reveal_case(f"sensor range {rng_m} m", prev, truth, x_last, rng_m=rng_m)
+    reveal_case("97 bins", prev, truth, x_last, n_bins=97)
+    rk.R.smem_limit = 0  # the bin table in device memory, as past 58112 bins
+    try:
+        rk.R.reset_launches()
+        reveal_case("the bin table in device memory", prev, truth, x_last)
+        if rk.R.launches["reveal_raycast_global"] != 2:
+            fail(f"phase 24: the reveal did not take its global table: {rk.R.launches}")
+    finally:
+        rk.R.smem_limit = sk.MAX_SMEM
+    n = min(512, S_MAIN)
+    small = GridMap(truth.data[:n, 30:70, 30:70].contiguous(), truth.origin[:n],
+                    truth.resolution[:n])
+    xs = torch.from_numpy(np.concatenate([rng.uniform(0.1, 1.9, (n, 2)),
+                                          rng.uniform(-3, 3, (n, 1))], 1).astype(np.float32))
+    reveal_case(f"40 x 40 maps under the 63-cell window, S={n}",
+                small._replace(data=torch.full_like(small.data, -1.0)), small, xs.to(dev))
+    big = GridMap(truth.data[:MAP_BIG_S].repeat(1, 2, 2).contiguous(),
+                  truth.origin[:MAP_BIG_S], truth.resolution[:MAP_BIG_S])
+    xb = torch.from_numpy(np.concatenate([rng.uniform(0.3, 9.7, (MAP_BIG_S, 2)),
+                                          rng.uniform(-3, 3, (MAP_BIG_S, 1))],
+                                         1).astype(np.float32)).to(dev)
+    big_belief = reveal_case(f"200 x 200 beliefs, S={MAP_BIG_S}",
+                             big._replace(data=torch.full_like(big.data, -1.0)), big, xb)
+    print(f"  the reveal on 200 x 200 beliefs, S={MAP_BIG_S}: "
+          f"{events_ms(lambda: sensor.reveal_raycast(big_belief, big, xb, 1.5, win), 20):.4f} ms "
+          f"{card}")
+
+    # the EDT on the other maps
+    _, _, grids_b, _, _ = distinct_case(S_MAIN, dev)
+    edt_case(f"path B's {S_MAIN} distinct maps", grids_b)
+    e_b = events_ms(lambda: DistanceField.from_grid(grids_b, thr), 20)
+    e_b_plain = events_ms(lambda: ek.edt_field_plain(grids_b.data, grids_b.resolution, thr), 2)
+    print(f"  the EDT kernel on path B's maps {e_b:.4f} ms, plain {e_b_plain:.3f} ms {card}")
+    z = GridMap(torch.full((16, 100, 100), -1.0, device=dev), torch.zeros(16, 2, device=dev),
+                torch.full((16,), 0.05, device=dev))
+    f = edt_case("an empty map", z)
+    if not ((f.dist == FAR).all() and (f.grad == 0).all()):
+        fail("phase 24: the EDT of an empty map is not FAR with a zero gradient")
+    f = edt_case("a map that is all obstacle", z._replace(data=torch.ones_like(z.data)))
+    if not (f.dist == 0).all():
+        fail("phase 24: the EDT of a full map is not 0")
+    wide = torch.as_tensor(rng.uniform(size=(64, 60, 140)) > 0.99, dtype=torch.float32,
+                           device=dev)
+    edt_case("60 x 140 maps", GridMap(wide, torch.zeros(64, 2, device=dev),
+                                      torch.full((64,), 0.05, device=dev)))
+    edt_case(f"200 x 200 beliefs, S={MAP_BIG_S}", big_belief)
+    big_f = DistanceField.from_grid(big_belief, thr)
+    print(f"  the EDT kernel on 200 x 200 maps, S={MAP_BIG_S}: "
+          f"{events_ms(lambda: DistanceField.from_grid(big_belief, thr), 20):.4f} ms {card}")
+    del big_f
+    S_h, h_h, w_h = MAP_HUGE
+    huge = torch.as_tensor(rng.uniform(size=MAP_HUGE) > 0.999, dtype=torch.float32, device=dev)
+    edt_case(f"{h_h} x {w_h} maps, S={S_h} (the plane in device memory)",
+             GridMap(huge, torch.zeros(S_h, 2, device=dev), torch.full((S_h,), 0.05, device=dev)))
+    if ek.E.launches["edt_global"] != 2:
+        fail(f"phase 24: the {h_h} x {w_h} maps did not take the global-memory form: "
+             f"{ek.E.launches}")
+
+    # the node without the native runtime rebuilds its field through from_grid
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.node import ExplorationNode
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+
+    gmm_np, base_map, _, start = node_case()
+    node = ExplorationNode(default_config("cart"), target=GaussianMixture.create(*gmm_np),
+                           use_native=False)
+    node.on_map(base_map)
+    node.on_odom(start)
+    ek.E.reset_launches()
+    twist, _ = node.step()
+    torch.cuda.synchronize()
+    print(f"  the node without the native EDT: a map update launched {dict(ek.E.launches)}; "
+          f"twist {np.round(twist, 4).tolist()}")
+    if ek.E.launches != {"edt": 1, "edt_global": 0} or not np.isfinite(twist).all():
+        fail("phase 24: the node's map update did not go through the EDT kernel once")
+
+
 def main() -> int:
     import torch
 
@@ -3028,8 +3310,10 @@ def main() -> int:
 def run(dev) -> int:
     import torch
 
+    import ergodic_exploration_tpu_torch.ops.edt_kernel as ek
     import ergodic_exploration_tpu_torch.ops.gmm_kernel as gk
     import ergodic_exploration_tpu_torch.ops.mi_kernel as mk
+    import ergodic_exploration_tpu_torch.ops.reveal_kernel as rk
     import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
     import ergodic_exploration_tpu_torch.ops.tick_glue as tg
     from ergodic_exploration_tpu_torch.config import default_config
@@ -3084,7 +3368,8 @@ def run(dev) -> int:
         print(f"{name}: nvcc {built.seconds:.2f} s -> {built.path.relative_to(ROOT)}")
         fn = ""
         for line in built.log.splitlines():
-            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+)(I(?:L[a-z]\d+E)+E)?", line)
+            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+|reveal_kernel|edt_kernel)"
+                          r"(I(?:L[a-z]\d+E)+E)?", line)
             args = re.findall(r"L[a-z](\d+)E", m.group(2) or "") if m else []
             fn = (m.group(1) + (f"<{', '.join(args)}>" if args else "")) if m else fn
             if "registers" in line or "spill" in line:
@@ -3093,6 +3378,8 @@ def run(dev) -> int:
     gk.K2.build()
     mk.K3.build()
     tg.G.build()
+    rk.R.build()
+    ek.E.build()
     print(f"all libraries built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. K1 (shared map) against its plain version at path A's shapes
@@ -3148,10 +3435,12 @@ def run(dev) -> int:
     print(f"== 4. path A: Engine.replan_refresh, S={S_MAIN}", flush=True)
     del engine, sc, world, inp0, inp2, k, p, crop
     torch.cuda.empty_cache()
+    reset_counts()
     t0 = time.perf_counter()
     engine, sc, world, gmm, domain = build_engine(S_MAIN, dev)
     torch.cuda.synchronize()
     print(f"init_scenarios + prepare_world {1e3 * (time.perf_counter() - t0):.1f} ms {card}")
+    expect_counts("path A, prepare_world", read_map(), map_want(0, 1))
     print(f"path A inputs: sha256 of x0, the GMM and the map's free mask "
           f"{digest(sc.x, *gmm, world.free_mask)}")
     torch.cuda.reset_peak_memory_stats()
@@ -3341,6 +3630,7 @@ def run(dev) -> int:
     expect_counts("path B, the glue", glue_b,
                   glue_want(cfg_b, EXPLORE_TICKS, advance=True, in_place=True))
     note_launches("path B", glue_b)
+    expect_counts("path B, the map kernels (prepare_world)", read_map(), map_want(0, 1))
     print(f"  (warmup before it launched {({k: v for k, v in warm_counts.items() if v})})")
     nu = cfg_b.nu
     shapes_ok = (out.trajectory.shape == (EXPLORE_TICKS, S_MAIN, 3)
@@ -3363,7 +3653,8 @@ def run(dev) -> int:
     print(f"explore tick (replan + pose advance, graph replays): {ms_b:.4f} ms, "
           f"{S_MAIN * 1e3 / ms_b:.1f} solves/s {card}")
     print(f"prepare_world (EDT of {S_MAIN} distinct maps) {prep_ms:.1f} ms, peak device memory "
-          f"{prep_peak:.1f} MiB; phik_from_gmm {phik_ms:.2f} ms (host clock) {card}")
+          f"{prep_peak:.1f} MiB (the warm-up's included); phik_from_gmm {phik_ms:.2f} ms (host "
+          f"clock) {card}")
     print(f"peak device memory over explore (world, state, outputs, temporaries) "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB {card}")
     print(f"DWA-active share {out.diag.dwa_active.float().mean().item():.4f}; collision codes "
@@ -3387,6 +3678,11 @@ def run(dev) -> int:
     print(f"checkpoint ({size / 2**20:.1f} MiB) written, read back; 10 ticks from it equal "
           f"10 ticks from memory bit for bit")
     kernels["phik_from_gmm_masked"]["launches"] = counts["phik_from_gmm_masked"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prep_ev = events_ms(lambda: eng_b.prepare_world(grids_b), 10)
+    print(f"prepare_world again, steady: {prep_ev:.4f} ms (CUDA events), its temporaries peak at "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB {card}")
 
     # ---- 8. K1's other variants against the plain version, on that state
     print(f"== 8. K1 per-scenario maps / fused_solve / fused_safety vs plain, state after "
@@ -3876,6 +4172,9 @@ def run(dev) -> int:
     peak_f = torch.cuda.max_memory_allocated()
     expect_counts("path F", read_counts(),
                   {"fused_solve_safety_map_h0_nb": MAP_REFRESHES * MAP_EVERY})
+    map_f = read_map()
+    expect_counts("path F, the map kernels", map_f, map_want(MAP_REFRESHES, MAP_REFRESHES))
+    note_launches("path F", map_f)
     cov_l = cov.tolist()
     print(f"coverage per refresh {[round(c, 4) for c in cov_l]}")
     if (traj.shape != (MAP_REFRESHES, MAP_EVERY, S_MAIN, 3) or cov.shape != (MAP_REFRESHES,)
@@ -3904,22 +4203,51 @@ def run(dev) -> int:
     # the split of one refresh, each stage alone on the state the loop reached
     win = sensor.raycast_window_cells(1.5, 0.05)
     dom_f = Domain(truth_f.origin[0], truth_f.domain().lengths[0])
+    thr_f = cfg_f.occupied_threshold
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t_reveal = events_ms(lambda: sensor.reveal_raycast(
-        belief_f, truth_f, sc_f.x, 1.5, win, occupied_threshold=cfg_f.occupied_threshold), 2)
+        belief_f, truth_f, sc_f.x, 1.5, win, occupied_threshold=thr_f), 20)
     reveal_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    t_reveal_plain = events_ms(lambda: sensor.reveal_raycast_plain(
+        belief_f, truth_f, sc_f.x, 1.5, win, occupied_threshold=thr_f), 2)
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    peaks = {}
+
+    def stage_peak(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    stage_peak("dense MI target", lambda: eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0))
+    stage_peak("world rebuild", lambda: eng_f._world_batched(belief_f, belief_f.domain()))
+    stage_peak("EDT kernel", lambda: DistanceField.from_grid(belief_f, thr_f))
     t_phik = events_ms(lambda: eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0), 3)
-    t_world = events_ms(lambda: eng_f._world_batched(belief_f, belief_f.domain()), 2)
+    t_world = events_ms(lambda: eng_f._world_batched(belief_f, belief_f.domain()), 5)
+    t_edt = events_ms(lambda: DistanceField.from_grid(belief_f, thr_f), 20)
+    t_edt_plain = events_ms(lambda: ek.edt_field_plain(belief_f.data, belief_f.resolution,
+                                                       thr_f), 2)
+    t_free = events_ms(lambda: (belief_f.occupancy_at(belief_f.domain().sample_lattice(
+        cfg_f.grid_samples)) < thr_f).to(torch.float32), 20)
     phik_f = eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0)
     world_f = eng_f._world_batched(belief_f, belief_f.domain())
     t_ticks = events_ms(lambda: eng_f.explore(sc_f, phik_f, world_f, MAP_EVERY), 2)
-    print(f"  split: reveal_raycast {t_reveal:.1f} ms (its temporaries peak at "
-          f"{reveal_peak / 2**20:.1f} MiB), dense MI target {t_phik:.2f} ms, world rebuild "
-          f"{t_world:.1f} ms, {MAP_EVERY} ticks {t_ticks:.1f} ms {card}")
+    print(f"  split: reveal kernel {t_reveal:.4f} ms (its plain version {t_reveal_plain:.1f} ms; "
+          f"temporaries peak at {reveal_peak / 2**20:.1f} MiB, the plain version's at "
+          f"{plain_peak / 2**20:.1f} MiB), dense MI target {t_phik:.2f} ms, world rebuild "
+          f"{t_world:.4f} ms (EDT kernel {t_edt:.4f} ms, its plain version {t_edt_plain:.1f} ms; "
+          f"free mask {t_free:.4f} ms), {MAP_EVERY} ticks {t_ticks:.2f} ms {card}")
+    print("  the temporaries' peak of each stage alone (MiB): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in peaks.items()) + f" {card}")
     if reveal_peak > REVEAL_PEAK_LIMIT:
         fail(f"reveal_raycast held {reveal_peak / 2**30:.2f} GiB at S={S_MAIN}")
-    del sc_f, belief_f, traj, metric, truth_f, phik_f, world_f, field, clearance, cell, xy, known
+    # for phase 24: the poses each refresh revealed from, the final belief
+    f_run = dict(truth=truth_f, x=[torch.as_tensor(x0_f, device=dev)] + [traj[r, -1] for r in
+                                                                        range(MAP_REFRESHES - 1)],
+                 belief=belief_f.data, thr=thr_f, win=win)
+    del sc_f, belief_f, traj, metric, phik_f, world_f, field, clearance, cell, xy, known
     torch.cuda.empty_cache()
 
     # ---- 15. the MI tick and the mapping loop on the card against the CPU
@@ -3977,6 +4305,9 @@ def run(dev) -> int:
     entry_graphs_phase(dev, card)
     at(23)
     glue_phase(dev, card, entry)
+    at(24)
+    map_kernels_phase(dev, card, entry, f_run)
+    del f_run
     for name, (n, path) in LAUNCHES.items():
         if name in kernels:
             kernels[name]["launches"] = n

@@ -9,7 +9,9 @@ reduction against the (n, n) squared-offset matrix:
 
 A pass materialises (..., n, n) per map, so batches of maps run in chunks of
 ``chunk`` maps: (4096, 100, 100, 100) float32 would be 16 GB at once. The
-EDT runs at map cadence, outside the replan tick.
+EDT runs at map cadence, outside the replan tick. These are the plain
+versions: :meth:`DistanceField.from_grid` on CUDA tensors launches the EDT
+kernel of ``ops/edt_kernel.py`` instead.
 """
 
 from __future__ import annotations
@@ -90,11 +92,23 @@ class DistanceField(NamedTuple):
     @staticmethod
     def from_grid(grid, occupied_threshold: float = 0.65) -> "DistanceField":
         """EDT over the occupied mask + central-difference gradient; maps
-        batch over leading axes."""
-        d = edt(grid.occupied(occupied_threshold), grid.resolution)
-        gx, gy = central_gradient(d, grid.resolution)
-        return DistanceField(dist=d, grad=torch.stack([gx, gy], dim=-1),
-                             origin=grid.origin, resolution=grid.resolution)
+        batch over leading axes. CPU tensors take the plain version
+        (:func:`edt`, then :func:`central_gradient`); CUDA tensors the EDT
+        kernel (``ops/edt_kernel.py``), one launch for the batch that
+        returns both, or it raises."""
+        from ergodic_exploration_tpu_torch.ops import edt_kernel
+        from ergodic_exploration_tpu_torch.ops.solve_kernel import _on_cpu
+
+        if _on_cpu(grid.data, "DistanceField.from_grid"):
+            d, grad = edt_kernel.edt_field_plain(grid.data, grid.resolution,
+                                                 occupied_threshold)
+        else:
+            lead, (h, w) = grid.data.shape[:-2], grid.data.shape[-2:]
+            res = torch.broadcast_to(grid.resolution.to(torch.float32), lead)
+            d, grad = edt_kernel.E(grid.data.to(torch.float32).reshape(-1, h, w).contiguous(),
+                                   res.reshape(-1).contiguous(), occupied_threshold)
+            d, grad = d.reshape(*lead, h, w), grad.reshape(*lead, h, w, 2)
+        return DistanceField(dist=d, grad=grad, origin=grid.origin, resolution=grid.resolution)
 
     def _frac(self, p: torch.Tensor) -> torch.Tensor:
         """Fractional cell coordinates (ix, iy) of world points. ``p`` is

@@ -9,10 +9,13 @@ recomputed from the evolving belief.
 
 Every function takes maps with leading scenario axes, (S, H, W) beliefs with
 (S, 3) poses, or one map (H, W) with one pose (3,). The reference builds the
-window, the polar bins and the blend as one-hot matrix products; here they
-are index reads and writes with the same index arithmetic. The (cells x
-angle bins) membership arrays of :func:`reveal_raycast` are 1 MB per
-scenario as bytes, so batches run in chunks of scenarios.
+window, the polar bins and the blend as one-hot matrix products; the plain
+version here, :func:`reveal_raycast_plain`, makes them index reads and writes
+with the same index arithmetic. Its (cells x angle bins) membership arrays
+are 1 MB per scenario as bytes, so batches run in chunks of scenarios.
+:func:`reveal_raycast` takes the plain version for CPU tensors and the
+reveal kernel (``ops/reveal_kernel.py``, one launch for the batch) for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import math
 import torch
 
 from ergodic_exploration_tpu_torch.grid import UNKNOWN, GridMap
+from ergodic_exploration_tpu_torch.ops.reveal_kernel import R
+from ergodic_exploration_tpu_torch.ops.solve_kernel import _on_cpu
+from ergodic_exploration_tpu_torch.utils.device import constant
 
 
 def reveal(belief: GridMap, truth: GridMap, pose, sensor_range: float) -> GridMap:
@@ -37,9 +43,19 @@ def reveal(belief: GridMap, truth: GridMap, pose, sensor_range: float) -> GridMa
     return belief._replace(data=torch.where(seen, truth.data, belief.data))
 
 
+def bin_centers(n_bins: int, device) -> torch.Tensor:
+    """(n_bins,) float32 angle-bin centres in [-pi, pi), by the expression
+    both the plain version and the kernel's wrapper evaluate on the maps'
+    device (a division by a Python number may round otherwise on another
+    device)."""
+    two_pi = torch.full((), 2.0 * math.pi, dtype=torch.float32, device=device)
+    return ((torch.arange(n_bins, dtype=torch.float32, device=device) + 0.5) / n_bins) \
+        * two_pi - math.pi
+
+
 def _raycast_chunk(belief, truth, origin, res, pose, sensor_range, P, n_bins, thr):
-    """:func:`reveal_raycast` for a chunk of B maps: data (B, h, w), origin
-    (B, 2), res (B,), pose (B, >=2)."""
+    """:func:`reveal_raycast_plain` for a chunk of B maps: data (B, h, w),
+    origin (B, 2), res (B,), pose (B, >=2)."""
     B, h, w = belief.shape
     dev = belief.device
     two_pi = belief.new_full((), 2.0 * math.pi)
@@ -70,8 +86,7 @@ def _raycast_chunk(belief, truth, origin, res, pose, sensor_range, P, n_bins, th
     q = torch.clamp(torch.round(r_cells), 0, n_r - 1).to(torch.int16)  # (B, N)
     occ = truth_w.reshape(B, -1) >= thr
     half_w = torch.atan(0.55 / torch.clamp(r_cells, min=0.5))
-    centers = ((torch.arange(n_bins, dtype=torch.float32, device=dev) + 0.5) / n_bins) \
-        * two_pi - math.pi
+    centers = bin_centers(n_bins, dev)
     dang = ang[:, :, None] - centers  # (B, N, n_bins)
     dang = torch.remainder(dang.add_(math.pi), two_pi).sub_(math.pi).abs_()
     blocks = (dang <= half_w[:, :, None]) & occ[:, :, None]
@@ -94,9 +109,9 @@ def _raycast_chunk(belief, truth, origin, res, pose, sensor_range, P, n_bins, th
     return torch.where(vis, truth, belief)
 
 
-def reveal_raycast(belief: GridMap, truth: GridMap, pose, sensor_range: float,
-                   window_cells: int, n_bins: int = 256,
-                   occupied_threshold: float = 0.65, chunk: int = 64) -> GridMap:
+def reveal_raycast_plain(belief: GridMap, truth: GridMap, pose, sensor_range: float,
+                         window_cells: int, n_bins: int = 256,
+                         occupied_threshold: float = 0.65, chunk: int = 64) -> GridMap:
     """Occlusion-aware reveal: cells behind walls stay unknown.
 
     A polar visibility transform on a local window around the pose: each
@@ -113,6 +128,8 @@ def reveal_raycast(belief: GridMap, truth: GridMap, pose, sensor_range: float,
             window edge (n_bins >= pi * window_cells).
         occupied_threshold: truth occupancy from which a cell blocks rays.
         chunk: scenarios per pass (bounds the temporaries' memory).
+
+    The reveal kernel's plain version (:func:`reveal_raycast` dispatches).
     """
     h, w = belief.shape
     P = min(window_cells, h, w)
@@ -126,6 +143,28 @@ def reveal_raycast(belief: GridMap, truth: GridMap, pose, sensor_range: float,
                             pose[i:i + chunk], sensor_range, P, n_bins, occupied_threshold)
              for i in range(0, belief.data.shape[0], chunk)]
     return belief._replace(data=torch.cat(parts))
+
+
+def reveal_raycast(belief: GridMap, truth: GridMap, pose, sensor_range: float,
+                   window_cells: int, n_bins: int = 256,
+                   occupied_threshold: float = 0.65, chunk: int = 64) -> GridMap:
+    """:func:`reveal_raycast_plain` for CPU tensors (``chunk`` scenarios a
+    pass), the reveal kernel for CUDA tensors (one launch for the batch; it
+    raises on a failed build or launch); raises for any other device."""
+    if _on_cpu(belief.data, "reveal_raycast"):
+        return reveal_raycast_plain(belief, truth, pose, sensor_range, window_cells, n_bins,
+                                    occupied_threshold, chunk)
+    h, w = belief.shape
+    dev = belief.data.device
+    one = belief.data.dim() == 2
+    lead = 1 if one else belief.data.shape[0]
+    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+    centers = constant(("reveal_bin_centers", n_bins), dev, lambda: bin_centers(n_bins, dev))
+    data = R(f32(belief.data.reshape(lead, h, w)), f32(truth.data.reshape(lead, h, w)),
+             f32(belief.origin.reshape(lead, 2)), f32(belief.resolution.reshape(lead)),
+             f32(pose.reshape(lead, -1)), centers, sensor_range, min(window_cells, h, w),
+             n_bins, occupied_threshold)
+    return belief._replace(data=data[0] if one else data)
 
 
 def raycast_window_cells(sensor_range: float, resolution: float) -> int:

@@ -92,7 +92,8 @@ def build(name: str, source: str, flags: Sequence[str] = NVCC_FLAGS) -> Built:
 
 # library name -> source file of every kernel library of the package
 LIBRARIES = {"solve_kernel": "solve_kernel.cu", "gmm_kernel": "gmm_kernel.cu",
-             "mi_kernel": "mi_kernel.cu", "tick_glue": "tick_glue.cu"}
+             "mi_kernel": "mi_kernel.cu", "tick_glue": "tick_glue.cu",
+             "reveal_kernel": "reveal_kernel.cu", "edt_kernel": "edt_kernel.cu"}
 
 
 def build_all() -> Dict[str, Built]:

@@ -179,12 +179,14 @@ class Static:
 
 def kernel_wrappers() -> list:
     """The kernel wrappers whose ``launches`` dicts count launches."""
+    from ergodic_exploration_tpu_torch.ops.edt_kernel import E
     from ergodic_exploration_tpu_torch.ops.gmm_kernel import K2
     from ergodic_exploration_tpu_torch.ops.mi_kernel import K3
+    from ergodic_exploration_tpu_torch.ops.reveal_kernel import R
     from ergodic_exploration_tpu_torch.ops.solve_kernel import K1
     from ergodic_exploration_tpu_torch.ops.tick_glue import G
 
-    return [K1, K2, K3, G]
+    return [K1, K2, K3, G, R, E]
 
 
 def count_captured(fn: Callable, wrappers: Sequence):

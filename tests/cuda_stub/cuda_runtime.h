@@ -156,6 +156,15 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 
+// the old value; *p becomes min(*p, v), atomically among the emulated threads
+inline int atomicMin(int* p, int v) {
+    std::atomic_ref<int> a(*p);
+    int old = a.load();
+    while (v < old && !a.compare_exchange_weak(old, v)) {
+    }
+    return old;
+}
+
 // the CUDA math intrinsics with an explicit rounding (to nearest even, the
 // host's default mode; -ffp-contract=off keeps a product a product)
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
