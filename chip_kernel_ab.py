@@ -22,10 +22,12 @@ REPEATS runs of REPS calls:
     and on the first scenario alone (S = 1); where the tree's G has them,
     the in-place variants too, on a copy of the ring;
   - where the tree has R and E (``ops/reveal_kernel.py``, ``ops/edt_kernel.py``):
-    the ray-cast reveal (sensor range 1.5 m) and the EDT + gradient
-    (``DistanceField.from_grid``) on path F's beliefs after one reveal
-    (``chip_smoke.mapping_case``), at S = 4096 and on the first scenario
-    alone; a tree without them lists them under ``absent``.
+    the ray-cast reveal (sensor range 1.5 m), the EDT + gradient
+    (``DistanceField.from_grid``) and the world rebuild with the free mask
+    (``Engine._world_batched``: one launch of E where the tree's E computes
+    the mask, else E and the mask in plain torch) on path F's beliefs after
+    one reveal (``chip_smoke.mapping_case``), at S = 4096 and on the first
+    scenario alone; a tree without them lists them under ``absent``.
 
 It prints one JSON line of those times with the card's name and power limit,
 and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
@@ -155,7 +157,8 @@ def measure(root: Path, tag: str, out: Path) -> int:
     return 0
 
 
-MAP_CALLS = ("reveal_raycast_S4096", "edt_S4096", "reveal_raycast_S1", "edt_S1")
+MAP_CALLS = ("reveal_raycast_S4096", "edt_S4096", "world_S4096", "reveal_raycast_S1", "edt_S1",
+             "world_S1")
 
 
 def map_calls(calls: dict, smoke, dev) -> list:
@@ -167,11 +170,13 @@ def map_calls(calls: dict, smoke, dev) -> list:
 
     if importlib.util.find_spec("ergodic_exploration_tpu_torch.ops.reveal_kernel") is None:
         return list(MAP_CALLS)
+    from ergodic_exploration_tpu_torch.engine import Engine
     from ergodic_exploration_tpu_torch.grid import GridMap
     from ergodic_exploration_tpu_torch.ops import sensor
     from ergodic_exploration_tpu_torch.ops.distance import DistanceField
 
     cfg, x0, truth = smoke.mapping_case(S_BIG, dev)
+    eng = Engine(cfg)
     thr, win = cfg.occupied_threshold, sensor.raycast_window_cells(1.5, 0.05)
     x = torch.as_tensor(x0, device=dev)
     belief = sensor.reveal_raycast(truth._replace(data=torch.full_like(truth.data, -1.0)), truth,
@@ -184,7 +189,15 @@ def map_calls(calls: dict, smoke, dev) -> list:
         calls[f"reveal_raycast_S{S_}"] = lambda b=b, t=t, p=p: sensor.reveal_raycast(
             b, t, p, 1.5, win, occupied_threshold=thr).data
         calls[f"edt_S{S_}"] = lambda b=b: tuple(DistanceField.from_grid(b, thr)[:2])
+        calls[f"world_S{S_}"] = lambda b=b: world_outputs(eng, b)
     return []
+
+
+def world_outputs(eng, belief) -> tuple:
+    """dist, grad and the free mask of ``Engine._world_batched`` on ``belief``
+    over its own extent."""
+    wd = eng._world_batched(belief, belief.domain())
+    return wd.dist.dist, wd.dist.grad, wd.free_mask
 
 
 def glue_operands(tg, cfg, sc, world, k1_out):

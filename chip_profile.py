@@ -24,7 +24,8 @@ device time:
   F  the mapping loop: 10 ticks of ``explore`` on the beliefs' world after a
      ray-cast reveal, graphs and loop; two whole refreshes of
      ``explore_mapping_fused``, graphs and ``_explore_mapping_fused_loop``
-     (the reveal and the EDT one kernel each a refresh, their time printed)
+     (the reveal and the world rebuild, its free mask included, one kernel
+     each a refresh, their times printed; a refresh lists every kernel it ran)
   Q  the same for the quality run (``default_config("omni")``, S=256, its
      spawns)
 
@@ -48,8 +49,10 @@ ROOT = Path(__file__).resolve().parent
 # the profiler's name of a glue kernel: "glue_pre_kernel(...)", or with
 # template arguments "void glue_post_kernel<false, true>(...)"
 GLUE_KERNEL = re.compile(r"(?:void )?glue_(?:pre|post)_kernel\b")
-# the map kernels: "void reveal_kernel<false>(...)", "void edt_kernel<false>(...)"
-MAP_KERNEL = re.compile(r"(?:void )?(?:reveal|edt)_kernel\b")
+# the map kernels: "void reveal_kernel<false>(...)", "void edt_kernel<unsigned char, false,
+# true>(...)"
+REVEAL_KERNEL = re.compile(r"(?:void )?reveal_kernel\b")
+EDT_KERNEL = re.compile(r"(?:void )?edt_kernel\b")
 CALLS = 10  # calls of a one-tick loop timed and profiled, after as many warm ones
 BLOCK = 10  # ticks a call of B, C, F and Q
 
@@ -97,18 +100,22 @@ def profile(name, fn, ms_call, card, units, unit="tick", calls=CALLS):
     kernels = {k: v for k, v in by_name.items() if not k.startswith(("Memcpy", "Memset"))}
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     glue_ms = sum(us for k, (_, us) in by_name.items() if GLUE_KERNEL.match(k)) / 1e3
-    map_ms = sum(us for k, (_, us) in by_name.items() if MAP_KERNEL.match(k)) / 1e3
+    reveal_ms = sum(us for k, (_, us) in by_name.items() if REVEAL_KERNEL.match(k)) / 1e3
+    edt_ms = sum(us for k, (_, us) in by_name.items() if EDT_KERNEL.match(k)) / 1e3
     launches = sum(c for c, _ in kernels.values()) / n
     print(f"== {name}: {ms_call / units:.4f} ms a {unit} (CUDA events, unprofiled); device busy "
           f"{busy_ms / n:.4f} ms a {unit} ({100 * busy_ms / n / (ms_call / units):.1f} % of the "
           f"unprofiled {unit}, {100 * busy_ms / wall_ms:.1f} % of the profiled run); "
           f"kernels run {launches:.1f} a {unit}; host CUDA runtime calls {(host - 3) / n:.2f} a "
           f"{unit}; the glue kernels {glue_ms / n:.4f} ms a {unit} "
-          f"({100 * glue_ms / max(busy_ms, 1e-9):.1f} % of busy); the map kernels (reveal, "
-          f"EDT) {map_ms / n:.4f} ms a {unit} {card}")
+          f"({100 * glue_ms / max(busy_ms, 1e-9):.1f} % of busy); the map kernels: the reveal "
+          f"{reveal_ms / n:.4f} ms, E (the world rebuild, its free mask inside) {edt_ms / n:.4f} "
+          f"ms a {unit} {card}")
     if not by_name:
         print("   the profiler recorded no device time")
-    for key, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+    # a refresh lists every kernel it ran (which shows what plain torch is left)
+    shown = len(by_name) if unit == "refresh" else 8
+    for key, (c, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:shown]:
         print(f"   {us / 1e3 / n:9.4f} ms/{unit}  x{c / n:6.1f}  {key[:90]}")
 
 

@@ -53,10 +53,10 @@ Phases:
     place; a short run without the frontier mask; a short run on 200 x 200
     beliefs (S = 1024), which launches the row-band form
 14  path F, the mapping loop at full width: ``explore_mapping_fused`` (ray-cast
-    reveal (R) -> dense MI target -> world rebuild (E + the free mask) -> 10
-    ticks of K1 on per-scenario maps), S = 4096, 5 refreshes, two rooms and a
-    pillar; one R and one E launch a refresh; the split of a refresh, each
-    kernel beside its plain version
+    reveal (R) -> dense MI target -> world rebuild (E with the free mask) ->
+    10 ticks of K1 on per-scenario maps), S = 4096, 5 refreshes, two rooms
+    and a pillar; one R and one E launch a refresh; the split of a refresh,
+    each kernel beside its plain version
 15  the MI tick (S = 64) and the mapping loop (S = 16) on the card vs on the CPU
 16  the single-robot node (``ExplorationNode``, ``default_config("cart")``, a
     100 x 100 map, native EDT): 300 ticks with a plant and a map update every
@@ -173,11 +173,13 @@ Phases:
     over its five refreshes (from the poses each refresh revealed from, ending
     at path F's final belief), at S = 1 (batched and one map), on poses at the
     maps' edges and corners, at sensor ranges 0.75, 1.5 and 3.0 m, with 97
-    bins, with the bin table in device memory, on 40 x 40 maps under the
-    window and on 200 x 200 beliefs (S = 1024); the EDT bit for bit in dist
-    and grad on path B's 4096 distinct maps, path F's beliefs, an empty map, a full one, 60 x 140 maps, 200 x
-    200 beliefs and 512 x 512 maps (the global-memory form); two launches of
-    each equal bit for bit; both timed and bounded on path F's inputs
+    bins, with the tables in device memory, on 40 x 40 maps under the window
+    and on 200 x 200 beliefs (S = 1024); E bit for bit in dist and grad, and
+    with the free mask (``world_fields``) in its mask too, on path B's 4096
+    distinct maps, path F's beliefs (also on a wider domain), an empty map, a
+    full one, 60 x 140 maps, 200 x 200 beliefs and 512 x 512 maps with a NaN
+    cell (the global-memory form); two launches of each equal bit for bit;
+    R and E with and without the mask timed and bounded on path F's inputs
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``explore_mapping_fused``) and every call of a single-tick entry point
@@ -632,19 +634,21 @@ def read_glue() -> dict:
 
 
 def read_map() -> dict:
-    """The map kernels' launches (the reveal R and the EDT E), read apart
-    from K1, K2, K3 and the glue's: the paths that launch them (4, 7, 14, 18,
-    20, 24) name them."""
+    """The map kernels' launches (the reveal R and the world rebuild E), read
+    apart from K1, K2, K3 and the glue's: the paths that launch them (4, 7,
+    14, 18, 20, 24) name them."""
     from ergodic_exploration_tpu_torch.ops import edt_kernel as ek
     from ergodic_exploration_tpu_torch.ops import reveal_kernel as rk
 
     return {**rk.R.launches, **ek.E.launches}
 
 
-def map_want(reveals: int, edts: int) -> dict:
-    """R's and E's launches of a run: ``reveals`` ray-cast reveals and
-    ``edts`` world rebuilds (EDT + gradient), each one launch at any S."""
-    return {"reveal_raycast": reveals, "edt": edts}
+def map_want(reveals: int, worlds: int, edts: int = 0) -> dict:
+    """R's and E's launches of a run: ``reveals`` ray-cast reveals,
+    ``worlds`` world rebuilds (E with the free mask: ``Engine._world_batched``)
+    and ``edts`` distance fields alone (``DistanceField.from_grid``), each one
+    launch at any S."""
+    return {"reveal_raycast": reveals, "world": worlds, "edt": edts}
 
 
 def glue_want(cfg, ticks: int, advance: bool = False, in_place: bool = False) -> dict:
@@ -1514,9 +1518,11 @@ def quality_phase(dev, card, entry, kernels) -> None:
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     expect_counts("phase 18 (a)", counts, {"fused_safety": n_ticks})
-    # a reveal and a world rebuild a refresh; one more EDT: the spawns' (spawn_poses)
-    expect_counts("phase 18 (a), the map kernels", read_map(),
-                  map_want(Q_REFRESHES, Q_REFRESHES + 1))
+    # a reveal and a world rebuild a refresh; one distance field alone: the
+    # spawns' (spawn_poses)
+    map_q = read_map()
+    expect_counts("phase 18 (a), the map kernels", map_q, map_want(Q_REFRESHES, Q_REFRESHES, 1))
+    note_launches("path Q", map_q)
     truth = quality.build_truth(Q_S, dev)
     # the CPU's spawns are the JAX tool's (tests/test_torch_quality.py), and
     # each lies inside the domain with an EDT above the margin by construction
@@ -3061,21 +3067,24 @@ def glue_phase(dev, card, entry) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 24: the map kernels (the reveal R and the EDT E) against their plain
-# versions
+# phase 24: the map kernels (the reveal R and the world rebuild E) against
+# their plain versions
 # ---------------------------------------------------------------------------
 
 REVEAL_RANGES = (0.75, 1.5, 3.0)  # phase 24: sensor ranges (m) of the reveal cases
 MAP_BIG_S, MAP_HUGE = 1024, (4, 512, 512)  # phase 24: 200 x 200 maps; maps past shared memory
 
 
-def reveal_work(belief, truth, pose, win: int, n_bins: int, thr: float):
-    """(flops, bytes) of the reveal on these inputs. Per window cell and pass
-    ~25 operations (its centre, radius, atan2, bin and step, each counted as
-    one); per occupied window cell ~8 more (its half-width) and ~8 for each
-    bin it tests (the bins within the kernel's margin of its own: this run's
-    data decides how many). Bytes: the beliefs read and written once, the
-    truth in the windows, the poses, geometry and bin centres."""
+def reveal_work(belief, truth, pose, win: int, n_bins: int, thr: float, sensor_range: float):
+    """(flops, bytes) of the reveal on these inputs, as any implementation
+    must do it: per window cell that names a map cell of its own (an
+    edge-clamped duplicate adds nothing) ~25 operations (its centre, radius,
+    atan2, bin and step, each counted as one); per occupied one that can hide
+    a cell in range (its step under rint(range / res) + 2) ~8 more (its
+    half-width) and ~8 for each bin its interval covers (2 round(half_w /
+    bin width) + 1: this run's data decides how many); per map cell 1 (the
+    output's select). Bytes: the beliefs read and written once, the truth at
+    those window cells, the poses, geometry and bin centres."""
     import torch
 
     B, h, w = belief.data.shape
@@ -3085,62 +3094,69 @@ def reveal_work(belief, truth, pose, win: int, n_bins: int, thr: float):
     ii = torch.arange(P, device=pose.device)
     rows = torch.clamp(start[:, 1:2] + ii, 0, h - 1)
     cols = torch.clamp(start[:, 0:1] + ii, 0, w - 1)
+
+    def firsts(idx):  # the first window index of each map index
+        return torch.cat([torch.ones_like(idx[:, :1], dtype=torch.bool),
+                          idx[:, 1:] != idx[:, :-1]], dim=1)
+
+    own = firsts(rows)[:, :, None] & firsts(cols)[:, None, :]
     bi = torch.arange(B, device=pose.device)[:, None, None]
     occ = truth.data[bi, rows[:, :, None], cols[:, None, :]] >= thr
     dx = (origin[:, 0:1] + (cols.float() + 0.5) * res[:, None])[:, None, :] - pose[:, 0, None, None]
     dy = (origin[:, 1:2] + (rows.float() + 0.5) * res[:, None])[:, :, None] - pose[:, 1, None, None]
     rc = torch.sqrt(dx * dx + dy * dy) / res[:, None, None]
+    near = torch.round(rc) < torch.ceil(sensor_range / res)[:, None, None] + 1
+    blockers = own & occ & near
     half = torch.atan(0.55 / torch.clamp(rc, min=0.5))
-    m = torch.floor(half * n_bins / (2 * np.pi)) + 3
-    tests = torch.clamp(2 * m + 1, max=n_bins)[occ].sum().item()
-    cells = B * P * P
-    flops = cells * 50 + occ.sum().item() * 8 + tests * 8
+    tests = torch.clamp(2 * torch.round(half * n_bins / (2 * np.pi)) + 1, max=n_bins)
+    cells = own.sum().item()
+    flops = cells * 25 + blockers.sum().item() * 8 + tests[blockers].sum().item() * 8 + B * h * w
     return flops, 4 * (2 * B * h * w + cells + 5 * B + n_bins)
 
 
-def edt_work(dist, res):
-    """(flops, bytes) of the EDT and gradient on maps whose field is
-    ``dist``. Per cell ~6 operations of the column sweeps, ~3 to finish
-    (sqrt, product, test) and ~6 of the gradient; the row pass examines, on
-    each side of a cell, the offsets whose square is under its squared
-    distance (the whole row on an empty map): 3 each. Bytes: the maps read
-    and dist and grad written once, the resolutions."""
-    import torch
-
-    from ergodic_exploration_tpu_torch.ops.distance import FAR
-
-    S, h, w = dist.shape
-    offs = torch.where(dist >= FAR, torch.full_like(dist, w),
-                       torch.clamp(torch.ceil(dist / res[:, None, None]), max=w))
-    return S * h * w * 15 + 2 * 3 * offs.sum().item(), 4 * (4 * S * h * w + S)
+def edt_work(S: int, h: int, w: int, n_mask: int = 0):
+    """(flops, bytes) of the world rebuild of S (h, w) maps, counted as an
+    exact O(h w) transform does it, whatever kernel implements it: per cell ~4
+    operations to mark it, ~6 for its distance along the row (two sweeps), ~12
+    for the lower envelope along its column (its parabola pushed and popped
+    at most once, an intersection compared each way), ~4 to finish (sqrt,
+    product, test) and ~8 for the gradient (two differences, two divisions);
+    with the free mask ~8 a lattice point (its cell, the test). Bytes: the
+    maps read and dist and grad written once, the resolutions; with the mask
+    its S n_mask floats written, the origins and lengths."""
+    cells = S * h * w
+    flops = cells * 34 + S * n_mask * 8
+    return flops, 4 * (4 * cells + S) + (4 * S * (n_mask + 6) if n_mask else 0)
 
 
 def map_kernels_phase(dev, card, entry, f_run) -> None:
-    """Phase 24: the reveal kernel cell for cell and the EDT kernel bit for
-    bit against their plain versions on the card; each case twice, the two
-    launches equal bit for bit. The reveal: F's beliefs over its five
-    refreshes (the poses each refresh revealed from, ending at F's final
-    belief), S = 1 (batched and one map), poses at the maps' edges and
-    corners, sensor ranges 0.75, 1.5 and 3.0 m, 97 bins, the bin table in
-    device memory (the layout past 58112 bins), a 40 x 40 map under the
-    window, 200 x 200 beliefs (S = 1024). The EDT: B's 4096 distinct
-    maps, F's beliefs, an empty map, a full one, 60 x 140, 200 x 200 and
-    512 x 512 maps (the global-memory form); the node without the native EDT
-    (one E launch a map update). Adds both kernels' entries, timed and
-    bounded on path F's inputs."""
+    """Phase 24: the reveal kernel cell for cell and the world-rebuild
+    kernel bit for bit against their plain versions on the card; each case
+    twice, the two launches equal bit for bit. The reveal: F's beliefs over
+    its five refreshes (the poses each refresh revealed from, ending at F's
+    final belief), S = 1 (batched and one map), poses at the maps' edges and
+    corners, sensor ranges 0.75, 1.5 and 3.0 m, 97 bins, the tables in
+    device memory (the layout past the shared memory's), a 40 x 40 map under
+    the window, 200 x 200 beliefs (S = 1024). E, the distance field alone
+    (``DistanceField.from_grid``) and with the free mask (``world_fields``,
+    ``Engine._world_batched``'s): B's 4096 distinct maps, F's beliefs, a
+    domain other than the maps' extent, an empty map, a full one, 60 x 140,
+    200 x 200 and 512 x 512 maps (the global-memory form); the node without
+    the native EDT (one E launch a map update). Adds the entries of R and of
+    E with and without the mask, timed and bounded on path F's inputs."""
     import torch
 
     import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
-    from ergodic_exploration_tpu_torch.grid import GridMap
+    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
     from ergodic_exploration_tpu_torch.ops import edt_kernel as ek
     from ergodic_exploration_tpu_torch.ops import reveal_kernel as rk
     from ergodic_exploration_tpu_torch.ops import sensor
     from ergodic_exploration_tpu_torch.ops.distance import FAR, DistanceField
 
     print("== 24. the map kernels vs their plain versions: the reveal (R) cell for cell, the "
-          "EDT (E) bit for bit", flush=True)
-    truth, thr, win = f_run["truth"], f_run["thr"], f_run["win"]
-    errs = {"reveal": 0.0, "edt": 0.0}
+          "world rebuild (E) bit for bit", flush=True)
+    truth, thr, win, gs = f_run["truth"], f_run["thr"], f_run["win"], f_run["grid_samples"]
+    errs = {"reveal": 0.0, "edt": 0.0, "world": 0.0}
 
     def reveal_case(name, belief, truth_, pose, rng_m=1.5, n_bins=256):
         w_ = sensor.raycast_window_cells(rng_m, float(belief.resolution.min()))
@@ -3173,30 +3189,51 @@ def map_kernels_phase(dev, card, entry, f_run) -> None:
                           (k.grad - g).abs().max().item())
         return k
 
+    def world_case(name, grid, dom=None):
+        dom = grid.domain() if dom is None else dom
+        k, again = ek.world_fields(grid, dom, thr, gs), ek.world_fields(grid, dom, thr, gs)
+        p = ek.world_plain(grid, dom, thr, gs)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(k, p)]
+        twice = all(torch.equal(a, b) for a, b in zip(k, again))
+        print(f"  E with the free mask, {name}: dist, grad, mask equal to the plain version bit "
+              f"for bit: {same}; two launches equal: {twice}; free lattice points "
+              f"{int(k[2].sum())} of {k[2].numel()}")
+        if not (all(same) and twice):
+            fail(f"phase 24: E with the free mask, {name}, differs from its plain version")
+        errs["world"] = max([errs["world"]] + [(a - b).abs().max().item() for a, b in zip(k, p)])
+
     ek.E.reset_launches()
-    # the reveal along path F, and the EDT on each of its beliefs
+    # the reveal along path F, and E on each of its beliefs
     belief = truth._replace(data=torch.full_like(truth.data, -1.0))
-    beliefs = []
     for r, x in enumerate(f_run["x"]):
         prev = belief
         belief = reveal_case(f"path F refresh {r + 1}, S={S_MAIN}", belief, truth, x)
-        beliefs.append(belief)
         edt_case(f"path F's belief after refresh {r + 1}", belief)
+        world_case(f"path F's belief after refresh {r + 1}", belief)
     if not torch.equal(belief.data, f_run["belief"]):
         fail("phase 24: the reveals from path F's poses do not end at path F's belief")
     print("  the five reveals from path F's poses end at path F's final belief, bit for bit")
+    dom_f = belief.domain()
+    world_case("path F's final belief, a domain 0.37 m wider on each side (points clamp)",
+               belief, Domain(dom_f.origin - 0.37, dom_f.lengths + 0.74))
     x_last = f_run["x"][-1]
     r_ms = events_ms(lambda: sensor.reveal_raycast(prev, truth, x_last, 1.5, win,
                                                    occupied_threshold=thr), 20)
     r_plain = events_ms(lambda: sensor.reveal_raycast_plain(prev, truth, x_last, 1.5, win,
                                                             occupied_threshold=thr), 2)
     entry("reveal_raycast", "reveal_kernel.cu", "ergodic_exploration_tpu/ops/sensor.py:50",
-          errs["reveal"], r_ms, r_plain, reveal_work(prev, truth, x_last, win, 256, thr))
+          errs["reveal"], r_ms, r_plain, reveal_work(prev, truth, x_last, win, 256, thr, 1.5))
+    S_f, h_f, w_f = belief.data.shape
+    n_f = int(np.prod(gs))
+    w_ms = events_ms(lambda: ek.world_fields(belief, dom_f, thr, gs), 20)
+    w_plain = events_ms(lambda: ek.world_plain(belief, dom_f, thr, gs), 2)
+    entry("world", "edt_kernel.cu", "ergodic_exploration_tpu/engine.py:288", errs["world"],
+          w_ms, w_plain, edt_work(S_f, h_f, w_f, n_f))
     e_ms = events_ms(lambda: DistanceField.from_grid(belief, thr), 20)
     e_plain = events_ms(lambda: ek.edt_field_plain(belief.data, belief.resolution, thr), 2)
-    field = DistanceField.from_grid(belief, thr)
     entry("edt", "edt_kernel.cu", "ergodic_exploration_tpu/ops/distance.py:43", errs["edt"],
-          e_ms, e_plain, edt_work(field.dist, belief.resolution))
+          e_ms, e_plain, edt_work(S_f, h_f, w_f))
 
     # S = 1, an unknown belief: batched and one map
     t1 = GridMap(truth.data[:1], truth.origin[:1], truth.resolution[:1])
@@ -3204,10 +3241,12 @@ def map_kernels_phase(dev, card, entry, f_run) -> None:
     reveal_case("S=1", one, t1, x_last[:1])
     reveal_case("one (h, w) map", GridMap(one.data[0], one.origin[0], one.resolution[0]),
                 GridMap(t1.data[0], t1.origin[0], t1.resolution[0]), x_last[0])
-    print(f"  at S=1: the reveal kernel "
-          f"{events_ms(lambda: sensor.reveal_raycast(one, t1, x_last[:1], 1.5, win), 50):.4f} ms, "
-          f"the EDT kernel {events_ms(lambda: DistanceField.from_grid(one, thr), 50):.4f} ms "
-          f"{card}")
+    f1 = GridMap(belief.data[:1], belief.origin[:1], belief.resolution[:1])
+    r1_ms = events_ms(lambda: sensor.reveal_raycast(one, t1, x_last[:1], 1.5, win), 50)
+    e1_ms = events_ms(lambda: DistanceField.from_grid(one, thr), 50)
+    w1_ms = events_ms(lambda: ek.world_fields(f1, f1.domain(), thr, gs), 50)
+    print(f"  at S=1: the reveal kernel {r1_ms:.4f} ms, E on an unknown (empty) map {e1_ms:.4f} "
+          f"ms, E with the mask on F's first final belief {w1_ms:.4f} ms {card}")
     # poses on the edges and at the corners (clamped windows), some past the map
     rng = np.random.default_rng(24)
     side = rng.integers(0, 4, S_MAIN)
@@ -3221,12 +3260,12 @@ def map_kernels_phase(dev, card, entry, f_run) -> None:
     for rng_m in REVEAL_RANGES:
         reveal_case(f"sensor range {rng_m} m", prev, truth, x_last, rng_m=rng_m)
     reveal_case("97 bins", prev, truth, x_last, n_bins=97)
-    rk.R.smem_limit = 0  # the bin table in device memory, as past 58112 bins
+    rk.R.smem_limit = 0  # the tables in device memory, as past the shared memory's
     try:
         rk.R.reset_launches()
-        reveal_case("the bin table in device memory", prev, truth, x_last)
+        reveal_case("the tables in device memory", prev, truth, x_last)
         if rk.R.launches["reveal_raycast_global"] != 2:
-            fail(f"phase 24: the reveal did not take its global table: {rk.R.launches}")
+            fail(f"phase 24: the reveal did not take its global tables: {rk.R.launches}")
     finally:
         rk.R.smem_limit = sk.MAX_SMEM
     n = min(512, S_MAIN)
@@ -3247,12 +3286,15 @@ def map_kernels_phase(dev, card, entry, f_run) -> None:
           f"{events_ms(lambda: sensor.reveal_raycast(big_belief, big, xb, 1.5, win), 20):.4f} ms "
           f"{card}")
 
-    # the EDT on the other maps
+    # E on the other maps
     _, _, grids_b, _, _ = distinct_case(S_MAIN, dev)
     edt_case(f"path B's {S_MAIN} distinct maps", grids_b)
+    world_case(f"path B's {S_MAIN} distinct maps", grids_b)
     e_b = events_ms(lambda: DistanceField.from_grid(grids_b, thr), 20)
     e_b_plain = events_ms(lambda: ek.edt_field_plain(grids_b.data, grids_b.resolution, thr), 2)
-    print(f"  the EDT kernel on path B's maps {e_b:.4f} ms, plain {e_b_plain:.3f} ms {card}")
+    w_b = events_ms(lambda: ek.world_fields(grids_b, grids_b.domain(), thr, gs), 20)
+    print(f"  E on path B's maps {e_b:.4f} ms, plain {e_b_plain:.3f} ms; with the free mask "
+          f"{w_b:.4f} ms {card}")
     z = GridMap(torch.full((16, 100, 100), -1.0, device=dev), torch.zeros(16, 2, device=dev),
                 torch.full((16,), 0.05, device=dev))
     f = edt_case("an empty map", z)
@@ -3266,15 +3308,18 @@ def map_kernels_phase(dev, card, entry, f_run) -> None:
     edt_case("60 x 140 maps", GridMap(wide, torch.zeros(64, 2, device=dev),
                                       torch.full((64,), 0.05, device=dev)))
     edt_case(f"200 x 200 beliefs, S={MAP_BIG_S}", big_belief)
-    big_f = DistanceField.from_grid(big_belief, thr)
-    print(f"  the EDT kernel on 200 x 200 maps, S={MAP_BIG_S}: "
-          f"{events_ms(lambda: DistanceField.from_grid(big_belief, thr), 20):.4f} ms {card}")
-    del big_f
+    world_case(f"200 x 200 beliefs, S={MAP_BIG_S}", big_belief)
+    e_big = events_ms(lambda: DistanceField.from_grid(big_belief, thr), 20)
+    w_big = events_ms(lambda: ek.world_fields(big_belief, big_belief.domain(), thr, gs), 20)
+    print(f"  E on 200 x 200 maps, S={MAP_BIG_S}: {e_big:.4f} ms, with the mask {w_big:.4f} ms "
+          f"{card}")
     S_h, h_h, w_h = MAP_HUGE
     huge = torch.as_tensor(rng.uniform(size=MAP_HUGE) > 0.999, dtype=torch.float32, device=dev)
-    edt_case(f"{h_h} x {w_h} maps, S={S_h} (the plane in device memory)",
-             GridMap(huge, torch.zeros(S_h, 2, device=dev), torch.full((S_h,), 0.05, device=dev)))
-    if ek.E.launches["edt_global"] != 2:
+    huge[0, 5, 7] = float("nan")  # neither occupied nor free
+    huge_g = GridMap(huge, torch.zeros(S_h, 2, device=dev), torch.full((S_h,), 0.05, device=dev))
+    edt_case(f"{h_h} x {w_h} maps, S={S_h} (the plane in device memory)", huge_g)
+    world_case(f"{h_h} x {w_h} maps, S={S_h}, a NaN cell (the plane in device memory)", huge_g)
+    if ek.E.launches["edt_global"] != 2 or ek.E.launches["world_global"] != 2:
         fail(f"phase 24: the {h_h} x {w_h} maps did not take the global-memory form: "
              f"{ek.E.launches}")
 
@@ -3293,7 +3338,8 @@ def map_kernels_phase(dev, card, entry, f_run) -> None:
     torch.cuda.synchronize()
     print(f"  the node without the native EDT: a map update launched {dict(ek.E.launches)}; "
           f"twist {np.round(twist, 4).tolist()}")
-    if ek.E.launches != {"edt": 1, "edt_global": 0} or not np.isfinite(twist).all():
+    if (ek.E.launches != {**dict.fromkeys(ek.E.VARIANTS, 0), "edt": 1}
+            or not np.isfinite(twist).all()):
         fail("phase 24: the node's map update did not go through the EDT kernel once")
 
 
@@ -4223,7 +4269,7 @@ def run(dev) -> int:
 
     stage_peak("dense MI target", lambda: eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0))
     stage_peak("world rebuild", lambda: eng_f._world_batched(belief_f, belief_f.domain()))
-    stage_peak("EDT kernel", lambda: DistanceField.from_grid(belief_f, thr_f))
+    stage_peak("E without the mask", lambda: DistanceField.from_grid(belief_f, thr_f))
     t_phik = events_ms(lambda: eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0), 3)
     t_world = events_ms(lambda: eng_f._world_batched(belief_f, belief_f.domain()), 5)
     t_edt = events_ms(lambda: DistanceField.from_grid(belief_f, thr_f), 20)
@@ -4237,8 +4283,9 @@ def run(dev) -> int:
     print(f"  split: reveal kernel {t_reveal:.4f} ms (its plain version {t_reveal_plain:.1f} ms; "
           f"temporaries peak at {reveal_peak / 2**20:.1f} MiB, the plain version's at "
           f"{plain_peak / 2**20:.1f} MiB), dense MI target {t_phik:.2f} ms, world rebuild "
-          f"{t_world:.4f} ms (EDT kernel {t_edt:.4f} ms, its plain version {t_edt_plain:.1f} ms; "
-          f"free mask {t_free:.4f} ms), {MAP_EVERY} ticks {t_ticks:.2f} ms {card}")
+          f"{t_world:.4f} ms (one launch of E with the free mask; E without the mask "
+          f"{t_edt:.4f} ms, its plain version {t_edt_plain:.1f} ms; the free mask alone as plain "
+          f"torch {t_free:.4f} ms), {MAP_EVERY} ticks {t_ticks:.2f} ms {card}")
     print("  the temporaries' peak of each stage alone (MiB): " + ", ".join(
         f"{k} {v:.1f}" for k, v in peaks.items()) + f" {card}")
     if reveal_peak > REVEAL_PEAK_LIMIT:
@@ -4246,7 +4293,7 @@ def run(dev) -> int:
     # for phase 24: the poses each refresh revealed from, the final belief
     f_run = dict(truth=truth_f, x=[torch.as_tensor(x0_f, device=dev)] + [traj[r, -1] for r in
                                                                         range(MAP_REFRESHES - 1)],
-                 belief=belief_f.data, thr=thr_f, win=win)
+                 belief=belief_f.data, thr=thr_f, win=win, grid_samples=cfg_f.grid_samples)
     del sc_f, belief_f, traj, metric, phik_f, world_f, field, clearance, cell, xy, known
     torch.cuda.empty_cache()
 

@@ -28,26 +28,38 @@
 // The plain version materialises every (cell x bin) pair, 3969 x 256 a
 // scenario, several times over in device memory.
 //
-// What the design does about it: one block per scenario. The block copies
-// the belief row-major into the output, keeps first[n_bins] in shared
-// memory (1 KB at 256 bins; in a global workspace of the wrapper's where
-// the table would not fit a block), and visits the window twice: each
-// occupied cell tests only the bins near its own, a margin wide enough to
-// hold every bin the test can pass (about 70 of 256 at r = 0.5 cell), and
-// lowers first[] there with a shared atomicMin; after the barrier every
-// window cell recomputes its bin and step and writes the truth where it is
-// seen. Edge-clamped duplicate window cells compute the same values, so
-// their writes agree. No (cell x bin) pair reaches device memory.
+// What the design does about it: one block per scenario. The block keeps
+// first[n_bins] and one packed word a window cell (its bin, its radius step,
+// whether it is in range: 16 KB at P = 63) in shared memory (in a global
+// workspace of the wrapper's where they would not fit a block). One
+// geometry pass: each window cell computes its centre, radius, step, angle
+// and bin once (a cell out of range that blocks nothing skips the angle);
+// an edge-clamped duplicate of a cell (a later window row or column that
+// clamps to the same map row or column) names the same map cell and would
+// compute the same values, so it is skipped, and each map cell is decided
+// once (the OR of the JAX version's transposed selectors over equal values).
+// The occupied cells that can hide a cell in range go into their warp's
+// list (a ballot and a prefix count: angle, half-width, bin, step, margin);
+// when the list fills, the warp takes its blockers one by one, or 2, 4 or 8
+// at a time where each tests few bins, its lanes on a blocker's bins near its
+// own (about 70 of 256 at r = 0.5 cell), lowering first[] with a shared
+// atomicMin. After the barrier one pass writes the output: the belief, 16
+// bytes a thread where the rows are aligned, with the truth where a window
+// cell's word says it is seen. No (cell x bin) pair reaches device memory,
+// and no bin test calls fmodf: the remainder's argument lies in (-pi, 3pi),
+// where torch's fmod-based remainder by 2 pi is one branch
+// (remainder_two_pi).
 //
 // Rounding contract (-fmad=false): every multiply, add and division rounds
 // on its own as PyTorch's elementwise kernels round them, in the plain
-// version's order; atan2f, atanf, sqrtf, fmodf, floorf and rintf are the
-// functions PyTorch's CUDA kernels call for torch.atan2, atan, sqrt,
-// remainder, floor and round; 0.55 / x is PyTorch's reciprocal times 0.55
-// (Tensor.__rtruediv__), the divisions by the resolution and by 2 pi are
-// true divisions by device tensors; the bin centres come from the wrapper,
-// computed by the plain version's own torch expression on the same device.
-// So the card's output equals the plain version's on the card cell for cell.
+// version's order; atan2f, atanf, sqrtf, floorf and rintf are the functions
+// PyTorch's CUDA kernels call for torch.atan2, atan, sqrt, floor and round,
+// and remainder_two_pi gives torch.remainder's bits over its argument's
+// range; 0.55 / x is PyTorch's reciprocal times 0.55 (Tensor.__rtruediv__),
+// the divisions by the resolution and by 2 pi are true divisions by device
+// tensors; the bin centres come from the wrapper, computed by the plain
+// version's own torch expression on the same device. So the card's output
+// equals the plain version's on the card cell for cell.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,6 +70,8 @@
 namespace reveal {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int LIST = 64;  // entries of a warp's blocker list
 constexpr float PI_F = 3.14159265358979323846f;  // (float) pi, as torch casts math.pi
 constexpr float TWO_PI_F = 6.28318530717958647692f;  // (float) 2 pi = 2 (float) pi
 
@@ -67,7 +81,7 @@ struct RevealParams {
     int n_bins;
     int n_r;          // radius steps: P / 2 + 2
     int pose_stride;  // floats between two scenarios' poses (>= 2)
-    int table_global; // first[] in b.first (S x n_bins ints) instead of shared memory
+    int table_global; // first[] and the cell words in b.tables instead of shared memory
     float sensor_range;
     float thr;  // occupied_threshold
 };
@@ -79,7 +93,7 @@ struct RevealBuffers {
     const float* res;      // (S,)
     const float* pose;     // (S, pose_stride): x, y first
     const float* centers;  // (n_bins,) bin centres
-    int* first;            // (S, n_bins) workspace when table_global, else unused
+    int* tables;           // (S, n_bins + P^2) workspace when table_global, else unused
     float* out;            // (S, h, w)
 };
 
@@ -88,14 +102,6 @@ struct RevealBuffers {
 struct Geometry {
     long long sx, sy;
     float ox, oy, res, px, py;
-};
-
-// One window cell: its map index, radius, angle bin, radius step, and the
-// radius over the resolution (for the blocker's half-width).
-struct Cell {
-    long long idx;
-    float r, rc, ang;
-    int bin, q;
 };
 
 __device__ __forceinline__ Geometry geometry(const RevealParams& p, const RevealBuffers& b,
@@ -114,29 +120,31 @@ __device__ __forceinline__ Geometry geometry(const RevealParams& p, const Reveal
     return g;
 }
 
-__device__ __forceinline__ Cell cell_at(const RevealParams& p, const Geometry& g, int t) {
-    const int iy = t / p.P, ix = t - iy * p.P;
-    const long long row = min(max(g.sy + iy, 0LL), (long long)p.h - 1);
-    const long long col = min(max(g.sx + ix, 0LL), (long long)p.w - 1);
-    Cell c;
-    c.idx = row * p.w + col;
-    const float gx = g.ox + ((float)col + 0.5f) * g.res;
-    const float gy = g.oy + ((float)row + 0.5f) * g.res;
-    const float dx = gx - g.px, dy = gy - g.py;
-    c.r = sqrtf(dx * dx + dy * dy);
-    c.ang = atan2f(dy, dx);
-    const float bf = floorf(((c.ang + PI_F) / TWO_PI_F) * (float)p.n_bins);
-    c.bin = (int)fminf(fmaxf(bf, 0.0f), (float)(p.n_bins - 1));
-    c.rc = c.r / g.res;
-    c.q = (int)fminf(fmaxf(rintf(c.rc), 0.0f), (float)(p.n_r - 1));
-    return c;
+// Window index k (row or column, start + k before clamping to [0, n - 1])
+// is the first of the window's indices that clamp to its map index.
+__device__ __forceinline__ bool first_of_its_cell(long long start, int k, int n) {
+    return k == 0 || (start + k >= 1 && start + k <= n - 1);
 }
 
-// torch.remainder on floats: fmod, then the divisor added where the signs differ
-__device__ __forceinline__ float torch_remainder(float a, float m) {
+// The first window index whose map index (row or column) is i, for an i
+// the window covers.
+__device__ __forceinline__ int window_index(long long start, int i) {
+    return i == 0 ? 0 : (int)max((long long)i - start, 0LL);
+}
+
+// torch.remainder on floats: fmod, then the divisor added where the signs
+// differ (ATen's CUDA and CPU kernels)
+__host__ __device__ inline float torch_remainder(float a, float m) {
     float r = fmodf(a, m);
     if (r != 0.0f && ((m < 0.0f) != (r < 0.0f))) r += m;
     return r;
+}
+
+// torch_remainder(a, 2 pi) for a in (-2 pi, 4 pi), the bin test's range: in
+// [2 pi, 4 pi) fmod is a - 2 pi, exact (Sterbenz); in [0, 2 pi) it is a; in
+// (-2 pi, 0) it is a, and the sign fix adds 2 pi, rounded once. (-0 stays -0.)
+__host__ __device__ inline float remainder_two_pi(float a) {
+    return a >= TWO_PI_F ? a - TWO_PI_F : a < 0.0f ? a + TWO_PI_F : a;
 }
 
 }  // namespace reveal
@@ -145,45 +153,168 @@ using namespace reveal;
 
 template <bool TABLE_GLOBAL>
 __global__ void __launch_bounds__(THREADS) reveal_kernel(RevealParams p, RevealBuffers b) {
-    extern __shared__ int smem_first[];
-    const int s = blockIdx.x;
-    const long long hw = (long long)p.h * p.w;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int s = blockIdx.x, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int h = p.h, w = p.w, P = p.P, cells = P * P, n_bins = p.n_bins;
+    const long long hw = (long long)h * w;
     const float* belief = b.belief + s * hw;
     const float* truth = b.truth + s * hw;
     float* out = b.out + s * hw;
-    int* first = TABLE_GLOBAL ? b.first + (long long)s * p.n_bins : smem_first;
+    int* first = TABLE_GLOBAL ? b.tables + (long long)s * (n_bins + cells)
+                              : reinterpret_cast<int*>(smem);
+    // a window cell's word: bin << 16 | step << 1 | (the first of its map cell, in range)
+    uint32_t* cell_word = reinterpret_cast<uint32_t*>(first + n_bins);
+    float* lists = TABLE_GLOBAL ? reinterpret_cast<float*>(smem)
+                                : reinterpret_cast<float*>(cell_word + cells);
+    float* l_ang = lists + warp * LIST;
+    float* l_half = lists + (WARPS + warp) * LIST;
+    uint32_t* l_bin_q = reinterpret_cast<uint32_t*>(lists) + (2 * WARPS + warp) * LIST;
+    int* l_m = reinterpret_cast<int*>(lists) + (3 * WARPS + warp) * LIST;
 
-    for (long long i = threadIdx.x; i < hw; i += THREADS) out[i] = belief[i];
-    for (int k = threadIdx.x; k < p.n_bins; k += THREADS) first[k] = p.n_r;
+    for (int k = tid; k < n_bins; k += THREADS) first[k] = p.n_r;
     __syncthreads();
 
+    // the blockers of this warp's list: a blocker a time, its bins near its
+    // own over the lanes; 2, 4 or 8 blockers at a time where each tests at
+    // most 16, 8 or 4 bins. A bin the test passes lies within half_w / (2 pi
+    // / n_bins) + 1/2 bins of the cell's (and rounding moves that by far less
+    // than a bin): the margin m holds it.
+    auto drain = [&](int n) {
+        __syncwarp();
+        for (int e = 0; e < n;) {
+            const int mine = e + lane < n ? l_m[e + lane] : 1 << 20;
+            const unsigned m1 = __ballot_sync(0xffffffffu, mine <= 1);
+            const unsigned m3 = __ballot_sync(0xffffffffu, mine <= 3);
+            const unsigned m7 = __ballot_sync(0xffffffffu, mine <= 7);
+            const int take = (m1 & 0xFFu) == 0xFFu ? 8 : (m3 & 0xFu) == 0xFu ? 4
+                                                    : (m7 & 0x3u) == 0x3u ? 2 : 1;
+            const int width = 32 / take, me = e + lane / width;
+            const float ang = l_ang[me], half_w = l_half[me];
+            const int bin = (int)(l_bin_q[me] >> 16), q = (int)(l_bin_q[me] & 0xFFFFu), m = l_m[me];
+            const bool all = 2 * m + 1 >= n_bins;
+            const int lo = all ? 0 : bin - m, hi = all ? n_bins - 1 : bin + m;
+            for (int k = lo + lane % width; k <= hi; k += width) {
+                const int bb = k < 0 ? k + n_bins : k >= n_bins ? k - n_bins : k;
+                const float dang = fabsf(remainder_two_pi((ang - b.centers[bb]) + PI_F) - PI_F);
+                if (dang <= half_w) atomicMin(&first[bb], q);
+            }
+            e += take;
+        }
+        __syncwarp();
+    };
+
+    // geometry: each window cell once, a warp on 32 consecutive cells; a cell
+    // out of range needs its bin only where it blocks. A blocker at step
+    // q_far or beyond hides no cell in range (their steps are at most
+    // rint(range / res) < q_far), so it is not listed.
     const Geometry g = geometry(p, b, s);
-    const int cells = p.P * p.P;
-    // blockers: each occupied window cell lowers first[] over the bins near
-    // its own bin that pass the interval test. A bin the test passes lies
-    // within half_w / (2 pi / n_bins) + 1/2 bins of the cell's: the margin m
-    // holds it with room for rounding.
-    for (int t = threadIdx.x; t < cells; t += THREADS) {
-        const Cell c = cell_at(p, g, t);
-        if (!(truth[c.idx] >= p.thr)) continue;
-        const float half_w = atanf((1.0f / fmaxf(c.rc, 0.5f)) * 0.55f);
-        const int m = (int)(half_w * (float)p.n_bins * 0.15915494f) + 3;
-        const bool all = 2 * m + 1 >= p.n_bins;
-        const int lo = all ? 0 : c.bin - m, hi = all ? p.n_bins - 1 : c.bin + m;
-        for (int k = lo; k <= hi; ++k) {
-            const int bb = k < 0 ? k + p.n_bins : k >= p.n_bins ? k - p.n_bins : k;
-            const float dang =
-                fabsf(torch_remainder((c.ang - b.centers[bb]) + PI_F, TWO_PI_F) - PI_F);
-            if (dang <= half_w) atomicMin(&first[bb], c.q);
+    const int q_far = (int)ceilf(p.sensor_range / g.res) + 1;
+    int listed = 0;  // entries in this warp's list (the same in every lane)
+    for (int base = warp * 32; base < cells; base += THREADS) {
+        const int t = base + lane;
+        bool blocker = false;
+        float ang = 0.0f, half_w = 0.0f;
+        uint32_t bin_q = 0;
+        int m = 0;
+        if (t < cells) {
+            const int iy = t / P, ix = t - iy * P;
+            uint32_t word = 0;
+            if (first_of_its_cell(g.sy, iy, h) && first_of_its_cell(g.sx, ix, w)) {
+                const long long row = min(max(g.sy + iy, 0LL), (long long)h - 1);
+                const long long col = min(max(g.sx + ix, 0LL), (long long)w - 1);
+                const bool occupied = truth[row * w + col] >= p.thr;
+                const float gx = g.ox + ((float)col + 0.5f) * g.res;
+                const float gy = g.oy + ((float)row + 0.5f) * g.res;
+                const float dx = gx - g.px, dy = gy - g.py;
+                const float r = sqrtf(dx * dx + dy * dy);
+                const bool in_range = r <= p.sensor_range;
+                const float rc = r / g.res;
+                const int q = (int)fminf(fmaxf(rintf(rc), 0.0f), (float)(p.n_r - 1));
+                if (in_range || (occupied && q < q_far)) {
+                    ang = atan2f(dy, dx);
+                    const float bf = floorf(((ang + PI_F) / TWO_PI_F) * (float)n_bins);
+                    const int bin = (int)fminf(fmaxf(bf, 0.0f), (float)(n_bins - 1));
+                    word = (uint32_t)bin << 16 | (uint32_t)q << 1 | (in_range ? 1u : 0u);
+                    if (occupied && q < q_far) {
+                        blocker = true;
+                        half_w = atanf((1.0f / fmaxf(rc, 0.5f)) * 0.55f);
+                        m = (int)(half_w * (float)n_bins * 0.15915494f + 0.5f) + 1;
+                        bin_q = (uint32_t)bin << 16 | (uint32_t)q;
+                    }
+                }
+            }
+            cell_word[t] = word;
+        }
+        const unsigned mask = __ballot_sync(0xffffffffu, blocker);
+        if (blocker) {
+            const int at = listed + __popc(mask & ((1u << lane) - 1u));
+            l_ang[at] = ang;
+            l_half[at] = half_w;
+            l_bin_q[at] = bin_q;
+            l_m[at] = m;
+        }
+        listed += __popc(mask);
+        if (listed > LIST - 32) {
+            drain(listed);
+            listed = 0;
         }
     }
+    drain(listed);
     __syncthreads();
 
-    // visibility: strictly behind the first blocker of its bin, or out of
-    // range, a cell stays as the belief has it
-    for (int t = threadIdx.x; t < cells; t += THREADS) {
-        const Cell c = cell_at(p, g, t);
-        if (c.q <= first[c.bin] && c.r <= p.sensor_range) out[c.idx] = truth[c.idx];
+    // the output: the belief, with the truth where a window cell is seen
+    // (its step <= first[its bin], in range); 16 bytes a thread where the
+    // rows are 16-byte aligned
+    const int rlo = (int)min(max(g.sy, 0LL), (long long)h - 1);
+    const int rhi = (int)min(max(g.sy + P - 1, 0LL), (long long)h - 1);
+    const int clo = (int)min(max(g.sx, 0LL), (long long)w - 1);
+    const int chi = (int)min(max(g.sx + P - 1, 0LL), (long long)w - 1);
+    auto seen = [&](int i, int j) {
+        if (i < rlo || i > rhi || j < clo || j > chi) return false;
+        const uint32_t word = cell_word[window_index(g.sy, i) * P + window_index(g.sx, j)];
+        return (word & 1u) && (int)(word >> 1 & 0x7FFFu) <= first[word >> 16];
+    };
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(b.belief) |
+                            reinterpret_cast<uintptr_t>(b.truth) |
+                            reinterpret_cast<uintptr_t>(b.out);
+    if (w % 4 == 0 && bases % 16 == 0) {
+        for (long long q4 = tid; q4 < hw / 4; q4 += THREADS) {
+            const int i = (int)(4 * q4 / w), j = (int)(4 * q4 - (long long)i * w);
+            float4 v = reinterpret_cast<const float4*>(belief)[q4];
+            if (i >= rlo && i <= rhi && j + 3 >= clo && j <= chi) {
+                const bool s0 = seen(i, j), s1 = seen(i, j + 1), s2 = seen(i, j + 2),
+                           s3 = seen(i, j + 3);
+                if (s0 || s1 || s2 || s3) {
+                    const float4 t = reinterpret_cast<const float4*>(truth)[q4];
+                    v = make_float4(s0 ? t.x : v.x, s1 ? t.y : v.y, s2 ? t.z : v.z,
+                                    s3 ? t.w : v.w);
+                }
+            }
+            reinterpret_cast<float4*>(out)[q4] = v;
+        }
+    } else {
+        int i = tid / w, j = tid - (tid / w) * w;
+        for (long long c = tid; c < hw; c += THREADS) {
+            out[c] = seen(i, j) ? truth[c] : belief[c];
+            for (j += THREADS; j >= w; j -= w) ++i;
+        }
+    }
+}
+
+// Bytes of shared memory a block needs: the warps' blocker lists, and
+// first[] and the cell words unless they live in the global workspace.
+extern "C" long long reveal_smem_bytes(int P, int n_bins, int table_global) {
+    const long long lists = 4LL * THREADS / 32 * LIST * 4;
+    return lists + (table_global ? 0 : 4LL * (n_bins + (long long)P * P));
+}
+
+// The bin test's remainder against torch's over `n` arguments: branch[i] =
+// remainder_two_pi(a[i]), fmod[i] = torch_remainder(a[i], 2 pi), on the host
+// (a check of the branch's range; the kernel never calls it).
+extern "C" void reveal_remainder_check(const float* a, float* branch, float* fmod_fix, int n) {
+    for (int i = 0; i < n; ++i) {
+        branch[i] = remainder_two_pi(a[i]);
+        fmod_fix[i] = torch_remainder(a[i], TWO_PI_F);
     }
 }
 
@@ -195,12 +326,13 @@ extern "C" int reveal_raycast(const RevealParams* params, const RevealBuffers* b
     RevealBuffers b = *buffers;
     if (p.S <= 0) return 0;
     if (p.h < 1 || p.w < 1 || p.P < 1 || p.P > p.h || p.P > p.w || p.n_bins < 1 ||
-        p.n_r != p.P / 2 + 2 || p.pose_stride < 2 || (p.table_global && b.first == nullptr))
+        p.n_bins > 65536 || p.n_r != p.P / 2 + 2 || p.n_r > 32768 || p.pose_stride < 2 ||
+        (p.table_global && b.tables == nullptr))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = p.table_global ? 0 : (size_t)p.n_bins * sizeof(int);
+    const size_t smem = (size_t)reveal_smem_bytes(p.P, p.n_bins, p.table_global);
     if (smem > (size_t)max_dynamic_smem()) return (int)cudaErrorInvalidValue;
     cudaError_t e = p.table_global
-                        ? launch_kernel(reveal_kernel<true>, dim3(p.S), dim3(THREADS), 0,
+                        ? launch_kernel(reveal_kernel<true>, dim3(p.S), dim3(THREADS), smem,
                                         (cudaStream_t)stream, p, b)
                         : launch_kernel(reveal_kernel<false>, dim3(p.S), dim3(THREADS), smem,
                                         (cudaStream_t)stream, p, b);

@@ -306,10 +306,14 @@ class Engine:
                          for t in grids))
 
     def _world_batched(self, grids: GridMap, dom: Domain) -> World:
+        """The world of each map over its domain (the JAX ``_world_one``,
+        vmapped): on the card one launch of the EDT kernel with the free
+        mask, on the CPU its plain composition (``ops/edt_kernel.py``)."""
+        from ergodic_exploration_tpu_torch.ops.edt_kernel import world_fields
+
         cfg = self.config
-        pts = dom.sample_lattice(cfg.grid_samples)  # (S, N, 2)
-        free = (grids.occupancy_at(pts) < cfg.occupied_threshold).to(torch.float32)
-        return World(domain=dom, dist=DistanceField.from_grid(grids, cfg.occupied_threshold),
+        dist, grad, free = world_fields(grids, dom, cfg.occupied_threshold, cfg.grid_samples)
+        return World(domain=dom, dist=DistanceField(dist, grad, grids.origin, grids.resolution),
                      free_mask=free)
 
     def empty_world(self, domain: Domain, n: int) -> World:

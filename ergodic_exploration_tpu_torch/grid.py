@@ -23,6 +23,14 @@ def rows(v: torch.Tensor) -> torch.Tensor:
     return v.unsqueeze(-2)
 
 
+def lattice_fractions(n: int, device) -> torch.Tensor:
+    """(n,) float32 cell centres (k + 0.5) / n of a lattice axis, by the
+    expression of :meth:`Domain.sample_lattice` on ``device`` (the EDT
+    kernel's free mask takes them from here: a division by a Python number
+    rounds otherwise on another device)."""
+    return (torch.arange(n, dtype=torch.float32, device=device) + 0.5) / n
+
+
 class Domain(NamedTuple):
     """Rectangular exploration domain [x0, x0+Lx] x [y0, y0+Ly]."""
 
@@ -45,8 +53,7 @@ class Domain(NamedTuple):
         """Cell-centred (..., nsx * nsy, 2) lattice of each domain, x-major."""
         nsx, nsy = shape
         dev = self.origin.device
-        fx = (torch.arange(nsx, dtype=torch.float32, device=dev) + 0.5) / nsx
-        fy = (torch.arange(nsy, dtype=torch.float32, device=dev) + 0.5) / nsy
+        fx, fy = lattice_fractions(nsx, dev), lattice_fractions(nsy, dev)
         gx = self.origin[..., 0:1] + fx * self.lengths[..., 0:1]  # (..., nsx)
         gy = self.origin[..., 1:2] + fy * self.lengths[..., 1:2]  # (..., nsy)
         lead = gx.shape[:-1]

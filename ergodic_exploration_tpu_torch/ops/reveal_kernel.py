@@ -14,8 +14,9 @@ Dispatch: :func:`ergodic_exploration_tpu_torch.ops.sensor.reveal_raycast`
 takes the plain version only for tensors that lie on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback.
 ``R.launches`` counts the launches of each variant: ``reveal_raycast`` (the
-bin table in shared memory) and ``reveal_raycast_global`` (past
-``smem_limit`` bytes of table, in a global workspace).
+bin table and the window's cell words in shared memory) and
+``reveal_raycast_global`` (past ``smem_limit`` bytes of them, in a global
+workspace).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ class _Params(ctypes.Structure):
         ("sensor_range", ctypes.c_float), ("thr", ctypes.c_float)]
 
 
-_BUFFERS = ("belief", "truth", "origin", "res", "pose", "centers", "first", "out")
+_BUFFERS = ("belief", "truth", "origin", "res", "pose", "centers", "tables", "out")
 
 
 class _Buffers(ctypes.Structure):
@@ -54,7 +55,7 @@ class RevealRaycast:
 
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
-        self.smem_limit = MAX_SMEM  # bytes of bin table a block keeps in shared memory
+        self.smem_limit = MAX_SMEM  # bytes of tables a block keeps in shared memory
         self.launches = {}
         self.reset_launches()
 
@@ -72,6 +73,14 @@ class RevealRaycast:
             self.built = built
         return self.built
 
+    def smem_bytes(self, P: int, n_bins: int, table_global: bool) -> int:
+        """Bytes of shared memory a block takes (the source's
+        ``reveal_smem_bytes``): the warps' blocker lists, and the bin table
+        and cell words unless ``table_global``."""
+        fn = self.build().lib.reveal_smem_bytes
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+        return fn(P, n_bins, int(table_global))
+
     def __call__(self, belief, truth, origin, res, pose, centers, sensor_range: float,
                  P: int, n_bins: int, occupied_threshold: float) -> torch.Tensor:
         """The revealed beliefs (S, h, w) from beliefs and truths (S, h, w),
@@ -83,17 +92,18 @@ class RevealRaycast:
             raise ValueError(f"the reveal kernel takes beliefs (S, h, w) and poses (S, >= 2), "
                              f"got {tuple(belief.shape)} and {tuple(pose.shape)}")
         S, h, w = belief.shape
-        if not (1 <= P <= min(h, w) and n_bins >= 1):
-            raise ValueError(f"the reveal kernel needs 1 <= P <= min(h, w) and n_bins >= 1, "
-                             f"got P={P}, n_bins={n_bins} on ({h}, {w}) maps")
+        if not (1 <= P <= min(h, w) and 1 <= n_bins <= 65536 and P // 2 + 2 <= 32768):
+            raise ValueError(f"the reveal kernel needs 1 <= P <= min(h, w), P <= 65533 and "
+                             f"1 <= n_bins <= 65536, got P={P}, n_bins={n_bins} on ({h}, {w}) "
+                             f"maps")
         ops = dict(belief=belief, truth=truth, origin=origin, res=res, pose=pose,
                    centers=centers)
         _check_operands("reveal kernel", ops, dict(
             belief=(S, h, w), truth=(S, h, w), origin=(S, 2), res=(S,),
             pose=(S, pose.shape[1]), centers=(n_bins,)), dev)
-        table_global = 4 * n_bins > self.smem_limit
-        ops["first"] = torch.empty((S, n_bins) if table_global else (0,), dtype=torch.int32,
-                                   device=dev)
+        table_global = self.smem_bytes(P, n_bins, False) > self.smem_limit
+        ops["tables"] = torch.empty((S, n_bins + P * P) if table_global else (0,),
+                                    dtype=torch.int32, device=dev)
         ops["out"] = out = torch.empty_like(belief)
         params = _Params(S=S, h=h, w=w, P=P, n_bins=n_bins, n_r=P // 2 + 2,
                          pose_stride=pose.shape[1], table_global=int(table_global),

@@ -134,6 +134,17 @@ inline T __shfl_xor_sync(unsigned m, T v, int lane_mask) {
     return __shfl_sync(m, v, (int)(lane ^ (unsigned)lane_mask));
 }
 
+template <class T>
+inline T __shfl_up_sync(unsigned m, T v, unsigned delta) {
+    const unsigned lane = (threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z)) % 32;
+    return __shfl_sync(m, v, (int)(lane >= delta ? lane - delta : lane));
+}
+template <class T>
+inline T __shfl_down_sync(unsigned m, T v, unsigned delta) {
+    const unsigned lane = (threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z)) % 32;
+    return __shfl_sync(m, v, (int)(lane + delta < 32 ? lane + delta : lane));
+}
+
 inline unsigned __ballot_sync(unsigned, int pred) {
     host_stub::Warp& w = *host_stub::warp;
     const unsigned lane = (threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z)) % 32;
@@ -144,6 +155,8 @@ inline unsigned __ballot_sync(unsigned, int pred) {
     w.bar.arrive_and_wait();
     return bits;
 }
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 inline bool __any_sync(unsigned m, int pred) { return __ballot_sync(m, pred) != 0u; }
 inline bool __all_sync(unsigned m, int pred) { return __ballot_sync(m, !pred) == 0u; }
@@ -163,6 +176,12 @@ inline int atomicMin(int* p, int v) {
     while (v < old && !a.compare_exchange_weak(old, v)) {
     }
     return old;
+}
+
+// the old value; *p becomes *p | v, atomically among the emulated threads
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+    std::atomic_ref<unsigned> a(*p);
+    return a.fetch_or(v);
 }
 
 // the CUDA math intrinsics with an explicit rounding (to nearest even, the

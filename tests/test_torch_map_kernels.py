@@ -2,8 +2,10 @@
 the ray-cast reveal (``reveal_raycast_plain`` and the ``reveal_raycast``
 dispatcher, the reveal kernel's plain version) and the distance field
 (``DistanceField.from_grid``'s dispatcher, the EDT kernel's plain version
-``edt_field_plain``), on seeded numpy maps; and the dispatch itself: CPU
-tensors never reach a kernel wrapper.
+``edt_field_plain``) and the world rebuild with its free mask
+(``Engine._world_batched``, E's plain composition ``world_plain``), on
+seeded numpy maps; and the dispatch itself: CPU tensors never reach a
+kernel wrapper.
 
 The reveal decides cells by ``floor`` of an angle bin and by ``<=`` between
 angles, so a last-bit difference between XLA's and ATen's atan2 / atan can
@@ -21,10 +23,15 @@ import numpy as np
 import pytest
 import torch
 
+from ergodic_exploration_tpu.config import default_config as j_default_config
+from ergodic_exploration_tpu.engine import Engine as JEngine
+from ergodic_exploration_tpu.grid import Domain as JDomain
 from ergodic_exploration_tpu.grid import GridMap as JGridMap
 from ergodic_exploration_tpu.ops import sensor as jsensor
 from ergodic_exploration_tpu.ops.distance import DistanceField as JDistanceField
-from ergodic_exploration_tpu_torch.grid import GridMap
+from ergodic_exploration_tpu_torch.config import default_config
+from ergodic_exploration_tpu_torch.engine import Engine
+from ergodic_exploration_tpu_torch.grid import Domain, GridMap
 from ergodic_exploration_tpu_torch.ops import edt_kernel, reveal_kernel, sensor
 from ergodic_exploration_tpu_torch.ops.distance import DistanceField, central_gradient, edt
 
@@ -137,6 +144,46 @@ def test_from_grid_dispatcher_is_the_plain_composition_and_matches_jax(h, w):
     assert torch.equal(one.dist, tf.dist[2]) and torch.equal(one.grad, tf.grad[2])
 
 
+@pytest.mark.parametrize("domain", ["maps_extent", "wider_domain"])
+def test_world_batched_matches_jax_world_one(domain):
+    """``Engine._world_batched`` on the CPU (E's plain composition,
+    ``edt_kernel.world_plain``) against the JAX engine's
+    ``jax.vmap(_world_one)`` on the same maps (each its own origin and
+    resolution, NaN cells among them) over their extents and over a wider
+    domain whose lattice points clamp to the maps' edges: the free mask
+    exactly, the distance field within atol 1e-6."""
+    S, h, w = 5, 30, 36
+    truth, belief, _ = _maps(S, h, w, seed=11)
+    data = np.concatenate([truth[:2], belief[2:]])
+    data[3, 4, 5] = data[4, 0, 0] = np.nan
+    origin = np.array([[0.0, 0.0], [0.3, -0.2], [-1.0, 0.5], [0.05, 0.05], [2.0, 1.0]], np.float32)
+    res = np.linspace(0.05, 0.1, S).astype(np.float32)
+    ext = np.stack([w * res, h * res], axis=-1)
+    if domain == "wider_domain":
+        d_origin, d_lengths = origin - 0.37, ext + 0.9
+    else:
+        d_origin, d_lengths = origin, ext
+    opts = dict(grid_samples=(40, 27))
+    je = JEngine(j_default_config("cart").replace(**opts))
+    te = Engine(default_config("cart").replace(**opts), device="cpu")
+    jw = jax.vmap(je._world_one)(JGridMap(jnp.asarray(data), jnp.asarray(origin), jnp.asarray(res)),
+                                 JDomain(jnp.asarray(d_origin), jnp.asarray(d_lengths)))
+    tw = te._world_batched(GridMap(torch.from_numpy(data), torch.from_numpy(origin),
+                                   torch.from_numpy(res)),
+                           Domain(torch.from_numpy(d_origin), torch.from_numpy(d_lengths)))
+    free = tw.free_mask.numpy()
+    np.testing.assert_array_equal(free, np.asarray(jw.free_mask))
+    assert free.shape == (S, 40 * 27) and 0 < free.sum() < free.size
+    assert free[3].sum() < free[3].size  # the NaN cell is not free
+    np.testing.assert_allclose(tw.dist.dist.numpy(), np.asarray(jw.dist.dist), rtol=0.0, atol=1e-6)
+    np.testing.assert_allclose(tw.dist.grad.numpy(), np.asarray(jw.dist.grad), rtol=0.0, atol=1e-6)
+    dist, grad, mask = edt_kernel.world_plain(
+        GridMap(torch.from_numpy(data), torch.from_numpy(origin), torch.from_numpy(res)),
+        Domain(torch.from_numpy(d_origin), torch.from_numpy(d_lengths)), 0.65, (40, 27))
+    assert torch.equal(tw.dist.dist, dist) and torch.equal(tw.dist.grad, grad)
+    assert torch.equal(tw.free_mask, mask)
+
+
 def test_cpu_tensors_never_reach_a_kernel_wrapper(monkeypatch):
     """On the CPU both dispatchers run the plain versions: a wrapper that
     would launch raises here, and the launch counts stay 0."""
@@ -145,6 +192,7 @@ def test_cpu_tensors_never_reach_a_kernel_wrapper(monkeypatch):
 
     monkeypatch.setattr(reveal_kernel.RevealRaycast, "__call__", refuse)
     monkeypatch.setattr(edt_kernel.EdtField, "__call__", refuse)
+    monkeypatch.setattr(edt_kernel.EdtField, "world", refuse)
     reveal_kernel.R.reset_launches()
     edt_kernel.E.reset_launches()
     truth, belief, poses = _maps(3, 30, 30, seed=3)
@@ -153,12 +201,16 @@ def test_cpu_tensors_never_reach_a_kernel_wrapper(monkeypatch):
     out = sensor.reveal_raycast(tb, tt, torch.from_numpy(poses), 1.5, win)
     DistanceField.from_grid(out)
     DistanceField.from_grid(GridMap(out.data[0], out.origin[0], out.resolution[0]))
+    edt_kernel.world_fields(out, out.domain(), 0.65, (20, 20))
     assert not any(reveal_kernel.R.launches.values())
     assert not any(edt_kernel.E.launches.values())
     # and a CUDA-only wrapper refuses a CPU tensor outright
     monkeypatch.undo()
     with pytest.raises(ValueError, match="CUDA"):
         edt_kernel.E(tb.data, tb.resolution, 0.65)
+    with pytest.raises(ValueError, match="CUDA"):
+        edt_kernel.E.world(tb.data, tb.resolution, 0.65, tb.origin, tb.origin,
+                           tb.domain().lengths, torch.zeros(20), torch.zeros(20))
     with pytest.raises(ValueError, match="CUDA"):
         reveal_kernel.R(tb.data, tt.data, tb.origin, tb.resolution, torch.from_numpy(poses),
                         sensor.bin_centers(256, "cpu"), 1.5, win, 256, 0.65)
