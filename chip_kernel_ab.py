@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times K1, K2, the tick's glue G and the map kernels (the reveal R, the EDT
-E) at the bench shape for the package of one tree, and saves their outputs,
-so that two trees can be compared on one card.
+"""Times K1, K2, the tick's glue G, the map kernels (the reveal R, the EDT E)
+and the dense MI target (M) at the bench shape for the package of one tree,
+and saves their outputs, so that two trees can be compared on one card.
 
     python3 chip_kernel_ab.py --root <tree> --tag <name> [--out <dir>]
     python3 chip_kernel_ab.py --compare <dir>/<tag a>.pt <dir>/<tag b>.pt
@@ -27,7 +27,13 @@ REPEATS runs of REPS calls:
     (``Engine._world_batched``: one launch of E where the tree's E computes
     the mask, else E and the mask in plain torch) on path F's beliefs after
     one reveal (``chip_smoke.mapping_case``), at S = 4096 and on the first
-    scenario alone; a tree without them lists them under ``absent``.
+    scenario alone; a tree without them lists them under ``absent``;
+  - the dense MI target, ``Engine._phik_grid_batch_dense_fn`` (M where the
+    tree has ``ops/mi_dense_kernel.py``, else the plain torch program): on
+    path F's beliefs after one reveal (r = 0) at S = 4096 and S = 1, and on
+    path E's beliefs (``chip_smoke.mi_case``, r = 3) at S = 4096. Its outputs
+    in a tree with M and in one without differ by rounding (within M's
+    budget, rtol 2e-4 / atol 2e-5): ``--compare`` lists them.
 
 It prints one JSON line of those times with the card's name and power limit,
 and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
@@ -89,7 +95,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
     for name, built in cuda_build.build_all().items():
         fn = ""
         for line in built.log.splitlines():  # registers and spills of each kernel
-            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+|reveal_kernel|edt_kernel)(I[^E]*E)?",
+            m = re.search(r"_Z\d+((?:k\d|glue|m)_[a-z_]+|reveal_kernel|edt_kernel)(I[^E]*E)?",
                           line)
             fn = m.group(1) + (m.group(2) or "") if m else fn
             if "registers" in line or "spill" in line:
@@ -139,6 +145,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
                 calls[f"{post_name}_inplace_S{S_}"] = (
                     lambda own=own, adv=adv: tg.G.post(*own, adv, True))
     absent = map_calls(calls, smoke, dev)
+    dense_calls(calls, smoke, dev)
     saved, times = {}, {}
     for name, fn in calls.items():
         res = fn()
@@ -191,6 +198,31 @@ def map_calls(calls: dict, smoke, dev) -> list:
         calls[f"edt_S{S_}"] = lambda b=b: tuple(DistanceField.from_grid(b, thr)[:2])
         calls[f"world_S{S_}"] = lambda b=b: world_outputs(eng, b)
     return []
+
+
+def dense_calls(calls: dict, smoke, dev) -> None:
+    """Add the dense MI target's calls: path F's beliefs after one reveal
+    (r = 0) at S = 4096 and S = 1, path E's beliefs (r = 3) at S = 4096."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
+    from ergodic_exploration_tpu_torch.ops import sensor
+
+    cfg, x0, truth = smoke.mapping_case(S_BIG, dev)
+    eng = Engine(cfg)
+    win = sensor.raycast_window_cells(1.5, 0.05)
+    belief = sensor.reveal_raycast(truth._replace(data=torch.full_like(truth.data, -1.0)), truth,
+                                   torch.as_tensor(x0, device=dev), 1.5, win,
+                                   occupied_threshold=cfg.occupied_threshold)
+    dom = Domain(truth.origin[0], truth.domain().lengths[0])
+    for S_ in (S_BIG, 1):
+        b = GridMap(*(f[:S_].contiguous() for f in belief))
+        calls[f"dense_F_S{S_}"] = lambda b=b: eng._phik_grid_batch_dense_fn(b, dom, 0)
+    eng_e, _, grids_e, _, _, dom_e = smoke.mi_case(S_BIG, dev)
+    grids_e = grids_e._replace(data=grids_e.data.contiguous())
+    calls[f"dense_E_r3_S{S_BIG}"] = lambda: eng_e._phik_grid_batch_dense_fn(
+        grids_e, dom_e, smoke.MI_RADIUS)
 
 
 def world_outputs(eng, belief) -> tuple:

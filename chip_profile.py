@@ -20,12 +20,14 @@ device time:
      10 ticks a call: the graph replays and the plain loop (``_explore_loop``)
   C  the same for the default configuration (eager step + fused_safety), S=512
   E  the MI tick (disc reveal + ``replan_refresh_mi`` with K3 + pose advance),
-     graph replay and eager function (``_refresh_mi_and_replan_fn``)
+     graph replay and eager function (``_refresh_mi_and_replan_fn``); the
+     same with the dense path (M, ``use_mi_kernel=False``) in K3's place
   F  the mapping loop: 10 ticks of ``explore`` on the beliefs' world after a
      ray-cast reveal, graphs and loop; two whole refreshes of
      ``explore_mapping_fused``, graphs and ``_explore_mapping_fused_loop``
-     (the reveal and the world rebuild, its free mask included, one kernel
-     each a refresh, their times printed; a refresh lists every kernel it ran)
+     (the reveal, the dense MI target M and the world rebuild, its free mask
+     included, one kernel each a refresh, M two with its finish, their times
+     printed; a refresh lists every kernel it ran)
   Q  the same for the quality run (``default_config("omni")``, S=256, its
      spawns)
 
@@ -53,6 +55,8 @@ GLUE_KERNEL = re.compile(r"(?:void )?glue_(?:pre|post)_kernel\b")
 # true>(...)"
 REVEAL_KERNEL = re.compile(r"(?:void )?reveal_kernel\b")
 EDT_KERNEL = re.compile(r"(?:void )?edt_kernel\b")
+# M, the dense MI target: "m_phik_dense(MParams, MBuffers)" and its "m_finish(...)"
+DENSE_KERNEL = re.compile(r"(?:void )?m_(?:phik_dense|finish)\b")
 CALLS = 10  # calls of a one-tick loop timed and profiled, after as many warm ones
 BLOCK = 10  # ticks a call of B, C, F and Q
 
@@ -102,6 +106,7 @@ def profile(name, fn, ms_call, card, units, unit="tick", calls=CALLS):
     glue_ms = sum(us for k, (_, us) in by_name.items() if GLUE_KERNEL.match(k)) / 1e3
     reveal_ms = sum(us for k, (_, us) in by_name.items() if REVEAL_KERNEL.match(k)) / 1e3
     edt_ms = sum(us for k, (_, us) in by_name.items() if EDT_KERNEL.match(k)) / 1e3
+    dense_ms = sum(us for k, (_, us) in by_name.items() if DENSE_KERNEL.match(k)) / 1e3
     launches = sum(c for c, _ in kernels.values()) / n
     print(f"== {name}: {ms_call / units:.4f} ms a {unit} (CUDA events, unprofiled); device busy "
           f"{busy_ms / n:.4f} ms a {unit} ({100 * busy_ms / n / (ms_call / units):.1f} % of the "
@@ -110,7 +115,7 @@ def profile(name, fn, ms_call, card, units, unit="tick", calls=CALLS):
           f"{unit}; the glue kernels {glue_ms / n:.4f} ms a {unit} "
           f"({100 * glue_ms / max(busy_ms, 1e-9):.1f} % of busy); the map kernels: the reveal "
           f"{reveal_ms / n:.4f} ms, E (the world rebuild, its free mask inside) {edt_ms / n:.4f} "
-          f"ms a {unit} {card}")
+          f"ms a {unit}; M (the dense MI target) {dense_ms / n:.4f} ms a {unit} {card}")
     if not by_name:
         print("   the profiler recorded no device time")
     # a refresh lists every kernel it ran (which shows what plain torch is left)
@@ -194,16 +199,17 @@ def main() -> int:
                      eng.phik_from_gmm(gmm_b, dom_b, world_b), world_b, Engine(cfg))
 
     engine_e, sc_e, belief, truth_e, world_e, domain_e = cs.mi_case(cs.S_MAIN, dev)
-    for kind, run in (("graph replay", engine_e.replan_refresh_mi),
-                      ("eager", engine_e._refresh_mi_and_replan_fn)):
-        st_e = [sc_e, belief]
+    for use_k3, tag in ((True, "K3 + K1"), (False, "the dense path: M + K1")):
+        for kind, run in (("graph replay", engine_e.replan_refresh_mi),
+                          ("eager", engine_e._refresh_mi_and_replan_fn)):
+            st_e = [sc_e, belief]
 
-        def tick_e(run=run, st_e=st_e):
-            b = sensor.reveal(st_e[1], truth_e, st_e[0].x, 0.75)
-            s, u, _ = run(st_e[0], b, world_e, cs.MI_RADIUS, domain_e, use_mi_kernel=True)
-            st_e[:] = [cs.advance(engine_e, s, u), b]
+            def tick_e(run=run, st_e=st_e, use_k3=use_k3):
+                b = sensor.reveal(st_e[1], truth_e, st_e[0].x, 0.75)
+                s, u, _ = run(st_e[0], b, world_e, cs.MI_RADIUS, domain_e, use_mi_kernel=use_k3)
+                st_e[:] = [cs.advance(engine_e, s, u), b]
 
-        loops.append((f"E MI tick (K3 + K1), S={cs.S_MAIN}, {kind}", tick_e, 1, "tick"))
+            loops.append((f"E MI tick ({tag}), S={cs.S_MAIN}, {kind}", tick_e, 1, "tick"))
 
     def mapping_loops(tag, eng, x0, truth, every, eng_plain=None):
         """After one refresh from unknown beliefs: BLOCK ticks on its world

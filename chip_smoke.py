@@ -39,7 +39,7 @@ Phases:
     history draw) and on per-scenario empty maps (per-scenario draws); each
     variant vs plain on this path's own inputs
 11  ``explore`` on the card vs on the CPU, S = 64, distinct maps, 3 ticks
-12  K3 vs plain and vs the dense path: S = 4096 beliefs of 100 x 100 cells that
+12  K3 vs plain and vs the dense path (M): S = 4096 beliefs of 100 x 100 cells that
     differ per scenario, (r, fc) in (3, 3), (0, 3), (3, 0); S = 1, S = 100; a
     40 x 40 map with a 23 x 23 lattice and K = 6; maps the TPU kernel takes
     that K3 once refused: 8 x 8 beliefs with K = 10, a 40 x 40 map with
@@ -49,14 +49,17 @@ Phases:
     sensor_radius_cells=3, domain=<shared>, use_mi_kernel=True)`` (K3, then K1
     on the shared map) on beliefs that a disc sensor reveals between ticks,
     S = 4096 and S = 1; K3 alone at S = 1 and on S = 4096 continuous beliefs
-    (every cell uniform in (0, 1)); the same tick with the dense path in K3's
-    place; a short run without the frontier mask; a short run on 200 x 200
-    beliefs (S = 1024), which launches the row-band form
+    (every cell uniform in (0, 1)); the same tick with the dense path (M) in
+    K3's place, one M launch a tick; a short run without the frontier mask,
+    with K3 and then with M (whose entry ``phik_dense_nofc`` is timed on its
+    beliefs); a short run on 200 x 200 beliefs (S = 1024), which launches the
+    row-band form
 14  path F, the mapping loop at full width: ``explore_mapping_fused`` (ray-cast
-    reveal (R) -> dense MI target -> world rebuild (E with the free mask) ->
-    10 ticks of K1 on per-scenario maps), S = 4096, 5 refreshes, two rooms
-    and a pillar; one R and one E launch a refresh; the split of a refresh,
-    each kernel beside its plain version
+    reveal (R) -> dense MI target (M) -> world rebuild (E with the free mask)
+    -> 10 ticks of K1 on per-scenario maps), S = 4096, 5 refreshes, two rooms
+    and a pillar; one R, one M and one E launch a refresh; the split of a
+    refresh, each kernel beside its plain version; M against its plain
+    version on the beliefs reached, its rings also in the workspace
 15  the MI tick (S = 64) and the mapping loop (S = 16) on the card vs on the CPU
 16  the single-robot node (``ExplorationNode``, ``default_config("cart")``, a
     100 x 100 map, native EDT): 300 ticks with a plant and a map update every
@@ -91,9 +94,10 @@ Phases:
     docs/quality_config4.json (refresh 1's coverage
     within 1e-3, the later ``coverage_at`` points within 0.03, the final
     per-scenario p10 and median no lower than the record's by 0.05 and
-    0.02); the multi-room floors of tests/test_quality.py (S = 4, 400 ticks:
-    mean speed, coverage, second-half rise); ``fused_safety`` vs plain on
-    the state the run reached
+    0.02), one M launch a refresh; the multi-room floors of
+    tests/test_quality.py (S = 4, 400 ticks: mean speed, coverage,
+    second-half rise; the separable MI target, no M); ``fused_safety`` vs
+    plain on the state the run reached
 19  the headline entry point, ``ergodic_exploration_tpu_torch.bench``:
     ``bench._run()`` in process at full width (S = 4096, 50 ticks each of
     ``bench_throughput`` and ``bench_throughput_mi``; ``bench_latency``'s
@@ -180,6 +184,15 @@ Phases:
     full one, 60 x 140 maps, 200 x 200 beliefs and 512 x 512 maps with a NaN
     cell (the global-memory form); two launches of each equal bit for bit;
     R and E with and without the mask timed and bounded on path F's inputs
+25  M, the dense MI target (``csrc/mi_dense_kernel.cu``), against its plain
+    version (rtol 2e-4, atol 2e-5; the fallback rows bit for bit; two
+    launches bit for bit): path F's beliefs (S = 4096, r = 0, fc = 3) and
+    S = 1, path E's (r = 3, fc = 3 and 0), 200 x 200 beliefs at S = 1024
+    (the rings in shared memory and in the workspace, bit for bit), a
+    60 x 140 map with a 48 x 64 lattice and K = 12, all-unknown beliefs
+    (every scenario the fallback) and fully known maps; each with the max
+    abs and relative error, M's ms beside the plain version's and the cuBLAS
+    contraction's alone, and the temporaries' peak of both
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``explore_mapping_fused``) and every call of a single-tick entry point
@@ -191,7 +204,8 @@ just before it and read just after; the glue's counts (G) are read apart
 from K1, K2 and K3's (``read_glue``) and checked on paths A and B (phases 4
 and 7) and in phases 16, 20, 22 and 23; the map kernels' (R, E) too
 (``read_map``), checked in phases 4 and 7 (``prepare_world``), 14, 18, 20
-and 24. A graph's tick appends its ring in
+and 24; M's (``read_dense``) in phases 13, 14, 18, 20 and 22. A graph's
+tick appends its ring in
 place (``glue_post_inplace``, ``glue_post_advance_inplace``); the copying
 variants run in the eager functions and plain loops, and their launches in
 the kernels line are those of phase 20's plain loop of path B and phase
@@ -236,6 +250,8 @@ K3_TOL = dict(rtol=2e-4, atol=2e-5)  # the JAX package's own for its K3 (tests/t
 REFRESH_ATOL = 2.2e-6  # the JAX package's own for its refresh (ops/pallas_kernels.py)
 S_BIG, CELLS_BIG, T_BIG = 1024, 200, 10  # the MI tick on maps that take K3's row-band form
 MI_RADIUS = 3  # sensor_radius_cells of the MI tick
+DENSE_TOL = dict(rtol=2e-4, atol=2e-5)  # M vs its plain version (tests/test_mi_kernel.py's budget)
+DENSE_REPLACES = "ergodic_exploration_tpu/engine.py:586"  # _phik_grid_batch_dense_fn, XLA
 MAP_REFRESHES, MAP_EVERY = 5, 10  # path F: refreshes and ticks per refresh
 REVEAL_PEAK_LIMIT = 8 * 2**30  # bytes reveal_raycast may hold at S_MAIN
 NODE_TICKS, NODE_MAP_EVERY = 300, 50  # phase 16: ticks after one warm-up tick; map cadence
@@ -249,7 +265,9 @@ TICK_FIELDS = ("u", "metric", "code", "dwa_active", "dwa_feasible", "U")
 Q_S, Q_REFRESHES, Q_EVERY = 256, 500, 10  # phase 18 (a): the record's quality run, full length
 # phase 18 (a): the gaps to the record at its nine coverage ticks and the final
 # p10 / median that the same run printed as a plain Python loop (NVIDIA H100
-# 80GB HBM3, 700.00 W); the graphs' run is printed beside them
+# 80GB HBM3, 700.00 W), with the dense MI target as plain torch (before M,
+# whose sums take another order: the digits moved by rounding); the graphs'
+# run is printed beside them
 LOOP_Q_GAPS = ("+0.00000", "+0.00483", "+0.00612", "+0.00754", "+0.00251", "+0.00084",
                "-0.00381", "-0.00165", "+0.00115")
 LOOP_Q_P10_MEDIAN = ("0.8381", "0.9834")
@@ -606,8 +624,10 @@ def reset_counts() -> None:
     from ergodic_exploration_tpu_torch.ops import tick_glue as tg
 
     from ergodic_exploration_tpu_torch.ops import edt_kernel as ek
+    from ergodic_exploration_tpu_torch.ops import mi_dense_kernel as md
     from ergodic_exploration_tpu_torch.ops import reveal_kernel as rk
 
+    md.M.reset_launches()
     sk.K1.reset_launches()
     gk.K2.reset_launches()
     mk.K3.reset_launches()
@@ -641,6 +661,20 @@ def read_map() -> dict:
     from ergodic_exploration_tpu_torch.ops import reveal_kernel as rk
 
     return {**rk.R.launches, **ek.E.launches}
+
+
+def read_dense() -> dict:
+    """M's launches (the dense MI target), read apart from the other
+    kernels': the paths that launch it (13, 14, 18, 20, 22, 25) name them."""
+    from ergodic_exploration_tpu_torch.ops import mi_dense_kernel as md
+
+    return dict(md.M.launches)
+
+
+def dense_want(n: int, fc: bool = True) -> dict:
+    """M's launches of ``n`` dense MI targets, with the frontier mask or
+    without (one launch a target at any S)."""
+    return {"phik_dense_fc" if fc else "phik_dense_nofc": n}
 
 
 def map_want(reveals: int, worlds: int, edts: int = 0) -> dict:
@@ -727,6 +761,86 @@ def mi_work(S, h, w, K, r, fc):
     per = cells * (10 + 2 * (2 * r + 1) + (2 * (2 * fc + 1) if fc else 0) + 2 * K)
     per += 2 * h * K * K + 2 * K * K
     return S * per, 4 * (S * cells + w * K + K * h + K * K + 1 + S * K * K)
+
+
+def dense_work(S, h, w, nsx, nsy, KK, r, fc, nnz):
+    """(flops, bytes) of M: per cell ~10 operations for the entropy (two logs)
+    and the masks; per lattice point 2 (2r+1) for the box sums, 2 (2fc+1)
+    for the frontier test with the mask, 2 for the masks; 2 K^2 per
+    (scenario, lattice point) whose value is not 0 (``nnz`` of them: what
+    this run's beliefs need); the normalization. Bytes: the beliefs, the
+    lattice cells, D, the fallback and the result once."""
+    N = nsx * nsy
+    flops = (S * h * w * 10 + S * N * (2 * (2 * r + 1) + (2 * (2 * fc + 1) if fc else 0) + 2)
+             + 2 * nnz * KK + 2 * S * KK)
+    return flops, 4 * (S * h * w + nsx + nsy + N * KK + KK + 1 + S * KK)
+
+
+def dense_check(name: str, data, ops, r: int, fc: int, thr: float, card: str, reps: int = 20,
+                plain_reps: int = 5, ring_global: bool = False) -> dict:
+    """M on the beliefs ``data`` (S, h, w) against its plain version on the
+    card: within DENSE_TOL, the fallback taken by the same scenarios and
+    equal to it bit for bit there, two launches bit for bit; then M's ms,
+    the plain version's and the cuBLAS product (S, N) @ (N, K^2) alone on
+    the plain version's lattice values (the library yardstick), by CUDA
+    events, and the temporaries' peak of each above the inputs. With
+    ``ring_global`` the rings sit in the workspace (the ``_global``
+    variant), which must equal the shared-memory form bit for bit. Fails on
+    a breach; returns the numbers."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.ops import mi_dense_kernel as md
+
+    args = (ops, r, fc, thr)
+    data = data.contiguous()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = md.M(data, *args)
+    torch.cuda.synchronize()
+    peak_m = torch.cuda.max_memory_allocated() - base
+    again = md.M(data, *args)
+    torch.cuda.reset_peak_memory_stats()
+    ref = md.phik_dense_plain(data, *args)
+    torch.cuda.synchronize()
+    peak_p = torch.cuda.max_memory_allocated() - base
+    vals = md.dense_values_plain(data, ops, r, fc, thr)
+    err = (got - ref).abs()
+    bad = int((err > DENSE_TOL["atol"] + DENSE_TOL["rtol"] * ref.abs()).sum())
+    rel = (err / ref.abs().clamp(min=DENSE_TOL["atol"])).max().item()
+    fb_ref = (ref == ops.fallback).all(dim=(1, 2))
+    fb_got = (got == ops.fallback).all(dim=(1, 2))
+    S_, h_, w_ = data.shape
+    K = ops.fallback.shape[-1]
+    nnz = int((vals != 0).sum())
+    print(f"  M {name} (S={S_}, {h_} x {w_}, lattice {ops.cx.shape[0]} x {ops.cy.shape[0]}, K={K}, "
+          f"r={r}, fc={fc}): max |M - plain| {err.max().item():.3e}, max relative (|plain| >= "
+          f"{DENSE_TOL['atol']}) {rel:.3e} (rtol {DENSE_TOL['rtol']}, atol {DENSE_TOL['atol']}), "
+          f"{bad} outside; {int(fb_ref.sum())} scenarios took the fallback, bit for bit "
+          f"{bool(torch.equal(fb_ref, fb_got))}; lattice values not 0: {nnz / vals.numel():.4f}")
+    if (got.shape != (S_, K, K) or not torch.isfinite(got).all() or bad
+            or not torch.equal(fb_ref, fb_got) or not torch.equal(got, again)):
+        fail(f"M {name}: outside tolerance, another fallback, non-finite, mis-shaped or two "
+             f"launches that differ")
+    if ring_global:
+        limit = md.M.smem_limit
+        md.M.smem_limit = 0
+        try:
+            glob = md.M(data, *args)
+        finally:
+            md.M.smem_limit = limit
+        if not torch.equal(glob, got):
+            fail(f"M {name}: the rings in the workspace differ from the rings in shared memory")
+        print("  the rings in the workspace (the _global variant): equal bit for bit")
+    out = dict(err=err.max().item(), rel=rel, nnz=nnz, peak_m=peak_m, peak_p=peak_p,
+               fallbacks=int(fb_ref.sum()),
+               ms=events_ms(lambda: md.M(data, *args), reps),
+               plain_ms=events_ms(lambda: md.phik_dense_plain(data, *args), plain_reps),
+               lib_ms=events_ms(lambda: torch.matmul(vals, ops.D), reps))
+    print(f"  M {name}: {out['ms']:.4f} ms, plain version {out['plain_ms']:.4f} ms, the cuBLAS "
+          f"contraction alone {out['lib_ms']:.4f} ms; temporaries' peak {peak_m / 2**20:.2f} MiB "
+          f"(M) vs {peak_p / 2**20:.1f} MiB (plain) {card}", flush=True)
+    return out
 
 
 def solve_work(cfg, S, P, safety: bool, dwa_probes: float = 0.0, map_cells: int = 0,
@@ -1523,6 +1637,7 @@ def quality_phase(dev, card, entry, kernels) -> None:
     map_q = read_map()
     expect_counts("phase 18 (a), the map kernels", map_q, map_want(Q_REFRESHES, Q_REFRESHES, 1))
     note_launches("path Q", map_q)
+    expect_counts("phase 18 (a), M", read_dense(), dense_want(Q_REFRESHES))
     truth = quality.build_truth(Q_S, dev)
     # the CPU's spawns are the JAX tool's (tests/test_torch_quality.py), and
     # each lies inside the domain with an EDT above the margin by construction
@@ -1551,9 +1666,9 @@ def quality_phase(dev, card, entry, kernels) -> None:
                   "ergodic_metric_last_refresh_mean")))
     gaps = tuple(f"{gap:+.5f}" for _, _, _, gap in verdict["coverage_at"])
     p10_med = tuple(f"{dist[q]:.4f}" for q in ("p10", "median"))
-    print(f"  the {len(gaps)} gaps equal the plain loop's printed digits {LOOP_Q_GAPS}: "
-          f"{gaps == LOOP_Q_GAPS}; the final p10 / median equal its {LOOP_Q_P10_MEDIAN}: "
-          f"{p10_med == LOOP_Q_P10_MEDIAN}")
+    print(f"  the {len(gaps)} gaps equal the printed digits of the plain loop with the plain "
+          f"dense target {LOOP_Q_GAPS}: {gaps == LOOP_Q_GAPS}; the final p10 / median equal its "
+          f"{LOOP_Q_P10_MEDIAN}: {p10_med == LOOP_Q_P10_MEDIAN}")
     print(f"  wall {r.wall_s:.2f} s for {n_ticks} ticks as {Q_REFRESHES} graph replays (the "
           f"first refresh the warm-up, then {r.capture_s:.3f} s of capture): "
           f"{1e3 * r.wall_s / n_ticks:.4f} ms a tick, {1e3 * r.wall_s / Q_REFRESHES:.3f} ms a "
@@ -1586,6 +1701,8 @@ def quality_phase(dev, card, entry, kernels) -> None:
     expect_counts("phase 18 (b)", read_counts(), {"fused_safety": quality.MULTIROOM_TICKS})
     chunks = quality.MULTIROOM_TICKS // Q_EVERY  # explore_mapping: a reveal and prepare_world each
     expect_counts("phase 18 (b), the map kernels", read_map(), map_want(chunks, chunks))
+    # explore_mapping's target is phik_from_grid without a domain: the separable path
+    expect_counts("phase 18 (b), M", read_dense(), {})
     print(f"  mean speed {speed:.4f} m/s (floor {quality.FLOOR_SPEED}); coverage {coverage:.4f} "
           f"(floor {quality.FLOOR_COVERAGE}); second-half rise {rise:.4f} "
           f"(floor {quality.FLOOR_RISE})")
@@ -1794,12 +1911,13 @@ def same_as_loop(name: str, got, ref) -> None:
 
 
 def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int,
-               maps: dict = None) -> None:
+               maps: dict = None, dense: dict = None) -> None:
     """The checks of one case of phase 20: the first graph run (which
     captures) and the second (replays only), each with exact launch counts
     (the glue's: ``ticks`` of each kernel, the ring appended in place; the
-    map kernels': ``maps``, none by default) and each against the plain
-    loop bit for bit, whose launches are exact too (the ring copied)."""
+    map kernels': ``maps``, M's: ``dense``, none by default) and each against
+    the plain loop bit for bit, whose launches are exact too (the ring
+    copied)."""
     import torch
 
     glue = glue_want(engine.config, ticks, advance=True, in_place=True)
@@ -1813,12 +1931,14 @@ def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int,
     expect_counts(f"phase 20, {name}, the run that captures, the glue", read_glue(), glue)
     expect_counts(f"phase 20, {name}, the run that captures, the map kernels", read_map(),
                   maps or {})
+    expect_counts(f"phase 20, {name}, the run that captures, M", read_dense(), dense or {})
     reset_counts()
     again = graph_run()
     torch.cuda.synchronize()
     expect_counts(f"phase 20, {name}, replays only", read_counts(), want)
     expect_counts(f"phase 20, {name}, replays only, the glue", read_glue(), glue)
     expect_counts(f"phase 20, {name}, replays only, the map kernels", read_map(), maps or {})
+    expect_counts(f"phase 20, {name}, replays only, M", read_dense(), dense or {})
     captured = {n: [d for d in g.launches if d] for e in engine._graphs._entries.values()
                 for n, g in e.graphs.items()}
     print(f"  {name}: launches a replay of each graph (by its ticks) {captured}; capture "
@@ -1833,6 +1953,7 @@ def graph_case(name: str, engine, graph_run, loop_run, want: dict, ticks: int,
                   glue_want(engine.config, ticks, advance=True))
     note_launches(f"phase 20, {name}, the plain loop", loop_glue)
     expect_counts(f"phase 20, {name}, the plain loop, the map kernels", read_map(), maps or {})
+    expect_counts(f"phase 20, {name}, the plain loop, M", read_dense(), dense or {})
     same_as_loop(name + ", the run that captured", first, ref)
     same_as_loop(name + ", replays only", again, ref)
 
@@ -2295,7 +2416,8 @@ def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int 
                                     fn(sc, truth, n, every, 1.5)))
 
         runs = (run(eng.explore_mapping_fused), run(eng._explore_mapping_fused_loop))
-        graph_case(tag, eng, *runs, want, n_ref * every, maps=map_want(n_ref, n_ref))
+        graph_case(tag, eng, *runs, want, n_ref * every, maps=map_want(n_ref, n_ref),
+                   dense=dense_want(n_ref))
         cases.append((tag, *runs, n_ref, "refresh", run(eng._explore_mapping_fused_loop, 1), 1))
 
     mapping(f"path F (explore_mapping_fused, S={S_big}, {refreshes} refreshes)",
@@ -2361,7 +2483,8 @@ def same_ticks(name: str, got, ref) -> None:
 
 
 def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: dict,
-               mutate, card: str, evolve=None, ticks: int = ENTRY_TICKS, latency: bool = False):
+               mutate, card: str, evolve=None, ticks: int = ENTRY_TICKS, latency: bool = False,
+               dense: dict = None):
     """One path of phase 22. ``graph_step(sc, ins)`` is the public entry
     point (a graph replay), ``eager_step(sc, ins)`` its eager function called
     by name; both return (sc, u, diag). From ``sc0``: ``ticks`` chained ticks
@@ -2369,7 +2492,8 @@ def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: 
     tick's inputs when given), equal bit for bit, with exact launch counts on
     the call that captures and on the replays; a tick with the inputs
     unchanged; ``mutate(ins)``, an in-place change, and one more tick; the
-    first call's outputs unchanged at the end. Then, with only the scenarios
+    first call's outputs unchanged at the end. M's launches a tick are
+    ``dense`` (none by default). Then, with only the scenarios
     changing: ms a tick by CUDA events and by host clock, the host's CUDA
     runtime calls a tick, and with ``latency`` the p50 / p99 from the call to
     the controls on the host, graphs against eager."""
@@ -2395,7 +2519,10 @@ def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: 
     reset_counts()
     ref, sc_e, ins_e = chain(eager_step, ticks, sc0, dict(ins))
     torch.cuda.synchronize()
+    dense = dense or {}
     expect_counts(f"phase 22, {name}, eager", read_counts(), {k: ticks * n for k, n in want.items()})
+    expect_counts(f"phase 22, {name}, eager, M", read_dense(),
+                  {k: ticks * n for k, n in dense.items()})
     eager_glue = read_glue()
     expect_counts(f"phase 22, {name}, eager, the glue", eager_glue,
                   glue_want(engine.config, ticks))
@@ -2408,6 +2535,7 @@ def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: 
     torch.cuda.synchronize()
     capture_s = engine.graph_capture_s - captured
     expect_counts(f"phase 22, {name}, the call that captures", read_counts(), want)
+    expect_counts(f"phase 22, {name}, the call that captures, M", read_dense(), dense)
     expect_counts(f"phase 22, {name}, the call that captures, the glue", read_glue(), glue)
     kept = map_tree(torch.clone, first[0])
     reset_counts()
@@ -2415,6 +2543,8 @@ def entry_case(name: str, engine, sc0, ins: dict, graph_step, eager_step, want: 
     torch.cuda.synchronize()
     expect_counts(f"phase 22, {name}, replays only", read_counts(),
                   {k: (ticks - 1) * n for k, n in want.items()})
+    expect_counts(f"phase 22, {name}, replays only, M", read_dense(),
+                  {k: (ticks - 1) * n for k, n in dense.items()})
     expect_counts(f"phase 22, {name}, replays only, the glue", read_glue(),
                   {k: (ticks - 1) * n for k, n in glue.items()})
     peak_g = torch.cuda.max_memory_allocated() - base
@@ -2530,7 +2660,7 @@ def entry_graphs_phase(dev, card) -> dict:
                  f"on path A at S={S_} as graphs (limit 20)")
 
     # path E: replan_refresh_mi with K3 (a disc reveal between ticks at S = 4096)
-    def mi_path(tag, S_, cells, use_kernel, want, evolve, latency=False):
+    def mi_path(tag, S_, cells, use_kernel, want, evolve, latency=False, dense=None):
         engine, sc, grids, truth, world, domain = mi_case(S_, dev, cells=cells)
         grids = grids._replace(data=grids.data.contiguous())
         c = cells
@@ -2549,13 +2679,13 @@ def entry_graphs_phase(dev, card) -> dict:
             f"path E ({'K3' if use_kernel else 'the dense path'}, {c} x {c}, S={S_})", engine, sc,
             dict(belief=grids), step(engine.replan_refresh_mi),
             step(engine._refresh_mi_and_replan_fn), want, open_box, card,
-            evolve=reveal if evolve else None, latency=latency)
+            evolve=reveal if evolve else None, latency=latency, dense=dense)
         free()
 
     k1 = {"fused_solve_safety": 1}
     mi_path(f"E{S_MAIN}", S_MAIN, 100, True, {"phik_from_grid_fc": 1, **k1}, True)
     mi_path("E1", 1, 100, True, {"phik_from_grid_fc": 1, **k1}, False, latency=True)
-    mi_path("E-dense", S_MAIN, 100, False, k1, False)
+    mi_path("E-dense", S_MAIN, 100, False, k1, False, dense=dense_want(1))
     mi_path("E200", S_BIG, CELLS_BIG, True, {"phik_from_grid_fc_banded": 1, **k1}, False)
 
     # replan on given targets: C (the eager step), D (fused_solve, empty
@@ -3343,6 +3473,68 @@ def map_kernels_phase(dev, card, entry, f_run) -> None:
         fail("phase 24: the node's map update did not go through the EDT kernel once")
 
 
+def dense_phase(dev, card, e_run: dict, f_run: dict) -> None:
+    """Phase 25: M against its plain version on the card (``dense_check``):
+    path F's beliefs (S = 4096, r = 0, fc = 3) and their first scenario
+    alone, path E's (r = 3 with fc = 3 and fc = 0), 200 x 200 beliefs at
+    S = 1024 (also with the rings in the workspace), a 60 x 140 map with a
+    48 x 64 lattice and K = 12 (two tiles of coefficients), all-unknown
+    beliefs (every scenario the fallback) and fully known maps (path F's
+    true maps)."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
+
+    print("== 25. M, the dense MI target, vs its plain version", flush=True)
+
+    def maps(data, res=0.05):
+        S_ = data.shape[0]
+        return GridMap(data, torch.zeros((S_, 2), device=dev), torch.full((S_,), res, device=dev))
+
+    def case(name, eng, grids, dom, r, **kw):
+        c = eng.config
+        return dense_check(name, grids.data.contiguous(), eng._dense_ops(grids, dom), r,
+                           c.mi_frontier_cells, c.occupied_threshold, card, **kw)
+
+    rows = {}
+    cfg_f, dom_f, truth_f = f_run["cfg"], f_run["dom"], f_run["truth"]
+    eng_f = Engine(cfg_f)
+    belief_f = truth_f._replace(data=f_run["belief"])
+    rows["F, S=4096, r=0, fc=3"] = case("path F's beliefs", eng_f, belief_f, dom_f, 0)
+    one = GridMap(*(t[:1].contiguous() for t in belief_f))
+    rows["F, S=1"] = case("path F's first scenario", eng_f, one, dom_f, 0, reps=200)
+    grids_e = GridMap(e_run["data"], e_run["origin"], e_run["resolution"])
+    for fc in (3, 0):
+        eng_e = Engine(e_run["cfg"].replace(mi_frontier_cells=fc))
+        rows[f"E, S=4096, r=3, fc={fc}"] = case(f"path E's beliefs, fc={fc}", eng_e, grids_e,
+                                                e_run["domain"], MI_RADIUS)
+    del grids_e, eng_e
+    big = maps(torch.from_numpy(mi_beliefs(S_BIG, CELLS_BIG, CELLS_BIG, seed=16)).to(dev))
+    dom_big = Domain.create(0.0, 0.0, 0.05 * CELLS_BIG, 0.05 * CELLS_BIG, device=dev)
+    rows["200 x 200, S=1024, r=3, fc=3"] = case(f"{CELLS_BIG} x {CELLS_BIG} beliefs",
+                                                Engine(default_config("cart")), big, dom_big,
+                                                MI_RADIUS, ring_global=True)
+    del big
+    eng_n = Engine(default_config("cart").replace(num_basis=12, grid_samples=(48, 64)))
+    rows["60 x 140, lattice 48 x 64, K=12"] = case(
+        "a 60 x 140 map, a 48 x 64 lattice", eng_n,
+        maps(torch.from_numpy(mi_beliefs(512, 60, 140, seed=19)).to(dev)),
+        Domain.create(0.0, 0.0, 7.0, 3.0, device=dev), 2)
+    unknown = maps(torch.full((256, 100, 100), -1.0, device=dev))
+    rows["all unknown, S=256"] = case("all-unknown beliefs", eng_f, unknown, dom_f, MI_RADIUS)
+    if rows["all unknown, S=256"]["fallbacks"] != 256:
+        fail("M on all-unknown beliefs: not the fallback in every scenario")
+    rows["fully known (path F's true maps)"] = case("fully known maps", eng_f, truth_f, dom_f,
+                                                    MI_RADIUS)
+    print("  M vs plain on the card, by case (max abs error, max relative, ms of M / plain / "
+          f"the cuBLAS contraction, temporaries' peak MiB of M / plain) {card}:")
+    for name, d in rows.items():
+        print(f"    {name}: {d['err']:.3e}, {d['rel']:.3e}; {d['ms']:.4f} / {d['plain_ms']:.4f} / "
+              f"{d['lib_ms']:.4f} ms; {d['peak_m'] / 2**20:.2f} / {d['peak_p'] / 2**20:.1f} MiB")
+
+
 def main() -> int:
     import torch
 
@@ -3358,6 +3550,7 @@ def run(dev) -> int:
 
     import ergodic_exploration_tpu_torch.ops.edt_kernel as ek
     import ergodic_exploration_tpu_torch.ops.gmm_kernel as gk
+    import ergodic_exploration_tpu_torch.ops.mi_dense_kernel as md
     import ergodic_exploration_tpu_torch.ops.mi_kernel as mk
     import ergodic_exploration_tpu_torch.ops.reveal_kernel as rk
     import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
@@ -3414,7 +3607,7 @@ def run(dev) -> int:
         print(f"{name}: nvcc {built.seconds:.2f} s -> {built.path.relative_to(ROOT)}")
         fn = ""
         for line in built.log.splitlines():
-            m = re.search(r"_Z\d+((?:k\d|glue)_[a-z_]+|reveal_kernel|edt_kernel)"
+            m = re.search(r"_Z\d+((?:k\d|glue|m)_[a-z_]+|reveal_kernel|edt_kernel)"
                           r"(I(?:L[a-z]\d+E)+E)?", line)
             args = re.findall(r"L[a-z](\d+)E", m.group(2) or "") if m else []
             fn = (m.group(1) + (f"<{', '.join(args)}>" if args else "")) if m else fn
@@ -3426,6 +3619,7 @@ def run(dev) -> int:
     tg.G.build()
     rk.R.build()
     ek.E.build()
+    md.M.build()
     print(f"all libraries built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. K1 (shared map) against its plain version at path A's shapes
@@ -3980,7 +4174,7 @@ def run(dev) -> int:
         n_fb = int((k_out == ops.fallback).all(dim=(1, 2)).sum())
         fallbacks[name] = n_fb
         errs = []
-        for what, ref in (("plain", p_out), ("dense path", d_out)):
+        for what, ref in (("plain", p_out), ("dense path (M)", d_out)):
             err = (k_out - ref).abs()
             bad = int((err > K3_TOL["atol"] + K3_TOL["rtol"] * ref.abs()).sum())
             errs.append(err.max().item())
@@ -4115,17 +4309,20 @@ def run(dev) -> int:
           f"{events_ms(lambda: mk.phik_from_grid_plain(cont, *k3_args), 3):.4f} ms/call {card}")
     del cont
     dense_ms = events_ms(lambda: engine._phik_grid_batch_dense_fn(belief, domain, MI_RADIUS), 5)
-    print(f"  the dense path on the same beliefs (the stand-in a faster K3 is compared with, no "
+    print(f"  the dense path on the same beliefs (M, the stand-in a faster K3 is compared with, no "
           f"library call): {dense_ms:.4f} ms/call {card}")
-    # the same tick with the dense path in K3's place
+    # the same tick with the dense path (M) in K3's place
     reset_counts()
     start.record()
     sc, belief = mi_ticks(engine, sc, belief, truth, world, domain, TIMED_TICKS, False)
     end.record()
     torch.cuda.synchronize()
     expect_counts("path E, dense refresh", read_counts(), {"fused_solve_safety": TIMED_TICKS})
-    print(f"the same tick with use_mi_kernel=False (dense path): "
+    expect_counts("path E, dense refresh, M", read_dense(), dense_want(TIMED_TICKS))
+    print(f"the same tick with use_mi_kernel=False (dense path, M): "
           f"{start.elapsed_time(end) / TIMED_TICKS:.4f} ms vs {ms_e:.4f} ms with K3 {card}")
+    e_run = dict(data=belief.data.clone(), origin=belief.origin, resolution=belief.resolution,
+                 domain=domain, cfg=engine.config)  # for phase 25
     del engine, sc, belief, truth, world
     torch.cuda.empty_cache()
 
@@ -4147,6 +4344,23 @@ def run(dev) -> int:
           events_ms(lambda: mk.phik_from_grid_plain(belief.data, *k3_args), 5),
           mi_work(S_MAIN, 100, 100, cfg.num_basis, MI_RADIUS, 0))
     kernels["phik_from_grid_nofc"]["launches"] = counts["phik_from_grid_nofc"]
+    # the dense path without the frontier mask: M's other variant
+    reset_counts()
+    sc, belief = mi_ticks(engine, sc, belief, truth, world, domain, T_NOFC, False)
+    torch.cuda.synchronize()
+    expect_counts("path E, dense refresh, no frontier mask", read_counts(),
+                  {"fused_solve_safety": T_NOFC})
+    dense_nofc = read_dense()
+    expect_counts("path E, dense refresh, no frontier mask, M", dense_nofc,
+                  dense_want(T_NOFC, fc=False))
+    nsx, nsy = cfg.grid_samples
+    d = dense_check("path E's beliefs, no frontier mask", belief.data,
+                    engine._dense_ops(belief, domain), MI_RADIUS, 0, cfg.occupied_threshold, card)
+    entry("phik_dense_nofc", "mi_dense_kernel.cu", DENSE_REPLACES, d["err"], d["ms"],
+          d["plain_ms"], dense_work(S_MAIN, 100, 100, nsx, nsy, cfg.num_basis ** 2, MI_RADIUS, 0,
+                                    d["nnz"]))
+    kernels["phik_dense_nofc"].update(library_ms=d["lib_ms"],
+                                      launches=dense_nofc["phik_dense_nofc"])
     del engine, sc, belief, truth, world
     torch.cuda.empty_cache()
 
@@ -4221,6 +4435,9 @@ def run(dev) -> int:
     map_f = read_map()
     expect_counts("path F, the map kernels", map_f, map_want(MAP_REFRESHES, MAP_REFRESHES))
     note_launches("path F", map_f)
+    dense_f = read_dense()
+    expect_counts("path F, M", dense_f, dense_want(MAP_REFRESHES))
+    note_launches("path F", dense_f)
     cov_l = cov.tolist()
     print(f"coverage per refresh {[round(c, 4) for c in cov_l]}")
     if (traj.shape != (MAP_REFRESHES, MAP_EVERY, S_MAIN, 3) or cov.shape != (MAP_REFRESHES,)
@@ -4270,7 +4487,7 @@ def run(dev) -> int:
     stage_peak("dense MI target", lambda: eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0))
     stage_peak("world rebuild", lambda: eng_f._world_batched(belief_f, belief_f.domain()))
     stage_peak("E without the mask", lambda: DistanceField.from_grid(belief_f, thr_f))
-    t_phik = events_ms(lambda: eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0), 3)
+    t_phik = events_ms(lambda: eng_f._phik_grid_batch_dense_fn(belief_f, dom_f, 0), 20)
     t_world = events_ms(lambda: eng_f._world_batched(belief_f, belief_f.domain()), 5)
     t_edt = events_ms(lambda: DistanceField.from_grid(belief_f, thr_f), 20)
     t_edt_plain = events_ms(lambda: ek.edt_field_plain(belief_f.data, belief_f.resolution,
@@ -4282,7 +4499,7 @@ def run(dev) -> int:
     t_ticks = events_ms(lambda: eng_f.explore(sc_f, phik_f, world_f, MAP_EVERY), 2)
     print(f"  split: reveal kernel {t_reveal:.4f} ms (its plain version {t_reveal_plain:.1f} ms; "
           f"temporaries peak at {reveal_peak / 2**20:.1f} MiB, the plain version's at "
-          f"{plain_peak / 2**20:.1f} MiB), dense MI target {t_phik:.2f} ms, world rebuild "
+          f"{plain_peak / 2**20:.1f} MiB), dense MI target (M) {t_phik:.4f} ms, world rebuild "
           f"{t_world:.4f} ms (one launch of E with the free mask; E without the mask "
           f"{t_edt:.4f} ms, its plain version {t_edt_plain:.1f} ms; the free mask alone as plain "
           f"torch {t_free:.4f} ms), {MAP_EVERY} ticks {t_ticks:.2f} ms {card}")
@@ -4290,10 +4507,19 @@ def run(dev) -> int:
         f"{k} {v:.1f}" for k, v in peaks.items()) + f" {card}")
     if reveal_peak > REVEAL_PEAK_LIMIT:
         fail(f"reveal_raycast held {reveal_peak / 2**30:.2f} GiB at S={S_MAIN}")
+    # M on the beliefs path F reached: the entry of the kernels line
+    nsx, nsy = cfg_f.grid_samples
+    fc_f = cfg_f.mi_frontier_cells
+    d = dense_check("path F's beliefs", belief_f.data, eng_f._dense_ops(belief_f, dom_f), 0, fc_f,
+                    thr_f, card, ring_global=True)
+    entry("phik_dense_fc", "mi_dense_kernel.cu", DENSE_REPLACES, d["err"], d["ms"], d["plain_ms"],
+          dense_work(S_MAIN, 100, 100, nsx, nsy, cfg_f.num_basis ** 2, 0, fc_f, d["nnz"]))
+    kernels["phik_dense_fc"]["library_ms"] = d["lib_ms"]
     # for phase 24: the poses each refresh revealed from, the final belief
     f_run = dict(truth=truth_f, x=[torch.as_tensor(x0_f, device=dev)] + [traj[r, -1] for r in
                                                                         range(MAP_REFRESHES - 1)],
-                 belief=belief_f.data, thr=thr_f, win=win, grid_samples=cfg_f.grid_samples)
+                 belief=belief_f.data, thr=thr_f, win=win, grid_samples=cfg_f.grid_samples,
+                 cfg=cfg_f, dom=dom_f)
     del sc_f, belief_f, traj, metric, phik_f, world_f, field, clearance, cell, xy, known
     torch.cuda.empty_cache()
 
@@ -4354,7 +4580,9 @@ def run(dev) -> int:
     glue_phase(dev, card, entry)
     at(24)
     map_kernels_phase(dev, card, entry, f_run)
-    del f_run
+    at(25)
+    dense_phase(dev, card, e_run, f_run)
+    del f_run, e_run
     for name, (n, path) in LAUNCHES.items():
         if name in kernels:
             kernels[name]["launches"] = n

@@ -41,10 +41,11 @@ and ``replan_refresh_mi`` on a mesh with a populated ``sample`` dim, whose
 two ``all_reduce`` a graph cannot hold under gloo) runs eagerly; the choice
 is made by the mesh's shape, never by a failed capture.
 The mutual-information target is recomputed from the belief maps by
-``phik_from_grid`` (dense on a shared domain, separable otherwise) and, in
-``replan_refresh_mi(..., domain=<shared>, use_mi_kernel=True)``, by K3
-(ops/mi_kernel.py); ``explore_mapping`` and ``explore_mapping_fused`` close
-the loop with the range sensor of ops/sensor.py.
+``phik_from_grid`` (dense on a shared domain: M, ops/mi_dense_kernel.py;
+separable otherwise) and, in ``replan_refresh_mi(..., domain=<shared>,
+use_mi_kernel=True)``, by K3 (ops/mi_kernel.py; without it, M);
+``explore_mapping`` and ``explore_mapping_fused`` close the loop with the
+range sensor of ops/sensor.py.
 
 Scale-out (``Engine(config, mesh=make_scenario_mesh())`` or
 ``make_mesh(n_scenario, n_sample)``, over ``torch.distributed``: one process a
@@ -148,6 +149,7 @@ class Engine:
         self.model = self.controller.model
         self._validated = set()  # shared-geometry checks already made
         self._mi_operands = {}  # geometry key -> (tensors of the key, MiOperands)
+        self._dense_operands = {}  # geometry key -> (tensors of the key, DenseOperands)
         self._lattices = {}  # refresh geometry key -> (tensors of the key, Lattice)
         self._graphs = graphs.GraphCache()  # the closed loops' static buffers and graphs
         self._tick_graphs = graphs.GraphCache()  # the single-tick entry points'
@@ -475,69 +477,59 @@ class Engine:
             frontier_cells=cfg.mi_frontier_cells, occupied_threshold=cfg.occupied_threshold)
 
     def _phik_grid_batch_dense_fn(self, grids: GridMap, domain: Domain,
-                                  sensor_radius_cells: int) -> torch.Tensor:
+                                  sensor_radius_cells: int, ops=None) -> torch.Tensor:
         """Batched MI target coefficients on a SHARED (unbatched) domain and
-        shared grid geometry: per-scenario entropy map -> lattice resample
-        with the sensor-footprint blur folded into the sampling matrices
-        (the box blur is linear, so blur-then-sample is one small-integer
-        count matrix per axis and the (2r+1)^2 scale cancels in the
-        normalization) -> one (S, N) @ (N, K^2) contraction. The free mask
-        and the frontier count are sampled the same way and applied at the
-        lattice: nearest-cell sampling commutes with elementwise products and
-        monotone thresholds. Float32 matmuls with TF32 off throughout."""
+        shared grid geometry (scenario 0's): the entropy of every belief
+        sampled at the lattice with the sensor-footprint box sum, the free
+        and frontier masks, one (S, N) @ (N, K^2) contraction. M
+        (ops/mi_dense_kernel.py) for CUDA tensors; its plain version, the
+        JAX function's body, for CPU tensors. ``ops`` are its
+        operands (:meth:`_dense_ops` of the geometry when None)."""
+        from ergodic_exploration_tpu_torch.ops.mi_dense_kernel import phik_dense
+
         cfg = self.config
-        K, r, fc = cfg.num_basis, sensor_radius_cells, cfg.mi_frontier_cells
-        nsx, nsy = cfg.grid_samples
-        pts = domain.sample_lattice(cfg.grid_samples)
-        hk = basis.hk_norm(K, domain.lengths)
-        D = basis.dense_table(basis.tables(pts, K, domain), hk)
-        h, w = grids.shape
-        dev = grids.data.device
-        g0 = GridMap(grids.data[0], grids.origin[0], grids.resolution[0])
-        Ax, Ay = target_ops.sampling_one_hots(g0, cfg.grid_samples, domain)
-        Axb = torch.matmul(Ax, target_ops.blur_count_matrix(w, r, device=dev))  # (nsx, w)
-        Ayb = torch.matmul(Ay, target_ops.blur_count_matrix(h, r, device=dev))  # (nsy, h)
+        ops = self._dense_ops(grids, domain) if ops is None else ops
+        return phik_dense(grids.data, ops, sensor_radius_cells, cfg.mi_frontier_cells,
+                          cfg.occupied_threshold)
 
-        def sampled(field, Mx, My):
-            """(S, h, w) cell field -> (S, nsx, nsy): Mx field^T My^T."""
-            t1 = torch.matmul(field, Mx.T)  # (S, h, nsx)
-            return torch.matmul(t1.transpose(1, 2), My.T)
-
-        occupied = grids.occupied(cfg.occupied_threshold)
-        vals = sampled(target_ops.entropy(grids.prob()), Axb, Ayb)
-        zs = sampled((~occupied).to(torch.float32), Ax, Ay)
-        if fc > 0:
-            kf = ((grids.data >= 0.0) & ~occupied).to(torch.float32)
-            Axf = torch.matmul(Ax, target_ops.blur_count_matrix(w, fc, device=dev))
-            Ayf = torch.matmul(Ay, target_ops.blur_count_matrix(h, fc, device=dev))
-            zs = zs * (sampled(kf, Axf, Ayf) > 0.5).to(zs.dtype)
-        vals = torch.clamp((vals * zs).reshape(-1, nsx * nsy), min=0.0)  # (S, N)
-        ck_raw = basis.coefficients_dense(vals, D, K)
-        total = (ck_raw[:, 0, 0] * hk[0, 0])[:, None, None]  # scaled sum: the scale cancels
-        fallback = (D.sum(dim=0) / float(pts.shape[0])).view(K, K)
-        return torch.where(total > 1e-12, ck_raw / torch.clamp(total, min=1e-12), fallback)
-
-    def _mi_ops(self, grids: GridMap, domain: Domain):
-        """K3's operands (ops/mi_kernel.py::MiOperands) for the geometry of
-        ``grids`` on ``domain``: they depend on it alone and are built once
-        per (grids' origin and resolution tensors, domain tensors, map
-        shape). Reads the host (the cache's key, the build), so a graph's
-        tick takes them as an input."""
-        from ergodic_exploration_tpu_torch.ops.mi_kernel import mi_operands
-
-        held = (grids.origin, grids.resolution, domain.origin, domain.lengths)
+    def _geometry_ops(self, cache: dict, grids: GridMap, domain: Optional[Domain], build):
+        """``build(g0, domain, K, grid_samples)`` for the geometry of
+        ``grids`` on ``domain`` (g0: scenario 0's map; ``domain`` None: the
+        extent of scenario 0's map): operands that depend on it alone, built
+        once per (grids' origin and resolution tensors, domain tensors, their
+        ``_version``, map shape) and kept in ``cache``. Reads the host (the
+        cache's key, the build), so a graph's tick takes them as an input."""
+        held = (grids.origin, grids.resolution) + (
+            () if domain is None else (domain.origin, domain.lengths))
         key = (tuple((t.data_ptr(), t._version) for t in held), grids.shape)
-        hit = self._mi_operands.get(key)
+        hit = cache.get(key)
         if hit is None:
-            if len(self._mi_operands) >= 16:
-                self._mi_operands.clear()
+            if len(cache) >= 16:
+                cache.clear()
+            if domain is None:
+                domain = Domain(origin=grids.origin[0], lengths=grids.domain().lengths[0])
             g0 = GridMap(grids.data[0], grids.origin[0], grids.resolution[0])
             # the tensors are kept with the entry, so their storage is not
             # handed to other tensors while the key is in use
-            hit = (held, mi_operands(g0, domain, self.config.num_basis,
-                                     self.config.grid_samples))
-            self._mi_operands[key] = hit
+            hit = cache[key] = (held, build(g0, domain, self.config.num_basis,
+                                            self.config.grid_samples))
         return hit[1]
+
+    def _mi_ops(self, grids: GridMap, domain: Domain):
+        """K3's operands (ops/mi_kernel.py::MiOperands) for the geometry of
+        ``grids`` on ``domain`` (:meth:`_geometry_ops`)."""
+        from ergodic_exploration_tpu_torch.ops.mi_kernel import mi_operands
+
+        return self._geometry_ops(self._mi_operands, grids, domain, mi_operands)
+
+    def _dense_ops(self, grids: GridMap, domain: Optional[Domain]):
+        """M's operands (ops/mi_dense_kernel.py::DenseOperands: the lattice
+        cells, the dense table D, the fallback, hk[0, 0]) for the geometry of
+        ``grids`` on ``domain``, None for scenario 0's map extent
+        (:meth:`_geometry_ops`)."""
+        from ergodic_exploration_tpu_torch.ops.mi_dense_kernel import dense_operands
+
+        return self._geometry_ops(self._dense_operands, grids, domain, dense_operands)
 
     def _phik_grid_kernel(self, grids: GridMap, domain: Domain, sensor_radius_cells: int,
                           ops=None) -> torch.Tensor:
@@ -704,15 +696,16 @@ class Engine:
         ``sample`` dim takes the sample-sharded reduction; else, on a shared
         ``domain``, the refresh is K3 (one launch from the (S, h, w) beliefs,
         on the operands ``mi_ops``, :meth:`_mi_ops` when None) when
-        ``use_mi_kernel`` is set, else the dense path; without a shared
-        domain, the per-scenario separable contraction."""
+        ``use_mi_kernel`` is set, else the dense path (M, on the operands
+        ``mi_ops``, :meth:`_dense_ops` when None); without a shared domain,
+        the per-scenario separable contraction."""
         shared = domain is not None and domain.origin.dim() == 1
         if self._sample_ranks() > 1:
             phik = self._phik_grid_sharded_fn(grids, sensor_radius_cells)
         elif use_mi_kernel and shared:
             phik = self._phik_grid_kernel(grids, domain, sensor_radius_cells, mi_ops)
         elif shared:
-            phik = self._phik_grid_batch_dense_fn(grids, domain, sensor_radius_cells)
+            phik = self._phik_grid_batch_dense_fn(grids, domain, sensor_radius_cells, mi_ops)
         else:
             phik = self._phik_grid_one(grids, sensor_radius_cells)
         return self._replan_fn(sc, phik, world, ring_in_place)
@@ -728,7 +721,8 @@ class Engine:
         replay of the 1-tick graph of :meth:`_refresh_mi_and_replan_fn`, one
         graph per (``sensor_radius_cells``, shared domain or not,
         ``use_mi_kernel``), except on a populated ``sample`` dim (module
-        docstring); K3's operands are built outside the graph and copied in."""
+        docstring); K3's or M's operands are built outside the graph and copied
+        in."""
         self._check_local(sc, grids=grids, world=world)
         self._check_shared_world(world)
         grids = self._grids_here(grids)
@@ -742,7 +736,9 @@ class Engine:
             return self._refresh_mi_and_replan_fn(sc, grids, world, sensor_radius_cells, domain,
                                                   use_mi_kernel)
         r = sensor_radius_cells
-        ops = self._mi_ops(grids, domain) if use_mi_kernel and shared else None
+        ops = None
+        if shared:
+            ops = self._mi_ops(grids, domain) if use_mi_kernel else self._dense_ops(grids, domain)
 
         def body(sc_, grids_, world_, domain_, ops_, ring_in_place=False):
             return self._refresh_mi_and_replan_fn(sc_, grids_, world_, r, domain_,
@@ -966,18 +962,20 @@ class Engine:
 
     def _mapping_refresh(self, sc: Scenarios, belief: GridMap, truth: GridMap, win: int,
                          refresh_every: int, sensor_range: float, sensor_radius_cells: int,
-                         ring_in_place: bool = False):
+                         ring_in_place: bool = False, ops=None):
         """One refresh of :meth:`explore_mapping_fused`, the body of both its
         loops (the JAX ``chunk`` scan's body): ray-cast reveal -> dense MI
-        target -> world -> ``refresh_every`` ticks (``ring_in_place``: the
-        graph's). Returns (Scenarios, belief, coverage (), trajectory
-        (E, S, 3), metric (E, S))."""
+        target (M, on the operands ``ops``: :meth:`_dense_ops` of ``truth``
+        on its scenario 0's extent when None) -> world -> ``refresh_every``
+        ticks (``ring_in_place``: the graph's).
+        Returns (Scenarios, belief, coverage (), trajectory (E, S, 3), metric
+        (E, S))."""
         from ergodic_exploration_tpu_torch.ops import sensor
 
-        dom = Domain(origin=truth.origin[0], lengths=truth.domain().lengths[0])
+        ops = self._dense_ops(truth, None) if ops is None else ops
         belief = sensor.reveal_raycast(belief, truth, sc.x, sensor_range, win,
                                        occupied_threshold=self.config.occupied_threshold)
-        phik = self._phik_grid_batch_dense_fn(belief, dom, sensor_radius_cells)
+        phik = self._phik_grid_batch_dense_fn(belief, None, sensor_radius_cells, ops)
         world = self._world_batched(belief, belief.domain())
         sc, traj, _, diags = self._ticks(refresh_every, sc, phik, world, ring_in_place)
         return sc, belief, sensor.fraction_known(belief), traj, diags.ergodic_metric
@@ -989,11 +987,13 @@ class Engine:
         dispatches every operation: what the CPU runs, and on the card the
         plain version the graphs are held against."""
         truth, win = self._mapping_setup(sc, truth, sensor_range)
+        ops = self._dense_ops(truth, None)
         belief = truth._replace(data=torch.full_like(truth.data, -1.0))
         coverage, traj, metric = [], [], []
         for _ in range(n_refreshes):
             sc, belief, cov, tr, m = self._mapping_refresh(sc, belief, truth, win, refresh_every,
-                                                           sensor_range, sensor_radius_cells)
+                                                           sensor_range, sensor_radius_cells,
+                                                           ops=ops)
             coverage.append(cov)
             traj.append(tr)
             metric.append(m)
@@ -1006,19 +1006,21 @@ class Engine:
         captured over static (sc, belief, truth) buffers (copied in once a
         call); each replay advances the static state and belief in place,
         and its coverage, trajectory and metric are copied out before the
-        next. ``make_graph`` as for :meth:`_explore_graphs`."""
+        next. M's operands are built outside the graph (:meth:`_dense_ops`)
+        and copied in with the inputs. ``make_graph`` as for
+        :meth:`_explore_graphs`."""
         truth, win = self._mapping_setup(sc, truth, sensor_range)
-        ins = (sc, torch.full_like(truth.data, -1.0), truth)
+        ins = (sc, torch.full_like(truth.data, -1.0), truth, self._dense_ops(truth, None))
         key = ("mapping", self.config, graphs.signature(ins), win, refresh_every, sensor_range,
                sensor_radius_cells)
         entry = self._graphs.static(key, ins)
-        st_sc, st_belief, st_truth = entry.buffers
+        st_sc, st_belief, st_truth, st_ops = entry.buffers
         entry.holds((st_sc, st_belief))  # the graph advances them
 
         def refresh():
             out_sc, belief, cov, tr, m = self._mapping_refresh(
                 st_sc, st_truth._replace(data=st_belief), st_truth, win, refresh_every,
-                sensor_range, sensor_radius_cells, ring_in_place=True)
+                sensor_range, sensor_radius_cells, ring_in_place=True, ops=st_ops)
             graphs.copy_into((st_sc, st_belief), (out_sc, belief.data))
             return cov, tr, m
 

@@ -1,0 +1,273 @@
+"""M, the dense mutual-information target kernel: phi_k from the beliefs on a
+shared domain and grid geometry.
+
+Counterpart of the XLA program that the JAX package compiles for
+``ergodic_exploration_tpu/engine.py::_phik_grid_batch_dense_fn`` (no Pallas
+kernel there): for a batch of belief maps (S, h, w) that share one grid
+geometry and one exploration domain, in LATTICE space,
+
+    e    = entropy(clip(unknown -> 0.5, eps, 1 - eps))
+    t    = edge-clamped (2r+1)^2 box sum of e at each lattice point's
+           nearest cell (cy[iy], cx[ix])                (unscaled)
+    vals = max(t * [b < thr] * [some known-free cell in the (2fc+1)^2 box], 0)
+    raw  = vals (S, N) @ D (N, K^2)
+    phik = raw / max(total, 1e-12) where total = raw[0] hk[0, 0] > 1e-12,
+           else the column means of D
+
+:func:`dense_operands` builds ``cx``, ``cy``, ``D``, the fallback and
+``hk[0, 0]`` once per (grid geometry, domain, K, lattice) with the plain
+version's own expressions. The CUDA source is ``csrc/mi_dense_kernel.cu``
+(its header says what bounds it on an H100 and what the design does about
+that): a block per 16 scenarios, 128 coefficients and a run of lattice rows
+(:func:`runs`), the map rows within max(r, fc) of a lattice row in a pair of
+rings (in shared memory, or past its room in a workspace:
+:func:`smem_bytes`), the sampled field in shared memory only; a finishing
+kernel adds the runs' partial sums in order and normalizes. It takes any
+K <= 128, any r, fc >= 0 and any lattice. Beside it lives the plain PyTorch
+version, :func:`phik_dense_plain`, the JAX function's body (one-hot and
+count-matrix matmuls in place of the gathers, then the contraction); the CPU
+tests run it, ``chip_smoke.py`` holds the kernel against it on the card.
+
+Dispatch: :func:`phik_dense` takes the plain version only for tensors that
+lie on the CPU. For CUDA tensors it launches the kernel or raises; there is
+no fallback. ``M.launches`` counts the launches with and without the
+frontier mask, the ring in shared memory and (``_global``) in a workspace.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ergodic_exploration_tpu_torch.ops import basis
+from ergodic_exploration_tpu_torch.ops import target as target_ops
+from ergodic_exploration_tpu_torch.ops.solve_kernel import (
+    MAX_SMEM, QUAD_SMEM, _check_operands, _on_cpu, _require_cuda, _sm_count, launch_on)
+
+KMAX = 128  # the JAX package's MI kernel's limit on K, which M keeps
+# constants of csrc/mi_dense_kernel.cu that its memory layout and grid depend on
+_TS, _KT, _NC, _NV = 16, 128, 32, 128  # scenarios, coefficients a block; points of D, of vals
+BLOCKS_PER_SM = 4  # blocks of M in flight on an SM (M_BLOCKS_PER_SM): Z aims to fill them
+
+
+class DenseOperands(NamedTuple):
+    """What M and its plain version need beside the beliefs; shared by every
+    scenario."""
+
+    cx: torch.Tensor  # (nsx,) int32 nearest map column of each lattice column
+    cy: torch.Tensor  # (nsy,) int32 nearest map row of each lattice row
+    D: torch.Tensor  # (nsx * nsy, K^2) dense basis table of the lattice, x-major
+    fallback: torch.Tensor  # (K, K) the uniform target over the lattice
+    hk00: torch.Tensor  # (1,) h_k at k = (0, 0): raw[0] * hk00 is the target's mass
+
+
+def dense_operands(g0, domain, K: int, grid_samples) -> DenseOperands:
+    """Operands of M for maps of ``g0``'s geometry (an unbatched GridMap;
+    only its shape, origin and resolution are read) on the unbatched
+    ``domain``."""
+    pts = domain.sample_lattice(grid_samples)
+    hk = basis.hk_norm(K, domain.lengths)
+    D = basis.dense_table(basis.tables(pts, K, domain), hk)
+    _, _, cx, cy = target_ops._lattice_cells(g0, grid_samples, domain)
+    fallback = (D.sum(dim=0) / float(pts.shape[0])).view(K, K)
+    return DenseOperands(cx.to(torch.int32).contiguous(), cy.to(torch.int32).contiguous(),
+                         D.contiguous(), fallback.contiguous(), hk[0, 0].reshape(1).contiguous())
+
+
+def dense_values_plain(data, ops: DenseOperands, sensor_radius_cells: int = 0,
+                       frontier_cells: int = 0, occupied_threshold: float = 0.65):
+    """(S, nsx * nsy) lattice values of the beliefs ``data`` (S, h, w), x-major:
+    the per-scenario entropy map resampled with the sensor-footprint blur
+    folded into the sampling matrices (the box blur is linear, so
+    blur-then-sample is one small-integer count matrix per axis and the
+    (2r+1)^2 scale cancels in the normalization). The free mask and the
+    frontier count are sampled the same way and applied at the lattice:
+    nearest-cell sampling commutes with elementwise products and monotone
+    thresholds. Float32 matmuls with TF32 off throughout."""
+    r, fc = sensor_radius_cells, frontier_cells
+    nsx, nsy = ops.cx.shape[0], ops.cy.shape[0]
+    h, w = data.shape[-2:]
+    dev = data.device
+    Ax, Ay = target_ops._one_hot(ops.cx, w), target_ops._one_hot(ops.cy, h)
+    Axb = torch.matmul(Ax, target_ops.blur_count_matrix(w, r, device=dev))  # (nsx, w)
+    Ayb = torch.matmul(Ay, target_ops.blur_count_matrix(h, r, device=dev))  # (nsy, h)
+
+    def sampled(field, Mx, My):
+        """(S, h, w) cell field -> (S, nsx, nsy): Mx field^T My^T."""
+        t1 = torch.matmul(field, Mx.T)  # (S, h, nsx)
+        return torch.matmul(t1.transpose(1, 2), My.T)
+
+    occupied = data >= occupied_threshold
+    prob = torch.where(data < 0.0, torch.full_like(data, 0.5), data)
+    vals = sampled(target_ops.entropy(prob), Axb, Ayb)
+    zs = sampled((~occupied).to(torch.float32), Ax, Ay)
+    if fc > 0:
+        kf = ((data >= 0.0) & ~occupied).to(torch.float32)
+        Axf = torch.matmul(Ax, target_ops.blur_count_matrix(w, fc, device=dev))
+        Ayf = torch.matmul(Ay, target_ops.blur_count_matrix(h, fc, device=dev))
+        zs = zs * (sampled(kf, Axf, Ayf) > 0.5).to(zs.dtype)
+    return torch.clamp((vals * zs).reshape(-1, nsx * nsy), min=0.0)  # (S, N)
+
+
+def phik_dense_plain(data, ops: DenseOperands, sensor_radius_cells: int = 0,
+                     frontier_cells: int = 0, occupied_threshold: float = 0.65) -> torch.Tensor:
+    """M's plain PyTorch version: beliefs ``data`` (S, h, w) -> (S, K, K),
+    :func:`dense_values_plain` then one (S, N) @ (N, K^2) contraction."""
+    K = ops.fallback.shape[-1]
+    vals = dense_values_plain(data, ops, sensor_radius_cells, frontier_cells,
+                              occupied_threshold)
+    ck_raw = basis.coefficients_dense(vals, ops.D, K)
+    total = (ck_raw[:, 0, 0] * ops.hk00)[:, None, None]  # scaled sum: the scale cancels
+    return torch.where(total > 1e-12, ck_raw / torch.clamp(total, min=1e-12), ops.fallback)
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``struct MParams`` in csrc/mi_dense_kernel.cu."""
+
+    _fields_ = [(n, ctypes.c_int) for n in ("S", "h", "w", "nsx", "nsy", "KK", "r", "fc", "Z",
+                                            "ring_global")] + [
+        (n, ctypes.c_float) for n in ("thr", "lo", "hi")]
+
+
+_BUFFERS = ("data", "cx", "cy", "D", "fallback", "hk00", "out", "part", "work")
+
+
+class _Buffers(ctypes.Structure):
+    """Mirror of ``struct MBuffers``: device pointers."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
+
+
+def _ring(h: int, w: int, r: int, fc: int):
+    """(words of the entropy ring, words of the bit ring): the map rows within
+    r of a lattice row as 16 rows of entropies of an odd stride, and those
+    within max(r, fc) as 16 rows of occupied words and (fc > 0) as many
+    known-free words."""
+    def rows(rad):
+        return h if rad >= h else min(2 * rad + 1, h)
+
+    ww = -(-w // 32)
+    return rows(r) * _TS * (w | 1), rows(max(r, fc)) * _TS * ww * (2 if fc > 0 else 1)
+
+
+def ring_bytes(h: int, w: int, r: int, fc: int) -> int:
+    """Bytes of a block's rings for (h, w) maps (``m_ring_bytes``)."""
+    return 4 * sum(_ring(h, w, r, fc))
+
+
+def smem_bytes(h: int, w: int, nsx: int, r: int, fc: int, ring_global: bool = False) -> int:
+    """Dynamic shared memory of a block of M for (h, w) maps and nsx lattice
+    columns (``m_layout`` in the source): two chunks of D (32 lattice points
+    x 128 coefficients), the vals of 128 points (16 scenarios) and their
+    flags, the y sums (r > 0, 16 rows of an odd stride), the frontier words
+    (fc > 0), the lattice columns, the rings' row offsets and tags and,
+    unless ``ring_global``, the rings."""
+    def rows(rad):
+        return h if rad >= h else min(2 * rad + 1, h)
+
+    words = (2 * _NC * _KT + _NV * _TS + _NV // 2 + (_TS * (w | 1) if r > 0 else 0)
+             + (_TS * -(-w // 32) if fc > 0 else 0) + nsx + 2 * h + rows(r)
+             + rows(max(r, fc)))
+    return 4 * (words + (0 if ring_global else sum(_ring(h, w, r, fc))))
+
+
+def runs(S: int, KK: int, nsy: int, sm_count: int, smem: int) -> int:
+    """Z, the runs the nsy lattice rows are cut into (a block each per 16
+    scenarios and 128 coefficients): as many as fill the SMs in one wave
+    with the blocks their shared memory and registers hold (at most
+    ``BLOCKS_PER_SM``), at least one, in runs of equal length, none empty."""
+    per_sm = BLOCKS_PER_SM if smem <= QUAD_SMEM else max(1, 233472 // (smem + 1024))
+    blocks = -(-S // _TS) * -(-KK // _KT)
+    z = min(nsy, max(1, sm_count * per_sm // blocks))
+    per_run = -(-nsy // z)
+    return -(-nsy // per_run)
+
+
+class PhikDense:
+    """The M wrapper: builds ``csrc/mi_dense_kernel.cu`` on first use and
+    counts its launches per variant (``launches[variant]`` grows by one per
+    launch of that variant, nowhere else)."""
+
+    VARIANTS = ("phik_dense_fc", "phik_dense_nofc", "phik_dense_fc_global",
+                "phik_dense_nofc_global")
+
+    def __init__(self):
+        self.built = None  # utils.cuda_build.Built once compiled
+        self.smem_limit = MAX_SMEM  # bytes a block may take; a larger ring goes to a workspace
+        self.launches = {}
+        self.reset_launches()
+
+    def reset_launches(self) -> None:
+        self.launches = {v: 0 for v in self.VARIANTS}
+
+    def build(self):
+        if self.built is None:
+            from ergodic_exploration_tpu_torch.utils.cuda_build import LIBRARIES, build
+
+            built = build("mi_dense_kernel", LIBRARIES["mi_dense_kernel"])
+            fn = built.lib.m_phik_dense_launch
+            fn.argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(_Buffers), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self.built = built
+        return self.built
+
+    def __call__(self, data, ops: DenseOperands, sensor_radius_cells: int = 0,
+                 frontier_cells: int = 0, occupied_threshold: float = 0.65,
+                 eps: float = 1e-6) -> torch.Tensor:
+        dev = data.device
+        if data.dim() != 3:
+            raise ValueError(f"M takes beliefs (S, h, w), got {tuple(data.shape)}")
+        S, h, w = data.shape
+        K = ops.fallback.shape[-1]
+        nsx, nsy = ops.cx.shape[0], ops.cy.shape[0]
+        r, fc = int(sensor_radius_cells), int(frontier_cells)
+        if not 1 <= K <= KMAX or r < 0 or fc < 0:
+            raise ValueError(f"M supports 1 <= K <= {KMAX}, r >= 0 and fc >= 0, got K={K}, "
+                             f"r={r}, fc={fc}")
+        ring_global = smem_bytes(h, w, nsx, r, fc) > self.smem_limit
+        if smem_bytes(h, w, nsx, r, fc, True) > MAX_SMEM:
+            raise ValueError(f"M keeps rows of 16 ({h}, {w}) maps and {nsx} lattice columns in a "
+                             f"block's shared memory: {smem_bytes(h, w, nsx, r, fc, True)} bytes, "
+                             f"over the {MAX_SMEM}-byte limit of a block on this architecture")
+        _require_cuda(dev, "M kernel")
+        tensors = dict(data=data, cx=ops.cx, cy=ops.cy, D=ops.D, fallback=ops.fallback,
+                       hk00=ops.hk00)
+        _check_operands("M", tensors, dict(data=(S, h, w), cx=(nsx,), cy=(nsy,),
+                                           D=(nsx * nsy, K * K), fallback=(K, K), hk00=(1,)),
+                        dev, ints=("cx", "cy"))
+        # Z from the rings in shared memory: both variants sum in the same runs
+        Z = runs(S, K * K, nsy, _sm_count(dev), smem_bytes(h, w, nsx, r, fc))
+        tensors["out"] = out = torch.empty((S, K, K), dtype=torch.float32, device=dev)
+        tensors["part"] = torch.empty((S, Z, K * K), dtype=torch.float32, device=dev)
+        if ring_global:  # the rings of each block
+            blocks = -(-S // _TS) * -(-K * K // _KT) * Z
+            tensors["work"] = torch.empty((blocks, ring_bytes(h, w, r, fc)), dtype=torch.uint8,
+                                          device=dev)
+        params = _Params(S=S, h=h, w=w, nsx=nsx, nsy=nsy, KK=K * K, r=r, fc=fc, Z=Z,
+                         ring_global=int(ring_global), thr=occupied_threshold, lo=eps,
+                         hi=1.0 - eps)
+        bufs = _Buffers(**{n: t.data_ptr() for n, t in tensors.items()})
+        err = launch_on(dev, self.build().lib.m_phik_dense_launch, params, bufs)
+        variant = ("phik_dense_fc" if fc > 0 else "phik_dense_nofc") + (
+            "_global" if ring_global else "")
+        if err != 0:
+            raise RuntimeError(f"M {variant} launch failed: CUDA error {err}")
+        self.launches[variant] += 1
+        return out
+
+
+M = PhikDense()
+
+
+def phik_dense(data, ops: DenseOperands, sensor_radius_cells: int = 0,
+               frontier_cells: int = 0, occupied_threshold: float = 0.65) -> torch.Tensor:
+    """M: (S, K, K) normalized MI target coefficients from the beliefs
+    ``data`` (S, h, w) and :func:`dense_operands`. The plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (raises for anything else)."""
+    if _on_cpu(data, "M"):
+        return phik_dense_plain(data, ops, sensor_radius_cells, frontier_cells,
+                                occupied_threshold)
+    return M(data.to(torch.float32).contiguous(), ops, sensor_radius_cells, frontier_cells,
+             occupied_threshold)

@@ -385,12 +385,12 @@ def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int,
     return p
 
 
-def _check_operands(what: str, ops: dict, shapes: dict, dev) -> None:
+def _check_operands(what: str, ops: dict, shapes: dict, dev, ints=("pstart",)) -> None:
     """Raise unless every operand is a contiguous tensor of its shape and
-    type (int32 for ``pstart``, float32 otherwise) on ``dev``."""
+    type (int32 for those named in ``ints``, float32 otherwise) on ``dev``."""
     for n, shape in shapes.items():
         t = ops[n]
-        want = torch.int32 if n == "pstart" else torch.float32
+        want = torch.int32 if n in ints else torch.float32
         if (t.device != dev or t.dtype != want or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(f"{what} operand {n}: need contiguous {want} {shape} on {dev}, "

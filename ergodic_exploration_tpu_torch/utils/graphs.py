@@ -13,8 +13,8 @@ call returns. Every later call replays the graph and returns the captured
 outputs, which the next replay overwrites. A capture, an instantiation or a
 replay that fails raises: there is no fallback to the eager function.
 
-Launch counts: a kernel wrapper (``K1``, ``K2``, ``K3``, ``G``) counts a
-launch in Python where it calls its library. The warm-up's launches are
+Launch counts: a kernel wrapper (``K1``, ``K2``, ``K3``, ``G``, ``R``, ``E``,
+``M``) counts a launch in Python where it calls its library. The warm-up's launches are
 real and count as they happen. Under capture nothing launches, so the counts the
 capture adds are taken back and kept as the graph's delta
 (:func:`count_captured`), and every replay adds that delta again
@@ -181,12 +181,13 @@ def kernel_wrappers() -> list:
     """The kernel wrappers whose ``launches`` dicts count launches."""
     from ergodic_exploration_tpu_torch.ops.edt_kernel import E
     from ergodic_exploration_tpu_torch.ops.gmm_kernel import K2
+    from ergodic_exploration_tpu_torch.ops.mi_dense_kernel import M
     from ergodic_exploration_tpu_torch.ops.mi_kernel import K3
     from ergodic_exploration_tpu_torch.ops.reveal_kernel import R
     from ergodic_exploration_tpu_torch.ops.solve_kernel import K1
     from ergodic_exploration_tpu_torch.ops.tick_glue import G
 
-    return [K1, K2, K3, G, R, E]
+    return [K1, K2, K3, G, R, E, M]
 
 
 def count_captured(fn: Callable, wrappers: Sequence):

@@ -33,10 +33,10 @@ def test_package_has_the_slice_modules():
               "examples/single_robot.py", "parallel/__init__.py", "graft_entry.py",
               "examples/batched_fleet.py", "examples/scaling.py", "tools/quality.py",
               "tools/diag_plateau.py", "bench.py", "utils/graphs.py", "ops/tick_glue.py",
-              "ops/reveal_kernel.py", "ops/edt_kernel.py"):
+              "ops/reveal_kernel.py", "ops/edt_kernel.py", "ops/mi_dense_kernel.py"):
         assert m in names
     for src in ("solve_kernel.cu", "gmm_kernel.cu", "gmm_refresh.cuh", "mi_kernel.cu",
-                "tick_glue.cu", "reveal_kernel.cu", "edt_kernel.cu"):
+                "tick_glue.cu", "reveal_kernel.cu", "edt_kernel.cu", "mi_dense_kernel.cu"):
         assert (PKG / "csrc" / src).exists()
     from ergodic_exploration_tpu_torch.utils.cuda_build import CSRC, LIBRARIES
 
