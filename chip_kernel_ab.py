@@ -33,7 +33,11 @@ REPEATS runs of REPS calls:
     path F's beliefs after one reveal (r = 0) at S = 4096 and S = 1, and on
     path E's beliefs (``chip_smoke.mi_case``, r = 3) at S = 4096. Its outputs
     in a tree with M and in one without differ by rounding (within M's
-    budget, rtol 2e-4 / atol 2e-5): ``--compare`` lists them.
+    budget, rtol 2e-4 / atol 2e-5): ``--compare`` lists them;
+  - the default configuration's tick (``Engine._replan_fn``, the eager
+    controller step) on path C's case (S = 512) and on path Q's omni state
+    (S = 256); a tree whose step runs K1 and one whose step runs the plain
+    descent differ by rounding (``--compare`` lists them).
 
 It prints one JSON line of those times with the card's name and power limit,
 and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
@@ -146,6 +150,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
                     lambda own=own, adv=adv: tg.G.post(*own, adv, True))
     absent = map_calls(calls, smoke, dev)
     dense_calls(calls, smoke, dev)
+    step_calls(calls, smoke, dev)
     saved, times = {}, {}
     for name, fn in calls.items():
         res = fn()
@@ -223,6 +228,40 @@ def dense_calls(calls: dict, smoke, dev) -> None:
     grids_e = grids_e._replace(data=grids_e.data.contiguous())
     calls[f"dense_E_r3_S{S_BIG}"] = lambda: eng_e._phik_grid_batch_dense_fn(
         grids_e, dom_e, smoke.MI_RADIUS)
+
+
+def step_calls(calls: dict, smoke, dev) -> None:
+    """Add the default configuration's tick (``ErgodicController.step``, by
+    ``Engine._replan_fn``): path C's case (S = 512, after 3 ticks) and path
+    Q's state (omni, S = 256, after one refresh of its loop, on that
+    refresh's dense MI target). Its outputs: U, u, the metric and the codes."""
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.tools import quality
+
+    def outputs(out):
+        sc, u, diag = out
+        return sc.state.U, u, diag.ergodic_metric, diag.collision_code
+
+    cfg, x0, grids, gmm, dom = smoke.distinct_case(S_SMALL, dev, seed=3, use_fused_solve=False)
+    eng = Engine(cfg)
+    world = eng.prepare_world(grids)
+    phik = eng.phik_from_gmm(gmm, dom)
+    sc = eng.init_scenarios(x0)
+    for _ in range(3):
+        sc, u, _ = eng._replan_fn(sc, phik, world)
+        sc = smoke.advance(eng, sc, u)
+    calls[f"default_step_C_S{S_SMALL}"] = lambda: outputs(eng._replan_fn(sc, phik, world))
+    cfg_q = default_config("omni")
+    eng_q = Engine(cfg_q)
+    truth = quality.build_truth(smoke.Q_S, dev)
+    sc_q, belief, _, _, _ = eng_q.explore_mapping_fused(
+        eng_q.init_scenarios(quality.spawn_poses(cfg_q, truth, smoke.Q_S)), truth, 1,
+        smoke.Q_EVERY)
+    world_q = eng_q.prepare_world(belief)
+    phik_q = eng_q._phik_grid_batch_dense_fn(belief, None, 0)
+    calls[f"default_step_Q_S{smoke.Q_S}"] = lambda: outputs(eng_q._replan_fn(sc_q, phik_q,
+                                                                             world_q))
 
 
 def world_outputs(eng, belief) -> tuple:

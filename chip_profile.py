@@ -18,7 +18,8 @@ device time:
      function (``_refresh_and_replan_fn``)
   B  ``explore`` with K1 on 4096 distinct maps (the quick-start loop, fused),
      10 ticks a call: the graph replays and the plain loop (``_explore_loop``)
-  C  the same for the default configuration (eager step + fused_safety), S=512
+  C  the same for the default configuration (the eager step: glue_pre, K1
+     without its safety stage, k1_safety, glue_post), S=512
   E  the MI tick (disc reveal + ``replan_refresh_mi`` with K3 + pose advance),
      graph replay and eager function (``_refresh_mi_and_replan_fn``); the
      same with the dense path (M, ``use_mi_kernel=False``) in K3's place

@@ -31,9 +31,11 @@ Phases:
  8  K1 on per-scenario maps (history as drawn positions and as sums),
     ``fused_solve`` and ``fused_safety`` vs plain, on the state phase 7
     reached (cart, S = 4096) and for omni at S = 512
- 9  path C, the default configuration (eager controller step whose safety
-    stage is ``fused_safety``; K2 unmasked), S = 512, 10 ticks; both kernels
-    vs plain on this path's own inputs
+ 9  path C, the default configuration (the eager controller step: ``glue_pre``,
+    K1 without its safety stage on per-scenario maps with the drawn history,
+    ``fused_safety`` on the patch's central crop, ``glue_post``; K2
+    unmasked), S = 512, 10 ticks; the three kernels vs plain on this path's
+    own inputs
 10  path D, the obstacle-free configuration with safety off
     (``fused_solve``), S = 4096, 20 ticks, on one shared empty map (shared
     history draw) and on per-scenario empty maps (per-scenario draws); each
@@ -63,7 +65,8 @@ Phases:
 15  the MI tick (S = 64) and the mapping loop (S = 16) on the card vs on the CPU
 16  the single-robot node (``ExplorationNode``, ``default_config("cart")``, a
     100 x 100 map, native EDT): 300 ticks with a plant and a map update every
-    50, eager (``fused_safety``), fused (K1 on the node's map, S = 1) and
+    50, eager (K1 without its safety stage and ``fused_safety``), fused (K1 on
+    the node's map, S = 1) and
     fused with pipelining, each as a node whose ``step()`` replays its graph
     and a node that takes the eager tick by name, in lockstep and equal bit
     for bit on every tick, launches exact on the tick that captures and on
@@ -88,16 +91,16 @@ Phases:
     ``dryrun_multichip(2)`` with its 2-D leg. Tick and collective times are
     printed; two ranks on one card are no scaling figure
 18  path Q, the config-4 quality run at full length: ``tools.quality.run``
-    (``default_config("omni")`` untouched: the eager step, whose safety stage
-    is ``fused_safety``), S = 256, 500 refreshes of 10 ticks, sensor range
+    (``default_config("omni")`` untouched: the eager step, K1 without its
+    safety stage and ``fused_safety``), S = 256, 500 refreshes of 10 ticks, sensor range
     1.5 m, its spawns equal to those drawn on the CPU's EDT, held against
     docs/quality_config4.json (refresh 1's coverage
     within 1e-3, the later ``coverage_at`` points within 0.03, the final
     per-scenario p10 and median no lower than the record's by 0.05 and
     0.02), one M launch a refresh; the multi-room floors of
     tests/test_quality.py (S = 4, 400 ticks: mean speed, coverage,
-    second-half rise; the separable MI target, no M); ``fused_safety`` vs
-    plain on the state the run reached
+    second-half rise; the separable MI target, no M); ``fused_safety`` and
+    K1 as the step launches it vs plain on the state the run reached
 19  the headline entry point, ``ergodic_exploration_tpu_torch.bench``:
     ``bench._run()`` in process at full width (S = 4096, 50 ticks each of
     ``bench_throughput`` and ``bench_throughput_mi``; ``bench_latency``'s
@@ -192,7 +195,16 @@ Phases:
     60 x 140 map with a 48 x 64 lattice and K = 12, all-unknown beliefs
     (every scenario the fallback) and fully known maps; each with the max
     abs and relative error, M's ms beside the plain version's and the cuBLAS
-    contraction's alone, and the temporaries' peak of both
+    contraction's alone, and the temporaries' peak of both; K = 17 (three
+    tiles of k1) on path E's beliefs
+26  the default configuration's step (``ErgodicController.step``: ``glue_pre``,
+    K1 without its safety stage, ``fused_safety``, ``glue_post``) against the
+    same tick through their plain versions on the card: path C's inputs
+    (S = 512) with per-scenario draws, the full ring, the accumulate mode,
+    safety off and one shared map, and path Q's omni state (S = 256); U
+    within 5e-5, the metric and barrier rtol 1e-5, at most 2 scenarios with
+    another code; launches exact; the kernels and copies a tick of C's and
+    Q's ``explore`` graphs (at most 25)
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``explore_mapping_fused``) and every call of a single-tick entry point
@@ -221,6 +233,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -289,6 +302,7 @@ PROFILE_LOOP_TICKS = 3
 # replan_refresh graph and of B's explore graph
 GLUE_SUM_ATOL = 1e-6
 GLUE_KERNELS_A, GLUE_KERNELS_B = 20, 25
+STEP_KERNELS = 25  # phase 26: the most kernels (copies included) a tick of C's and Q's graphs
 
 # the profiler's name of a glue kernel: "glue_pre_kernel(...)", or with
 # template arguments "void glue_post_kernel<false, true>(...)"
@@ -696,6 +710,19 @@ def glue_want(cfg, ticks: int, advance: bool = False, in_place: bool = False) ->
     return {pre: ticks, tg.TickGlue.POST_VARIANTS[advance, in_place]: ticks}
 
 
+def step_want(cfg, ticks: int) -> dict:
+    """K1's launches over ``ticks`` ticks of the eager controller step
+    (``ErgodicController.step``, the default configuration's tick): one K1
+    without its safety stage a tick, on per-scenario maps unless
+    ``shared_maps``, summing the drawn history unless the full ring or the
+    accumulate mode feed it sums; one ``fused_safety`` a tick with safety on."""
+    from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
+    from ergodic_exploration_tpu_torch.ops.tick_glue import history_mode
+
+    k1 = sk.k1_variant(False, not cfg.shared_maps, history_mode(cfg, fused=False) == "nb")
+    return {k1: ticks, **({"fused_safety": ticks} if cfg.enable_safety else {})}
+
+
 def glue_sum(*wants: dict) -> dict:
     """The launches of several runs together (``glue_want``'s dicts added)."""
     out = {}
@@ -766,14 +793,16 @@ def mi_work(S, h, w, K, r, fc):
 def dense_work(S, h, w, nsx, nsy, KK, r, fc, nnz):
     """(flops, bytes) of M: per cell ~10 operations for the entropy (two logs)
     and the masks; per lattice point 2 (2r+1) for the box sums, 2 (2fc+1)
-    for the frontier test with the mask, 2 for the masks; 2 K^2 per
-    (scenario, lattice point) whose value is not 0 (``nnz`` of them: what
-    this run's beliefs need); the normalization. Bytes: the beliefs, the
-    lattice cells, D, the fallback and the result once."""
-    N = nsx * nsy
+    for the frontier test with the mask, 2 for the masks; the separable
+    contraction (D = Cx Cy / h_k): 2 K per (scenario, lattice point) whose
+    value is not 0 (``nnz`` of them: what this run's beliefs need) for the
+    rows' projections, 2 K^2 per (scenario, lattice row) for their
+    accumulation; the normalization. Bytes: the beliefs, the lattice cells,
+    the two cosine tables, h_k, the fallback and the result once."""
+    N, K = nsx * nsy, math.isqrt(KK)
     flops = (S * h * w * 10 + S * N * (2 * (2 * r + 1) + (2 * (2 * fc + 1) if fc else 0) + 2)
-             + 2 * nnz * KK + 2 * S * KK)
-    return flops, 4 * (S * h * w + nsx + nsy + N * KK + KK + 1 + S * KK)
+             + 2 * nnz * K + 2 * S * nsy * KK + 3 * S * KK)
+    return flops, 4 * (S * h * w + nsx + nsy + (nsx + nsy) * K + 2 * KK + S * KK)
 
 
 def dense_check(name: str, data, ops, r: int, fc: int, thr: float, card: str, reps: int = 20,
@@ -878,6 +907,27 @@ def safety_work(cfg, S, Pc, dwa_probes: float):
     return flops, nbytes
 
 
+def step_k1_check(name: str, cfg, sc, phik, world, reps: int):
+    """K1 as the eager step launches it (``fused_solve`` on the step's own
+    inputs: per-scenario draws) against its plain version on (sc, phik,
+    world): (max error, ms, plain ms, work)."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+
+    inp, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, phik, world, fused=False)
+    k = sk.K1(cfg, inp, enable_safety=False)
+    p = sk.fused_solve_safety_plain(cfg, inp, enable_safety=False)
+    torch.cuda.synchronize()
+    e = compare(name, k, p)
+    S_, P_ = inp.x.shape[0], min(cfg.patch_cells, *inp.dist.shape[-2:])
+    nb = inp.hist.shape[1] if inp.hist.dim() == 3 else 0
+    return (e, events_ms(lambda: sk.K1(cfg, inp, enable_safety=False), reps),
+            events_ms(lambda: sk.fused_solve_safety_plain(cfg, inp, enable_safety=False), 3),
+            solve_work(cfg, S_, P_, False, map_cells=P_ * P_ * (S_ if inp.dist.dim() == 3 else 1),
+                       nb=nb))
+
+
 def dwa_probes_needed(cfg, model, x, vb, domain, crop) -> float:
     """Crash probes the DWA sweep needs on these inputs: every candidate is
     probed step by step until its first crash (or to the horizon)."""
@@ -971,9 +1021,9 @@ def node_phase(dev, card, entry, kernels) -> None:
             torch.cuda.synchronize()
             first_ms.append(1e3 * (time.perf_counter() - t0))
         counts = read_counts()
-        variant = "fused_solve_safety_map_h0_nb" if fused else "fused_safety"
+        want = ({"fused_solve_safety_map_h0_nb": 1} if fused else step_want(node.config, 1))
         expect_counts(f"phase 16, {what}, the first tick of each (the graph's captured)",
-                      counts, {variant: 2})
+                      counts, {k: 2 * n for k, n in want.items()})
         expect_counts(f"phase 16, {what}, the first tick of each, the glue", read_glue(),
                       glue_sum(glue_want(node.config, 1, in_place=True),
                                glue_want(node.config, 1)))
@@ -1007,7 +1057,7 @@ def node_phase(dev, card, entry, kernels) -> None:
         peak = torch.cuda.max_memory_allocated()
         counts = {k: v // 2 for k, v in read_counts().items()}  # each node's
         expect_counts(f"phase 16, {what}, {NODE_TICKS} ticks of each node",
-                      read_counts(), {variant: 2 * NODE_TICKS})
+                      read_counts(), {k: 2 * NODE_TICKS * n for k, n in want.items()})
         expect_counts(f"phase 16, {what}, {NODE_TICKS} ticks of each node, the glue",
                       read_glue(), glue_sum(glue_want(node.config, NODE_TICKS, in_place=True),
                                             glue_want(node.config, NODE_TICKS)))
@@ -1631,7 +1681,7 @@ def quality_phase(dev, card, entry, kernels) -> None:
     r = quality.run(Q_S, Q_REFRESHES, Q_EVERY, quality.SENSOR_RANGE, seed=0, device=dev)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    expect_counts("phase 18 (a)", counts, {"fused_safety": n_ticks})
+    expect_counts("phase 18 (a)", counts, step_want(cfg, n_ticks))
     # a reveal and a world rebuild a refresh; one distance field alone: the
     # spawns' (spawn_poses)
     map_q = read_map()
@@ -1698,7 +1748,7 @@ def quality_phase(dev, card, entry, kernels) -> None:
     eng = Engine(cfg, device=dev)
     reset_counts()
     speed, coverage, rise = quality.multiroom_floors(eng, Q_EVERY)
-    expect_counts("phase 18 (b)", read_counts(), {"fused_safety": quality.MULTIROOM_TICKS})
+    expect_counts("phase 18 (b)", read_counts(), step_want(cfg, quality.MULTIROOM_TICKS))
     chunks = quality.MULTIROOM_TICKS // Q_EVERY  # explore_mapping: a reveal and prepare_world each
     expect_counts("phase 18 (b), the map kernels", read_map(), map_want(chunks, chunks))
     # explore_mapping's target is phik_from_grid without a domain: the separable path
@@ -1728,6 +1778,11 @@ def quality_phase(dev, card, entry, kernels) -> None:
           events_ms(lambda: sk.fused_safety_plain(cfg, *args), 5),
           safety_work(cfg, Q_S, crop.dist.shape[-1], probes))
     kernels["quality_fused_safety"]["launches"] = counts["fused_safety"]
+    k1_q = sk.k1_variant(False, True, True)
+    entry(f"quality_{k1_q}", "solve_kernel.cu", "ergodic_exploration_tpu/ops/solve_kernel.py:580",
+          *step_k1_check(f"path Q {k1_q} (omni, S={Q_S})", cfg, sc,
+                         eng._phik_grid_batch_dense_fn(r.belief, None, 0), world, 50))
+    kernels[f"quality_{k1_q}"]["launches"] = counts[k1_q]
 
 
 def headline_phase(dev, card, kernels, k3_check, tick_a_ms, tick_e_ms) -> None:
@@ -2388,12 +2443,12 @@ def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int 
 
     explore_case(f"path B (K1 on distinct maps, S={S_big}, {ticks} ticks)", *distinct(S_big),
                  ticks, {"fused_solve_safety_map_h0_nb": ticks})
+    eager_c = distinct(S_small, seed=3, use_fused_solve=False)
     explore_case(f"path C (default_config('cart'), eager, S={S_small}, {eager_ticks} ticks)",
-                 *distinct(S_small, seed=3, use_fused_solve=False), eager_ticks,
-                 {"fused_safety": eager_ticks})
+                 *eager_c, eager_ticks, step_want(eager_c[0], eager_ticks))
+    eager_o = distinct(S_small, model="omni", seed=2, use_fused_solve=False)
     explore_case(f"omni, eager, phase 8's case (S={S_small}, {eager_ticks} ticks)",
-                 *distinct(S_small, model="omni", seed=2, use_fused_solve=False), eager_ticks,
-                 {"fused_safety": eager_ticks})
+                 *eager_o, eager_ticks, step_want(eager_o[0], eager_ticks))
     rng = np.random.default_rng(4)
     x0_d = np.concatenate([rng.uniform(0.05, 4.95, (S_big, 2)),
                            rng.uniform(-np.pi, np.pi, (S_big, 1))], axis=1).astype(np.float32)
@@ -2427,7 +2482,7 @@ def graphs_phase(dev, card, S_big: int = S_MAIN, S_small: int = 512, ticks: int 
     truth_q = quality.build_truth(Q_S, dev)
     mapping(f"path Q's configuration (default_config('omni'), S={Q_S}, 2 refreshes)", cfg_q,
             quality.spawn_poses(cfg_q, truth_q, Q_S), truth_q, 2, Q_EVERY,
-            {"fused_safety": 2 * Q_EVERY})
+            step_want(cfg_q, 2 * Q_EVERY))
 
     # times first, for every case, then the profiles: a profiler session
     # leaves its hooks behind, which slows the launches that follow it
@@ -2710,7 +2765,7 @@ def entry_graphs_phase(dev, card) -> dict:
     cfg_c, x0_c, grids_c, gmm_c, dom_c = distinct_case(512, dev, seed=3, use_fused_solve=False)
     replan_path("C", "path C (replan, the eager step, S=512)", cfg_c, x0_c,
                 lambda e: e.prepare_world(grids_c), lambda e, w: e.phik_from_gmm(gmm_c, dom_c),
-                {"fused_safety": 1}, wall)
+                step_want(cfg_c, 1), wall)
     rng = np.random.default_rng(4)
     x0_d = np.concatenate([rng.uniform(0.05, 4.95, (S_MAIN, 2)),
                            rng.uniform(-np.pi, np.pi, (S_MAIN, 1))], axis=1).astype(np.float32)
@@ -2822,7 +2877,7 @@ def kernel_profile(fn, units: int):
                  key=lambda e: e.time_range.start)
     marks = [i for i, e in enumerate(dev) if "spin" in e.name or "sleep" in e.name]
     if not marks:
-        fail("phase 23: the profiler recorded no spin between the two runs")
+        fail("the profiler recorded no spin between the two runs")
     by_name = {}
     for e in dev[marks[-1] + 1:]:
         n, us = by_name.get(e.name, (0, 0.0))
@@ -3478,7 +3533,8 @@ def dense_phase(dev, card, e_run: dict, f_run: dict) -> None:
     path F's beliefs (S = 4096, r = 0, fc = 3) and their first scenario
     alone, path E's (r = 3 with fc = 3 and fc = 0), 200 x 200 beliefs at
     S = 1024 (also with the rings in the workspace), a 60 x 140 map with a
-    48 x 64 lattice and K = 12 (two tiles of coefficients), all-unknown
+    48 x 64 lattice and K = 12 (two tiles of coefficients), K = 17 on path E's
+    beliefs (three tiles), all-unknown
     beliefs (every scenario the fallback) and fully known maps (path F's
     true maps)."""
     import torch
@@ -3510,6 +3566,9 @@ def dense_phase(dev, card, e_run: dict, f_run: dict) -> None:
         eng_e = Engine(e_run["cfg"].replace(mi_frontier_cells=fc))
         rows[f"E, S=4096, r=3, fc={fc}"] = case(f"path E's beliefs, fc={fc}", eng_e, grids_e,
                                                 e_run["domain"], MI_RADIUS)
+    rows["E, K=17 (three tiles of k1)"] = case(
+        "path E's beliefs, K=17", Engine(e_run["cfg"].replace(num_basis=17)), grids_e,
+        e_run["domain"], MI_RADIUS, reps=5)
     del grids_e, eng_e
     big = maps(torch.from_numpy(mi_beliefs(S_BIG, CELLS_BIG, CELLS_BIG, seed=16)).to(dev))
     dom_big = Domain.create(0.0, 0.0, 0.05 * CELLS_BIG, 0.05 * CELLS_BIG, device=dev)
@@ -3533,6 +3592,133 @@ def dense_phase(dev, card, e_run: dict, f_run: dict) -> None:
     for name, d in rows.items():
         print(f"    {name}: {d['err']:.3e}, {d['rel']:.3e}; {d['ms']:.4f} / {d['plain_ms']:.4f} / "
               f"{d['lib_ms']:.4f} ms; {d['peak_m'] / 2**20:.2f} / {d['peak_p'] / 2**20:.1f} MiB")
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the default configuration's step against its plain route
+# ---------------------------------------------------------------------------
+
+
+def plain_step_route(fn):
+    """``fn()`` with the plain versions of the eager step's kernels in their
+    place: the glue's (``with_plain_glue``), K1's without its safety stage
+    and the safety stage's (``fused_safety_plain``), each run on the tensors
+    it is given."""
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+
+    saved = sk.fused_solve, sk.fused_safety
+    sk.fused_solve = lambda cfg, inp: sk.fused_solve_safety_plain(cfg, inp, enable_safety=False)
+    sk.fused_safety = sk.fused_safety_plain
+    try:
+        return with_plain_glue(fn)
+    finally:
+        sk.fused_solve, sk.fused_safety = saved
+
+
+def default_step_phase(dev, card) -> dict:
+    """Phase 26: the eager controller step (``ErgodicController.step``:
+    ``glue_pre``, K1 without its safety stage, ``k1_safety`` on the patch's
+    central crop, ``glue_post``) on the card against the same tick through
+    their plain versions on the card, from one state after 3 ticks: path C's
+    inputs (S = 512) with per-scenario draws, the full ring, the accumulate
+    mode, safety off and one shared map, and path Q's omni state (S = 256,
+    after one refresh of its loop). U within 5e-5, the metric and barrier
+    rtol 1e-5, ck_sum rtol 1e-5 / atol 5e-6, at most CODE_MISMATCH_LIMIT
+    scenarios whose code, DWA flags or control (5e-5) differ; launches
+    exact. Then the kernels and copies a tick of C's and Q's ``explore``
+    graphs (10 ticks a replay; at most STEP_KERNELS). Fails on a breach."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import GridMap
+    from ergodic_exploration_tpu_torch.tools import quality
+
+    print("== 26. the default configuration's step (glue_pre, K1, k1_safety, glue_post) vs its "
+          "plain route on the card", flush=True)
+    out = {}
+
+    def check(name, eng, sc, phik, world):
+        cfg, S_ = eng.config, sc.x.shape[0]
+        for _ in range(3):  # a history to draw from
+            sc, u, _ = eng._replan_fn(sc, phik, world)
+            sc = advance(eng, sc, u)
+        torch.cuda.synchronize()
+        reset_counts()
+        (gs, gu, gd) = eng._replan_fn(sc, phik, world)
+        torch.cuda.synchronize()
+        expect_counts(f"phase 26, {name}", read_counts(), step_want(cfg, 1))
+        expect_counts(f"phase 26, {name}, the glue", read_glue(), glue_want(cfg, 1))
+        reset_counts()
+        (rs, ru, rd) = plain_step_route(lambda: eng._replan_fn(sc, phik, world))
+        torch.cuda.synchronize()
+        expect_counts(f"phase 26, {name}, the plain route", {**read_counts(), **read_glue()}, {})
+        dU = (gs.state.U - rs.state.U).abs().max().item()
+        rel = {k: ((getattr(gd, k) - getattr(rd, k)).abs()
+                   / getattr(rd, k).abs().clamp(min=1e-7 / 1e-5)).max().item()
+               for k in ("ergodic_metric", "barrier_cost")}
+        ck = (gs.state.ck_sum - rs.state.ck_sum).abs()
+        ck_bad = int((ck > 5e-6 + 1e-5 * rs.state.ck_sum.abs()).sum())
+        mism = ((gd.collision_code != rd.collision_code) | (gd.dwa_active != rd.dwa_active)
+                | (gd.dwa_feasible != rd.dwa_feasible) | ((gu - ru).abs() > 5e-5).any(1))
+        n_mism = int(mism.sum())
+        ms = events_ms(lambda: eng._replan_fn(sc, phik, world), 20)
+        plain_ms = events_ms(lambda: plain_step_route(lambda: eng._replan_fn(sc, phik, world)), 3)
+        print(f"  {name} (S={S_}): max |U - plain| {dU:.3e} (atol 5e-5); metric, barrier max "
+              f"relative {rel['ergodic_metric']:.3e}, {rel['barrier_cost']:.3e} (rtol 1e-5); "
+              f"ck_sum {ck_bad} outside rtol 1e-5 / atol 5e-6; {n_mism} of {S_} scenarios with "
+              f"another code, DWA flag or control (limit {CODE_MISMATCH_LIMIT}); DWA active in "
+              f"{int(rd.dwa_active.sum())}; the eager tick {ms:.4f} ms, its plain route "
+              f"{plain_ms:.4f} ms {card}", flush=True)
+        if (dU > 5e-5 or max(rel.values()) > 1e-5 or ck_bad or n_mism > CODE_MISMATCH_LIMIT
+                or not torch.isfinite(gs.state.U).all()):
+            fail(f"phase 26, {name}: the step on the card is outside its budget against the "
+                 f"plain route")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, err=dU)
+        return sc
+
+    cfg_c, x0_c, grids_c, gmm_c, dom = distinct_case(512, dev, seed=3, use_fused_solve=False)
+    if cfg_c != default_config("cart"):
+        fail("phase 26: path C is not the default configuration")
+    shared = GridMap(grids_c.data[:1].expand_as(grids_c.data).contiguous(), grids_c.origin,
+                     grids_c.resolution)
+    graphs_of = {}
+    for name, cfg, grids in (
+            ("path C, per-scenario draws", cfg_c, grids_c),
+            ("path C, the full ring", cfg_c.replace(buffer_batch=None), grids_c),
+            ("path C, the accumulate mode", cfg_c.replace(history="accumulate"), grids_c),
+            ("path C, safety off", cfg_c.replace(enable_safety=False), grids_c),
+            ("path C on one shared map", cfg_c.replace(shared_maps=True), shared)):
+        eng = Engine(cfg)
+        world = eng.prepare_world(grids)
+        phik = eng.phik_from_gmm(gmm_c, dom)
+        sc = check(name, eng, eng.init_scenarios(x0_c), phik, world)
+        if cfg == cfg_c:
+            graphs_of["C"] = (eng, sc, phik, world)
+    cfg_q = default_config("omni")
+    eng_q = Engine(cfg_q)
+    truth_q = quality.build_truth(Q_S, dev)
+    sc_q, belief_q, _, _, _ = eng_q.explore_mapping_fused(
+        eng_q.init_scenarios(quality.spawn_poses(cfg_q, truth_q, Q_S)), truth_q, 1, Q_EVERY)
+    world_q = eng_q.prepare_world(belief_q)
+    phik_q = eng_q._phik_grid_batch_dense_fn(belief_q, None, 0)
+    sc_q = check(f"path Q's state (omni, after a refresh)", eng_q, sc_q, phik_q, world_q)
+    graphs_of["Q"] = (eng_q, sc_q, phik_q, world_q)
+
+    for path, (eng, sc, phik, world) in graphs_of.items():
+        run = lambda eng=eng, sc=sc, phik=phik, world=world: eng.explore(sc, phik, world, 10)
+        run()  # captures the 10-tick graph
+        n, busy, _, top = kernel_profile(run, 10)
+        tick_ms = events_ms(run, 5) / 10
+        print(f"  {path}'s explore graph (10 ticks a replay, S={sc.x.shape[0]}): {n:.1f} kernels "
+              f"and copies a tick (limit {STEP_KERNELS}), device busy {busy:.4f} ms a tick, "
+              f"{tick_ms:.4f} ms a tick {card}")
+        for name, cnt, ms in top:
+            print(f"     {ms:9.4f} ms  x{cnt:5.1f}  {name}")
+        out[path] = dict(kernels=n, busy=busy, tick_ms=tick_ms)
+        if n > STEP_KERNELS:
+            fail(f"phase 26: {path}'s graph runs {n:.1f} kernels a tick (limit {STEP_KERNELS})")
+    return out
 
 
 def main() -> int:
@@ -4030,7 +4216,7 @@ def run(dev) -> int:
     end.record()
     torch.cuda.synchronize()
     counts = read_counts()
-    expect_counts("path C", counts, {"phik_from_gmm": 1, "fused_safety": T_C})
+    expect_counts("path C", counts, {"phik_from_gmm": 1, **step_want(cfg_c, T_C)})
     if (out_c.diag.diverged.any() or not torch.isfinite(out_c.controls).all()
             or not torch.isfinite(out_c.trajectory).all()
             or out_c.controls.shape != (T_C, S_C, cfg_c.nu)):
@@ -4067,6 +4253,11 @@ def run(dev) -> int:
           safety_work(cfg_c, S_C, crop.dist.shape[-1], probes))
     kernels["fused_safety"]["launches"] = counts["fused_safety"]
     kernels["phik_from_gmm"]["launches"] = counts["phik_from_gmm"]
+    # K1 as the step launches it (no safety stage, per-scenario maps and draws)
+    k1_c = sk.k1_variant(False, True, True)
+    entry(f"step_{k1_c}", "solve_kernel.cu", "ergodic_exploration_tpu/ops/solve_kernel.py:580",
+          *step_k1_check(f"path C {k1_c}", cfg_c, sc_c, phik_c, world_c, 20))
+    kernels[f"step_{k1_c}"]["launches"] = counts[k1_c]
     del out_c, world_c, grids_c, sc_c, crop, args
 
     # ---- 10. path D: empty world, one Gaussian, safety off (fused_solve)
@@ -4583,6 +4774,8 @@ def run(dev) -> int:
     at(25)
     dense_phase(dev, card, e_run, f_run)
     del f_run, e_run
+    at(26)
+    default_step_phase(dev, card)
     for name, (n, path) in LAUNCHES.items():
         if name in kernels:
             kernels[name]["launches"] = n

@@ -6,16 +6,16 @@ One tick (SURVEY.md section 4.2): roll the warm-started controls out, form
 c_k over [history || rollout], take the ergodic and barrier gradients at
 the knots, integrate the co-state backward, update u = sat(-R^-1 B^T rho),
 validate the emitted control and fall back to DWA on a predicted crash.
-The descent and safety stages are shared with the plain version of the
-fused kernel (ops/solve_kernel.py). In the eager :meth:`ErgodicController.step`
-the descent is batched PyTorch ops (the JAX package has no kernel there
-either); its safety stage goes through ``ops.solve_kernel.fused_safety``: the
-CUDA kernel for CUDA tensors, :func:`safety_on_crop` for CPU tensors. The
-glue around the descent, in the eager step and in the fused tick alike, goes
-through ``ops.tick_glue``: ``glue_pre`` (the draw key of the RNG split, the
-history draw, the orbit guard's warm-start reset) and ``glue_post``
+:func:`descent` and :func:`safety_on_crop` are the plain versions of K1's
+stages (ops/solve_kernel.py). The eager :meth:`ErgodicController.step` runs
+the chain of the fused tick with the step's semantics (per-scenario history
+draws, validation + DWA on a crop after the descent): ``glue_pre`` (the draw
+key of the RNG split, the history draw, the orbit guard's warm-start reset,
+the patch starts), ``ops.solve_kernel.fused_solve`` (K1 without its safety
+stage), ``ops.solve_kernel.fused_safety`` and ``glue_post``
 (:func:`finish_tick`: the DWA select, the divergence guard, the warm-start
-shift, the ring append, the next keys), kernels for CUDA tensors.
+shift, the ring append, the next keys): kernels for CUDA tensors, their plain
+versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -35,7 +35,6 @@ from ergodic_exploration_tpu_torch.ops.collision import validate_control
 from ergodic_exploration_tpu_torch.ops.distance import DistanceField
 from ergodic_exploration_tpu_torch.ops.dwa import dwa_control
 from ergodic_exploration_tpu_torch.ops.integrator import costate_solve, rollout
-from ergodic_exploration_tpu_torch.ops.patch import extract_patch
 from ergodic_exploration_tpu_torch.utils.device import constant
 
 
@@ -240,45 +239,36 @@ class ErgodicController:
         Returns (new_state, u_cmd (S, nu), StepDiagnostics), and with
         ``advance`` also the poses one dt on and their twists (see
         :func:`finish_tick`, also for ``ring_in_place``).
+
+        The chain of the fused tick with the step's own semantics:
+        ``glue_pre`` (per-scenario draws, the patch starts), K1 without its
+        safety stage (the descent and the ``ck_sum`` append, the patch read
+        from the map by its start), validation + DWA (``fused_safety``) on
+        the central ``safety_patch_cells`` crop of that patch, ``glue_post``.
+        On CPU tensors each stage is its plain version (:func:`descent`,
+        :func:`safety_on_crop`), on CUDA tensors its kernel.
         """
-        from ergodic_exploration_tpu_torch.ops.tick_glue import glue_pre, history_mode
+        from ergodic_exploration_tpu_torch.ops.patch import gather_window
+        from ergodic_exploration_tpu_torch.ops.solve_kernel import (
+            fused_safety, fused_solve, fused_tick_inputs)
 
         cfg = self.config
-        model = self.model
-        K = cfg.num_basis
-        domain = world.domain
-        lam = basis.lambda_weights(K, device=x.device)
-        hk = basis.hk_norm(K, domain.lengths)
-        patch = extract_patch(world.dist, x[:, :2], cfg.patch_cells)
-
-        # glue_pre: the orbit guard's warm-start reset and each scenario's
-        # history draw (under its key's split)
-        x = x.contiguous()
-        mode = history_mode(cfg, fused=False)
-        pre = glue_pre(cfg, mode, state.rng, state.buffer, state.U, x, domain)
-        if mode is None:
-            hist_sum, n_hist = history_sums(cfg, state, domain, hk)
-        else:
-            hist_sum = drawn_history_sums(pre.hist, pre.nh, K, domain, hk)
-            n_hist = pre.nh
-        U_new, metric, bcost = descent(cfg, model, x, pre.U, hist_sum, n_hist, phik,
-                                       domain, patch, lam, hk)
+        S, K = x.shape[0], cfg.num_basis
+        inp, orbiting = fused_tick_inputs(cfg, state, x, vb, phik, world, fused=False)
+        out = fused_solve(cfg, inp)
         safety_out = None
         if cfg.enable_safety:
-            from ergodic_exploration_tpu_torch.ops.solve_kernel import fused_safety
-
-            crop = patch.center_crop(cfg.safety_patch_cells)
-            safety_out = fused_safety(
-                cfg, x, vb.contiguous(), U_new[:, 0].contiguous(), crop.dist.contiguous(),
-                crop.start.to(torch.int32), crop.origin.contiguous(),
-                crop.resolution.contiguous(), domain.origin.contiguous(),
-                domain.lengths.contiguous())
-
-        # history: the running basis sum gains F_k at the ACTUAL current pose
-        Cnx, Cny = basis.cos_tables(x[:, None, :2], K, domain)
-        ck_sum = state.ck_sum + basis.coefficients_cos(Cnx, Cny, torch.ones_like(x[:, :1]), hk)
-        return finish_tick(cfg, state, x, U_new, safety_out, ck_sum, metric, bcost,
-                           pre.orbiting, advance=advance, ring_in_place=ring_in_place)
+            # the patch's central crop, read from the map by its start (the
+            # crop's gradient is never read)
+            P = min(cfg.patch_cells, *inp.dist.shape[-2:])
+            Pc = min(cfg.safety_patch_cells, P)
+            cstart = inp.pstart + (P - Pc) // 2
+            safety_out = fused_safety(cfg, inp.x, inp.vb, out.U_new[:, 0].contiguous(),
+                                      gather_window(inp.dist, cstart, Pc), cstart, inp.porigin,
+                                      inp.pres, inp.dorigin, inp.dlen)
+        return finish_tick(cfg, state, inp.x, out.U_new, safety_out, out.ck_sum.view(S, K, K),
+                           out.metric, out.barrier, orbiting, advance=advance,
+                           ring_in_place=ring_in_place)
 
     def predicted_path(self, state: ControllerState, x) -> torch.Tensor:
         """(S, H+1, 3) forward-simulated path of each scenario's control

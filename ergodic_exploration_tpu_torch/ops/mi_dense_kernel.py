@@ -15,15 +15,18 @@ geometry and one exploration domain, in LATTICE space,
            else the column means of D
 
 :func:`dense_operands` builds ``cx``, ``cy``, ``D``, the fallback and
-``hk[0, 0]`` once per (grid geometry, domain, K, lattice) with the plain
-version's own expressions. The CUDA source is ``csrc/mi_dense_kernel.cu``
-(its header says what bounds it on an H100 and what the design does about
-that): a block per 16 scenarios, 128 coefficients and a run of lattice rows
-(:func:`runs`), the map rows within max(r, fc) of a lattice row in a pair of
-rings (in shared memory, or past its room in a workspace:
-:func:`smem_bytes`), the sampled field in shared memory only; a finishing
-kernel adds the runs' partial sums in order and normalizes. It takes any
-K <= 128, any r, fc >= 0 and any lattice. Beside it lives the plain PyTorch
+``hk`` once per (grid geometry, domain, K, lattice) with the plain
+version's own expressions, and the per-axis cosine tables D is the
+product of (D is separable: D[ix nsy + iy, k1 K + k2] = cosx[ix, k1]
+cosy[iy, k2] / h_k). The CUDA source is ``csrc/mi_dense_kernel.cu`` (its
+header says what bounds it on an H100 and what the design does about that):
+a block per 16 scenarios, a tile of the coefficients and a run of lattice
+rows (:func:`runs`), walked G rows a step (:func:`plan`); each lattice row's
+values projected on cosx, then accumulated against cosy (no D read); the
+map rows around a step in rings (in shared memory, or past its room in a
+workspace: :func:`smem_bytes`), the sampled field in shared memory only; a
+finishing kernel adds the runs' partial sums in order and normalizes. It
+takes any K <= 128, any r, fc >= 0 and any lattice. Beside it lives the plain PyTorch
 version, :func:`phik_dense_plain`, the JAX function's body (one-hot and
 count-matrix matmuls in place of the gathers, then the contraction); the CPU
 tests run it, ``chip_smoke.py`` holds the kernel against it on the card.
@@ -44,11 +47,11 @@ import torch
 from ergodic_exploration_tpu_torch.ops import basis
 from ergodic_exploration_tpu_torch.ops import target as target_ops
 from ergodic_exploration_tpu_torch.ops.solve_kernel import (
-    MAX_SMEM, QUAD_SMEM, _check_operands, _on_cpu, _require_cuda, _sm_count, launch_on)
+    MAX_SMEM, _check_operands, _on_cpu, _require_cuda, _sm_count, launch_on)
 
 KMAX = 128  # the JAX package's MI kernel's limit on K, which M keeps
 # constants of csrc/mi_dense_kernel.cu that its memory layout and grid depend on
-_TS, _KT, _NC, _NV = 16, 128, 32, 128  # scenarios, coefficients a block; points of D, of vals
+_TS, _KC, _NV = 16, 128, 128  # scenarios, coefficients a block; lattice columns a pass of vals
 BLOCKS_PER_SM = 4  # blocks of M in flight on an SM (M_BLOCKS_PER_SM): Z aims to fill them
 
 
@@ -57,23 +60,29 @@ class DenseOperands(NamedTuple):
     scenario."""
 
     cx: torch.Tensor  # (nsx,) int32 nearest map column of each lattice column
-    cy: torch.Tensor  # (nsy,) int32 nearest map row of each lattice row
-    D: torch.Tensor  # (nsx * nsy, K^2) dense basis table of the lattice, x-major
+    cy: torch.Tensor  # (nsy,) int32 nearest row of each lattice row
+    D: torch.Tensor  # (nsx * nsy, K^2) dense basis table of the lattice, x-major (plain version)
     fallback: torch.Tensor  # (K, K) the uniform target over the lattice
-    hk00: torch.Tensor  # (1,) h_k at k = (0, 0): raw[0] * hk00 is the target's mass
+    cosx: torch.Tensor  # (nsx, K) the lattice's x cosines: D[ix nsy + iy] = cosx[ix] cosy[iy] / hk
+    cosy: torch.Tensor  # (nsy, K) its y cosines
+    hk: torch.Tensor  # (K, K) the basis normalization h_k: raw[0] hk[0, 0] is the target's mass
 
 
 def dense_operands(g0, domain, K: int, grid_samples) -> DenseOperands:
     """Operands of M for maps of ``g0``'s geometry (an unbatched GridMap;
     only its shape, origin and resolution are read) on the unbatched
-    ``domain``."""
+    ``domain``: D and the per-axis tables D is the product of (the same
+    floats)."""
+    nsy = grid_samples[1]
     pts = domain.sample_lattice(grid_samples)
     hk = basis.hk_norm(K, domain.lengths)
-    D = basis.dense_table(basis.tables(pts, K, domain), hk)
+    tbl = basis.tables(pts, K, domain)
+    D = basis.dense_table(tbl, hk)
     _, _, cx, cy = target_ops._lattice_cells(g0, grid_samples, domain)
     fallback = (D.sum(dim=0) / float(pts.shape[0])).view(K, K)
     return DenseOperands(cx.to(torch.int32).contiguous(), cy.to(torch.int32).contiguous(),
-                         D.contiguous(), fallback.contiguous(), hk[0, 0].reshape(1).contiguous())
+                         D.contiguous(), fallback.contiguous(), tbl.Cx[::nsy].contiguous(),
+                         tbl.Cy[:nsy].contiguous(), hk.contiguous())
 
 
 def dense_values_plain(data, ops: DenseOperands, sensor_radius_cells: int = 0,
@@ -119,19 +128,19 @@ def phik_dense_plain(data, ops: DenseOperands, sensor_radius_cells: int = 0,
     vals = dense_values_plain(data, ops, sensor_radius_cells, frontier_cells,
                               occupied_threshold)
     ck_raw = basis.coefficients_dense(vals, ops.D, K)
-    total = (ck_raw[:, 0, 0] * ops.hk00)[:, None, None]  # scaled sum: the scale cancels
+    total = (ck_raw[:, 0, 0] * ops.hk[0, 0])[:, None, None]  # scaled sum: the scale cancels
     return torch.where(total > 1e-12, ck_raw / torch.clamp(total, min=1e-12), ops.fallback)
 
 
 class _Params(ctypes.Structure):
     """Mirror of ``struct MParams`` in csrc/mi_dense_kernel.cu."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("S", "h", "w", "nsx", "nsy", "KK", "r", "fc", "Z",
+    _fields_ = [(n, ctypes.c_int) for n in ("S", "h", "w", "nsx", "nsy", "K", "r", "fc", "Z", "G",
                                             "ring_global")] + [
         (n, ctypes.c_float) for n in ("thr", "lo", "hi")]
 
 
-_BUFFERS = ("data", "cx", "cy", "D", "fallback", "hk00", "out", "part", "work")
+_BUFFERS = ("data", "cx", "cy", "cosx", "cosy", "hk", "fallback", "out", "part", "work")
 
 
 class _Buffers(ctypes.Structure):
@@ -140,49 +149,85 @@ class _Buffers(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
 
 
-def _ring(h: int, w: int, r: int, fc: int):
-    """(words of the entropy ring, words of the bit ring): the map rows within
-    r of a lattice row as 16 rows of entropies of an odd stride, and those
-    within max(r, fc) as 16 rows of occupied words and (fc > 0) as many
-    known-free words."""
+def tile_k1(K: int) -> int:
+    """T1, the k1 of a block's tile (``m_t1``): T1 K <= 128 coefficients."""
+    return K if K <= 11 else _KC // K
+
+
+def _ring(h: int, w: int, r: int, fc: int, G: int):
+    """(words of the entropy ring, words of the known-free ring) for steps of
+    G lattice rows: the map rows within r of a step's rows as 16 rows of
+    entropies of an odd stride (r > 0), those within fc as 16 rows of
+    known-free words (fc > 0)."""
     def rows(rad):
-        return h if rad >= h else min(2 * rad + 1, h)
+        return min(2 * rad + G, h)
 
-    ww = -(-w // 32)
-    return rows(r) * _TS * (w | 1), rows(max(r, fc)) * _TS * ww * (2 if fc > 0 else 1)
+    return (rows(r) * _TS * (w | 1) if r > 0 else 0,
+            rows(fc) * _TS * -(-w // 32) if fc > 0 else 0)
 
 
-def ring_bytes(h: int, w: int, r: int, fc: int) -> int:
+def ring_bytes(h: int, w: int, r: int, fc: int, G: int) -> int:
     """Bytes of a block's rings for (h, w) maps (``m_ring_bytes``)."""
-    return 4 * sum(_ring(h, w, r, fc))
+    return 4 * sum(_ring(h, w, r, fc, G))
 
 
-def smem_bytes(h: int, w: int, nsx: int, r: int, fc: int, ring_global: bool = False) -> int:
-    """Dynamic shared memory of a block of M for (h, w) maps and nsx lattice
-    columns (``m_layout`` in the source): two chunks of D (32 lattice points
-    x 128 coefficients), the vals of 128 points (16 scenarios) and their
-    flags, the y sums (r > 0, 16 rows of an odd stride), the frontier words
-    (fc > 0), the lattice columns, the rings' row offsets and tags and,
-    unless ``ring_global``, the rings."""
-    def rows(rad):
-        return h if rad >= h else min(2 * rad + 1, h)
+def smem_bytes(h: int, w: int, nsx: int, nsy: int, K: int, r: int, fc: int, G: int,
+               ring_global: bool = False) -> int:
+    """Dynamic shared memory of a block of M for (h, w) maps, an nsx x nsy
+    lattice and steps of G lattice rows (``m_layout`` in the source): the
+    tile's Cx table (nsx rows of T1 padded to 4), R (G rows, 16 scenarios),
+    the vals of a pass of at most 128 columns (an odd stride), the y sums
+    (r > 0) and the frontier words (fc > 0) of G rows, the lattice columns
+    and rows, the rings' row offsets and tags and, unless ``ring_global``, the
+    rings."""
+    passes = -(-nsx // _NV)
+    vcp = -(-nsx // passes) | 1
+    t1p = -(-tile_k1(K) // 4) * 4
+    re, rw = ((min(2 * rad + G, h) if rad > 0 else 0) for rad in (r, fc))
+    words = (nsx * t1p + G * t1p * _TS + G * _TS * vcp + (G * _TS * (w | 1) if r > 0 else 0)
+             + (G * _TS * -(-w // 32) if fc > 0 else 0) + nsx + nsy + 2 * h + re + rw)
+    return 4 * (words + (0 if ring_global else sum(_ring(h, w, r, fc, G))))
 
-    words = (2 * _NC * _KT + _NV * _TS + _NV // 2 + (_TS * (w | 1) if r > 0 else 0)
-             + (_TS * -(-w // 32) if fc > 0 else 0) + nsx + 2 * h + rows(r)
-             + rows(max(r, fc)))
-    return 4 * (words + (0 if ring_global else sum(_ring(h, w, r, fc))))
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of M an SM holds by their shared memory (228 KB, less 1 KB a
+    block) and their registers (at most ``BLOCKS_PER_SM``)."""
+    return min(BLOCKS_PER_SM, 233472 // (smem + 1024))
 
 
-def runs(S: int, KK: int, nsy: int, sm_count: int, smem: int) -> int:
+def plan(h: int, w: int, nsx: int, nsy: int, K: int, r: int, fc: int):
+    """(G, the rings in a workspace, bytes of shared memory a block takes):
+    the lattice rows a step walks (4, 2 or 1), the most that keeps the most
+    blocks an SM, with the rings in shared memory where some G fits them
+    there, else in the workspace. None where nothing fits a block."""
+    for ring_global in (False, True):
+        best = None
+        for G in (4, 2, 1):
+            smem = smem_bytes(h, w, nsx, nsy, K, r, fc, G, ring_global)
+            if smem <= MAX_SMEM and (best is None or blocks_per_sm(smem) > best[0]):
+                best = (blocks_per_sm(smem), G, smem)
+        if best is not None:
+            return best[1], ring_global, best[2]
+    return None
+
+
+def runs(S: int, K: int, nsy: int, sm_count: int, smem: int, m: int = 0) -> int:
     """Z, the runs the nsy lattice rows are cut into (a block each per 16
-    scenarios and 128 coefficients): as many as fill the SMs in one wave
-    with the blocks their shared memory and registers hold (at most
-    ``BLOCKS_PER_SM``), at least one, in runs of equal length, none empty."""
-    per_sm = BLOCKS_PER_SM if smem <= QUAD_SMEM else max(1, 233472 // (smem + 1024))
-    blocks = -(-S // _TS) * -(-KK // _KT)
-    z = min(nsy, max(1, sm_count * per_sm // blocks))
-    per_run = -(-nsy // z)
-    return -(-nsy // per_run)
+    scenarios and k1 tile), in runs of equal length, none empty: the Z that
+    takes the fewest waves of blocks (as many at a time as the SMs hold by
+    their shared memory and registers) times a block's rows, its run and the
+    2 m + 2 rows' worth a block spends before its first (its tables, its
+    rings' first rows: m = max(r, fc)); the smallest such Z."""
+    blocks = -(-S // _TS) * -(-K // tile_k1(K))
+    slots = max(1, sm_count * blocks_per_sm(smem))
+    best = None
+    for z in range(1, nsy + 1):
+        per_run = -(-nsy // z)
+        z = -(-nsy // per_run)
+        cost = -(-blocks * z // slots) * (per_run + 2 * m + 2)
+        if best is None or cost < best[0]:
+            best = (cost, z)
+    return best[1]
 
 
 class PhikDense:
@@ -195,7 +240,7 @@ class PhikDense:
 
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
-        self.smem_limit = MAX_SMEM  # bytes a block may take; a larger ring goes to a workspace
+        self.smem_limit = MAX_SMEM  # bytes a block may take; larger rings go to a workspace
         self.launches = {}
         self.reset_launches()
 
@@ -226,26 +271,29 @@ class PhikDense:
         if not 1 <= K <= KMAX or r < 0 or fc < 0:
             raise ValueError(f"M supports 1 <= K <= {KMAX}, r >= 0 and fc >= 0, got K={K}, "
                              f"r={r}, fc={fc}")
-        ring_global = smem_bytes(h, w, nsx, r, fc) > self.smem_limit
-        if smem_bytes(h, w, nsx, r, fc, True) > MAX_SMEM:
-            raise ValueError(f"M keeps rows of 16 ({h}, {w}) maps and {nsx} lattice columns in a "
-                             f"block's shared memory: {smem_bytes(h, w, nsx, r, fc, True)} bytes, "
-                             f"over the {MAX_SMEM}-byte limit of a block on this architecture")
+        step = plan(h, w, nsx, nsy, K, r, fc)
+        if step is None:
+            need = smem_bytes(h, w, nsx, nsy, K, r, fc, 1, True)
+            raise ValueError(f"M keeps rows of 16 ({h}, {w}) maps and an {nsx} x {nsy} lattice in "
+                             f"a block's shared memory: {need} bytes, over the {MAX_SMEM}-byte "
+                             f"limit of a block on this architecture")
+        G, ring_global, smem = step
+        ring_global = ring_global or smem_bytes(h, w, nsx, nsy, K, r, fc, G) > self.smem_limit
         _require_cuda(dev, "M kernel")
-        tensors = dict(data=data, cx=ops.cx, cy=ops.cy, D=ops.D, fallback=ops.fallback,
-                       hk00=ops.hk00)
-        _check_operands("M", tensors, dict(data=(S, h, w), cx=(nsx,), cy=(nsy,),
-                                           D=(nsx * nsy, K * K), fallback=(K, K), hk00=(1,)),
+        tensors = dict(data=data, cx=ops.cx, cy=ops.cy, cosx=ops.cosx, cosy=ops.cosy, hk=ops.hk,
+                       fallback=ops.fallback)
+        _check_operands("M", tensors, dict(data=(S, h, w), cx=(nsx,), cy=(nsy,), cosx=(nsx, K),
+                                           cosy=(nsy, K), hk=(K, K), fallback=(K, K)),
                         dev, ints=("cx", "cy"))
-        # Z from the rings in shared memory: both variants sum in the same runs
-        Z = runs(S, K * K, nsy, _sm_count(dev), smem_bytes(h, w, nsx, r, fc))
+        # Z from the plan's shared memory: both variants sum in the same runs
+        Z = runs(S, K, nsy, _sm_count(dev), smem, max(r, fc))
         tensors["out"] = out = torch.empty((S, K, K), dtype=torch.float32, device=dev)
         tensors["part"] = torch.empty((S, Z, K * K), dtype=torch.float32, device=dev)
-        if ring_global:  # the rings of each block
-            blocks = -(-S // _TS) * -(-K * K // _KT) * Z
-            tensors["work"] = torch.empty((blocks, ring_bytes(h, w, r, fc)), dtype=torch.uint8,
-                                          device=dev)
-        params = _Params(S=S, h=h, w=w, nsx=nsx, nsy=nsy, KK=K * K, r=r, fc=fc, Z=Z,
+        if ring_global and (r > 0 or fc > 0):  # the rings of each block
+            blocks = -(-S // _TS) * -(-K // tile_k1(K)) * Z
+            tensors["work"] = torch.empty((blocks, ring_bytes(h, w, r, fc, G)),
+                                          dtype=torch.uint8, device=dev)
+        params = _Params(S=S, h=h, w=w, nsx=nsx, nsy=nsy, K=K, r=r, fc=fc, Z=Z, G=G,
                          ring_global=int(ring_global), thr=occupied_threshold, lo=eps,
                          hi=1.0 - eps)
         bufs = _Buffers(**{n: t.data_ptr() for n, t in tensors.items()})

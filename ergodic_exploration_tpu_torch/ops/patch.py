@@ -17,6 +17,7 @@ import torch
 
 from ergodic_exploration_tpu_torch.grid import rows
 from ergodic_exploration_tpu_torch.ops.distance import central_gradient
+from ergodic_exploration_tpu_torch.utils.device import constant
 
 
 def _gather2(a: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor) -> torch.Tensor:
@@ -94,21 +95,31 @@ def patch_start(dist_field, center: torch.Tensor, P: int) -> torch.Tensor:
     return torch.round(cf).to(torch.int64) - P // 2
 
 
-def gather_patch(d: torch.Tensor, start: torch.Tensor, P: int, origin: torch.Tensor,
-                 resolution: torch.Tensor) -> PatchField:
-    """(S, P, P) windows starting at ``start`` (S, 2) of maps ``d``
-    (S, H, W), or of one shared (H, W) map; rows and columns outside the map
-    clamp to its edge. The gradient is the patch's own central difference
-    (one-sided at the PATCH edges, FAR plateau zeroed), never the global
-    field's."""
+def gather_window(d: torch.Tensor, start: torch.Tensor, P: int) -> torch.Tensor:
+    """(S, P, P) clearance windows starting at ``start`` (S, 2) (ix, iy) of
+    maps ``d`` (S, H, W), or of one shared (H, W) map; rows and columns
+    outside the map clamp to its edge. Four operations on the card (a tick
+    runs it): the window's columns and rows, their clamp, the flat index,
+    the gather."""
     h, w = d.shape[-2:]
     S = start.shape[0]
-    ii = torch.arange(P, device=d.device)
-    ry = torch.clamp(start[:, 1:2] + ii, 0, h - 1)  # (S, P) global iy
-    cx = torch.clamp(start[:, 0:1] + ii, 0, w - 1)  # (S, P) global ix
+    dev = d.device
+    ii = constant(("arange", P), dev, lambda: torch.arange(P, device=dev))
+    lo, hi = constant(("window_bounds", h, w), dev, lambda: (
+        torch.zeros((2, 1), dtype=torch.int64, device=dev),
+        torch.tensor([[w - 1], [h - 1]], dtype=torch.int64, device=dev)))
+    cr = torch.clamp(start[:, :, None] + ii, min=lo, max=hi)  # (S, 2, P) columns, rows
+    idx = torch.add(cr[:, 0, None, :], cr[:, 1, :, None], alpha=w)  # (S, P, P): iy w + ix
     flat = d.reshape(-1, h * w).expand(S, h * w)
-    pd = torch.gather(flat, 1, (ry[:, :, None] * w + cx[:, None, :]).reshape(S, P * P))
-    pd = pd.reshape(S, P, P)
+    return torch.gather(flat, 1, idx.reshape(S, P * P)).reshape(S, P, P)
+
+
+def gather_patch(d: torch.Tensor, start: torch.Tensor, P: int, origin: torch.Tensor,
+                 resolution: torch.Tensor) -> PatchField:
+    """:func:`gather_window` with the patch's gradient: its own central
+    difference (one-sided at the PATCH edges, FAR plateau zeroed), never the
+    global field's."""
+    pd = gather_window(d, start, P)
     gx, gy = central_gradient(pd, resolution)
     return PatchField(dist=pd, grad=torch.stack([gx, gy], dim=-1), start=start,
                       origin=origin, resolution=resolution)

@@ -585,9 +585,7 @@ class FusedSolveSafety:
             ops["solve_ws"] = self.solve_workspace(dev, S * solve_warp_floats(K, H, nb))
         ops.update(U_new=out.U_new, metric=out.metric, bcost=out.barrier, ck_out=out.ck_sum,
                    code=out.code, u_dwa=out.u_dwa, feasible=out.feasible, phik_buf=phik_buf)
-        variant = ("fused_solve_safety" if enable_safety else "fused_solve") + (
-            "_map_h0" if per_scenario else "") + ("_nb" if nb else "")
-        self._launch("k1_fused_solve_safety", variant,
+        self._launch("k1_fused_solve_safety", k1_variant(enable_safety, per_scenario, nb > 0),
                      _c_params(sp, sps, S, Npad, enable_safety, nb, split, tables_global), ops,
                      dev)
         return out
@@ -616,6 +614,14 @@ class FusedSolveSafety:
 
 
 K1 = FusedSolveSafety()
+
+
+def k1_variant(safety: bool, per_scenario_maps: bool, drawn: bool) -> str:
+    """The name a K1 launch counts under: ``fused_solve_safety`` or, without
+    the safety stage, ``fused_solve``; ``_map_h0`` on per-scenario maps;
+    ``_nb`` with the drawn history positions summed in the kernel."""
+    return (("fused_solve_safety" if safety else "fused_solve")
+            + ("_map_h0" if per_scenario_maps else "") + ("_nb" if drawn else ""))
 
 
 def _on_cpu(t: torch.Tensor, what: str) -> bool:
@@ -709,13 +715,17 @@ def refresh_operands(cfg, gmm: GaussianMixture, domain: Domain, free_mask,
     return Refresh(g, *lat, free_mask is not None)
 
 
-def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None, lattice=None):
+def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None, lattice=None,
+                      fused: bool = True):
     """The batched glue ahead of K1 (``glue_pre``: the draw key of the RNG
     split, the history draw, the orbit guard, the warm-start reset and the
     patch starts; a kernel on the card). The history reaches K1 as the sums
-    of one shared draw (``shared_history_draw``), as each scenario's drawn
-    positions (K1 sums them), or, for the full ring and the accumulate mode,
-    as sums of plain torch. Returns (K1Inputs, orbiting (S,))."""
+    of one shared draw (``shared_history_draw``, fused tick only), as each
+    scenario's drawn positions (K1 sums them), or, for the full ring and the
+    accumulate mode, as sums of plain torch. ``fused=False``: the inputs of
+    the eager step (``controller.ErgodicController.step``), whose draws are
+    per scenario whatever ``shared_history_draw`` says (the JAX step draws
+    under ``vmap``). Returns (K1Inputs, orbiting (S,))."""
     from ergodic_exploration_tpu_torch.controller import history_sums
     from ergodic_exploration_tpu_torch.ops.tick_glue import PatchGeometry, glue_pre, history_mode
 
@@ -726,7 +736,7 @@ def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None, lat
     d = dist.dist[0] if cfg.shared_maps else dist.dist
     P = min(cfg.patch_cells, *d.shape[-2:])
     x = x.contiguous()
-    mode = history_mode(cfg, fused=True)
+    mode = history_mode(cfg, fused=fused)
     pre = glue_pre(cfg, mode, state.rng, state.buffer, state.U, x, bdom,
                    PatchGeometry(dist.origin.contiguous(), dist.resolution.contiguous(), P))
     if mode is None:
