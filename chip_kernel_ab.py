@@ -37,7 +37,14 @@ REPEATS runs of REPS calls:
   - the default configuration's tick (``Engine._replan_fn``, the eager
     controller step) on path C's case (S = 512) and on path Q's omni state
     (S = 256); a tree whose step runs K1 and one whose step runs the plain
-    descent differ by rounding (``--compare`` lists them).
+    descent differ by rounding (``--compare`` lists them); the same tick of
+    path C's case with the full ring (``buffer_batch`` None, on
+    ``chip_smoke.full_ring``'s rings) and with the accumulate mode (after 3
+    ticks), whose history sums a tree's glue kernel and the plain torch of
+    another take in another order;
+  - the coverage (``sensor.fraction_known``) on path F's beliefs after one
+    reveal at S = 4096 and S = 1: the exact share in a tree with the
+    coverage kernel, a float32 mean in one without (one rounding apart).
 
 It prints one JSON line of those times with the card's name and power limit,
 and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
@@ -169,8 +176,8 @@ def measure(root: Path, tag: str, out: Path) -> int:
     return 0
 
 
-MAP_CALLS = ("reveal_raycast_S4096", "edt_S4096", "world_S4096", "reveal_raycast_S1", "edt_S1",
-             "world_S1")
+MAP_CALLS = ("reveal_raycast_S4096", "edt_S4096", "world_S4096", "coverage_S4096",
+             "reveal_raycast_S1", "edt_S1", "world_S1", "coverage_S1")
 
 
 def map_calls(calls: dict, smoke, dev) -> list:
@@ -202,6 +209,7 @@ def map_calls(calls: dict, smoke, dev) -> list:
             b, t, p, 1.5, win, occupied_threshold=thr).data
         calls[f"edt_S{S_}"] = lambda b=b: tuple(DistanceField.from_grid(b, thr)[:2])
         calls[f"world_S{S_}"] = lambda b=b: world_outputs(eng, b)
+        calls[f"coverage_S{S_}"] = lambda b=b: sensor.fraction_known(b)
     return []
 
 
@@ -252,6 +260,19 @@ def step_calls(calls: dict, smoke, dev) -> None:
         sc, u, _ = eng._replan_fn(sc, phik, world)
         sc = smoke.advance(eng, sc, u)
     calls[f"default_step_C_S{S_SMALL}"] = lambda: outputs(eng._replan_fn(sc, phik, world))
+    for name, c in (("full_ring", cfg.replace(buffer_batch=None)),
+                    ("accumulate", cfg.replace(history="accumulate"))):
+        e = Engine(c)
+        s = e.init_scenarios(x0)
+        if name == "full_ring":
+            s = s._replace(state=s.state._replace(
+                buffer=smoke.full_ring(S_SMALL, c.buffer_capacity, dev, seed=28)))
+        else:
+            for _ in range(3):
+                s, u, _ = e._replan_fn(s, phik, world)
+                s = smoke.advance(e, s, u)
+        calls[f"default_step_C_{name}_S{S_SMALL}"] = (
+            lambda e=e, s=s: outputs(e._replan_fn(s, phik, world)))
     cfg_q = default_config("omni")
     eng_q = Engine(cfg_q)
     truth = quality.build_truth(smoke.Q_S, dev)

@@ -33,9 +33,10 @@ Phases:
     reached (cart, S = 4096) and for omni at S = 512
  9  path C, the default configuration (the eager controller step: ``glue_pre``,
     K1 without its safety stage on per-scenario maps with the drawn history,
-    ``fused_safety`` on the patch's central crop, ``glue_post``; K2
-    unmasked), S = 512, 10 ticks; the three kernels vs plain on this path's
-    own inputs
+    ``fused_safety_map`` (k1_safety reading the patch's central crop from the
+    map), ``glue_post``; K2 unmasked), S = 512, 10 ticks; the three kernels
+    vs plain on this path's own inputs, the crop read from the map bit for bit
+    equal to k1_safety on the crop ``gather_window`` cuts
 10  path D, the obstacle-free configuration with safety off
     (``fused_solve``), S = 4096, 20 ticks, on one shared empty map (shared
     history draw) and on per-scenario empty maps (per-scenario draws); each
@@ -65,7 +66,7 @@ Phases:
 15  the MI tick (S = 64) and the mapping loop (S = 16) on the card vs on the CPU
 16  the single-robot node (``ExplorationNode``, ``default_config("cart")``, a
     100 x 100 map, native EDT): 300 ticks with a plant and a map update every
-    50, eager (K1 without its safety stage and ``fused_safety``), fused (K1 on
+    50, eager (K1 without its safety stage and ``fused_safety_map``), fused (K1 on
     the node's map, S = 1) and
     fused with pipelining, each as a node whose ``step()`` replays its graph
     and a node that takes the eager tick by name, in lockstep and equal bit
@@ -73,7 +74,7 @@ Phases:
     the replays, p50 / p99 of ``step()`` against the 100 ms budget and host
     runtime calls a tick, graph against eager; 300 ticks of the MI target on
     a belief a disc sensor opens, graph and eager in lockstep; the node on
-    the card vs on the CPU over one odometry stream; K1 and ``fused_safety``
+    the card vs on the CPU over one odometry stream; K1 and ``fused_safety_map``
     vs plain on the node's inputs
 17  scale-out (path H), on ranks spawned with ``torch.multiprocessing`` and
     joined through a file store. Leg (a), a world of one NCCL rank: path A
@@ -92,15 +93,15 @@ Phases:
     printed; two ranks on one card are no scaling figure
 18  path Q, the config-4 quality run at full length: ``tools.quality.run``
     (``default_config("omni")`` untouched: the eager step, K1 without its
-    safety stage and ``fused_safety``), S = 256, 500 refreshes of 10 ticks, sensor range
+    safety stage and ``fused_safety_map``), S = 256, 500 refreshes of 10 ticks, sensor range
     1.5 m, its spawns equal to those drawn on the CPU's EDT, held against
     docs/quality_config4.json (refresh 1's coverage
     within 1e-3, the later ``coverage_at`` points within 0.03, the final
     per-scenario p10 and median no lower than the record's by 0.05 and
     0.02), one M launch a refresh; the multi-room floors of
     tests/test_quality.py (S = 4, 400 ticks: mean speed, coverage,
-    second-half rise; the separable MI target, no M); ``fused_safety`` and
-    K1 as the step launches it vs plain on the state the run reached
+    second-half rise; the separable MI target, no M); ``fused_safety_map``
+    and K1 as the step launches it vs plain on the state the run reached
 19  the headline entry point, ``ergodic_exploration_tpu_torch.bench``:
     ``bench._run()`` in process at full width (S = 4096, 50 ticks each of
     ``bench_throughput`` and ``bench_throughput_mi``; ``bench_latency``'s
@@ -198,13 +199,29 @@ Phases:
     contraction's alone, and the temporaries' peak of both; K = 17 (three
     tiles of k1) on path E's beliefs
 26  the default configuration's step (``ErgodicController.step``: ``glue_pre``,
-    K1 without its safety stage, ``fused_safety``, ``glue_post``) against the
+    K1 without its safety stage, ``fused_safety_map``, ``glue_post``) against the
     same tick through their plain versions on the card: path C's inputs
     (S = 512) with per-scenario draws, the full ring, the accumulate mode,
     safety off and one shared map, and path Q's omni state (S = 256); U
     within 5e-5, the metric and barrier rtol 1e-5, at most 2 scenarios with
     another code; launches exact; the kernels and copies a tick of C's and
-    Q's ``explore`` graphs (at most 25)
+    Q's ``explore`` graphs (at most STEP_KERNELS)
+27  the last XLA stages as kernels: ``glue_pre`` on the full ring
+    (``buffer_batch`` None: its sums over each ring's valid entries, in
+    float64) against its plain version and the float64 sums at S = 4096, cap
+    1024 (rings still filling, full, just wrapped, empty; no further from
+    float64 than the plain version), at S = 1 (equal to the full batch's row
+    bit for bit) and at K = 17; 10 chained ticks each of path A's
+    configuration with the full ring (``replan_refresh``, S = 4096), of path
+    C's with the full ring and with the accumulate mode (``replan``, the
+    eager step, S = 512) against their plain routes (phase 26's budgets),
+    launches exact, ``explore`` on both, the full-ring tick's peak device
+    memory beside its plain route's; ``fused_safety_map`` bit for bit
+    against k1_safety on the gathered crop on C's, Q's and the node's
+    inputs and with poses on the maps' four edges; the coverage kernel
+    (``fraction_known``) bit for bit against its plain version on path F's
+    beliefs, all-unknown and all-known maps, S = 1 and 200 x 200 beliefs at
+    S = 1024; each new variant timed beside the route it replaces
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``explore_mapping_fused``) and every call of a single-tick entry point
@@ -215,9 +232,9 @@ counted. Every path is driven with the launch counts set to 0
 just before it and read just after; the glue's counts (G) are read apart
 from K1, K2 and K3's (``read_glue``) and checked on paths A and B (phases 4
 and 7) and in phases 16, 20, 22 and 23; the map kernels' (R, E) too
-(``read_map``), checked in phases 4 and 7 (``prepare_world``), 14, 18, 20
-and 24; M's (``read_dense``) in phases 13, 14, 18, 20 and 22. A graph's
-tick appends its ring in
+(``read_map``; the coverage among them), checked in phases 4 and 7
+(``prepare_world``), 14, 18, 20, 24 and 27; M's (``read_dense``) in
+phases 13, 14, 18, 20 and 22. A graph's tick appends its ring in
 place (``glue_post_inplace``, ``glue_post_advance_inplace``); the copying
 variants run in the eager functions and plain loops, and their launches in
 the kernels line are those of phase 20's plain loop of path B and phase
@@ -302,7 +319,11 @@ PROFILE_LOOP_TICKS = 3
 # replan_refresh graph and of B's explore graph
 GLUE_SUM_ATOL = 1e-6
 GLUE_KERNELS_A, GLUE_KERNELS_B = 20, 25
-STEP_KERNELS = 25  # phase 26: the most kernels (copies included) a tick of C's and Q's graphs
+# phase 26: the most kernels (copies included) a tick of C's and Q's graphs:
+# 14.6 measured once the step's crop was read from the map (PR 19), with the
+# margin of 5 that the limit had over PR 18's 19.9
+STEP_KERNELS = 20
+S_STEP = 512  # phase 27: path C's scenarios, as in phases 9 and 26
 
 # the profiler's name of a glue kernel: "glue_pre_kernel(...)", or with
 # template arguments "void glue_post_kernel<false, true>(...)"
@@ -691,12 +712,14 @@ def dense_want(n: int, fc: bool = True) -> dict:
     return {"phik_dense_fc" if fc else "phik_dense_nofc": n}
 
 
-def map_want(reveals: int, worlds: int, edts: int = 0) -> dict:
+def map_want(reveals: int, worlds: int, edts: int = 0, coverages: int = None) -> dict:
     """R's and E's launches of a run: ``reveals`` ray-cast reveals,
-    ``worlds`` world rebuilds (E with the free mask: ``Engine._world_batched``)
-    and ``edts`` distance fields alone (``DistanceField.from_grid``), each one
-    launch at any S."""
-    return {"reveal_raycast": reveals, "world": worlds, "edt": edts}
+    ``worlds`` world rebuilds (E with the free mask: ``Engine._world_batched``),
+    ``edts`` distance fields alone (``DistanceField.from_grid``) and
+    ``coverages`` coverages (``sensor.fraction_known``; one a reveal unless
+    given), each one launch at any S."""
+    return {"reveal_raycast": reveals, "world": worlds, "edt": edts,
+            "coverage": reveals if coverages is None else coverages}
 
 
 def glue_want(cfg, ticks: int, advance: bool = False, in_place: bool = False) -> dict:
@@ -715,12 +738,13 @@ def step_want(cfg, ticks: int) -> dict:
     (``ErgodicController.step``, the default configuration's tick): one K1
     without its safety stage a tick, on per-scenario maps unless
     ``shared_maps``, summing the drawn history unless the full ring or the
-    accumulate mode feed it sums; one ``fused_safety`` a tick with safety on."""
+    accumulate mode feed it sums; one ``fused_safety_map`` a tick with safety
+    on."""
     from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
     from ergodic_exploration_tpu_torch.ops.tick_glue import history_mode
 
     k1 = sk.k1_variant(False, not cfg.shared_maps, history_mode(cfg, fused=False) == "nb")
-    return {k1: ticks, **({"fused_safety": ticks} if cfg.enable_safety else {})}
+    return {k1: ticks, **({"fused_safety_map": ticks} if cfg.enable_safety else {})}
 
 
 def glue_sum(*wants: dict) -> dict:
@@ -738,6 +762,8 @@ def glue_sum(*wants: dict) -> dict:
 # 22's eager function of path A, since every tick of phases 4 and 7 is a
 # graph's, which appends in place)
 LAUNCHES = {}
+# phase 16's node: (cfg, x, vb, U, world) of its eager tick, for phase 27
+NODE_INPUTS = []
 
 
 def note_launches(path: str, got: dict) -> None:
@@ -905,6 +931,46 @@ def safety_work(cfg, S, Pc, dwa_probes: float):
     flops = S * (cfg.val_horizon * 38 + C * 13 * cfg.nu) + dwa_probes * 38
     nbytes = 4 * S * (3 + 3 + cfg.nu + Pc * Pc + 2 + 2 + 1 + 2 + 2 + 2 + cfg.nu)
     return flops, nbytes
+
+
+def safety_map_check(name: str, cfg, x, vb, U, world):
+    """The eager step's safety stage, ``fused_safety_map`` (k1_safety reading
+    the central crop of each patch from the map), on a path's inputs: poses
+    x, twists vb, controls U (S, H, nu) whose step 0 is u0, the world's maps
+    (shared as the step reads them under ``shared_maps``), the patch starts
+    of the poses. Bit for bit equal to k1_safety on the crop that
+    ``gather_window`` cuts from the same map (the step's route before it),
+    held to its plain version as ``compare_safety`` holds k1_safety, one
+    launch of each counted. Returns (max |u_dwa - plain|, its operands, the
+    earlier route: the crop start, the gather and k1_safety)."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    from ergodic_exploration_tpu_torch.ops.patch import gather_window, patch_start
+
+    dist = (world.dist.dist[0] if cfg.shared_maps else world.dist.dist).contiguous()
+    P, Pc = sk.crop_geometry(cfg, dist)
+    pstart = patch_start(world.dist, x[:, :2], P).to(torch.int32)
+    geo = (world.dist.origin.contiguous(), world.dist.resolution.contiguous(),
+           world.domain.origin.contiguous(), world.domain.lengths.contiguous())
+    args = (x.contiguous(), vb.contiguous(), U.contiguous(), dist, pstart, *geo)
+
+    def earlier():
+        cstart = pstart + (P - Pc) // 2
+        return sk.K1.safety(cfg, args[0], args[1], U[:, 0].contiguous(),
+                            gather_window(dist, cstart, Pc), cstart, *geo)
+
+    reset_counts()
+    km, kb = sk.K1.safety_map(cfg, *args), earlier()
+    torch.cuda.synchronize()
+    expect_counts(f"{name}, the safety stage", read_counts(),
+                  {"fused_safety_map": 1, "fused_safety": 1})
+    if not all(torch.equal(a, b) for a, b in zip(km, kb)):
+        fail(f"{name}: fused_safety_map differs from k1_safety on the gathered crop")
+    e = compare_safety(f"{name} fused_safety_map", km, sk.fused_safety_map_plain(cfg, *args))
+    print(f"  {name} fused_safety_map (S={x.shape[0]}): code, u_dwa and feasible equal to "
+          f"k1_safety on the gathered crop bit for bit")
+    return e, args, earlier
 
 
 def step_k1_check(name: str, cfg, sc, phik, world, reps: int):
@@ -1209,20 +1275,15 @@ def node_phase(dev, card, entry, kernels) -> None:
     cfg_e, w_e = node_e.config, node_e._world
     x1, vb1 = node_e._pose[None], node_e._twist[None]
     crop = extract_patch(w_e.dist, x1[:, :2], P_n).center_crop(cfg_e.safety_patch_cells)
-    args = (x1.contiguous(), vb1.contiguous(), node_e.state.U[:, 0].contiguous(),
-            crop.dist.contiguous(), crop.start.to(torch.int32), crop.origin.contiguous(),
-            crop.resolution.contiguous(), w_e.domain.origin.contiguous(),
-            w_e.domain.lengths.contiguous())
-    ks, ps = sk.K1.safety(cfg_e, *args), sk.fused_safety_plain(cfg_e, *args)
-    torch.cuda.synchronize()
-    e = compare_safety("node fused_safety (S=1)", ks, ps)
+    NODE_INPUTS[:] = [cfg_e, x1.clone(), vb1.clone(), node_e.state.U.clone(), w_e]
+    e, args, _ = safety_map_check("node (S=1)", *NODE_INPUTS)
     probes = dwa_probes_needed(cfg_e, node_e.model, x1, vb1, w_e.domain, crop)
-    entry("node_fused_safety", "solve_kernel.cu",
+    entry("node_fused_safety_map", "solve_kernel.cu",
           "ergodic_exploration_tpu/ops/solve_kernel.py:1254", e,
-          events_ms(lambda: sk.K1.safety(cfg_e, *args), 200),
-          events_ms(lambda: sk.fused_safety_plain(cfg_e, *args), 20),
+          events_ms(lambda: sk.K1.safety_map(cfg_e, *args), 200),
+          events_ms(lambda: sk.fused_safety_map_plain(cfg_e, *args), 20),
           safety_work(cfg_e, 1, crop.dist.shape[-1], probes))
-    kernels["node_fused_safety"]["launches"] = counts_e["fused_safety"]
+    kernels["node_fused_safety_map"]["launches"] = counts_e["fused_safety_map"]
 
 
 # ---------------------------------------------------------------------------
@@ -1749,8 +1810,11 @@ def quality_phase(dev, card, entry, kernels) -> None:
     reset_counts()
     speed, coverage, rise = quality.multiroom_floors(eng, Q_EVERY)
     expect_counts("phase 18 (b)", read_counts(), step_want(cfg, quality.MULTIROOM_TICKS))
-    chunks = quality.MULTIROOM_TICKS // Q_EVERY  # explore_mapping: a reveal and prepare_world each
-    expect_counts("phase 18 (b), the map kernels", read_map(), map_want(chunks, chunks))
+    # explore_mapping: a reveal, prepare_world and a coverage each, and the
+    # floors' own coverage of each chunk
+    chunks = quality.MULTIROOM_TICKS // Q_EVERY
+    expect_counts("phase 18 (b), the map kernels", read_map(),
+                  map_want(chunks, chunks, coverages=2 * chunks))
     # explore_mapping's target is phik_from_grid without a domain: the separable path
     expect_counts("phase 18 (b), M", read_dense(), {})
     print(f"  mean speed {speed:.4f} m/s (floor {quality.FLOOR_SPEED}); coverage {coverage:.4f} "
@@ -1760,24 +1824,18 @@ def quality_phase(dev, card, entry, kernels) -> None:
             and rise > quality.FLOOR_RISE):
         fail("phase 18 (b): the default omni configuration fell under a multi-room floor")
 
-    # (c) k1_safety against its plain version on the state (a) reached
+    # (c) k1_safety from the map against its plain version on the state (a) reached
     sc, world = r.scenarios, eng.prepare_world(r.belief)
     P = min(cfg.patch_cells, *world.dist.dist.shape[-2:])
     crop = extract_patch(world.dist, sc.x[:, :2], P).center_crop(cfg.safety_patch_cells)
-    args = (sc.x.contiguous(), sc.vb.contiguous(), sc.state.U[:, 0].contiguous(),
-            crop.dist.contiguous(), crop.start.to(torch.int32), crop.origin.contiguous(),
-            crop.resolution.contiguous(), world.domain.origin.contiguous(),
-            world.domain.lengths.contiguous())
-    ks, ps = sk.K1.safety(cfg, *args), sk.fused_safety_plain(cfg, *args)
-    torch.cuda.synchronize()
-    e = compare_safety(f"path Q fused_safety (omni, S={Q_S})", ks, ps)
+    e, args, _ = safety_map_check(f"path Q (omni, S={Q_S})", cfg, sc.x, sc.vb, sc.state.U, world)
     probes = dwa_probes_needed(cfg, eng.model, sc.x, sc.vb, world.domain, crop)
-    entry("quality_fused_safety", "solve_kernel.cu",
+    entry("quality_fused_safety_map", "solve_kernel.cu",
           "ergodic_exploration_tpu/ops/solve_kernel.py:1254", e,
-          events_ms(lambda: sk.K1.safety(cfg, *args), 50),
-          events_ms(lambda: sk.fused_safety_plain(cfg, *args), 5),
+          events_ms(lambda: sk.K1.safety_map(cfg, *args), 50),
+          events_ms(lambda: sk.fused_safety_map_plain(cfg, *args), 5),
           safety_work(cfg, Q_S, crop.dist.shape[-1], probes))
-    kernels["quality_fused_safety"]["launches"] = counts["fused_safety"]
+    kernels["quality_fused_safety_map"]["launches"] = counts["fused_safety_map"]
     k1_q = sk.k1_variant(False, True, True)
     entry(f"quality_{k1_q}", "solve_kernel.cu", "ergodic_exploration_tpu/ops/solve_kernel.py:580",
           *step_k1_check(f"path Q {k1_q} (omni, S={Q_S})", cfg, sc,
@@ -2820,19 +2878,24 @@ def with_plain_glue(fn):
         tg.glue_pre, tg.glue_post = saved
 
 
-def glue_pre_work(cfg, S: int, mode, H: int, nu: int):
+def glue_pre_work(cfg, S: int, mode, H: int, nu: int, n_ring: int = 0):
     """(operations, bytes) of glue_pre for S scenarios: the split (20
     threefry rounds, ~100 integer operations), the guard and the warm reset
     (H nu selects); per drawn position two lowbias32 hashes and the index
-    (~30); in mode "sums" per position 2 K angles and cosines (3 each) and
-    K^2 fused multiply-adds (2 each). Bytes: the drawn ring entries and the
-    guard's (2 nb + 2 floats), the pose, cursor, count, U, the domain and map
-    geometry read once; the history, count, flag, warm start and patch start
-    written once."""
-    K, nb = cfg.num_basis, (cfg.buffer_batch or 0) if mode else 0
+    (~30); in mode "sums" per position, and in mode "full" per valid ring
+    entry (``n_ring`` over the batch: what this run's counts need), 2 K
+    angles and cosines (3 each) and K^2 fused multiply-adds (2 each). Bytes:
+    the drawn ring entries (or the valid ones) and the guard's (2 floats),
+    the pose, cursor, count (and the accumulate mode's hist_count), U, the
+    domain and map geometry read once; the history, count, flag, warm start
+    and patch start written once."""
+    K = cfg.num_basis
+    nb = (cfg.buffer_batch or 0) if mode in ("sums", "nb") else 0
     flops = S * (100 + H * nu + 30 * nb + (6 * K * nb + 2 * K * K * nb if mode == "sums" else 0))
-    out = K * K if mode == "sums" else 2 * nb
+    flops += n_ring * (6 * K + 2 * K * K) if mode == "full" else 0
+    out = K * K if mode in ("sums", "full") else 2 * nb
     nbytes = S * (4 * (2 * nb + 2 + 3 + 2 + H * nu + 4 + 3) + 16)
+    nbytes += 8 * n_ring if mode == "full" else 4 * S if mode == "accumulate" else 0
     nbytes += S * (4 * (out + (1 if mode else 0) + H * nu + 2) + 1)
     return flops, nbytes
 
@@ -3602,17 +3665,44 @@ def dense_phase(dev, card, e_run: dict, f_run: dict) -> None:
 def plain_step_route(fn):
     """``fn()`` with the plain versions of the eager step's kernels in their
     place: the glue's (``with_plain_glue``), K1's without its safety stage
-    and the safety stage's (``fused_safety_plain``), each run on the tensors
-    it is given."""
+    and the safety stage's (``fused_safety_map_plain``: the crop gathered,
+    then ``fused_safety_plain``), each run on the tensors it is given."""
     import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
 
-    saved = sk.fused_solve, sk.fused_safety
+    saved = sk.fused_solve, sk.fused_safety_map
     sk.fused_solve = lambda cfg, inp: sk.fused_solve_safety_plain(cfg, inp, enable_safety=False)
-    sk.fused_safety = sk.fused_safety_plain
+    sk.fused_safety_map = sk.fused_safety_map_plain
     try:
         return with_plain_glue(fn)
     finally:
-        sk.fused_solve, sk.fused_safety = saved
+        sk.fused_solve, sk.fused_safety_map = saved
+
+
+def tick_budget(name: str, got, ref) -> None:
+    """A tick (state, u, diag) against the same tick through plain versions:
+    U within 5e-5, the metric and barrier rtol 1e-5, ck_sum rtol 1e-5 / atol
+    5e-6, at most CODE_MISMATCH_LIMIT scenarios whose code, DWA flags or
+    control (5e-5) differ, U finite. Prints the errors; fails on a breach."""
+    import torch
+
+    (gs, gu, gd), (rs, ru, rd) = got, ref
+    dU = (gs.state.U - rs.state.U).abs().max().item()
+    rel = {k: ((getattr(gd, k) - getattr(rd, k)).abs()
+               / getattr(rd, k).abs().clamp(min=1e-7 / 1e-5)).max().item()
+           for k in ("ergodic_metric", "barrier_cost")}
+    ck = (gs.state.ck_sum - rs.state.ck_sum).abs()
+    ck_bad = int((ck > 5e-6 + 1e-5 * rs.state.ck_sum.abs()).sum())
+    mism = ((gd.collision_code != rd.collision_code) | (gd.dwa_active != rd.dwa_active)
+            | (gd.dwa_feasible != rd.dwa_feasible) | ((gu - ru).abs() > 5e-5).any(1))
+    n_mism = int(mism.sum())
+    print(f"  {name} (S={gu.shape[0]}): max |U - plain| {dU:.3e} (atol 5e-5); metric, barrier "
+          f"max relative {rel['ergodic_metric']:.3e}, {rel['barrier_cost']:.3e} (rtol 1e-5); "
+          f"ck_sum {ck_bad} outside rtol 1e-5 / atol 5e-6; {n_mism} scenarios with another "
+          f"code, DWA flag or control (limit {CODE_MISMATCH_LIMIT}); DWA active in "
+          f"{int(rd.dwa_active.sum())}", flush=True)
+    if (dU > 5e-5 or max(rel.values()) > 1e-5 or ck_bad or n_mism > CODE_MISMATCH_LIMIT
+            or not torch.isfinite(gs.state.U).all()):
+        fail(f"{name}: the tick on the card is outside its budget against its plain route")
 
 
 def default_step_phase(dev, card) -> dict:
@@ -3626,7 +3716,9 @@ def default_step_phase(dev, card) -> dict:
     rtol 1e-5, ck_sum rtol 1e-5 / atol 5e-6, at most CODE_MISMATCH_LIMIT
     scenarios whose code, DWA flags or control (5e-5) differ; launches
     exact. Then the kernels and copies a tick of C's and Q's ``explore``
-    graphs (10 ticks a replay; at most STEP_KERNELS). Fails on a breach."""
+    graphs (10 ticks a replay; at most STEP_KERNELS). Fails on a breach.
+    Returns the numbers, and under "states" C's and Q's (engine, scenarios,
+    target, world)."""
     import torch
 
     from ergodic_exploration_tpu_torch.config import default_config
@@ -3653,28 +3745,12 @@ def default_step_phase(dev, card) -> dict:
         (rs, ru, rd) = plain_step_route(lambda: eng._replan_fn(sc, phik, world))
         torch.cuda.synchronize()
         expect_counts(f"phase 26, {name}, the plain route", {**read_counts(), **read_glue()}, {})
-        dU = (gs.state.U - rs.state.U).abs().max().item()
-        rel = {k: ((getattr(gd, k) - getattr(rd, k)).abs()
-                   / getattr(rd, k).abs().clamp(min=1e-7 / 1e-5)).max().item()
-               for k in ("ergodic_metric", "barrier_cost")}
-        ck = (gs.state.ck_sum - rs.state.ck_sum).abs()
-        ck_bad = int((ck > 5e-6 + 1e-5 * rs.state.ck_sum.abs()).sum())
-        mism = ((gd.collision_code != rd.collision_code) | (gd.dwa_active != rd.dwa_active)
-                | (gd.dwa_feasible != rd.dwa_feasible) | ((gu - ru).abs() > 5e-5).any(1))
-        n_mism = int(mism.sum())
+        tick_budget(f"phase 26, {name}", (gs, gu, gd), (rs, ru, rd))
         ms = events_ms(lambda: eng._replan_fn(sc, phik, world), 20)
         plain_ms = events_ms(lambda: plain_step_route(lambda: eng._replan_fn(sc, phik, world)), 3)
-        print(f"  {name} (S={S_}): max |U - plain| {dU:.3e} (atol 5e-5); metric, barrier max "
-              f"relative {rel['ergodic_metric']:.3e}, {rel['barrier_cost']:.3e} (rtol 1e-5); "
-              f"ck_sum {ck_bad} outside rtol 1e-5 / atol 5e-6; {n_mism} of {S_} scenarios with "
-              f"another code, DWA flag or control (limit {CODE_MISMATCH_LIMIT}); DWA active in "
-              f"{int(rd.dwa_active.sum())}; the eager tick {ms:.4f} ms, its plain route "
-              f"{plain_ms:.4f} ms {card}", flush=True)
-        if (dU > 5e-5 or max(rel.values()) > 1e-5 or ck_bad or n_mism > CODE_MISMATCH_LIMIT
-                or not torch.isfinite(gs.state.U).all()):
-            fail(f"phase 26, {name}: the step on the card is outside its budget against the "
-                 f"plain route")
-        out[name] = dict(ms=ms, plain_ms=plain_ms, err=dU)
+        print(f"  {name} (S={S_}): the eager tick {ms:.4f} ms, its plain route {plain_ms:.4f} ms "
+              f"{card}", flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, err=(gs.state.U - rs.state.U).abs().max().item())
         return sc
 
     cfg_c, x0_c, grids_c, gmm_c, dom = distinct_case(512, dev, seed=3, use_fused_solve=False)
@@ -3718,7 +3794,320 @@ def default_step_phase(dev, card) -> dict:
         out[path] = dict(kernels=n, busy=busy, tick_ms=tick_ms)
         if n > STEP_KERNELS:
             fail(f"phase 26: {path}'s graph runs {n:.1f} kernels a tick (limit {STEP_KERNELS})")
+    out["states"] = graphs_of
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the full ring's sums, the step's crop from the map, the coverage
+# ---------------------------------------------------------------------------
+
+
+def full_ring(S: int, cap: int, device, seed: int = 27):
+    """Rings of ``cap`` positions on the 5 m domain: a third full with a
+    cursor that just wrapped (cursor < 6), a third still filling (count =
+    cursor), a third full with the cursor anywhere; scenario 1 empty."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.ops.buffer import RingBuffer
+
+    rng = np.random.default_rng(seed)
+    states = rng.uniform(0.2, 4.8, (S, 2, cap)).astype(np.float32)
+    cursor = rng.integers(0, cap, S).astype(np.int32)
+    count = np.full(S, cap, np.int32)
+    cursor[::3] = rng.integers(0, 6, len(cursor[::3]))
+    count[1::3] = cursor[1::3]
+    if S > 1:
+        count[1] = cursor[1] = 0
+    return RingBuffer(*(torch.from_numpy(a).to(device) for a in (states, cursor, count)))
+
+
+def full_sums_f64(ring, K: int, domain):
+    """The full ring's history sums (S, K^2) in float64 from the card's
+    float32 cos tables (``basis.cos_tables``: torch.cos, whose bits the glue's
+    tables have): the exact sums that the kernel's and the plain version's
+    round."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.ops import basis
+
+    Cx, Cy = basis.cos_tables(ring.positions, K, domain)
+    w = ring.valid_mask().double()[..., None]
+    hk = basis.hk_norm(K, domain.lengths).double()
+    sums = torch.bmm((Cx.double() * w).transpose(1, 2), Cy.double()) / hk
+    return sums.reshape(ring.states.shape[0], K * K)
+
+
+def last_stages_phase(dev, card, entry, kernels, f_run: dict, states: dict) -> None:
+    """Phase 27: the three stages that ran as plain torch on the card until
+    this phase's kernels took them, each against its plain version on the
+    card. (a) glue_pre on the full ring (mode "full") against its plain
+    version (``controller.history_sums``) and the float64 sums: S = 4096,
+    cap 1024 on path A's configuration with ``buffer_batch`` None, S = 1,
+    K = 17; no further from float64 than the plain version (or within
+    GLUE_SUM_ATOL), the rest equal; timed beside the plain version, the
+    route it replaces and cuBLAS' bmm of the tables alone. (b) 10 chained
+    ticks of path A's configuration with the full ring (``replan_refresh``)
+    and of path C's with the full ring and with the accumulate mode
+    (``replan``, the eager step) against their plain routes (``tick_budget``),
+    launches exact, and ``explore`` on C's; the full-ring tick's peak device
+    memory beside its plain route's. (c) ``fused_safety_map`` on C's and Q's
+    states (``states``, phase 26's), the node's inputs (phase 16's) and
+    poses on the maps' four edges (``safety_map_check``). (d) the coverage
+    kernel bit for bit against its plain version on path F's beliefs
+    (``f_run``), all-unknown and all-known maps, S = 1 and 200 x 200 beliefs
+    at S = 1024. Adds the entries ``glue_pre_full``, ``glue_pre_accumulate``
+    and ``coverage``; fails on a breach."""
+    import torch
+
+    import ergodic_exploration_tpu_torch.ops.reveal_kernel as rk
+    import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
+    import ergodic_exploration_tpu_torch.ops.tick_glue as tg
+    from ergodic_exploration_tpu_torch.controller import history_sums
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
+    from ergodic_exploration_tpu_torch.ops import basis, sensor
+    from ergodic_exploration_tpu_torch.ops.patch import patch_start
+
+    print("== 27. the full ring's sums (glue_pre), the step's crop read from the map "
+          "(fused_safety_map), the coverage, against their plain versions", flush=True)
+    HIST_REPLACES = "ergodic_exploration_tpu/ops/solve_kernel.py:845"
+
+    def pick(t):  # scenario 0 alone
+        return t[:1].contiguous()
+
+    def full_check(tag, cfg, st, x, dom, patch):
+        args = (cfg, "full", st.rng, st.buffer, st.U, x, dom, patch)
+        reset_counts()
+        k = tg.G.pre(*args)
+        torch.cuda.synchronize()
+        expect_counts(f"phase 27, {tag}, the glue", read_glue(), {"glue_pre_full": 1})
+        p = tg.glue_pre_plain(*args)
+        for f in ("nh", "orbiting", "U", "pstart"):
+            if not torch.equal(getattr(k, f), getattr(p, f)):
+                fail(f"phase 27, {tag}: glue_pre's {f} differs from its plain version")
+        f64 = full_sums_f64(st.buffer, cfg.num_basis, dom)
+        err_k, err_p = ((t.double() - f64).abs().max().item() for t in (k.hist, p.hist))
+        d = (k.hist - p.hist).abs()
+        rel = (d / p.hist.abs().clamp(min=GLUE_SUM_ATOL)).max().item()
+        print(f"  glue_pre full ring, {tag}: max |kernel - float64| {err_k:.3e}, max |plain - "
+              f"float64| {err_p:.3e} (the kernel's budget: the larger of that and "
+              f"{GLUE_SUM_ATOL}); max |kernel - plain| {d.max().item():.3e}, relative "
+              f"{rel:.3e}; state counts, orbit flags, warm and patch starts equal", flush=True)
+        if not torch.isfinite(k.hist).all() or err_k > max(err_p, GLUE_SUM_ATOL):
+            fail(f"phase 27, {tag}: the full ring's sums are further from float64 than the plain "
+                 f"version's")
+        return k, d.max().item()
+
+    # (a) path A's configuration with the full ring, S = 4096, cap 1024
+    engine, sc_a, world_a, gmm_a, domain_a = build_engine(S_MAIN, dev)
+    cfg_a = engine.config.replace(buffer_batch=None)
+    eng_a = Engine(cfg_a)
+    cap, K = cfg_a.buffer_capacity, cfg_a.num_basis
+    ring = full_ring(S_MAIN, cap, dev)
+    sc_a = sc_a._replace(state=sc_a.state._replace(buffer=ring))
+    st, x = sc_a.state, sc_a.x.contiguous()
+    dom = Domain(world_a.domain.origin.contiguous(), world_a.domain.lengths.contiguous())
+    P = min(cfg_a.patch_cells, *world_a.dist.dist.shape[-2:])
+    patch = tg.PatchGeometry(world_a.dist.origin.contiguous(),
+                             world_a.dist.resolution.contiguous(), P)
+    n_valid = int(ring.count.clamp(0, cap).sum())
+    print(f"  rings: {int((ring.count == cap).sum())} full ({int((ring.cursor[::3] < 6).sum())} "
+          f"just wrapped), {int((ring.count < cap).sum())} still filling, {n_valid} valid "
+          f"entries of {S_MAIN * cap}")
+    k_full, err_full = full_check(f"S={S_MAIN}, cap {cap}, K={K}", cfg_a, st, x, dom, patch)
+    st1 = type(st)(*(type(v)(*map(pick, v)) if hasattr(v, "_fields") else pick(v) for v in st))
+    geo1 = tg.PatchGeometry(pick(patch.origin), pick(patch.resolution), P)
+    k1_, _ = full_check("S=1", cfg_a, st1, pick(x), Domain(pick(dom.origin), pick(dom.lengths)),
+                        geo1)
+    if not torch.equal(k1_.hist, k_full.hist[:1]):
+        fail("phase 27: the full ring's sums at S=1 differ from the full batch's row")
+    print("  S=1 (a block on one scenario): equal to the full batch's row bit for bit")
+    full_check(f"S={S_MAIN}, K=17 (two 2 x 2 tiles a lane)", cfg_a.replace(num_basis=17), st, x,
+               dom, patch)
+    args_a = (cfg_a, "full", st.rng, st.buffer, st.U, x, dom, patch)
+    hk = basis.hk_norm(K, dom.lengths)
+    Cx, Cy = basis.cos_tables(ring.positions, K, dom)
+    A = (Cx * ring.valid_mask()[..., None]).transpose(1, 2).contiguous()
+    ms_full = events_ms(lambda: tg.G.pre(*args_a), 20)
+    plain_full = events_ms(lambda: tg.glue_pre_plain(*args_a), 5)
+    earlier_full = events_ms(lambda: (tg.G.pre(cfg_a, None, *args_a[2:]),
+                                      history_sums(cfg_a, st, dom, hk)), 5)
+    lib_full = events_ms(lambda: torch.bmm(A, Cy), 20)
+    del Cx, Cy, A
+    entry("glue_pre_full", "tick_glue.cu", HIST_REPLACES, err_full, ms_full, plain_full,
+          glue_pre_work(cfg_a, S_MAIN, "full", cfg_a.horizon, cfg_a.nu, n_valid))
+    kernels["glue_pre_full"]["library_ms"] = lib_full
+    print(f"  glue_pre full ring at S={S_MAIN}: {ms_full:.4f} ms, its plain version "
+          f"{plain_full:.4f} ms, the route it replaces (glue_pre without history, then "
+          f"history_sums as plain torch) {earlier_full:.4f} ms, cuBLAS' bmm of the masked tables "
+          f"alone {lib_full:.4f} ms {card}", flush=True)
+
+    # (b) 10 chained ticks through the entry points against the plain routes
+    def chained(tag, eng, graph_tick, plain_tick, sc, want, glue):
+        torch.cuda.synchronize()
+        reset_counts()
+        got, s_ = [], sc
+        for _ in range(ENTRY_TICKS):
+            out = graph_tick(s_)
+            got.append((s_, out))
+            s_ = advance(eng, out[0], out[1])
+        torch.cuda.synchronize()
+        expect_counts(f"phase 27, {tag}", read_counts(), want)
+        glue_got = read_glue()
+        expect_counts(f"phase 27, {tag}, the glue", glue_got, glue)
+        note_launches(f"phase 27, {tag}", glue_got)
+        for i, (s_in, out) in enumerate(got):
+            tick_budget(f"phase 27, {tag}, tick {i + 1}", out, plain_tick(s_in))
+        return s_
+
+    T = ENTRY_TICKS
+    chained(f"path A's configuration with the full ring (replan_refresh), S={S_MAIN}", eng_a,
+            lambda s_: eng_a.replan_refresh(s_, gmm_a, domain_a, world_a),
+            lambda s_: with_plain_glue(
+                lambda: eng_a._refresh_and_replan_fn(s_, gmm_a, domain_a, world_a)),
+            sc_a, {"fused_solve_safety": T}, glue_want(cfg_a, T, in_place=True))
+    n, busy, _, _ = kernel_profile(lambda: eng_a.replan_refresh(sc_a, gmm_a, domain_a, world_a),
+                                   1)
+    print(f"  path A's configuration with the full ring, the 1-tick replan_refresh graph: "
+          f"{n:.1f} kernels and copies a tick, device busy {busy:.4f} ms a tick {card}")
+    peaks = {}
+    for kind, tick in (("kernels", lambda: eng_a._refresh_and_replan_fn(sc_a, gmm_a, domain_a,
+                                                                          world_a)),
+                       ("plain route", lambda: with_plain_glue(
+                           lambda: eng_a._refresh_and_replan_fn(sc_a, gmm_a, domain_a,
+                                                                world_a)))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tick()
+        torch.cuda.synchronize()
+        peaks[kind] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    print(f"  the full-ring tick at S={S_MAIN} (eager, glue_pre to glue_post): peak device memory "
+          f"above its inputs {peaks['kernels']:.1f} MiB with the kernel, "
+          f"{peaks['plain route']:.1f} MiB on the plain route (its (S, cap, K) float32 tables: "
+          f"{S_MAIN * cap * K * 4 / 2**20:.0f} MiB each) {card}", flush=True)
+    del engine, eng_a, sc_a, world_a, ring, st, k_full, k1_
+    torch.cuda.empty_cache()
+
+    cfg_c, x0_c, grids_c, gmm_c, dom_c = distinct_case(S_STEP, dev, seed=3,
+                                                       use_fused_solve=False)
+    for name, cfg in (("the full ring", cfg_c.replace(buffer_batch=None)),
+                      ("the accumulate mode", cfg_c.replace(history="accumulate"))):
+        eng = Engine(cfg)
+        world = eng.prepare_world(grids_c)
+        phik = eng.phik_from_gmm(gmm_c, dom_c)
+        sc = eng.init_scenarios(x0_c)
+        if cfg.history == "ring":
+            sc = sc._replace(state=sc.state._replace(buffer=full_ring(S_STEP, cap, dev, seed=28)))
+        else:  # a history of 20 ticks in ck_sum
+            sc = eng.explore(sc, phik, world, 20).scenarios
+        tag = f"path C with {name} (replan, the eager step), S={S_STEP}"
+        sc = chained(tag, eng, lambda s_: eng.replan(s_, phik, world),
+                     lambda s_: plain_step_route(lambda: eng._replan_fn(s_, phik, world)), sc,
+                     step_want(cfg, T), glue_want(cfg, T, in_place=True))
+        reset_counts()
+        eng.explore(sc, phik, world, T)
+        torch.cuda.synchronize()
+        expect_counts(f"phase 27, path C with {name}, explore", read_counts(), step_want(cfg, T))
+        expect_counts(f"phase 27, path C with {name}, explore, the glue", read_glue(),
+                      glue_want(cfg, T, advance=True, in_place=True))
+        n, busy, _, _ = kernel_profile(lambda: eng.explore(sc, phik, world, T), T)
+        tick_ms = events_ms(lambda: eng.explore(sc, phik, world, T), 5) / T
+        print(f"  path C with {name}, its explore graph ({T} ticks a replay): {n:.1f} kernels and "
+              f"copies a tick, device busy {busy:.4f} ms a tick, {tick_ms:.4f} ms a tick {card}",
+              flush=True)
+        if cfg.history == "accumulate":
+            st, xc = sc.state, sc.x.contiguous()
+            dc = Domain(world.domain.origin.contiguous(), world.domain.lengths.contiguous())
+            args_c = (cfg, "accumulate", st.rng, st.buffer, st.U, xc, dc, None, st.hist_count,
+                      st.ck_sum)
+            k, p = tg.G.pre(*args_c), tg.glue_pre_plain(*args_c)
+            for f in ("hist", "nh", "orbiting", "U"):
+                if not torch.equal(getattr(k, f), getattr(p, f)):
+                    fail(f"phase 27, the accumulate mode: glue_pre's {f} differs from plain")
+            print("  glue_pre in the accumulate mode: state counts, ck_sum handed on, orbit flags "
+                  "and warm starts equal to its plain version")
+            entry("glue_pre_accumulate", "tick_glue.cu", HIST_REPLACES, 0.0,
+                  events_ms(lambda: tg.G.pre(*args_c), 20),
+                  events_ms(lambda: tg.glue_pre_plain(*args_c), 5),
+                  glue_pre_work(cfg, S_STEP, "accumulate", cfg.horizon, cfg.nu))
+        else:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            peaks = {}
+            for kind, tick in (("kernels", lambda: eng._replan_fn(sc, phik, world)),
+                               ("plain route", lambda: plain_step_route(
+                                   lambda: eng._replan_fn(sc, phik, world)))):
+                torch.cuda.reset_peak_memory_stats()
+                tick()
+                torch.cuda.synchronize()
+                peaks[kind] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            print(f"  the full-ring eager step at S={S_STEP}: peak device memory above its inputs "
+                  f"{peaks['kernels']:.1f} MiB with the kernels, {peaks['plain route']:.1f} MiB "
+                  f"on the plain route {card}", flush=True)
+        del eng, world, phik, sc
+
+    # (c) the step's safety stage reading the crop from the map
+    for path, (eng, sc, _, world) in states.items():
+        safety_map_check(f"phase 27, path {path}'s state", eng.config, sc.x, sc.vb, sc.state.U,
+                         world)
+    if NODE_INPUTS:
+        safety_map_check("phase 27, the node's inputs (S=1)", *NODE_INPUTS)
+    eng, sc, _, world = states["C"]
+    cfg = eng.config
+    edge = torch.tensor([[0.0, 2.5], [5.0, 1.7], [2.5, 0.0], [1.3, 5.0], [0.0, 0.0], [5.0, 5.0],
+                         [0.01, 4.99], [4.99, 0.02]], device=dev)
+    x = sc.x.clone()
+    x[:len(edge), :2] = edge
+    P_c, Pc = sk.crop_geometry(cfg, world.dist.dist)
+    cst = patch_start(world.dist, x[:, :2], P_c) + (P_c - Pc) // 2
+    clamps = [int((cst[:, 0] < 0).sum()), int((cst[:, 1] < 0).sum()),
+              int((cst[:, 0] + Pc > 100).sum()), int((cst[:, 1] + Pc > 100).sum())]
+    if min(clamps) < 1:
+        fail(f"phase 27: the edge poses' crops do not clamp at every edge: {clamps}")
+    print(f"  crops past the left, bottom, right and top edges: {clamps}")
+    safety_map_check("phase 27, path C's maps with poses on the four edges", cfg, x, sc.vb,
+                     sc.state.U, world)
+
+    # (d) the coverage
+    def cover_check(tag, data):
+        data = data.contiguous()
+        reset_counts()
+        k = rk.R.coverage(data)
+        torch.cuda.synchronize()
+        expect_counts(f"phase 27, the coverage on {tag}", read_map(), map_want(0, 0, 0, 1))
+        S_ = data.shape[0]
+        p = sensor.fraction_known_plain(GridMap(data, torch.zeros(S_, 2, device=dev),
+                                                torch.full((S_,), 0.05, device=dev)))
+        old = (data != -1.0).to(torch.float32).mean()
+        n_known = int((data != -1.0).sum())
+        exact = np.float32(n_known / data.numel())
+        print(f"  the coverage on {tag}: kernel {k.item():.9f}, plain {p.item():.9f}, the "
+              f"exact share rounded once {float(exact):.9f}; the float32 mean it replaces "
+              f"{old.item():.9f} ({abs(old.item() - k.item()):.2e} apart)")
+        if not torch.equal(k, p) or k.item() != exact:
+            fail(f"phase 27: the coverage on {tag} differs from its plain version")
+        return k
+
+    belief_f = f_run["belief"]
+    cover_check(f"path F's beliefs (S={belief_f.shape[0]}, 100 x 100)", belief_f)
+    cover_check("all-unknown maps", torch.full_like(belief_f, -1.0))
+    cover_check("all-known maps", torch.zeros_like(belief_f))
+    cover_check("S=1", belief_f[:1])
+    cover_check(f"200 x 200 beliefs (S={S_BIG})",
+                torch.from_numpy(mi_beliefs(S_BIG, CELLS_BIG, CELLS_BIG)).to(dev))
+    n = belief_f.numel()
+    entry("coverage", "reveal_kernel.cu", "ergodic_exploration_tpu/ops/sensor.py:151",
+          0.0, events_ms(lambda: rk.R.coverage(belief_f), 50),
+          events_ms(lambda: sensor.fraction_known_plain(GridMap(belief_f, None, None)), 20),
+          (float(n), 4.0 * n + 4))
+    kernels["coverage"]["library_ms"] = events_ms(
+        lambda: torch.count_nonzero(belief_f != -1.0), 20)
+    print(f"  the coverage on path F's beliefs: torch.count_nonzero of the known cells (the "
+          f"library column) {kernels['coverage']['library_ms']:.4f} ms, the float32 mean it "
+          f"replaces {events_ms(lambda: (belief_f != -1.0).to(torch.float32).mean(), 20):.4f} "
+          f"ms {card}")
 
 
 def main() -> int:
@@ -3793,7 +4182,7 @@ def run(dev) -> int:
         print(f"{name}: nvcc {built.seconds:.2f} s -> {built.path.relative_to(ROOT)}")
         fn = ""
         for line in built.log.splitlines():
-            m = re.search(r"_Z\d+((?:k\d|glue|m)_[a-z_]+|reveal_kernel|edt_kernel)"
+            m = re.search(r"_Z\d+((?:k\d|glue|m)_[a-z_]+|reveal_kernel|edt_kernel|coverage_kernel)"
                           r"(I(?:L[a-z]\d+E)+E)?", line)
             args = re.findall(r"L[a-z](\d+)E", m.group(2) or "") if m else []
             fn = (m.group(1) + (f"<{', '.join(args)}>" if args else "")) if m else fn
@@ -4239,26 +4628,23 @@ def run(dev) -> int:
     sc_c = out_c.scenarios
     P_c = min(cfg_c.patch_cells, 100)
     crop = extract_patch(world_c.dist, sc_c.x[:, :2], P_c).center_crop(cfg_c.safety_patch_cells)
-    args = (sc_c.x.contiguous(), sc_c.vb.contiguous(), sc_c.state.U[:, 0].contiguous(),
-            crop.dist.contiguous(), crop.start.to(torch.int32), crop.origin.contiguous(),
-            crop.resolution.contiguous(), world_c.domain.origin.contiguous(),
-            world_c.domain.lengths.contiguous())
-    ks, ps = sk.K1.safety(cfg_c, *args), sk.fused_safety_plain(cfg_c, *args)
-    torch.cuda.synchronize()
-    e = compare_safety("path C fused_safety", ks, ps)
+    e, args, earlier = safety_map_check("path C", cfg_c, sc_c.x, sc_c.vb, sc_c.state.U, world_c)
     probes = dwa_probes_needed(cfg_c, eng_c.model, sc_c.x, sc_c.vb, world_c.domain, crop)
-    entry("fused_safety", "solve_kernel.cu", "ergodic_exploration_tpu/ops/solve_kernel.py:1254",
-          e, events_ms(lambda: sk.K1.safety(cfg_c, *args), 20),
-          events_ms(lambda: sk.fused_safety_plain(cfg_c, *args), 3),
+    entry("fused_safety_map", "solve_kernel.cu",
+          "ergodic_exploration_tpu/ops/solve_kernel.py:1254", e,
+          events_ms(lambda: sk.K1.safety_map(cfg_c, *args), 20),
+          events_ms(lambda: sk.fused_safety_map_plain(cfg_c, *args), 3),
           safety_work(cfg_c, S_C, crop.dist.shape[-1], probes))
-    kernels["fused_safety"]["launches"] = counts["fused_safety"]
+    kernels["fused_safety_map"]["launches"] = counts["fused_safety_map"]
+    print(f"  path C: the route the step took before (the crop's start, gather_window's four "
+          f"operations and k1_safety) {events_ms(earlier, 20):.4f} ms/call {card}")
     kernels["phik_from_gmm"]["launches"] = counts["phik_from_gmm"]
     # K1 as the step launches it (no safety stage, per-scenario maps and draws)
     k1_c = sk.k1_variant(False, True, True)
     entry(f"step_{k1_c}", "solve_kernel.cu", "ergodic_exploration_tpu/ops/solve_kernel.py:580",
           *step_k1_check(f"path C {k1_c}", cfg_c, sc_c, phik_c, world_c, 20))
     kernels[f"step_{k1_c}"]["launches"] = counts[k1_c]
-    del out_c, world_c, grids_c, sc_c, crop, args
+    del out_c, world_c, grids_c, sc_c, crop, args, earlier
 
     # ---- 10. path D: empty world, one Gaussian, safety off (fused_solve)
     T_D = 20
@@ -4773,9 +5159,11 @@ def run(dev) -> int:
     map_kernels_phase(dev, card, entry, f_run)
     at(25)
     dense_phase(dev, card, e_run, f_run)
-    del f_run, e_run
     at(26)
-    default_step_phase(dev, card)
+    states = default_step_phase(dev, card)["states"]
+    at(27)
+    last_stages_phase(dev, card, entry, kernels, f_run, states)
+    del f_run, e_run, states
     for name, (n, path) in LAUNCHES.items():
         if name in kernels:
             kernels[name]["launches"] = n

@@ -10,9 +10,9 @@ validate the emitted control and fall back to DWA on a predicted crash.
 stages (ops/solve_kernel.py). The eager :meth:`ErgodicController.step` runs
 the chain of the fused tick with the step's semantics (per-scenario history
 draws, validation + DWA on a crop after the descent): ``glue_pre`` (the draw
-key of the RNG split, the history draw, the orbit guard's warm-start reset,
-the patch starts), ``ops.solve_kernel.fused_solve`` (K1 without its safety
-stage), ``ops.solve_kernel.fused_safety`` and ``glue_post``
+key of the RNG split, the history draw or sums, the orbit guard's warm-start
+reset, the patch starts), ``ops.solve_kernel.fused_solve`` (K1 without its
+safety stage), ``ops.solve_kernel.fused_safety_map`` and ``glue_post``
 (:func:`finish_tick`: the DWA select, the divergence guard, the warm-start
 shift, the ring append, the next keys): kernels for CUDA tensors, their plain
 versions for CPU tensors.
@@ -241,16 +241,17 @@ class ErgodicController:
         :func:`finish_tick`, also for ``ring_in_place``).
 
         The chain of the fused tick with the step's own semantics:
-        ``glue_pre`` (per-scenario draws, the patch starts), K1 without its
-        safety stage (the descent and the ``ck_sum`` append, the patch read
-        from the map by its start), validation + DWA (``fused_safety``) on
-        the central ``safety_patch_cells`` crop of that patch, ``glue_post``.
-        On CPU tensors each stage is its plain version (:func:`descent`,
-        :func:`safety_on_crop`), on CUDA tensors its kernel.
+        ``glue_pre`` (per-scenario draws, the full ring's or the accumulate
+        mode's sums, the patch starts), K1 without its safety stage (the
+        descent and the ``ck_sum`` append, the patch read from the map by its
+        start), validation + DWA (``fused_safety_map``) on the central
+        ``safety_patch_cells`` crop of that patch, read from the map too,
+        ``glue_post``. On CPU tensors each stage is its plain version
+        (:func:`descent`, :func:`safety_on_crop` on the gathered crop), on
+        CUDA tensors its kernel.
         """
-        from ergodic_exploration_tpu_torch.ops.patch import gather_window
         from ergodic_exploration_tpu_torch.ops.solve_kernel import (
-            fused_safety, fused_solve, fused_tick_inputs)
+            fused_safety_map, fused_solve, fused_tick_inputs)
 
         cfg = self.config
         S, K = x.shape[0], cfg.num_basis
@@ -258,14 +259,8 @@ class ErgodicController:
         out = fused_solve(cfg, inp)
         safety_out = None
         if cfg.enable_safety:
-            # the patch's central crop, read from the map by its start (the
-            # crop's gradient is never read)
-            P = min(cfg.patch_cells, *inp.dist.shape[-2:])
-            Pc = min(cfg.safety_patch_cells, P)
-            cstart = inp.pstart + (P - Pc) // 2
-            safety_out = fused_safety(cfg, inp.x, inp.vb, out.U_new[:, 0].contiguous(),
-                                      gather_window(inp.dist, cstart, Pc), cstart, inp.porigin,
-                                      inp.pres, inp.dorigin, inp.dlen)
+            safety_out = fused_safety_map(cfg, inp.x, inp.vb, out.U_new, inp.dist, inp.pstart,
+                                          inp.porigin, inp.pres, inp.dorigin, inp.dlen)
         return finish_tick(cfg, state, inp.x, out.U_new, safety_out, out.ck_sum.view(S, K, K),
                            out.metric, out.barrier, orbiting, advance=advance,
                            ring_in_place=ring_in_place)

@@ -17,7 +17,12 @@
 //     positions drawn from the ring buffer (the TPU kernel's nb > 0 variant):
 //     then their cos tables and the (K, K) sums of outer products are computed
 //     in k1_solve;
-//   - the safety stage alone on a (S, Pc, Pc) crop given as data (k1_safety).
+//   - the safety stage alone on a (S, Pc, Pc) crop given as data (k1_safety),
+//     or on the central Pc x Pc crop of the P x P patch read from the map
+//     itself (k1_safety<true>, what the eager controller step launches: the
+//     JAX step cuts that crop out of its patch, controller.py extract_patch
+//     and center_crop, an XLA gather; here the crop's cells are read where
+//     they lie, with the per-cell edge clamp of ops/patch.py gather_window).
 // Built by nvcc for sm_90a (utils/cuda_build.py) and called through the plain C
 // entry points at the end of this file from ops/solve_kernel.py.
 //
@@ -55,7 +60,8 @@
 //               an SM, the tables cached in L1 / L2), which measured faster
 //               than fewer blocks an SM with shared tables
 //               (ops/solve_kernel.py::global_tables).
-//   k1_safety   one warp per scenario: that last stage alone.
+//   k1_safety   one warp per scenario: that last stage alone, on a crop
+//               given as data or read from the map.
 //
 // How a warp divides a scenario. Independent values go to the lanes, and
 // only true recurrences stay serial on lane 0:
@@ -168,6 +174,8 @@ struct K1Params {
     int nb;          // > 0: hist holds (S, nb, 2) drawn positions, not (S, K^2) sums
     int nsplit, chunks_per_split;  // lattice splits of the refresh (J > 0)
     int global_tables;  // 1: k1_solve's tables in solve_ws; 0: in shared memory
+    int crop_from_map;  // k1_safety: the crop read from dist (map_h x map_w maps), not given
+    int crop_offset;    // k1_safety from the map: crop cell (0, 0) is pstart + crop_offset
     float dt, half_dt, dt6, gamma, beta, b_eps, b_weight, b_weight2, o_weight, o_weight_m2;
     float b_radius, d_safe, inv_d_safe, d_min, patch_hi, crop_hi, tw_a, tw_b, inv_a, inv_r;
     float val_dt, dwa_dt, two_pi;
@@ -749,27 +757,37 @@ __global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_solve(K1Params p, K1Buffe
 // safety alone, on a crop given as data
 // ---------------------------------------------------------------------------
 
-// Operands in K1Buffers: x, vb (S, 3); U holds u0 (S, nu); dist holds the
-// crops (S, Pc, Pc); pstart (S, 2) is the global cell of crop cell (0, 0).
+// Operands in K1Buffers: x, vb (S, 3); dist holds the crops (S, Pc, Pc),
+// U holds u0 (S, nu) and pstart (S, 2) the global cell of crop cell (0, 0);
+// or (FROM_MAP) dist holds the map (map_stride 0: one shared map), U the
+// descent's controls (S, H, nu), of which step 0 is u0, and pstart the
+// patch starts, the crop starting crop_offset cells on (the patch's central
+// crop). A crop cell past the map's edge reads the edge's cell, as the
+// gathered crop holds it, so both read the same values.
+template <bool FROM_MAP>
 __global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_safety(K1Params p, K1Buffers b) {
     const int lane = threadIdx.x & 31;
     const int s = blockIdx.x * SOLVE_WARPS + (threadIdx.x >> 5);
     if (s >= p.S) return;  // a whole warp
     const int nu = p.nu;
+    const int o = FROM_MAP ? p.crop_offset : 0;
+    const int cx = b.pstart[s * 2 + 0] + o, cy = b.pstart[s * 2 + 1] + o;
     Crop g;
-    g.m = MapView{b.dist + (size_t)s * p.Pc * p.Pc, p.Pc, p.Pc, 0, 0};
-    g.sxf = (float)b.pstart[s * 2 + 0];
-    g.syf = (float)b.pstart[s * 2 + 1];
+    g.m = FROM_MAP ? MapView{b.dist + (size_t)s * p.map_stride, p.map_h, p.map_w, cx, cy}
+                   : MapView{b.dist + (size_t)s * p.Pc * p.Pc, p.Pc, p.Pc, 0, 0};
+    g.sxf = (float)cx;
+    g.syf = (float)cy;
     g.pox = b.porigin[s * 2 + 0]; g.poy = b.porigin[s * 2 + 1]; g.res = b.pres[s];
     g.dox = b.dorigin[s * 2 + 0]; g.doy = b.dorigin[s * 2 + 1];
     g.Lx = b.dlen[s * 2 + 0]; g.Ly = b.dlen[s * 2 + 1];
     g.hi = p.crop_hi; g.b_radius = p.b_radius; g.d_safe = p.d_safe;
     const float th0 = b.x[s * 3 + 2];
     const Pose0 pose{b.x[s * 3 + 0], b.x[s * 3 + 1], cosf(th0), sinf(th0)};
+    const float* U0 = b.U + (size_t)s * (FROM_MAP ? p.H : 1) * nu;
     float u0[NUMAX] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int i = 0; i < NUMAX; ++i)
-        if (i < nu) u0[i] = b.U[(size_t)s * nu + i];
+        if (i < nu) u0[i] = U0[i];
     safety_stage(p, g, pose, u0, b.vb + s * 3, lane, b.code + s, b.u_dwa + (size_t)s * nu,
                  b.feasible + s);
 }
@@ -842,14 +860,18 @@ extern "C" int k1_refresh_phik(const K1Params* params, const K1Buffers* buffers,
     return (int)cudaGetLastError();
 }
 
-// Launch the standalone safety stage (fused_safety) for p->S scenarios on
-// `stream`; returns the CUDA error code (0 on success). Does not synchronize.
+// Launch the standalone safety stage (fused_safety, or with p->crop_from_map
+// fused_safety_map) for p->S scenarios on `stream`; returns the CUDA error
+// code (0 on success). Does not synchronize.
 extern "C" int k1_fused_safety(const K1Params* params, const K1Buffers* buffers, void* stream) {
     K1Params p = *params;
     K1Buffers b = *buffers;
     if (p.S <= 0) return 0;
-    if (p.nu > NUMAX || p.Pc < 1) return (int)cudaErrorInvalidValue;
-    cudaError_t e = launch_kernel(k1_safety, dim3((p.S + SOLVE_WARPS - 1) / SOLVE_WARPS),
+    if (p.nu > NUMAX || p.Pc < 1 ||
+        (p.crop_from_map && (p.map_h < 1 || p.map_w < 1 || p.H < 1 || p.crop_offset < 0)))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = launch_kernel(p.crop_from_map ? k1_safety<true> : k1_safety<false>,
+                                  dim3((p.S + SOLVE_WARPS - 1) / SOLVE_WARPS),
                                   dim3(32 * SOLVE_WARPS), 0, (cudaStream_t)stream, p, b);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();

@@ -10,13 +10,20 @@ H100 and what the design does about that). Its plain version is
 the same inputs and outputs; the CPU tests run it, ``chip_smoke.py`` holds
 the kernel against it on the card cell for cell.
 
+Beside it, in the same source, the coverage of the mapping loops
+(:meth:`RevealRaycast.coverage`): the share of the beliefs' cells that are
+not UNKNOWN, counted in integers, one launch (the twin of the mean of
+``ergodic_exploration_tpu/ops/sensor.py::fraction_known``); its plain version
+is :func:`ergodic_exploration_tpu_torch.ops.sensor.fraction_known_plain`, the
+same bits.
+
 Dispatch: :func:`ergodic_exploration_tpu_torch.ops.sensor.reveal_raycast`
-takes the plain version only for tensors that lie on the CPU. For CUDA
-tensors it launches the kernel or raises; there is no fallback.
-``R.launches`` counts the launches of each variant: ``reveal_raycast`` (the
-bin table and the window's cell words in shared memory) and
-``reveal_raycast_global`` (past ``smem_limit`` bytes of them, in a global
-workspace).
+and :func:`~ergodic_exploration_tpu_torch.ops.sensor.fraction_known` take
+the plain versions only for tensors that lie on the CPU. For CUDA tensors
+they launch the kernel or raise; there is no fallback. ``R.launches`` counts
+the launches of each variant: ``reveal_raycast`` (the bin table and the
+window's cell words in shared memory), ``reveal_raycast_global`` (past
+``smem_limit`` bytes of them, in a global workspace) and ``coverage``.
 """
 
 from __future__ import annotations
@@ -46,17 +53,30 @@ class _Buffers(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _BUFFERS]
 
 
+class _CoverParams(ctypes.Structure):
+    """Mirror of ``struct CoverParams`` in csrc/reveal_kernel.cu."""
+
+    _fields_ = [("n", ctypes.c_longlong)]
+
+
+class _CoverBuffers(ctypes.Structure):
+    """Mirror of ``struct CoverBuffers``: device pointers."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in ("data", "work", "out")]
+
+
 class RevealRaycast:
     """The R wrapper: builds ``csrc/reveal_kernel.cu`` on first use and
     counts its launches per variant (``launches[variant]`` grows by one per
     launch of that variant, nowhere else)."""
 
-    VARIANTS = ("reveal_raycast", "reveal_raycast_global")
+    VARIANTS = ("reveal_raycast", "reveal_raycast_global", "coverage")
 
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
         self.smem_limit = MAX_SMEM  # bytes of tables a block keeps in shared memory
         self.launches = {}
+        self._work = {}  # device -> the coverage's running count and ticket (zero between launches)
         self.reset_launches()
 
     def reset_launches(self) -> None:
@@ -69,6 +89,10 @@ class RevealRaycast:
             built = build("reveal_kernel", LIBRARIES["reveal_kernel"])
             fn = built.lib.reveal_raycast
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(_Buffers), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = built.lib.reveal_coverage
+            fn.argtypes = [ctypes.POINTER(_CoverParams), ctypes.POINTER(_CoverBuffers),
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self.built = built
         return self.built
@@ -114,6 +138,29 @@ class RevealRaycast:
         if err != 0:
             raise RuntimeError(f"{variant} launch failed: CUDA error {err}")
         self.launches[variant] += 1
+        return out
+
+    def coverage(self, data: torch.Tensor) -> torch.Tensor:
+        """The share of the cells of ``data`` (beliefs of any shape, float32)
+        that are not UNKNOWN, as a 0-dim float32 tensor on their device:
+        float32(count / numel) with the count in integers and one float64
+        division. The running count lives in a workspace of this wrapper's,
+        made (zeroed) once per device and left zeroed by every launch."""
+        dev = data.device
+        _require_cuda(dev, "coverage kernel")
+        if data.dtype != torch.float32 or data.numel() < 1:
+            raise ValueError(f"the coverage kernel takes float32 beliefs with cells, got "
+                             f"{data.dtype} {tuple(data.shape)}")
+        data = data.contiguous()
+        if dev not in self._work:
+            self._work[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+        out = torch.empty((), dtype=torch.float32, device=dev)
+        bufs = _CoverBuffers(data=data.data_ptr(), work=self._work[dev].data_ptr(),
+                             out=out.data_ptr())
+        err = launch_on(dev, self.build().lib.reveal_coverage, _CoverParams(n=data.numel()), bufs)
+        if err != 0:
+            raise RuntimeError(f"coverage launch failed: CUDA error {err}")
+        self.launches["coverage"] += 1
         return out
 
 

@@ -172,6 +172,19 @@ def raycast_window_cells(sensor_range: float, resolution: float) -> int:
     return 2 * (int(math.ceil(sensor_range / resolution)) + 1) + 1
 
 
+def fraction_known_plain(belief: GridMap) -> torch.Tensor:
+    """Scalar in [0, 1]: how much of the map(s) has been observed, exactly:
+    the cells that are not UNKNOWN counted in int64, divided by the cells
+    in float64 and rounded to float32 once (the JAX package's float32 mean
+    differs from it by rounding alone)."""
+    known = (belief.data != UNKNOWN).sum()
+    return (known.to(torch.float64) / belief.data.numel()).to(torch.float32)
+
+
 def fraction_known(belief: GridMap) -> torch.Tensor:
-    """Scalar in [0, 1]: how much of the map(s) has been observed."""
-    return (belief.data != UNKNOWN).to(torch.float32).mean()
+    """:func:`fraction_known_plain` for CPU tensors, the coverage kernel
+    (``R.coverage``: one launch, the same bits) for CUDA tensors; raises for
+    any other device."""
+    if _on_cpu(belief.data, "fraction_known"):
+        return fraction_known_plain(belief)
+    return R.coverage(belief.data)

@@ -22,10 +22,12 @@ collision / dwa functions; the CPU tests run it, ``chip_smoke.py`` holds
 the kernel against it on the card.
 
 Dispatch: :func:`fused_solve_safety`, :func:`fused_solve` (the tick without
-validation + DWA) and :func:`fused_safety` (validation + DWA alone, on a
-crop given as data) take their plain versions only for tensors that lie on
-the CPU. For CUDA tensors they launch the kernel or raise; there is no
-fallback. ``K1.launches`` counts the launches of each variant.
+validation + DWA), :func:`fused_safety` (validation + DWA alone, on a crop
+given as data) and :func:`fused_safety_map` (the same on the patch's central
+crop read from the map, what the eager step runs) take their plain versions
+only for tensors that lie on the CPU. For CUDA tensors they launch the
+kernel or raise; there is no fallback. ``K1.launches`` counts the launches
+of each variant.
 
 The history term of c_k reaches K1 in one of two forms, as in the JAX
 package: (K, K) sums computed ahead of the launch (shared history draw, full
@@ -251,6 +253,28 @@ def fused_solve_safety_plain(cfg, inp: K1Inputs, enable_safety: bool = True) -> 
     return K1Outputs(U_new, metric, bcost, ck_sum, code, u_dwa, feasible)
 
 
+def crop_geometry(cfg, dist: torch.Tensor):
+    """(P, Pc): the patch's cells on maps ``dist`` (..., mh, mw) and its
+    central safety crop's."""
+    P = min(cfg.patch_cells, *dist.shape[-2:])
+    return P, min(cfg.safety_patch_cells, P)
+
+
+def fused_safety_map_plain(cfg, x, vb, U_new, dist, pstart, porigin, pres, dorigin, dlen):
+    """The safety stage on the central crop of each scenario's patch, its
+    plain version: the crop gathered from the maps ``dist`` ((mh, mw) shared
+    or (S, mh, mw)) at ``pstart + (P - Pc) // 2`` (``patch.gather_window``,
+    cells past the edge clamped) and :func:`fused_safety_plain` on it, for
+    u0 = ``U_new[:, 0]`` of the descent's (S, H, nu) controls."""
+    from ergodic_exploration_tpu_torch.ops.patch import gather_window
+
+    P, Pc = crop_geometry(cfg, dist)
+    cstart = pstart + (P - Pc) // 2
+    return fused_safety_plain(cfg, x, vb, U_new[:, 0].contiguous(),
+                              gather_window(dist, cstart, Pc), cstart, porigin, pres, dorigin,
+                              dlen)
+
+
 def fused_safety_plain(cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen):
     """The standalone safety stage's plain version: ``controller.safety_on_crop``
     on a :class:`PatchField` of the crop (S, Pc, Pc) given as data. Returns
@@ -282,7 +306,8 @@ class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "H", "K", "nu", "P", "Pc", "J", "Npad", "map_h", "map_w", "masked", "model",
         "cost_twist", "val_horizon", "dwa_horizon", "nvx", "nvy", "nw", "map_stride",
-        "safety", "nb", "nsplit", "chunks_per_split", "global_tables")] + [
+        "safety", "nb", "nsplit", "chunks_per_split", "global_tables", "crop_from_map",
+        "crop_offset")] + [
         (n, ctypes.c_float) for n in (
             "dt", "half_dt", "dt6", "gamma", "beta", "b_eps", "b_weight", "b_weight2",
             "o_weight", "o_weight_m2", "b_radius", "d_safe", "inv_d_safe", "d_min",
@@ -431,7 +456,8 @@ class FusedSolveSafety:
 
     SOLVE_VARIANTS = ("fused_solve_safety", "fused_solve_safety_map_h0", "fused_solve",
                       "fused_solve_map_h0")
-    VARIANTS = SOLVE_VARIANTS + tuple(v + "_nb" for v in SOLVE_VARIANTS) + ("fused_safety",)
+    VARIANTS = SOLVE_VARIANTS + tuple(v + "_nb" for v in SOLVE_VARIANTS) + (
+        "fused_safety", "fused_safety_map")
 
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
@@ -612,6 +638,36 @@ class FusedSolveSafety:
                      _c_params(sp, safety_params_from_config(cfg, Pc), S, 0), ops, dev)
         return code, u_dwa, feasible
 
+    def safety_map(self, cfg, x, vb, U_new, dist, pstart, porigin, pres, dorigin, dlen):
+        """Launch the safety stage on the patch's central crop read from the
+        map (``fused_safety_map``; see :func:`fused_safety_map_plain`)."""
+        dev = x.device
+        _require_cuda(dev, "fused_safety_map kernel")
+        S, H, nu = U_new.shape
+        if nu > NUMAX:
+            raise ValueError(f"fused_safety_map supports nu <= {NUMAX}")
+        per_scenario = dist.dim() == 3
+        if dist.dim() not in (2, 3):
+            raise ValueError(f"fused_safety_map dist: need (mh, mw) or (S, mh, mw), got "
+                             f"{tuple(dist.shape)}")
+        mh, mw = dist.shape[-2:]
+        P, Pc = crop_geometry(cfg, dist)
+        shapes = dict(x=(S, 3), vb=(S, 3), U=(S, H, nu),
+                      dist=(S, mh, mw) if per_scenario else (mh, mw), pstart=(S, 2),
+                      porigin=(S, 2), pres=(S,), dorigin=(S, 2), dlen=(S, 2))
+        ops = dict(x=x, vb=vb, U=U_new, dist=dist, pstart=pstart, porigin=porigin, pres=pres,
+                   dorigin=dorigin, dlen=dlen)
+        _check_operands("fused_safety_map", ops, shapes, dev)
+        code = torch.empty((S,), dtype=torch.int32, device=dev)
+        u_dwa = torch.empty((S, nu), dtype=torch.float32, device=dev)
+        feasible = torch.empty((S,), dtype=torch.int32, device=dev)
+        ops.update(code=code, u_dwa=u_dwa, feasible=feasible)
+        params = _c_params(params_from_config(cfg, P, (mh, mw), per_scenario_maps=per_scenario),
+                           safety_params_from_config(cfg, Pc), S, 0)
+        params.H, params.crop_from_map, params.crop_offset = H, 1, (P - Pc) // 2
+        self._launch("k1_fused_safety", "fused_safety_map", params, ops, dev)
+        return code, u_dwa, feasible
+
 
 K1 = FusedSolveSafety()
 
@@ -656,6 +712,22 @@ def fused_safety(cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen):
     if _on_cpu(x, "fused_safety"):
         return fused_safety_plain(cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen)
     return K1.safety(cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen)
+
+
+def fused_safety_map(cfg, x, vb, U_new, dist, pstart, porigin, pres, dorigin, dlen):
+    """Validation of u0 = ``U_new[:, 0]`` + the DWA sweep on the central
+    ``safety_patch_cells`` crop of each scenario's patch, read from the maps
+    ``dist`` ((mh, mw) shared or (S, mh, mw)) by the patch starts ``pstart``
+    (S, 2) int32: the eager step's safety stage. x, vb (S, 3), U_new (S, H,
+    nu), porigin / dorigin / dlen (S, 2), pres (S,). Returns (code (S,)
+    int32, u_dwa (S, nu), feasible (S,) int32). The plain version (the crop
+    gathered, then :func:`fused_safety_plain`) for CPU tensors, the CUDA
+    kernel for CUDA tensors; both read the same cells, so their outputs are
+    the same bits."""
+    if _on_cpu(x, "fused_safety_map"):
+        return fused_safety_map_plain(cfg, x, vb, U_new, dist, pstart, porigin, pres, dorigin,
+                                      dlen)
+    return K1.safety_map(cfg, x, vb, U_new, dist, pstart, porigin, pres, dorigin, dlen)
 
 
 # ---------------------------------------------------------------------------
@@ -721,12 +793,12 @@ def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None, lat
     split, the history draw, the orbit guard, the warm-start reset and the
     patch starts; a kernel on the card). The history reaches K1 as the sums
     of one shared draw (``shared_history_draw``, fused tick only), as each
-    scenario's drawn positions (K1 sums them), or, for the full ring and the
-    accumulate mode, as sums of plain torch. ``fused=False``: the inputs of
-    the eager step (``controller.ErgodicController.step``), whose draws are
-    per scenario whatever ``shared_history_draw`` says (the JAX step draws
-    under ``vmap``). Returns (K1Inputs, orbiting (S,))."""
-    from ergodic_exploration_tpu_torch.controller import history_sums
+    scenario's drawn positions (K1 sums them), as the sums over the full ring
+    (``buffer_batch`` None; glue_pre sums them too) or as ``ck_sum`` itself
+    (the accumulate mode, whose state count glue_pre writes). ``fused=False``:
+    the inputs of the eager step (``controller.ErgodicController.step``),
+    whose draws are per scenario whatever ``shared_history_draw`` says (the
+    JAX step draws under ``vmap``). Returns (K1Inputs, orbiting (S,))."""
     from ergodic_exploration_tpu_torch.ops.tick_glue import PatchGeometry, glue_pre, history_mode
 
     S = x.shape[0]
@@ -738,19 +810,15 @@ def fused_tick_inputs(cfg, state, x, vb, phik, world, gmm=None, domain=None, lat
     x = x.contiguous()
     mode = history_mode(cfg, fused=fused)
     pre = glue_pre(cfg, mode, state.rng, state.buffer, state.U, x, bdom,
-                   PatchGeometry(dist.origin.contiguous(), dist.resolution.contiguous(), P))
-    if mode is None:
-        hist, nh = history_sums(cfg, state, bdom, basis.hk_norm(K, bdom.lengths))
-        hist = hist.reshape(S, K * K)
-    else:
-        hist, nh = pre.hist, pre.nh
+                   PatchGeometry(dist.origin.contiguous(), dist.resolution.contiguous(), P),
+                   state.hist_count, state.ck_sum)
     refresh = None
     if gmm is not None:
         if not cfg.shared_maps or domain is None or domain.origin.dim() != 1:
             raise ValueError("in-kernel refresh needs cfg.shared_maps and an unbatched domain")
         refresh = refresh_operands(cfg, gmm, domain, world.free_mask, lattice)
     inp = K1Inputs(
-        x=x, U=pre.U, hist=hist.contiguous(), nh=nh.contiguous(),
+        x=x, U=pre.U, hist=pre.hist.contiguous(), nh=pre.nh.contiguous(),
         phik=None if refresh is not None else phik.reshape(S, K * K).contiguous(),
         refresh=refresh, dist=d.contiguous(), pstart=pre.pstart,
         porigin=dist.origin.contiguous(), pres=dist.resolution.contiguous(),

@@ -10,9 +10,12 @@ fusions. Here that work is two launches:
 ``glue_pre``  the RNG split's draw key, the history draw and its gather
               (mode ``"sums"``: the shared draw of the fused tick, reduced to
               the (S, K^2) sums K1 takes; ``"nb"``: each scenario's own draw,
-              handed on as (S, nb, 2) positions; None: the full ring or the
-              accumulate mode, whose history stays plain torch), the orbit
-              guard, the warm-start reset of U and the patch start;
+              handed on as (S, nb, 2) positions; ``"full"``: the full ring,
+              ``buffer_batch`` None, reduced to the (S, K^2) sums over each
+              scenario's valid entries; ``"accumulate"``: the accumulate
+              mode's state count, K1 reading ``ck_sum`` as its sums; None:
+              no history), the orbit guard, the warm-start reset of U and the
+              patch start;
 ``glue_post`` the DWA select, the divergence guard, the warm-start shift,
               the ring append, ``hist_count + 1``, the next keys and, with
               ``advance`` (the closed loops), one RK4 step of ``dt`` of the
@@ -52,7 +55,8 @@ from ergodic_exploration_tpu_torch.ops.patch import patch_start
 from ergodic_exploration_tpu_torch.ops.solve_kernel import _on_cpu, _require_cuda, launch_on
 from ergodic_exploration_tpu_torch.utils import prng
 
-MODES = {None: 0, "sums": 1, "nb": 2}  # glue_pre's history modes (``Mode`` in the source)
+# glue_pre's history modes (``Mode`` in the source)
+MODES = {None: 0, "sums": 1, "nb": 2, "full": 3, "accumulate": 4}
 
 
 class PatchGeometry(NamedTuple):
@@ -65,8 +69,10 @@ class PatchGeometry(NamedTuple):
 
 
 class GluePre(NamedTuple):
-    hist: Optional[torch.Tensor]  # (S, K^2) sums ("sums") or (S, nb, 2) positions ("nb")
-    nh: Optional[torch.Tensor]  # (S,) float32 history state count (None without a draw)
+    # (S, K^2) sums ("sums", "full"; "accumulate": ck_sum itself) or (S, nb, 2)
+    # positions ("nb")
+    hist: Optional[torch.Tensor]
+    nh: Optional[torch.Tensor]  # (S,) float32 history state count (None without history)
     orbiting: torch.Tensor  # (S,) bool: the orbit guard reset the warm start
     U: torch.Tensor  # (S, H, nu) warm start
     pstart: Optional[torch.Tensor]  # (S, 2) int32 patch starts (with a PatchGeometry)
@@ -86,13 +92,15 @@ class GluePost(NamedTuple):
     vb: Optional[torch.Tensor]  # (S, 3) body twists of ``u`` (``advance``)
 
 
-def history_mode(cfg, fused: bool) -> Optional[str]:
+def history_mode(cfg, fused: bool) -> str:
     """glue_pre's history mode for ``cfg``: ``"sums"`` for the fused tick's
     shared draw, ``"nb"`` for per-scenario draws (the fused tick without the
-    shared draw, and the eager step), None for the full ring and the
-    accumulate mode."""
-    if cfg.history != "ring" or not cfg.buffer_batch:
-        return None
+    shared draw, and the eager step), ``"full"`` for the full ring
+    (``buffer_batch`` None) and ``"accumulate"`` for the accumulate mode."""
+    if cfg.history != "ring":
+        return "accumulate"
+    if not cfg.buffer_batch:
+        return "full"
     return "sums" if fused and cfg.shared_history_draw else "nb"
 
 
@@ -126,17 +134,26 @@ def shared_draw_sums(cfg, buffer: RingBuffer, sub0: torch.Tensor, domain: Domain
 
 
 def glue_pre_plain(cfg, mode: Optional[str], rng, buffer: RingBuffer, U, x, domain: Domain,
-                   patch: Optional[PatchGeometry] = None) -> GluePre:
+                   patch: Optional[PatchGeometry] = None, hist_count=None,
+                   ck_sum=None) -> GluePre:
     """glue_pre's plain version: keys ``rng`` (S, 2), the ring, the warm
     start U (S, H, nu), poses x (S, 3), the per-scenario ``domain`` ((S, 2)
-    leaves) and, for the patch starts, a :class:`PatchGeometry`."""
-    from ergodic_exploration_tpu_torch.controller import orbit_guard
+    leaves), for the patch starts a :class:`PatchGeometry` and, for the
+    accumulate mode, ``hist_count`` (S,) and ``ck_sum`` (S, K, K). The full
+    ring and the accumulate mode take ``controller.history_sums``."""
+    from ergodic_exploration_tpu_torch.controller import (
+        ControllerState, history_sums, orbit_guard)
 
     hist = nh = pstart = None
     if mode == "sums":
         hist, nh = shared_draw_sums(cfg, buffer, prng.split(rng[0])[1], domain)
     elif mode == "nb":
         hist, nh = buffer.sample_states(cfg.buffer_batch, prng.split(rng)[:, 1])
+    elif mode in ("full", "accumulate"):
+        K = cfg.num_basis
+        hist, nh = history_sums(cfg, ControllerState(U, buffer, ck_sum, hist_count, rng), domain,
+                                basis.hk_norm(K, domain.lengths))
+        hist = hist.reshape(x.shape[0], K * K)
     orbiting = orbit_guard(cfg, buffer, x[:, :2])
     U_warm = torch.where(orbiting[:, None, None], torch.zeros_like(U), U)
     if patch is not None:
@@ -203,7 +220,7 @@ class _Params(ctypes.Structure):
 
 
 _PRE = ("rng", "states", "cursor", "count", "U", "x", "dorigin", "dlen", "porigin", "pres",
-        "hist", "nh", "orbiting", "U_warm", "pstart")
+        "hist_count", "hist", "nh", "orbiting", "U_warm", "pstart")
 _POST = ("U_new", "code", "u_dwa", "feasible", "states", "cursor", "count", "hist_count", "rng",
          "x", "U_next", "states_out", "cursor_out", "count_out", "hist_count_out", "rng_out",
          "u_cmd", "code_out", "use_dwa", "feasible_out", "diverged", "x_next", "vb_next")
@@ -252,7 +269,8 @@ class TickGlue:
     """The G wrapper: builds ``csrc/tick_glue.cu`` on first use and counts
     its launches per variant (``launches[variant]`` grows by one per launch
     of that variant, nowhere else): ``glue_pre_sums``, ``glue_pre_nb``,
-    ``glue_pre_nohist`` by history mode; ``glue_post``,
+    ``glue_pre_full``, ``glue_pre_accumulate``, ``glue_pre_nohist`` by
+    history mode; ``glue_post``,
     ``glue_post_advance``, ``glue_post_inplace`` and
     ``glue_post_advance_inplace`` by ``advance`` and ``ring_in_place``.
 
@@ -261,7 +279,8 @@ class TickGlue:
     spread over the block; the host tests lower it to reach the warp layout
     at small S)."""
 
-    PRE_VARIANTS = {"sums": "glue_pre_sums", "nb": "glue_pre_nb", None: "glue_pre_nohist"}
+    PRE_VARIANTS = {"sums": "glue_pre_sums", "nb": "glue_pre_nb", "full": "glue_pre_full",
+                    "accumulate": "glue_pre_accumulate", None: "glue_pre_nohist"}
     POST_VARIANTS = {(False, False): "glue_post", (True, False): "glue_post_advance",
                      (False, True): "glue_post_inplace", (True, True): "glue_post_advance_inplace"}
     VARIANTS = tuple(PRE_VARIANTS.values()) + tuple(POST_VARIANTS.values())
@@ -295,8 +314,9 @@ class TickGlue:
         self.launches[variant] += 1
 
     def pre(self, cfg, mode: Optional[str], rng, buffer: RingBuffer, U, x, domain: Domain,
-            patch: Optional[PatchGeometry] = None) -> GluePre:
-        """Launch glue_pre (see :func:`glue_pre_plain` for the operands)."""
+            patch: Optional[PatchGeometry] = None, hist_count=None, ck_sum=None) -> GluePre:
+        """Launch glue_pre (see :func:`glue_pre_plain` for the operands). In
+        the accumulate mode its ``hist`` is ``ck_sum`` itself, as (S, K^2)."""
         dev = x.device
         _require_cuda(dev, "glue_pre kernel")
         if mode not in MODES:
@@ -311,17 +331,21 @@ class TickGlue:
         if patch is not None:
             ops.update(porigin=patch.origin, pres=patch.resolution)
             want.update(porigin=((S, 2), _F32), pres=((S,), _F32))
+        if mode == "accumulate":
+            ops.update(hist_count=hist_count, ck_sum=ck_sum)
+            want.update(hist_count=((S,), _I32), ck_sum=((S, K, K), _F32))
         _check("glue_pre", ops, want, dev)
         kw = dict(device=dev)
         out = GluePre(
-            hist=(torch.empty((S, K * K), dtype=_F32, **kw) if mode == "sums" else
-                  torch.empty((S, nb, 2), dtype=_F32, **kw) if mode == "nb" else None),
+            hist=(torch.empty((S, K * K), dtype=_F32, **kw) if mode in ("sums", "full") else
+                  torch.empty((S, nb, 2), dtype=_F32, **kw) if mode == "nb" else
+                  ops["ck_sum"].view(S, K * K) if mode == "accumulate" else None),
             nh=torch.empty((S,), dtype=_F32, **kw) if mode is not None else None,
             orbiting=torch.empty((S,), dtype=torch.bool, **kw),
             U=torch.empty((S, H, nu), dtype=_F32, **kw),
             pstart=torch.empty((S, 2), dtype=_I32, **kw) if patch is not None else None)
-        ops.update(hist=out.hist, nh=out.nh, orbiting=out.orbiting, U_warm=out.U,
-                   pstart=out.pstart)
+        ops.update(hist=out.hist if mode != "accumulate" else None, nh=out.nh,
+                   orbiting=out.orbiting, U_warm=out.U, pstart=out.pstart)
         params = _c_params(cfg, S, H, nu, cap, nb=nb, mode=MODES[mode],
                            W=orbit_window(cfg, cap), P=patch.P if patch is not None else 0,
                            block=int(S <= self.block_max_s))
@@ -383,12 +407,12 @@ G = TickGlue()
 
 
 def glue_pre(cfg, mode: Optional[str], rng, buffer: RingBuffer, U, x, domain: Domain,
-             patch: Optional[PatchGeometry] = None) -> GluePre:
+             patch: Optional[PatchGeometry] = None, hist_count=None, ck_sum=None) -> GluePre:
     """glue_pre: the plain version for CPU tensors, the CUDA kernel for CUDA
     tensors (raises for anything else)."""
     if _on_cpu(x, "glue_pre"):
-        return glue_pre_plain(cfg, mode, rng, buffer, U, x, domain, patch)
-    return G.pre(cfg, mode, rng, buffer, U, x, domain, patch)
+        return glue_pre_plain(cfg, mode, rng, buffer, U, x, domain, patch, hist_count, ck_sum)
+    return G.pre(cfg, mode, rng, buffer, U, x, domain, patch, hist_count, ck_sum)
 
 
 def glue_post(cfg, shared_key: bool, U_new, safety, buffer: RingBuffer, hist_count, rng, x,

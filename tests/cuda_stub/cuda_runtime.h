@@ -41,6 +41,9 @@ struct alignas(8) float2 {
 struct alignas(16) float4 {
     float x, y, z, w;
 };
+struct alignas(16) double2 {
+    double x, y;
+};
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 
 typedef int cudaError_t;
@@ -183,6 +186,14 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
     std::atomic_ref<unsigned> a(*p);
     return a.fetch_or(v);
 }
+
+// the old value; *p becomes *p + v, atomically among the emulated threads
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+    std::atomic_ref<unsigned long long> a(*p);
+    return a.fetch_add(v);
+}
+
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 // the CUDA math intrinsics with an explicit rounding (to nearest even, the
 // host's default mode; -ffp-contract=off keeps a product a product)

@@ -1,7 +1,7 @@
 """The eager controller step (``ErgodicController.step``, the tick of the
 default configuration) on the chain of the fused tick: ``glue_pre`` with the
 patch starts, K1 without its safety stage (``fused_solve``), validation +
-DWA on the patch's central crop (``fused_safety``), ``glue_post``.
+DWA on the patch's central crop (``fused_safety_map``), ``glue_post``.
 
 On CPU tensors each stage is its plain version, so the step must equal, bit
 for bit (``torch.equal``), the step composed here from the package's plain
@@ -101,8 +101,9 @@ def _composed_step(ctrl, state, x, vb, phik, world):
     patch = extract_patch(world.dist, x[:, :2], cfg.patch_cells)
     x = x.contiguous()
     mode = history_mode(cfg, fused=False)
-    pre = glue_pre(cfg, mode, state.rng, state.buffer, state.U, x, domain)
-    if mode is None:
+    pre = glue_pre(cfg, mode, state.rng, state.buffer, state.U, x, domain, None,
+                   state.hist_count, state.ck_sum)
+    if mode in ("full", "accumulate"):
         hist_sum, n_hist = history_sums(cfg, state, domain, hk)
     else:
         hist_sum, n_hist = drawn_history_sums(pre.hist, pre.nh, K, domain, hk), pre.nh
@@ -151,30 +152,38 @@ def test_step_equals_composed_step_bit_for_bit(model, history, safety, shared):
 
 
 def test_step_drives_the_fused_route(monkeypatch):
-    """The step goes through ``fused_solve`` and ``fused_safety`` (the
-    dispatchers of K1 and k1_safety), once each a tick, with the crop read at
-    the patch start plus (P - Pc) // 2."""
+    """The step goes through ``fused_solve`` and ``fused_safety_map`` (the
+    dispatchers of K1 and of k1_safety reading the crop from the map), once
+    each a tick, the latter with the patch starts, the map and the descent's
+    controls; its plain version gathers the crop at the patch start plus
+    (P - Pc) // 2."""
     from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
 
     cfg, eng, world, phik, sc = _case("omni", "drawn", True, False)
     seen = []
-    solve, safety = sk.fused_solve, sk.fused_safety
+    solve, safety, on_crop = sk.fused_solve, sk.fused_safety_map, sk.fused_safety_plain
 
     def spy_solve(c, inp):
-        seen.append(("solve", inp.pstart.clone()))
+        seen.append(("solve", inp.pstart.clone(), inp.dist))
         return solve(c, inp)
 
-    def spy_safety(c, x, vb, u0, crop, pstart, *rest):
-        seen.append(("safety", pstart.clone(), tuple(crop.shape)))
-        return safety(c, x, vb, u0, crop, pstart, *rest)
+    def spy_safety(c, x, vb, U_new, dist, pstart, *rest):
+        seen.append(("safety", pstart.clone(), dist, tuple(U_new.shape)))
+        return safety(c, x, vb, U_new, dist, pstart, *rest)
+
+    def spy_crop(c, x, vb, u0, crop, cstart, *rest):
+        seen.append(("crop", cstart.clone(), tuple(crop.shape)))
+        return on_crop(c, x, vb, u0, crop, cstart, *rest)
 
     monkeypatch.setattr(sk, "fused_solve", spy_solve)
-    monkeypatch.setattr(sk, "fused_safety", spy_safety)
+    monkeypatch.setattr(sk, "fused_safety_map", spy_safety)
+    monkeypatch.setattr(sk, "fused_safety_plain", spy_crop)
     eng.controller.step(sc.state, sc.x, sc.vb, phik, world)
-    (k1, ps), (k, cs, shape) = seen
+    (k1, ps, d1), (k, ps2, d2, ushape), (c, cs, shape) = seen
     P = min(cfg.patch_cells, H_MAP, W_MAP)
     Pc = min(cfg.safety_patch_cells, P)
-    assert (k1, k, shape) == ("solve", "safety", (S, Pc, Pc))
+    assert (k1, k, c, shape) == ("solve", "safety", "crop", (S, Pc, Pc))
+    assert torch.equal(ps2, ps) and d2 is d1 and ushape == (S, cfg.horizon, cfg.nu)
     assert torch.equal(cs, ps + (P - Pc) // 2) and cs.dtype == torch.int32
 
 

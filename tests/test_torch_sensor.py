@@ -1,6 +1,7 @@
 """ops/sensor.py of the port against the JAX package, cell for cell: the disc
 reveal, the occlusion-aware ray-cast reveal (one map and batched), the
-window size and ``fraction_known``, on the worlds of tests/test_sensor.py and
+window size and ``fraction_known`` (the exact share, within 1e-6 of the
+JAX mean), on the worlds of tests/test_sensor.py and
 on seeded poses; and the reveal's own properties (blocks behind walls,
 monotone, idempotent, known cells equal the truth).
 
@@ -64,6 +65,33 @@ def test_window_size_and_fraction_known_match_jax():
     np.testing.assert_allclose(float(sensor.fraction_known(tt)),
                                float(jsensor.fraction_known(jt)), atol=1e-6)
     np.testing.assert_allclose(float(sensor.fraction_known(tt)), 0.6, atol=1e-6)
+
+
+# beliefs (S, h, w) known where uniform draws fall under the share given
+COVERAGE_CASES = {
+    "fleet_100x100": (4, 100, 100, 0.37),
+    "one_map_odd": (1, 61, 47, 0.81),
+    "all_unknown": (3, 40, 40, 0.0),
+    "all_known": (3, 40, 40, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(COVERAGE_CASES))
+def test_fraction_known_is_the_exact_share_and_matches_jax(case):
+    """``fraction_known`` (its plain version, what the CPU runs) is the exact
+    share rounded once: the known cells counted in integers over the cells,
+    in float64, to float32; within 1e-6 of the JAX package's float32 mean,
+    which rounds along its sum."""
+    S, h, w, share = COVERAGE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    data = np.where(rng.uniform(size=(S, h, w)) < share, rng.uniform(size=(S, h, w)),
+                    -1.0).astype(np.float32)
+    jt, _, tt, _ = _pair(data)
+    got = sensor.fraction_known(tt)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert got.item() == np.float32(np.count_nonzero(data != -1.0) / data.size)
+    assert torch.equal(got, sensor.fraction_known_plain(tt))
+    np.testing.assert_allclose(got.item(), float(jsensor.fraction_known(jt)), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("pose", [[1.5, 2.5, 0.0], [0.05, 4.9, 1.0], [3.3, 0.4, -2.0]])

@@ -134,6 +134,61 @@ def test_shared_draw_is_jax_uniform01_indices():
     assert (pre.hist[1] == 0).all() and pre.nh[1] == 0 and (pre.nh[count > 0] == 10).all()
 
 
+# history, a count past the capacity (scenario 5) or None
+HIST_ONE_CASES = {
+    "full_ring": ("ring", None),
+    "full_ring_count_past_cap": ("ring", CAP + 5),
+    "accumulate": ("accumulate", None),
+}
+
+
+@pytest.mark.parametrize("case", list(HIST_ONE_CASES))
+def test_full_ring_and_accumulate_match_jax_hist_one(case):
+    """glue_pre_plain in modes "full" (``buffer_batch`` None) and
+    "accumulate" against the two branches of the JAX tick's ``hist_one``
+    (ops/solve_kernel.py:845-852): the JAX package's ``basis.cos_tables``,
+    ``sample_mask(None)`` and ``coefficients_cos`` vmapped over the same
+    numpy-seeded rings (still filling, full, just wrapped, empty, a count
+    past the capacity) within rtol 1e-6 (atol 2e-6); the state counts (the mask's sum,
+    ``hist_count`` as float32) equal, ``ck_sum`` handed on as it is."""
+    history, past = HIST_ONE_CASES[case]
+    states, cursor, count, keys, x, U = ring_case(7)
+    if past is not None:
+        count[5] = past
+    rng = np.random.default_rng(7)
+    hc = rng.integers(0, 5000, S).astype(np.int32)
+    cks = rng.normal(0, 1, (S, 5, 5)).astype(np.float32)
+    cfg = _cfg(buffer_batch=None, history=history)
+    mode = tg.history_mode(cfg, fused=False)
+    assert mode == ("full" if history == "ring" else "accumulate")
+    assert tg.history_mode(cfg, fused=True) == mode
+    pre = tg.glue_pre_plain(cfg, mode, torch.from_numpy(keys.astype(np.int64)),
+                            torch_ring(states, cursor, count), torch.from_numpy(U),
+                            torch.from_numpy(x), _dom(), None, torch.from_numpy(hc),
+                            torch.from_numpy(cks))
+    jdom = JDomain.create(0.0, 0.0, 3.0, 3.0)
+
+    def hist_one(buf, ck_sum, hist_count):
+        hkl = jbasis.hk_norm(5, jdom.lengths)
+        if history == "ring":
+            Cbx, Cby = jbasis.cos_tables(buf.positions, 5, jdom)
+            w_buf = buf.sample_mask(None, None)
+            return jbasis.coefficients_cos(Cbx, Cby, w_buf, hkl), jnp.sum(w_buf)
+        return ck_sum, hist_count.astype(jnp.float32)
+
+    ref_h, ref_n = jax.vmap(hist_one)(jax_ring(states, cursor, count), jnp.asarray(cks),
+                                      jnp.asarray(hc))
+    # rtol 1e-6, and atol 2e-6 where the terms cancel: the two products sum up
+    # to CAP = 16 terms of magnitude <= 1 in another order, and a partial sum
+    # near 16 rounds by up to 9.5e-7 a step
+    np.testing.assert_allclose(pre.hist.numpy(), np.asarray(ref_h).reshape(S, 25), rtol=1e-6,
+                               atol=2e-6)
+    np.testing.assert_array_equal(pre.nh.numpy(), np.asarray(ref_n))
+    if history == "ring":
+        assert (pre.hist[1] == 0).all() and pre.nh[1] == 0
+        assert pre.nh[5] == (CAP if past is not None else min(count[5], CAP))
+
+
 def test_orbit_guard_right_after_a_wrap():
     """cursor < orbit_window and count = cap: the pose W ticks back is read
     through the floor-mod index (cursor - W) % cap, as in the JAX guard; the
