@@ -44,7 +44,13 @@ REPEATS runs of REPS calls:
     another take in another order;
   - the coverage (``sensor.fraction_known``) on path F's beliefs after one
     reveal at S = 4096 and S = 1: the exact share in a tree with the
-    coverage kernel, a float32 mean in one without (one rounding apart).
+    coverage kernel, a float32 mean in one without (one rounding apart);
+  - the full ring's sums (``glue_pre`` in mode "full": path A's
+    configuration with ``buffer_batch`` None on ``chip_smoke.full_ring``'s
+    rings of 1024) at S = 4096, 512 and 1, and that configuration's tick
+    (``Engine._refresh_and_replan_fn``, eager) at S = 4096. Two trees whose
+    kernels sum the full ring in another order give the same sums but for
+    rare one-ulp ties (float64 sums rounded once), and so the same ticks.
 
 It prints one JSON line of those times with the card's name and power limit,
 and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
@@ -158,6 +164,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
     absent = map_calls(calls, smoke, dev)
     dense_calls(calls, smoke, dev)
     step_calls(calls, smoke, dev)
+    full_calls(calls, smoke, dev, engine, sc, gmm, domain, world)
     saved, times = {}, {}
     for name, fn in calls.items():
         res = fn()
@@ -285,6 +292,31 @@ def step_calls(calls: dict, smoke, dev) -> None:
                                                                              world_q))
 
 
+def full_calls(calls: dict, smoke, dev, engine, sc, gmm, domain, world) -> None:
+    """Add the full ring's calls on path A's state ``sc`` with
+    ``chip_smoke.full_ring``'s rings: ``glue_pre`` in mode "full" at S =
+    4096, 512 and 1, and the tick of path A's configuration with
+    ``buffer_batch`` None (``Engine._refresh_and_replan_fn``) at S = 4096;
+    the tick's outputs are U, u, the metric and the codes."""
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.ops import tick_glue as tg
+
+    cfg = engine.config.replace(buffer_batch=None)
+    ring = smoke.full_ring(S_BIG, cfg.buffer_capacity, dev)
+    sc_full = sc._replace(state=sc.state._replace(buffer=ring))
+    pre, _ = glue_operands(tg, cfg, sc_full, world, None)
+    for S_ in (S_BIG, S_SMALL, 1):
+        args = first(pre, S_) if S_ < S_BIG else pre
+        calls[f"glue_pre_full_S{S_}"] = lambda args=args: tg.G.pre(*args)
+    eng = Engine(cfg)
+
+    def tick():
+        sc_, u, diag = eng._refresh_and_replan_fn(sc_full, gmm, domain, world)
+        return sc_.state.U, u, diag.ergodic_metric, diag.collision_code
+
+    calls[f"tick_A_full_ring_S{S_BIG}"] = tick
+
+
 def world_outputs(eng, belief) -> tuple:
     """dist, grad and the free mask of ``Engine._world_batched`` on ``belief``
     over its own extent."""
@@ -294,27 +326,30 @@ def world_outputs(eng, belief) -> tuple:
 
 def glue_operands(tg, cfg, sc, world, k1_out):
     """(glue_pre's operands, glue_post's operands) of the fused tick on the
-    state ``sc`` with K1's outputs ``k1_out`` (chip_smoke.py's phase 23)."""
+    state ``sc`` with K1's outputs ``k1_out`` (chip_smoke.py's phase 23;
+    glue_post's are None without them)."""
     from ergodic_exploration_tpu_torch.grid import Domain
 
     st, x = sc.state, sc.x.contiguous()
     dom = Domain(world.domain.origin.contiguous(), world.domain.lengths.contiguous())
     P = min(cfg.patch_cells, *world.dist.dist.shape[-2:])
     patch = tg.PatchGeometry(world.dist.origin.contiguous(), world.dist.resolution.contiguous(), P)
-    safety = (k1_out.code, k1_out.u_dwa, k1_out.feasible)
     pre = (cfg, tg.history_mode(cfg, True), st.rng, st.buffer, st.U, x, dom, patch)
+    if k1_out is None:
+        return pre, None
+    safety = (k1_out.code, k1_out.u_dwa, k1_out.feasible)
     post = (cfg, cfg.shared_history_draw, k1_out.U_new, safety, st.buffer, st.hist_count, st.rng,
             x)
     return pre, post
 
 
-def first(args):
-    """The operands of scenario 0 alone (S = 1)."""
+def first(args, n: int = 1):
+    """The operands of the first ``n`` scenarios alone (S = n)."""
     import torch
 
     def one(a):
         if isinstance(a, torch.Tensor):
-            return a[:1].contiguous()
+            return a[:n].contiguous()
         if hasattr(a, "P"):  # a PatchGeometry: its patch size stays
             return a._replace(origin=one(a.origin), resolution=one(a.resolution))
         if hasattr(a, "_fields"):

@@ -2953,7 +2953,7 @@ def kernel_profile(fn, units: int):
             [(k[:60], n / units, us / 1e3 / units) for k, (n, us) in top])
 
 
-def glue_phase(dev, card, entry) -> dict:
+def glue_phase(dev, card, entry, kernels) -> dict:
     """Phase 23: glue_pre and glue_post (G, csrc/tick_glue.cu) against their
     plain versions on the card, on the states paths A, B, D and E reach at
     S = 4096 and their first scenario (S = 1), and on path Q's omni state:
@@ -2965,8 +2965,9 @@ def glue_phase(dev, card, entry) -> dict:
     the kernels a tick (copies included) of A's 1-tick ``replan_refresh``
     graph and of B's ``explore`` graph (fails past GLUE_KERNELS_A /
     GLUE_KERNELS_B). Adds the
-    entries of the four variants those paths launch; returns the kernel
-    counts."""
+    entries of the four variants those paths launch (the shared draw's sums
+    with cuBLAS' bmm of their tables as the library column); returns the
+    kernel counts."""
     import torch
 
     import ergodic_exploration_tpu_torch.ops.solve_kernel as sk
@@ -2976,6 +2977,7 @@ def glue_phase(dev, card, entry) -> dict:
     from ergodic_exploration_tpu_torch.grid import Domain
     from ergodic_exploration_tpu_torch.ops.buffer import RingBuffer
     from ergodic_exploration_tpu_torch.utils import prng
+    from ergodic_exploration_tpu_torch.ops import basis
     from ergodic_exploration_tpu_torch.ops.patch import extract_patch
     from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
     from ergodic_exploration_tpu_torch.tools import quality
@@ -3175,10 +3177,19 @@ def glue_phase(dev, card, entry) -> dict:
     entry("glue_pre_sums", "tick_glue.cu", PRE_REPLACES, err_pre_a,
           events_ms(lambda: tg.G.pre(*pre_a), 20), events_ms(lambda: tg.glue_pre_plain(*pre_a), 5),
           glue_pre_work(cfg, S_MAIN, "sums", cfg.horizon, cfg.nu))
-    # the gather at the granularity of the memory system: the distinct
-    # 32-byte sectors the shared draw reads from each ring's two rows
     u = prng.uniform01(prng.split(pre_a[2][0])[1], cfg.buffer_batch)
     idx = torch.floor(u * torch.clamp(pre_a[3].count[0], min=1).float()).long()
+    # the library column: one torch.bmm of the shared draw's (S, K, nb) x
+    # (S, nb, K) cos tables, the product its sums are
+    Cbx, Cby = basis.cos_tables(pre_a[3].states.index_select(2, idx).transpose(1, 2),
+                                cfg.num_basis, pre_a[6])
+    CbxT, Cby = Cbx.transpose(1, 2).contiguous(), Cby.contiguous()
+    kernels["glue_pre_sums"]["library_ms"] = events_ms(lambda: torch.bmm(CbxT, Cby), 20)
+    print(f"  glue_pre_sums: cuBLAS' bmm of the shared draw's (S, K, nb) x (S, nb, K) tables "
+          f"alone {kernels['glue_pre_sums']['library_ms']:.4f} ms {card}")
+    del Cbx, Cby, CbxT
+    # the gather at the granularity of the memory system: the distinct
+    # 32-byte sectors the shared draw reads from each ring's two rows
     sectors = 2 * int(torch.unique(idx // 8).numel())
     print(f"  glue_pre_sums: the gather reads {sectors} 32-byte sectors a scenario, "
           f"{S_MAIN * sectors * 32 / 2**20:.2f} MiB, {S_MAIN * sectors * 32 / PEAK_BYTES * 1e3:.5f} "
@@ -3843,10 +3854,14 @@ def last_stages_phase(dev, card, entry, kernels, f_run: dict, states: dict) -> N
     this phase's kernels took them, each against its plain version on the
     card. (a) glue_pre on the full ring (mode "full") against its plain
     version (``controller.history_sums``) and the float64 sums: S = 4096,
-    cap 1024 on path A's configuration with ``buffer_batch`` None, S = 1,
-    K = 17; no further from float64 than the plain version (or within
-    GLUE_SUM_ATOL), the rest equal; timed beside the plain version, the
-    route it replaces and cuBLAS' bmm of the tables alone. (b) 10 chained
+    cap 1024 on path A's configuration with ``buffer_batch`` None, S = 512
+    and S = 1 (their rows equal to the full batch's bit for bit), K = 17 at
+    S = 4096 and 512; no further from float64 than the plain version (or
+    within GLUE_SUM_ATOL), the rest equal; the block and warp layouts forced
+    on the same rings (``G.block_max_s``) bit for bit at K = 10 and 17;
+    timed beside the plain version and the route it replaces, and alone at
+    S = 4096, 512 and 1 beside cuBLAS' bmm of the masked tables; the
+    accumulate mode's kernel beside an empty kernel's launch. (b) 10 chained
     ticks of path A's configuration with the full ring (``replan_refresh``)
     and of path C's with the full ring and with the accumulate mode
     (``replan``, the eager step) against their plain routes (``tick_budget``),
@@ -3872,9 +3887,6 @@ def last_stages_phase(dev, card, entry, kernels, f_run: dict, states: dict) -> N
     print("== 27. the full ring's sums (glue_pre), the step's crop read from the map "
           "(fused_safety_map), the coverage, against their plain versions", flush=True)
     HIST_REPLACES = "ergodic_exploration_tpu/ops/solve_kernel.py:845"
-
-    def pick(t):  # scenario 0 alone
-        return t[:1].contiguous()
 
     def full_check(tag, cfg, st, x, dom, patch):
         args = (cfg, "full", st.rng, st.buffer, st.U, x, dom, patch)
@@ -3915,33 +3927,75 @@ def last_stages_phase(dev, card, entry, kernels, f_run: dict, states: dict) -> N
     print(f"  rings: {int((ring.count == cap).sum())} full ({int((ring.cursor[::3] < 6).sum())} "
           f"just wrapped), {int((ring.count < cap).sum())} still filling, {n_valid} valid "
           f"entries of {S_MAIN * cap}")
+    def cut(n):  # (state, poses, domain, patch geometry) of the first n scenarios
+        def pk(t):
+            return t[:n].contiguous()
+
+        st_n = type(st)(*(type(v)(*map(pk, v)) if hasattr(v, "_fields") else pk(v) for v in st))
+        return (st_n, pk(x), Domain(pk(dom.origin), pk(dom.lengths)),
+                tg.PatchGeometry(pk(patch.origin), pk(patch.resolution), P))
+
     k_full, err_full = full_check(f"S={S_MAIN}, cap {cap}, K={K}", cfg_a, st, x, dom, patch)
-    st1 = type(st)(*(type(v)(*map(pick, v)) if hasattr(v, "_fields") else pick(v) for v in st))
-    geo1 = tg.PatchGeometry(pick(patch.origin), pick(patch.resolution), P)
-    k1_, _ = full_check("S=1", cfg_a, st1, pick(x), Domain(pick(dom.origin), pick(dom.lengths)),
-                        geo1)
+    k_small, _ = full_check(f"S={S_STEP} (a block a scenario)", cfg_a, *cut(S_STEP))
+    k1_, _ = full_check("S=1", cfg_a, *cut(1))
     if not torch.equal(k1_.hist, k_full.hist[:1]):
         fail("phase 27: the full ring's sums at S=1 differ from the full batch's row")
-    print("  S=1 (a block on one scenario): equal to the full batch's row bit for bit")
-    full_check(f"S={S_MAIN}, K=17 (two 2 x 2 tiles a lane)", cfg_a.replace(num_basis=17), st, x,
-               dom, patch)
+    if not torch.equal(k_small.hist, k_full.hist[:S_STEP]):
+        fail(f"phase 27: the full ring's sums at S={S_STEP} differ from the full batch's rows")
+    print(f"  S=1 and S={S_STEP} (a block a scenario): equal to the full batch's rows bit for bit")
+    full_check(f"S={S_MAIN}, K=17 (2 x 3 tiles a warp, one pass)", cfg_a.replace(num_basis=17),
+               st, x, dom, patch)
+    full_check(f"S={S_STEP}, K=17 (a block a scenario)", cfg_a.replace(num_basis=17),
+               *cut(S_STEP))
+
+    def layout(limit, args):  # the full ring's sums with G.block_max_s = limit
+        saved = tg.G.block_max_s
+        tg.G.block_max_s = limit
+        try:
+            return tg.G.pre(*args).hist
+        finally:
+            tg.G.block_max_s = saved
+
+    for K_ in (K, 17):
+        for n in (S_MAIN, S_STEP):
+            st_n, x_n, dom_n, patch_n = cut(n)
+            args = (cfg_a.replace(num_basis=K_), "full", st_n.rng, st_n.buffer, st_n.U, x_n, dom_n,
+                    patch_n)
+            if not torch.equal(layout(n, args), layout(0, args)):
+                fail(f"phase 27: the full ring's sums at K={K_}, S={n} differ between the block "
+                     f"layout and the warp layout")
+    print(f"  the block layout (a block a scenario) and the warp layout (a warp a scenario) forced "
+          f"on the same rings (G.block_max_s): equal bit for bit at K={K} and K=17, S={S_MAIN} "
+          f"and S={S_STEP}")
     args_a = (cfg_a, "full", st.rng, st.buffer, st.U, x, dom, patch)
     hk = basis.hk_norm(K, dom.lengths)
-    Cx, Cy = basis.cos_tables(ring.positions, K, dom)
-    A = (Cx * ring.valid_mask()[..., None]).transpose(1, 2).contiguous()
     ms_full = events_ms(lambda: tg.G.pre(*args_a), 20)
     plain_full = events_ms(lambda: tg.glue_pre_plain(*args_a), 5)
     earlier_full = events_ms(lambda: (tg.G.pre(cfg_a, None, *args_a[2:]),
                                       history_sums(cfg_a, st, dom, hk)), 5)
-    lib_full = events_ms(lambda: torch.bmm(A, Cy), 20)
-    del Cx, Cy, A
+    alone, lib = {}, {}
+    for n in (S_MAIN, S_STEP, 1):
+        st_n, x_n, dom_n, patch_n = cut(n)
+        args = (cfg_a, "full", st_n.rng, st_n.buffer, st_n.U, x_n, dom_n, patch_n)
+        alone[n] = ms_full if n == S_MAIN else events_ms(lambda: tg.G.pre(*args), 50)
+        Cx, Cy = basis.cos_tables(st_n.buffer.positions, K, dom_n)
+        A = (Cx * st_n.buffer.valid_mask()[..., None]).transpose(1, 2).contiguous()
+        lib[n] = events_ms(lambda: torch.bmm(A, Cy), 20)
+        del Cx, Cy, A
     entry("glue_pre_full", "tick_glue.cu", HIST_REPLACES, err_full, ms_full, plain_full,
           glue_pre_work(cfg_a, S_MAIN, "full", cfg_a.horizon, cfg_a.nu, n_valid))
-    kernels["glue_pre_full"]["library_ms"] = lib_full
+    kernels["glue_pre_full"]["library_ms"] = lib[S_MAIN]
     print(f"  glue_pre full ring at S={S_MAIN}: {ms_full:.4f} ms, its plain version "
           f"{plain_full:.4f} ms, the route it replaces (glue_pre without history, then "
           f"history_sums as plain torch) {earlier_full:.4f} ms, cuBLAS' bmm of the masked tables "
-          f"alone {lib_full:.4f} ms {card}", flush=True)
+          f"alone {lib[S_MAIN]:.4f} ms {card}", flush=True)
+    def full_bound(n):  # the bound of the first n scenarios' sums
+        n_ring = int(ring.count[:n].clamp(0, cap).sum())
+        return bound(*glue_pre_work(cfg_a, n, "full", cfg_a.horizon, cfg_a.nu, n_ring))[0]
+
+    print("  glue_pre full ring timed alone: " + ", ".join(
+        f"S={n} {alone[n]:.4f} ms (cuBLAS' bmm of its masked tables {lib[n]:.4f} ms, bound "
+        f"{full_bound(n):.5f} ms)" for n in alone) + f" {card}", flush=True)
 
     # (b) 10 chained ticks through the entry points against the plain routes
     def chained(tag, eng, graph_tick, plain_tick, sc, want, glue):
@@ -4032,6 +4086,9 @@ def last_stages_phase(dev, card, entry, kernels, f_run: dict, states: dict) -> N
                   events_ms(lambda: tg.G.pre(*args_c), 20),
                   events_ms(lambda: tg.glue_pre_plain(*args_c), 5),
                   glue_pre_work(cfg, S_STEP, "accumulate", cfg.horizon, cfg.nu))
+            print(f"  glue_pre_accumulate {kernels['glue_pre_accumulate']['ms']:.4f} ms beside an "
+                  f"empty kernel's launch (torch.cuda._sleep(0), a spin of no cycles) "
+                  f"{events_ms(lambda: torch.cuda._sleep(0), 50):.4f} ms {card}")
         else:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -5154,7 +5211,7 @@ def run(dev) -> int:
     at(22)
     entry_graphs_phase(dev, card)
     at(23)
-    glue_phase(dev, card, entry)
+    glue_phase(dev, card, entry, kernels)
     at(24)
     map_kernels_phase(dev, card, entry, f_run)
     at(25)

@@ -1,11 +1,14 @@
 // Host stand-in for the CUDA runtime, for tests only: lets the package's
 // .cu sources compile as host C++ (g++ -std=c++20) and run a launch as one
 // std::thread per CUDA thread, block after block, with std::barrier for
-// __syncthreads / __syncwarp and a per-warp exchange buffer for shuffles and
-// ballots.
+// __syncthreads / __syncwarp and a per-warp exchange buffer for shuffles,
+// ballots and the float64 tensor cores' fragments.
 // It exists to check a kernel's indexing and arithmetic where there is no
 // GPU; it says nothing about speed and does not model memory ordering.
 #pragma once
+
+// the sources' host branches (#elif defined(CUDA_HOST_STUB)) take this file's stand-ins
+#define CUDA_HOST_STUB 1
 
 #include <math.h>
 #include <stdint.h>
@@ -14,6 +17,7 @@
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <cstdlib>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -22,6 +26,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 
@@ -44,6 +49,7 @@ struct alignas(16) float4 {
 struct alignas(16) double2 {
     double x, y;
 };
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 
 typedef int cudaError_t;
@@ -147,6 +153,40 @@ inline T __shfl_down_sync(unsigned m, T v, unsigned delta) {
     const unsigned lane = (threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z)) % 32;
     return __shfl_sync(m, v, (int)(lane + delta < 32 ? lane + delta : lane));
 }
+
+namespace host_stub {
+
+// mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 on the host, to the PTX
+// ISA's fragment layout (g = lane / 4, t = lane % 4): a[2 i] = A[g][t + 4 i],
+// a[2 i + 1] = A[g + 8][t + 4 i], b[i] = B[t + 4 i][g], d = C and then D at
+// [g][2 t], [g][2 t + 1], [g + 8][2 t], [g + 8][2 t + 1]; D = A B + C, each
+// element's sixteen products added to C in k order by fused multiply-adds.
+// The fragments go round the warp's exchange slots, a register a round;
+// every lane of a full warp takes part
+inline void dmma_16x8x16(double (&d)[4], const double (&a)[8], const double (&b)[4]) {
+    Warp& w = *warp;
+    if (w.n != 32) std::abort();
+    const unsigned lane = (threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z)) % 32;
+    const unsigned g = lane / 4, t = lane % 4;
+    double A[2][16], B[16][2];  // this lane's rows g and g + 8 of A; columns 2 t, 2 t + 1 of B
+    for (int r = 0; r < 12; ++r) {
+        const double mine = r < 8 ? a[r] : b[r - 8];
+        memcpy(&w.slot[lane], &mine, sizeof mine);
+        w.bar.arrive_and_wait();
+        for (unsigned k = 0; k < 16; ++k) {
+            if (r < 8 && k / 4 == (unsigned)r / 2)  // A[g + 8 (r % 2)][k] is lane (g, k % 4)'s a[r]
+                memcpy(&A[r % 2][k], &w.slot[g * 4 + k % 4], sizeof mine);
+            if (r >= 8 && k / 4 == (unsigned)r - 8)  // B[k][n] is lane (n, k % 4)'s b[k / 4]
+                for (unsigned h = 0; h < 2; ++h)
+                    memcpy(&B[k][h], &w.slot[(2 * t + h) * 4 + k % 4], sizeof mine);
+        }
+        w.bar.arrive_and_wait();
+    }
+    for (int q = 0; q < 4; ++q)
+        for (int k = 0; k < 16; ++k) d[q] = fma(A[q >> 1][k], B[k][q & 1], d[q]);
+}
+
+}  // namespace host_stub
 
 inline unsigned __ballot_sync(unsigned, int pred) {
     host_stub::Warp& w = *host_stub::warp;

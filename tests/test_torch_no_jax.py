@@ -11,6 +11,7 @@ PKG = Path(__file__).resolve().parents[1] / "ergodic_exploration_tpu_torch"
 FILES = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py",
                                       PKG.parent / "chip_profile.py",
                                       PKG.parent / "chip_kernel_ab.py",
+                                      PKG.parent / "chip_dmma_probe.py",
                                       PKG.parent / "tests" / "torch_parallel_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "ergodic_exploration_tpu")
 
