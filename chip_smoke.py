@@ -62,7 +62,8 @@ Phases:
     -> 10 ticks of K1 on per-scenario maps), S = 4096, 5 refreshes, two rooms
     and a pillar; one R, one M and one E launch a refresh; the split of a
     refresh, each kernel beside its plain version; M against its plain
-    version on the beliefs reached, its rings also in the workspace
+    version on the beliefs reached, also in every placement of its
+    tables past the plan's (bit for bit)
 15  the MI tick (S = 64) and the mapping loop (S = 16) on the card vs on the CPU
 16  the single-robot node (``ExplorationNode``, ``default_config("cart")``, a
     100 x 100 map, native EDT): 300 ticks with a plant and a map update every
@@ -192,7 +193,7 @@ Phases:
     version (rtol 2e-4, atol 2e-5; the fallback rows bit for bit; two
     launches bit for bit): path F's beliefs (S = 4096, r = 0, fc = 3) and
     S = 1, path E's (r = 3, fc = 3 and 0), 200 x 200 beliefs at S = 1024
-    (the rings in shared memory and in the workspace, bit for bit), a
+    (also in every placement of its tables past the plan's, bit for bit), a
     60 x 140 map with a 48 x 64 lattice and K = 12, all-unknown beliefs
     (every scenario the fallback) and fully known maps; each with the max
     abs and relative error, M's ms beside the plain version's and the cuBLAS
@@ -222,6 +223,19 @@ Phases:
     (``fraction_known``) bit for bit against its plain version on path F's
     beliefs, all-unknown and all-known maps, S = 1 and 200 x 200 beliefs at
     S = 1024; each new variant timed beside the route it replaces
+28  the map sizes the JAX package answers: E with the free mask on 1400 x
+    1400 maps (S = 2) bit for bit against ``world_plain`` map by map, and on
+    gmapping's default 4000 x 4000 maps (S = 4) in dist and grad against the
+    EDT alone and in the mask against the plain mask; M against its plain
+    version (DENSE_TOL) at 4000 x 4000 (S = 16, r = fc = 3: the rings, y
+    sums and frontier words in the workspace, ``_global_sums``), at K = 130
+    (100 x 100, S = 16) and on a 4500 x 4500 lattice through
+    ``phik_from_grid`` (``_global_cx``); the mapping loop
+    (``explore_mapping_fused``) at 4000 x 4000, S = 16, r = fc = 3, two
+    refreshes of 10 ticks: finite outputs, the coverage risen from the
+    unknown start and never falling, one R, E (``world_global``) and M
+    launch a refresh, M against plain on the beliefs it reached; each
+    case's ms, bound and temporaries' peak
 
 Every closed loop of phases 7-18 (``explore``, ``explore_mapping``,
 ``explore_mapping_fused``) and every call of a single-tick entry point
@@ -324,6 +338,10 @@ GLUE_KERNELS_A, GLUE_KERNELS_B = 20, 25
 # margin of 5 that the limit had over PR 18's 19.9
 STEP_KERNELS = 20
 S_STEP = 512  # phase 27: path C's scenarios, as in phases 9 and 26
+# phase 28: gmapping's default map (x, y in [-100, 100] m, delta 0.05 m) in
+# cells a side; the mapping loop's refreshes there; the large lattice's side
+ROS_CELLS, ROS_REFRESHES, LATTICE_BIG = 4000, 2, 4500
+E_MASK_CELLS = 1400  # phase 28: maps past the whole-map bit plane E once kept in shared memory
 
 # the profiler's name of a glue kernel: "glue_pre_kernel(...)", or with
 # template arguments "void glue_post_kernel<false, true>(...)"
@@ -816,7 +834,7 @@ def mi_work(S, h, w, K, r, fc):
     return S * per, 4 * (S * cells + w * K + K * h + K * K + 1 + S * K * K)
 
 
-def dense_work(S, h, w, nsx, nsy, KK, r, fc, nnz):
+def dense_work(S, h, w, nsx, nsy, KK, r, fc, nnz, cells=None):
     """(flops, bytes) of M: per cell ~10 operations for the entropy (two logs)
     and the masks; per lattice point 2 (2r+1) for the box sums, 2 (2fc+1)
     for the frontier test with the mask, 2 for the masks; the separable
@@ -824,24 +842,42 @@ def dense_work(S, h, w, nsx, nsy, KK, r, fc, nnz):
     value is not 0 (``nnz`` of them: what this run's beliefs need) for the
     rows' projections, 2 K^2 per (scenario, lattice row) for their
     accumulation; the normalization. Bytes: the beliefs, the lattice cells,
-    the two cosine tables, h_k, the fallback and the result once."""
+    the two cosine tables, h_k, the fallback and the result once. ``cells``:
+    the cells of a map that the target reads (``box_cells``: the lattice
+    points' boxes), all h w when None."""
     N, K = nsx * nsy, math.isqrt(KK)
-    flops = (S * h * w * 10 + S * N * (2 * (2 * r + 1) + (2 * (2 * fc + 1) if fc else 0) + 2)
+    cells = h * w if cells is None else cells
+    flops = (S * cells * 10 + S * N * (2 * (2 * r + 1) + (2 * (2 * fc + 1) if fc else 0) + 2)
              + 2 * nnz * K + 2 * S * nsy * KK + 3 * S * KK)
-    return flops, 4 * (S * h * w + nsx + nsy + (nsx + nsy) * K + 2 * KK + S * KK)
+    return flops, 4 * (S * cells + nsx + nsy + (nsx + nsy) * K + 2 * KK + S * KK)
+
+
+def box_cells(ops, h: int, w: int, m: int) -> int:
+    """Cells of an (h, w) map within m rows and m columns of a lattice point's
+    cell (``ops.cy``, ``ops.cx``): what M's function reads of each map at
+    m = max(r, fc)."""
+    import torch
+
+    def span(idx, n):
+        off = torch.arange(-m, m + 1)
+        return int(torch.unique((idx.cpu().long()[:, None] + off).clamp(0, n - 1)).numel())
+
+    return span(ops.cy, h) * span(ops.cx, w)
 
 
 def dense_check(name: str, data, ops, r: int, fc: int, thr: float, card: str, reps: int = 20,
-                plain_reps: int = 5, ring_global: bool = False) -> dict:
+                plain_reps: int = 5, placements: bool = False) -> dict:
     """M on the beliefs ``data`` (S, h, w) against its plain version on the
     card: within DENSE_TOL, the fallback taken by the same scenarios and
     equal to it bit for bit there, two launches bit for bit; then M's ms,
     the plain version's and the cuBLAS product (S, N) @ (N, K^2) alone on
     the plain version's lattice values (the library yardstick), by CUDA
     events, and the temporaries' peak of each above the inputs. With
-    ``ring_global`` the rings sit in the workspace (the ``_global``
-    variant), which must equal the shared-memory form bit for bit. Fails on
-    a breach; returns the numbers."""
+    ``placements`` M runs again in each placement past its plan's (the
+    rings, then the y sums and frontier words, the Cx table, the lattice
+    and offset tables in the workspace: ``mi_dense_kernel.SPILLS``, forced
+    by a ``smem_limit`` of that placement's bytes), each equal to the
+    plan's bit for bit. Fails on a breach; returns the numbers."""
     import torch
 
     from ergodic_exploration_tpu_torch.ops import mi_dense_kernel as md
@@ -877,16 +913,23 @@ def dense_check(name: str, data, ops, r: int, fc: int, thr: float, card: str, re
             or not torch.equal(fb_ref, fb_got) or not torch.equal(got, again)):
         fail(f"M {name}: outside tolerance, another fallback, non-finite, mis-shaped or two "
              f"launches that differ")
-    if ring_global:
-        limit = md.M.smem_limit
-        md.M.smem_limit = 0
+    if placements:
+        nsx, nsy = ops.cx.shape[0], ops.cy.shape[0]
+        G, spill, _ = md.plan(h_, w_, nsx, nsy, K, r, fc)
+        limit, forced = md.M.smem_limit, []
         try:
-            glob = md.M(data, *args)
+            for level in range(spill + 1, len(md.SPILLS)):
+                md.M.smem_limit = md.smem_bytes(h_, w_, nsx, nsy, K, r, fc, G, level)
+                if md.M.smem_limit == md.smem_bytes(h_, w_, nsx, nsy, K, r, fc, G, level - 1):
+                    continue  # this placement moves nothing of these tables
+                before = dict(md.M.launches)
+                if not torch.equal(md.M(data, *args), got):
+                    fail(f"M {name}: placement {md.SPILLS[level]!r} differs from "
+                         f"{md.SPILLS[spill]!r}")
+                forced += [v for v, n in md.M.launches.items() if n != before[v]]
         finally:
             md.M.smem_limit = limit
-        if not torch.equal(glob, got):
-            fail(f"M {name}: the rings in the workspace differ from the rings in shared memory")
-        print("  the rings in the workspace (the _global variant): equal bit for bit")
+        print(f"  M {name} in the placements past its plan's ({forced}): equal bit for bit")
     out = dict(err=err.max().item(), rel=rel, nnz=nnz, peak_m=peak_m, peak_p=peak_p,
                fallbacks=int(fb_ref.sum()),
                ms=events_ms(lambda: md.M(data, *args), reps),
@@ -3606,7 +3649,7 @@ def dense_phase(dev, card, e_run: dict, f_run: dict) -> None:
     """Phase 25: M against its plain version on the card (``dense_check``):
     path F's beliefs (S = 4096, r = 0, fc = 3) and their first scenario
     alone, path E's (r = 3 with fc = 3 and fc = 0), 200 x 200 beliefs at
-    S = 1024 (also with the rings in the workspace), a 60 x 140 map with a
+    S = 1024 (also in every placement of its tables past the plan's), a 60 x 140 map with a
     48 x 64 lattice and K = 12 (two tiles of coefficients), K = 17 on path E's
     beliefs (three tiles), all-unknown
     beliefs (every scenario the fallback) and fully known maps (path F's
@@ -3648,7 +3691,7 @@ def dense_phase(dev, card, e_run: dict, f_run: dict) -> None:
     dom_big = Domain.create(0.0, 0.0, 0.05 * CELLS_BIG, 0.05 * CELLS_BIG, device=dev)
     rows["200 x 200, S=1024, r=3, fc=3"] = case(f"{CELLS_BIG} x {CELLS_BIG} beliefs",
                                                 Engine(default_config("cart")), big, dom_big,
-                                                MI_RADIUS, ring_global=True)
+                                                MI_RADIUS, placements=True)
     del big
     eng_n = Engine(default_config("cart").replace(num_basis=12, grid_samples=(48, 64)))
     rows["60 x 140, lattice 48 x 64, K=12"] = case(
@@ -4165,6 +4208,277 @@ def last_stages_phase(dev, card, entry, kernels, f_run: dict, states: dict) -> N
           f"library column) {kernels['coverage']['library_ms']:.4f} ms, the float32 mean it "
           f"replaces {events_ms(lambda: (belief_f != -1.0).to(torch.float32).mean(), 20):.4f} "
           f"ms {card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the map sizes the JAX package answers
+# ---------------------------------------------------------------------------
+
+
+def ros_map_case(S: int, dev, n: int, seed: int = 28):
+    """S truths of gmapping's default map (x and y in [-100, 100] m at 0.05 m:
+    ``n`` = 4000 cells a side, built on the card): outer walls, walls every
+    n // 4 cells (50 m rooms) with doorways of 2 m placed per scenario, a
+    1 m pillar 17.5 m up and right of each room's centre; start poses within
+    10 m of a room's centre, headings uniform (lengths in rooms, so that a
+    smaller n is the same picture)."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.grid import GridMap
+
+    rng = np.random.default_rng(seed)
+    room = n // 4
+    door, half = max(2, room // 25), max(1, room // 100)  # doorway; pillar's half side
+    data = torch.zeros((S, n, n), device=dev)
+    for k in range(5):  # the outer walls and the rooms' walls, two cells thick
+        a = min(k * room, n - 2)
+        data[:, a:a + 2, :] = 1.0
+        data[:, :, a:a + 2] = 1.0
+    for s in range(S):
+        for k in range(1, 4):
+            for j in range(4):
+                a, b = j * room + rng.integers(room // 10, room - room // 10 - door, 2)
+                data[s, k * room:k * room + 2, a:a + door] = 0.0
+                data[s, b:b + door, k * room:k * room + 2] = 0.0
+    first = room // 2 + (7 * room) // 20
+    for ci in range(first, n, room):
+        for cj in range(first, n, room):
+            data[:, ci - half:ci + half, cj - half:cj + half] = 1.0
+    rooms = rng.integers(0, 4, (S, 2))
+    res = 0.05
+    xy = (rooms + 0.5 + rng.uniform(-0.2, 0.2, (S, 2))) * room * res
+    x0 = np.concatenate([xy, rng.uniform(-np.pi, np.pi, (S, 1))], axis=1).astype(np.float32)
+    truth = GridMap(data, torch.zeros((S, 2), device=dev), torch.full((S,), res, device=dev))
+    return x0, truth
+
+
+def map_sizes_phase(dev, card, entry, kernels) -> None:
+    """Phase 28: the map sizes the JAX package answers and the port once
+    refused. E with the free mask on 1400 x 1400 maps (S = 2; its shared
+    memory no longer grows with the map) bit for bit against ``world_plain``
+    map by map, and on gmapping's default 4000 x 4000 maps (S = 4) dist and
+    grad bit for bit against the EDT alone (the plain EDT would take 256 GB
+    a map), the mask against the plain mask; M at 4000 x 4000 (S = 16,
+    r = fc = 3: the rings, y sums and frontier words in the workspace), at
+    K = 130 (S = 16, 100 x 100 maps) and on a 4500 x 4500 lattice of 100 x
+    100 maps (``phik_from_grid`` on a shared domain: the Cx table in the
+    workspace too) against its plain version within DENSE_TOL; then the
+    mapping loop at 4000 x 4000 (``explore_mapping_fused``, S = 16, r = 3,
+    fc = 3, two refreshes of 10 ticks): finite outputs, the coverage risen
+    from the unknown start and never falling, every known cell the truth's,
+    one R, E and M launch a refresh, and M against its plain version on the
+    beliefs it reached. Each case's ms, its bound and its temporaries' peak;
+    the new forms' entries of the kernels line."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
+    from ergodic_exploration_tpu_torch.ops import edt_kernel as ek
+    from ergodic_exploration_tpu_torch.ops import mi_dense_kernel as md
+    from ergodic_exploration_tpu_torch.ops.distance import DistanceField
+
+    print(f"== 28. the map sizes the JAX package answers: E and M on {E_MASK_CELLS} x "
+          f"{E_MASK_CELLS}, "
+          f"{ROS_CELLS} x {ROS_CELLS} maps, K = 130, a {LATTICE_BIG} x {LATTICE_BIG} lattice; the "
+          f"mapping loop at "
+          f"{ROS_CELLS} x {ROS_CELLS} {card}", flush=True)
+    torch.cuda.empty_cache()
+    cfg = default_config("cart").replace(use_fused_solve=True)
+    thr, gs = cfg.occupied_threshold, cfg.grid_samples
+    rng = np.random.default_rng(28)
+
+    def e_maps(S_, n, seed):
+        """S_ (n, n) maps: scattered obstacles and walls, a third of the
+        cells unknown, known-free cells, a NaN at the first lattice point's
+        cell of the first map."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        u = torch.rand((S_, n, n), generator=g, device=dev)
+        data = torch.where(u < 0.33, -1.0, torch.where(u > 0.9995, 1.0, 0.2))
+        data[:, n // 3, n // 8:n // 2] = 1.0
+        data[:, n // 5:n - n // 5, 2 * n // 3] = 0.9
+        grid = GridMap(data, torch.zeros((S_, 2), device=dev), torch.full((S_,), 0.05, device=dev))
+        cell = grid.world_to_grid(grid.domain().sample_lattice(gs))[0, 0].round().long()
+        data[0, cell[1], cell[0]] = float("nan")
+        return grid
+
+    def world_peak(grid):
+        """E with the mask on ``grid``, the temporaries' peak above its inputs."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = ek.world_fields(grid, grid.domain(), thr, gs)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    # (a) E with the mask on 1400 x 1400 maps against world_plain, map by map
+    grid = e_maps(2, E_MASK_CELLS, 281)
+    ek.E.reset_launches()
+    (dist, grad, free), peak = world_peak(grid)
+    if ek.E.launches["world_global"] != 1:
+        fail(f"phase 28: E on {E_MASK_CELLS} x {E_MASK_CELLS} maps did not take the global "
+             f"plane: {ek.E.launches}")
+    err, plain_ms = 0.0, 0.0
+    for i in range(2):
+        one = GridMap(*(t[i:i + 1] for t in grid))
+        ref = ek.world_plain(one, one.domain(), thr, gs)
+        same = [torch.equal(a[i:i + 1], b) for a, b in zip((dist, grad, free), ref)]
+        err = max([err] + [(a[i:i + 1] - b).abs().max().item() for a, b in
+                           zip((dist, grad, free), ref)])
+        print(f"  E with the mask, {E_MASK_CELLS} x {E_MASK_CELLS} map {i}: dist, grad, mask equal to world_plain "
+              f"bit for bit: {same}; free lattice points {int(free[i].sum())} of {free.shape[1]}")
+        if not all(same):
+            fail(f"phase 28: E with the mask on map {i} differs from world_plain")
+        del ref
+        torch.cuda.empty_cache()
+        plain_ms += events_ms(lambda one=one: ek.world_plain(one, one.domain(), thr, gs), 1)
+    if free[0, 0] != 0.0:
+        fail("phase 28: the NaN cell at the first lattice point is free")
+    w_ms = events_ms(lambda: ek.world_fields(grid, grid.domain(), thr, gs), 5)
+    work = edt_work(2, E_MASK_CELLS, E_MASK_CELLS, gs[0] * gs[1])
+    print(f"  E with the mask, {E_MASK_CELLS} x {E_MASK_CELLS}, S=2: {w_ms:.4f} ms, world_plain map by map "
+          f"{plain_ms:.2f} ms, bound {bound(*work)[0]:.4f} ms ({work[1] / 1e6:.1f} MB); "
+          f"temporaries' peak {peak / 2**20:.1f} MiB {card}", flush=True)
+    entry("world_global", "edt_kernel.cu", "ergodic_exploration_tpu/engine.py:288", err, w_ms,
+          plain_ms, work)
+    del grid, dist, grad, free
+
+    # (b) E at 4000 x 4000: the world form against the EDT alone, the mask against plain
+    grid = e_maps(4, ROS_CELLS, 282)
+    (dist, grad, free), peak = world_peak(grid)
+    field = DistanceField.from_grid(grid, thr)
+    ref_free = (grid.occupancy_at(grid.domain().sample_lattice(gs)) < thr).to(torch.float32)
+    same = [torch.equal(dist, field.dist), torch.equal(grad, field.grad), torch.equal(free, ref_free)]
+    print(f"  E at {ROS_CELLS} x {ROS_CELLS}, S=4: dist and grad of the world form equal to the "
+          f"EDT alone, the mask to the plain mask, bit for bit: {same}; FAR cells "
+          f"{int((dist >= 1e6).sum())}, free lattice points {int(free.sum())} of {free.numel()}")
+    if not all(same) or not torch.isfinite(dist).all() or free[0, 0] != 0.0:
+        fail(f"phase 28: E at {ROS_CELLS} x {ROS_CELLS} disagrees with the EDT alone or the mask")
+    del dist, grad, free, field
+    w_ms = events_ms(lambda: ek.world_fields(grid, grid.domain(), thr, gs), 3)
+    work = edt_work(4, ROS_CELLS, ROS_CELLS, gs[0] * gs[1])
+    print(f"  E with the mask at {ROS_CELLS} x {ROS_CELLS}, S=4: {w_ms:.2f} ms, bound "
+          f"{bound(*work)[0]:.4f} ms ({work[1] / 1e6:.0f} MB); temporaries' peak "
+          f"{peak / 2**20:.0f} MiB (the plane and stack in the workspace) {card}", flush=True)
+    del grid
+    torch.cuda.empty_cache()
+
+    def m_case(name, data, ops, r, fc, **kw):
+        d = dense_check(name, data, ops, r, fc, thr, card, **kw)
+        S_, h_, w_ = data.shape
+        nsx, nsy = ops.cx.shape[0], ops.cy.shape[0]
+        KK = ops.fallback.numel()
+        work_ = dense_work(S_, h_, w_, nsx, nsy, KK, r, fc, d["nnz"],
+                           box_cells(ops, h_, w_, max(r, fc)))
+        G, spill, smem = md.plan(h_, w_, nsx, nsy, math.isqrt(KK), r, fc)
+        print(f"  M {name}: bound {bound(*work_)[0]:.4f} ms by {bound(*work_)[1]}; placement "
+              f"'{md.SPILLS[spill]}' (G={G}, {smem} bytes of shared memory, "
+              f"{md.work_bytes(h_, w_, nsx, nsy, math.isqrt(KK), r, fc, G, spill)} of workspace "
+              f"a block) {card}", flush=True)
+        return d, work_
+
+    # (c) M at 4000 x 4000, S = 16, r = fc = 3
+    g = torch.Generator(device=dev).manual_seed(283)
+    n = ROS_CELLS
+    ext = torch.randint(n // 10, n - n // 10, (16,), generator=g, device=dev)
+    known = torch.arange(n, device=dev)[None, None, :] < ext[:, None, None]
+    u = torch.rand((16, n, n), generator=g, device=dev)
+    data = torch.where(known, 0.0, -1.0).expand(16, n, n).clone()
+    data = torch.where(u < 0.002, 1.0, torch.where((u > 0.5) & (u < 0.53), u, data))
+    data[:, int(0.45 * n):int(0.5 * n), int(0.2 * n):int(0.8 * n)] = torch.where(
+        known[:, :, int(0.2 * n):int(0.8 * n)], 1.0, -1.0)
+    data[15] = 1.0  # the fallback
+    del u, known
+    eng = Engine(cfg)
+    grid = GridMap(data, torch.zeros((16, 2), device=dev), torch.full((16,), 0.05, device=dev))
+    m_case(f"{n} x {n} beliefs, S=16, r=3, fc=3", data, eng._dense_ops(grid, None), 3, 3, reps=5,
+           plain_reps=2, placements=True)
+    del data, grid
+    torch.cuda.empty_cache()
+
+    # (d) M at K = 130 on 100 x 100 maps, S = 16
+    eng_k = Engine(cfg.replace(num_basis=130))
+    small = GridMap(torch.from_numpy(mi_beliefs(16, 100, 100, seed=284)).to(dev),
+                    torch.zeros((16, 2), device=dev), torch.full((16,), 0.05, device=dev))
+    dom_small = Domain.create(0.0, 0.0, 5.0, 5.0, device=dev)
+    m_case("K=130, 100 x 100 beliefs, S=16, r=3, fc=3", small.data,
+           eng_k._dense_ops(small, dom_small), 3, 3, reps=5, plain_reps=2, placements=True)
+    del eng_k
+
+    # (e) M through phik_from_grid on a shared domain with a 4500 x 4500 lattice
+    eng_l = Engine(cfg.replace(grid_samples=(LATTICE_BIG, LATTICE_BIG), mi_frontier_cells=0))
+    reset_counts()
+    got = eng_l.phik_from_grid(small, 0, domain=dom_small)
+    torch.cuda.synchronize()
+    path = f"phase 28, phik_from_grid on a {LATTICE_BIG} x {LATTICE_BIG} lattice"
+    dense = read_dense()
+    expect_counts(path, dense, {"phik_dense_nofc_global_cx": 1})
+    note_launches(path, dense)
+    if got.shape != (16, 10, 10) or not torch.isfinite(got).all():
+        fail("phase 28: phik_from_grid on the large lattice: non-finite or mis-shaped")
+    d, work = m_case(f"a {LATTICE_BIG} x {LATTICE_BIG} lattice of 100 x 100 beliefs, S=16, r=0, "
+                     "fc=0", small.data, eng_l._dense_ops(small, dom_small), 0, 0, reps=5,
+                     plain_reps=1)
+    entry("phik_dense_nofc_global_cx", "mi_dense_kernel.cu", DENSE_REPLACES, d["err"], d["ms"],
+          d["plain_ms"], work)
+    kernels["phik_dense_nofc_global_cx"]["library_ms"] = d["lib_ms"]
+    del eng_l, small, got
+    torch.cuda.empty_cache()
+
+    # (f) the mapping loop at 4000 x 4000
+    x0, truth = ros_map_case(16, dev, ROS_CELLS)
+    eng = Engine(cfg)
+    sc = eng.init_scenarios(x0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    sc, belief, cov, traj, metric = eng.explore_mapping_fused(
+        sc, truth, n_refreshes=ROS_REFRESHES, refresh_every=MAP_EVERY, sensor_range=1.5,
+        sensor_radius_cells=MI_RADIUS)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    path = f"phase 28, the mapping loop at {n} x {n}"
+    expect_counts(path, read_counts(), {"fused_solve_safety_map_h0_nb": ROS_REFRESHES * MAP_EVERY})
+    maps = read_map()
+    expect_counts(f"{path}, the map kernels", maps,
+                  {"reveal_raycast": ROS_REFRESHES, "world_global": ROS_REFRESHES,
+                   "coverage": ROS_REFRESHES})
+    note_launches(path, maps)
+    dense = read_dense()
+    expect_counts(f"{path}, M", dense, {"phik_dense_fc_global_sums": ROS_REFRESHES})
+    note_launches(path, dense)
+    cov_l = cov.tolist()
+    moved = (traj[-1, -1, :, :2] - torch.as_tensor(x0[:, :2], device=dev)).norm(dim=1)
+    print(f"  coverage per refresh {cov_l}; the robots moved {moved.min().item():.3f} - "
+          f"{moved.max().item():.3f} m; {ROS_REFRESHES} refreshes in {loop_s:.2f} s (the first "
+          f"the warm-up, capture included); peak device memory {peak / 2**30:.2f} GiB {card}",
+          flush=True)
+    if (traj.shape != (ROS_REFRESHES, MAP_EVERY, 16, 3) or not torch.isfinite(traj).all()
+            or not torch.isfinite(metric).all()):
+        fail(f"{path}: non-finite or mis-shaped outputs")
+    # from the all-unknown start; no refresh loses a cell (over 200 m the
+    # ergodic drive of 20 ticks moves a robot by less than a cell: 0.0 m in
+    # the plain loop on the CPU at this extent, so a later rise is not asked)
+    if cov_l[0] <= 0.0 or not all(b >= a for a, b in zip(cov_l, cov_l[1:])):
+        fail(f"{path}: the coverage did not rise from the unknown start or fell: {cov_l}")
+    known = belief.data != -1.0
+    if not torch.equal(belief.data[known], truth.data[known]):
+        fail(f"{path}: a known cell of the final belief differs from the truth")
+    d, work = m_case(f"the mapping loop's beliefs at {n} x {n}, S=16, r=3, fc=3", belief.data,
+                     eng._dense_ops(truth, None), MI_RADIUS, cfg.mi_frontier_cells, reps=5,
+                     plain_reps=2)
+    entry("phik_dense_fc_global_sums", "mi_dense_kernel.cu", DENSE_REPLACES, d["err"], d["ms"],
+          d["plain_ms"], work)
+    kernels["phik_dense_fc_global_sums"]["library_ms"] = d["lib_ms"]
+    ms = events_ms(lambda: eng.explore_mapping_fused(
+        sc, truth, n_refreshes=1, refresh_every=MAP_EVERY, sensor_range=1.5,
+        sensor_radius_cells=MI_RADIUS), 2)
+    print(f"  one refresh of the mapping loop at {n} x {n}, S=16 (a graph replay): {ms:.2f} ms "
+          f"{card}", flush=True)
+    del eng, sc, belief, truth, traj, metric
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -5145,7 +5459,7 @@ def run(dev) -> int:
     nsx, nsy = cfg_f.grid_samples
     fc_f = cfg_f.mi_frontier_cells
     d = dense_check("path F's beliefs", belief_f.data, eng_f._dense_ops(belief_f, dom_f), 0, fc_f,
-                    thr_f, card, ring_global=True)
+                    thr_f, card, placements=True)
     entry("phik_dense_fc", "mi_dense_kernel.cu", DENSE_REPLACES, d["err"], d["ms"], d["plain_ms"],
           dense_work(S_MAIN, 100, 100, nsx, nsy, cfg_f.num_basis ** 2, 0, fc_f, d["nnz"]))
     kernels["phik_dense_fc"]["library_ms"] = d["lib_ms"]
@@ -5221,6 +5535,8 @@ def run(dev) -> int:
     at(27)
     last_stages_phase(dev, card, entry, kernels, f_run, states)
     del f_run, e_run, states
+    at(28)
+    map_sizes_phase(dev, card, entry, kernels)
     for name, (n, path) in LAUNCHES.items():
         if name in kernels:
             kernels[name]["launches"] = n

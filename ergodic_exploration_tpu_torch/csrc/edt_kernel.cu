@@ -39,9 +39,9 @@
 // neither (NaN); with the mask it also maps each lattice column and row to
 // its map column and row once (nsx + nsy points, not nsx nsy). Rows: each
 // row is cut into as many segments as the block has threads for (2 at 100 x
-// 100); a segment's thread notes its first and last occupied column and ORs
-// its free cells into a bit mask of the map, then sweeps the segment left and
-// right in place with the carries from the other segments: the plane holds
+// 100); a segment's thread notes its first and last occupied column, then
+// sweeps the segment left and right in place with the carries from the
+// other segments: the plane holds
 // each cell's distance along its row. Columns: a thread per column (the
 // first warps of the block) builds the exact lower envelope of the parabolas
 // (x - v)^2 + g(v)^2 of the rows v with an occupied cell (Felzenszwalb and
@@ -49,15 +49,19 @@
 // float boundary), its stack of row indices in shared memory beside the
 // plane, then walks the column backwards, popping a parabola as soon as the
 // one under it is no worse, and writes dist: neighbouring threads on
-// neighbouring columns, so each step's stores are coalesced. Meanwhile the
-// block's other warps write the free mask from the bit mask. After the
-// barrier the gradient reads dist back (the block's own writes, L2-hot),
-// four cells of a row a thread in 16-byte loads and stores; a zero
+// neighbouring columns, so each step's stores are coalesced. The free mask
+// is read from the markers at the nsx nsy lattice cells, between the load
+// and the row sweeps that overwrite them, so nothing of the mask grows with
+// the map. After the barrier the gradient reads dist back (the block's own writes,
+// L2-hot), four cells of a row a thread in 16-byte loads and stores; a zero
 // difference skips the IEEE division, whose slow path zeros take. Shared
-// memory with the mask: 26 KB at 100 x 100 (eight blocks an SM), 94 KB at
+// memory with the mask: 24 KB at 100 x 100 (eight blocks an SM), 86 KB at
 // 200 x 200; past 227 KB (512 x 512) the plane and the stack live in a
 // workspace the wrapper allocates (the global-memory form, same passes and
-// barriers).
+// barriers). What stays in shared memory then is 4 bytes a lattice column
+// and row and 4 a row segment (16.8 KB at 4000 x 4000 with a 100 x 100
+// lattice; under 232448 bytes for every map under 32768 cells a side with
+// a lattice of up to 25,000 columns and rows together).
 //
 // Rounding contract (-fmad=false): the finishing steps are the plain
 // version's operations one by one: sqrtf then the product with res, the
@@ -133,10 +137,9 @@ __host__ __device__ inline int stack_stride(int w) {
 __host__ __device__ inline int row_segments(int h) { return h >= THREADS ? 1 : THREADS / h; }
 
 // Bytes of shared memory besides the plane: the mask's lattice-to-cell
-// tables and free bits (with the mask), the rows' summaries.
-__host__ __device__ inline long long table_bytes(int h, int w, int nsx, int nsy) {
-    const long long mask = nsx > 0 ? 4LL * (nsx + nsy) + 4LL * h * ((w + 31) / 32) : 0;
-    return mask + 4LL * row_segments(h) * h;
+// tables (with the mask), the rows' summaries.
+__host__ __device__ inline long long table_bytes(int h, int nsx, int nsy) {
+    return (nsx > 0 ? 4LL * (nsx + nsy) : 0) + 4LL * row_segments(h) * h;
 }
 
 // Bytes of the plane and the stack (shared memory unless the global form).
@@ -172,9 +175,9 @@ template <class T, bool PLANE_GLOBAL, bool MASK>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) edt_kernel(EdtParams p, EdtBuffers b) {
     extern __shared__ __align__(16) unsigned char smem[];
     constexpr int NONE = Mark<T>::NONE, HELD = Mark<T>::HELD;
-    const int s = blockIdx.x, tid = threadIdx.x, warp = tid / 32;
+    const int s = blockIdx.x, tid = threadIdx.x;
     const int h = p.h, w = p.w, ws = plane_stride<T>(w), nsx = MASK ? p.nsx : 0,
-              nsy = MASK ? p.nsy : 0, nw = MASK ? (w + 31) / 32 : 0, groups = column_groups(w);
+              nsy = MASK ? p.nsy : 0, groups = column_groups(w);
     const long long hw = (long long)h * w, work_stride = plane_bytes<T>(h, w);
     const float* data = b.data + s * hw;
     float* dist = b.dist + s * hw;
@@ -182,9 +185,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) edt_kernel(EdtParams p, E
     const float res = b.res[s], two_r = 2.0f * res;
     int* col_of = reinterpret_cast<int*>(smem);  // lattice column ix -> map column
     int* row_of = col_of + nsx;                    // lattice row iy -> map row
-    uint32_t* free_bits = reinterpret_cast<uint32_t*>(row_of + nsy);  // (h, nw): data < thr
     const int nseg = row_segments(h), seg_len = (w + nseg - 1) / nseg;
-    int16_t* seg_first = reinterpret_cast<int16_t*>(free_bits + h * nw);
+    int16_t* seg_first = reinterpret_cast<int16_t*>(row_of + nsy);
     int16_t* seg_last = seg_first + nseg * h;
     T* plane = PLANE_GLOBAL ? reinterpret_cast<T*>(b.work + s * (long long)work_stride)
                             : reinterpret_cast<T*>(seg_last + nseg * h);
@@ -227,34 +229,34 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) edt_kernel(EdtParams p, E
             col_of[k] = clamp_index(rintf((dox + b.fx[k] * dlx - mox) / res - 0.5f), w);
         for (int k = tid; k < nsy; k += THREADS)
             row_of[k] = clamp_index(rintf((doy + b.fy[k] * dly - moy) / res - 0.5f), h);
-        for (int k = tid; k < h * nw; k += THREADS) free_bits[k] = 0u;
     }
     __syncthreads();
 
-    // rows: the first and last occupied column of each (segment, row), and
-    // the free cells' bits (NONE: data < thr; a NaN cell is HELD, not free)
+    // rows: the first and last occupied column of each (segment, row)
     for (int t = tid; t < nseg * h; t += THREADS) {
         const int k = t / h, i = t - k * h;
         const int j0 = k * seg_len, j1 = min(w, j0 + seg_len);
         const T* row = plane + (long long)i * ws;
         int f = -1, l = -1;
-        uint32_t bits = 0u;
         for (int j = j0; j < j1; ++j) {
-            const int v = row[j];
-            if (v == 0) {
+            if (row[j] == 0) {
                 if (f < 0) f = j;
                 l = j;
-            }
-            if (MASK) {
-                bits |= (v == NONE ? 1u : 0u) << (j % 32);
-                if ((j % 32 == 31 || j == j1 - 1) && bits) {
-                    atomicOr(&free_bits[i * nw + j / 32], bits);
-                    bits = 0u;
-                }
             }
         }
         seg_first[t] = (int16_t)f;
         seg_last[t] = (int16_t)l;
+    }
+    // the free mask, x-major (point n = ix nsy + iy), read from the markers
+    // before the row pass overwrites them: NONE where data < thr at the
+    // point's cell (a NaN cell is HELD, not free)
+    if (MASK) {
+        float* fr = b.free + (long long)s * nsx * nsy;
+        int ix = tid / nsy, iy = tid - (tid / nsy) * nsy;
+        for (int n = tid; n < nsx * nsy; n += THREADS) {
+            fr[n] = plane[(long long)row_of[iy] * ws + col_of[ix]] == NONE ? 1.0f : 0.0f;
+            for (iy += THREADS; iy >= nsy; iy -= nsy) ++ix;
+        }
     }
     __syncthreads();
     // each segment swept left then right, the nearest occupied columns of the
@@ -350,22 +352,6 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) edt_kernel(EdtParams p, E
         }
     }
 
-    // the free mask, x-major (point n = ix nsy + iy), by the warps without a
-    // column group (by all of them after their groups where the groups fill
-    // the block)
-    if (MASK) {
-        const int first_warp = groups < THREADS / 32 ? groups : 0;
-        if (warp >= first_warp) {
-            const int step = THREADS - 32 * first_warp, t0 = tid - 32 * first_warp;
-            float* fr = b.free + (long long)s * nsx * nsy;
-            int ix = t0 / nsy, iy = t0 - (t0 / nsy) * nsy;
-            for (int n = t0; n < nsx * nsy; n += step) {
-                const int r = row_of[iy], c = col_of[ix];
-                fr[n] = (free_bits[r * nw + c / 32] >> (c % 32)) & 1u ? 1.0f : 0.0f;
-                for (iy += step; iy >= nsy; iy -= nsy) ++ix;
-            }
-        }
-    }
     __syncthreads();
 
     // the gradient: central differences, one-sided at the borders, zero on
@@ -424,7 +410,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) edt_kernel(EdtParams p, E
 extern "C" long long edt_smem_bytes(int h, int w, int nsx, int nsy, int plane_shared) {
     const long long plane = max(h, w) <= SMALL ? plane_bytes<uint8_t>(h, w)
                                                : plane_bytes<uint16_t>(h, w);
-    return table_bytes(h, w, nsx, nsy) + (plane_shared ? plane : 0);
+    return table_bytes(h, nsx, nsy) + (plane_shared ? plane : 0);
 }
 
 template <class T>

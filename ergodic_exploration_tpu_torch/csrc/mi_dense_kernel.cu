@@ -23,11 +23,11 @@
 // the basis normalization and fallback the uniform target (ops/
 // mi_dense_kernel.py::dense_operands builds them, with cx and cy, by the
 // plain version's own expressions): the plain version contracts the (S, N)
-// values with the dense table D = Cx Cy / h_k, which is separable. Any
-// K <= 128, any r, fc >= 0, any lattice (cells skipped or repeated), maps up
-// to ~2,000 cells wide. Built by nvcc for sm_90a (utils/cuda_build.py) and
-// called through the plain C entry point at the end of this file from
-// ops/mi_dense_kernel.py.
+// values with the dense table D = Cx Cy / h_k, which is separable. Any K,
+// any r, fc >= 0, any lattice (cells skipped or repeated), any map: as the
+// JAX function's matmuls, no limit but the card's memory. Built by nvcc for
+// sm_90a (utils/cuda_build.py) and called through the plain C entry point at
+// the end of this file from ops/mi_dense_kernel.py.
 //
 // What bounds it on an H100: the beliefs, read once (164 MB at S = 4096 and
 // 100 x 100 maps: 0.049 ms at 3.35 TB/s). The separable contraction is, per
@@ -38,9 +38,10 @@
 // separated steps bounds it.
 //
 // What the design does about it: a block takes M_TS = 16 scenarios, a tile of
-// the coefficients (k1 in [a1, a1 + T1), every k2: T1 K <= 128) and a run of
-// lattice rows (grid (S / 16, K / T1, Z); the wrapper picks Z so that the SMs
-// are full); a thread owns one coefficient of 8 scenarios in registers. The
+// the coefficients (k1 in [a1, a1 + T1), every k2: T1 K <= 128; past K = 128
+// one k1 and k2 in [b2, b2 + 128)) and a run of lattice rows (grid (S / 16,
+// the tiles, Z); the wrapper picks Z so that the SMs are full); a thread owns
+// one coefficient of 8 scenarios in registers. The
 // block walks its lattice rows G at a time (a step; G = 4, 2 or 1, the most
 // that keeps the most blocks an SM), so that every read of the beliefs runs
 // along a map row (coalesced), every cell a block needs is read once, and a
@@ -70,6 +71,15 @@
 //   5  the run's (16, T1 K) partial sums to device memory; m_finish, a thread
 //      per (scenario, coefficient), adds the Z runs' partials in run order,
 //      divides by h_k, normalizes by the mass or copies the fallback.
+// Whatever else of a block's layout grows with the map or the lattice has a
+// place in the workspace too, taken in this order as far as shared memory
+// needs (M_SPILLS placements, m_layout): the rings; the y sums and frontier
+// words (G rows of the map's width); the tile's Cx table (nsx rows); the
+// lattice cells, the rings' row offsets (h each) and tags. The last keeps
+// only R and vals in shared memory (at most 36 KB), so every shape launches:
+// the same code reads each table through a pointer to either place, the
+// same bits (a 4000 x 4000 map with r = fc = 3 takes the second: 52 KB of
+// shared memory, 2.6 MB of workspace a block).
 // The sampled field never goes to device memory. Every output is summed in a
 // fixed order and nothing is atomic: two launches give the same bits (the
 // association depends on Z, which the wrapper takes from S and the card, and
@@ -93,14 +103,14 @@ constexpr int M_HALVES = M_THREADS / M_KC;
 constexpr int M_SPT = M_TS / M_HALVES;  // scenarios a thread accumulates
 constexpr int M_NV = 128;               // most lattice columns of a pass of vals
 constexpr int M_GMAX = 4;               // most lattice rows a step
-constexpr int M_KMAX = 128;
+constexpr int M_SPILLS = 5;             // placements of a block's tables (m_layout)
 constexpr int M_MAX_SMEM = 232448;      // dynamic shared memory a block can have on sm_90
 static_assert(M_SPT == 8 && M_TS == 16, "accumulation: two float4 of R a thread");
 static_assert(M_GMAX * M_TS * 3 <= M_THREADS, "projection: a thread an item");
 
 // Mirror of ops/mi_dense_kernel.py::_Params (same field order).
 struct MParams {
-    int S, h, w, nsx, nsy, K, r, fc, Z, G, ring_global;
+    int S, h, w, nsx, nsy, K, r, fc, Z, G, spill;
     float thr, lo, hi;  // occupied threshold; the entropy's clamp bounds
 };
 
@@ -113,11 +123,17 @@ struct MBuffers {
     const float *hk, *fallback;  // (K^2,) each
     float* out;      // (S, K^2)
     float* part;     // (S, Z, K^2) the runs' partial sums
-    uint32_t* work;  // the rings of the _global variants, one set a block
+    uint32_t* work;  // the tables the placement moves out of shared memory, one set a block
 };
 
-// k1 of a tile: T1 K <= 128 coefficients (K <= 11: all of them)
-__host__ __device__ inline int m_t1(int K) { return K <= 11 ? K : M_KC / K; }
+// k1 of a tile: T1 K <= 128 coefficients (K <= 11: all of them; past 128 one)
+__host__ __device__ inline int m_t1(int K) { return K <= 11 ? K : (K <= M_KC ? M_KC / K : 1); }
+// k2 of a tile: all of them up to K = 128, else 128
+__host__ __device__ inline int m_t2(int K) { return K <= M_KC ? K : M_KC; }
+// tiles of the coefficients: the grid's y
+__host__ __device__ inline int m_tiles(int K) {
+    return (K + m_t1(K) - 1) / m_t1(K) * ((K + m_t2(K) - 1) / m_t2(K));
+}
 
 __host__ __device__ inline int m_rows(int rad, int G, int h) {
     return 2 * rad + G < h ? 2 * rad + G : h;
@@ -127,21 +143,26 @@ __host__ __device__ inline int m_rows(int rad, int G, int h) {
 // t1p) with zero columns past T1, R (G, t1p, M_TS), vals (G, M_TS, vcp), the
 // y sums P (r > 0, (G, M_TS, wp)), the frontier words F (fc > 0, (G, M_TS,
 // ww)), the lattice columns and rows, the rings' row offsets and tags, then
-// (unless ring_global) the rings: the entropy ring (r > 0), rows of (M_TS, wp)
-// floats, and the known-free ring (fc > 0), rows of (M_TS, ww) words.
-// Mirrored by ops/mi_dense_kernel.py::smem_bytes.
+// the rings: the entropy ring (r > 0), rows of (M_TS, wp) floats, and the
+// known-free ring (fc > 0), rows of (M_TS, ww) words. The placement `spill`
+// moves to the block's workspace, in the same order: from 1 the rings, from
+// 2 P and F, from 3 Cx, from 4 the lattice columns and rows, the offsets
+// and the tags (Cx first there, so that it is 16-byte aligned; a block's
+// workspace a multiple of 4 words). Mirrored by
+// ops/mi_dense_kernel.py::smem_bytes and work_bytes.
 struct MLayout {
     int wp, wshift;  // row stride of entropies (odd: no bank conflicts); log2 of w's power of 2
     int ww;          // words of a bit row
     int re, rw;      // rows of the entropy ring and of the known-free ring (0: none)
     int vc, vcp;     // lattice columns a pass of vals; its row stride (odd)
     int t1p;         // the tile's k1, padded to a multiple of 4
-    size_t cxq, R, vals, P, F, cxs, cys, offe, offw, tage, tagw, ring, shared_words;
-    size_t erow, wrow, ering_words;  // words of a ring row; of the entropy ring
+    size_t cxq, R, vals, P, F, cxs, cys, offe, offw, tage, tagw, ering, wring;
+    size_t shared_words, work_words;
+    size_t erow, wrow;  // words of a ring row
 };
 
 __host__ __device__ inline MLayout m_layout(int h, int w, int nsx, int nsy, int K, int r, int fc,
-                                            int G, int ring_global) {
+                                            int G, int spill) {
     MLayout L;
     L.wp = w | 1;
     L.wshift = 0;
@@ -155,20 +176,30 @@ __host__ __device__ inline MLayout m_layout(int h, int w, int nsx, int nsy, int 
     L.t1p = (m_t1(K) + 3) / 4 * 4;
     L.erow = (size_t)M_TS * L.wp;
     L.wrow = (size_t)M_TS * L.ww;
-    L.ering_words = (size_t)L.re * L.erow;
-    L.cxq = 0;  // 16-byte aligned, as R (a multiple of 4 words on)
-    L.R = L.cxq + (size_t)nsx * L.t1p;
-    L.vals = L.R + (size_t)G * L.t1p * M_TS;
-    L.P = L.vals + (size_t)G * M_TS * L.vcp;
-    L.F = L.P + (r > 0 ? (size_t)G * L.erow : 0);
-    L.cxs = L.F + (fc > 0 ? (size_t)G * L.wrow : 0);
-    L.cys = L.cxs + nsx;
-    L.offe = L.cys + nsy;
-    L.offw = L.offe + h;
-    L.tage = L.offw + h;
-    L.tagw = L.tage + L.re;
-    L.ring = L.tagw + L.rw;
-    L.shared_words = L.ring + (ring_global ? 0 : L.ering_words + (size_t)L.rw * L.wrow);
+    // in the workspace: the rings; P and F; Cx; the tables
+    const bool ring_g = spill >= 1, sums_g = spill >= 2, cx_g = spill >= 3, tables_g = spill >= 4;
+    size_t sh = 0, gl = 0;  // words taken of shared memory and of the workspace
+    auto put = [&](bool global, size_t words) {
+        size_t& at = global ? gl : sh;
+        const size_t o = at;
+        at += words;
+        return o;
+    };
+    L.cxq = put(cx_g, (size_t)nsx * L.t1p);  // 16-byte aligned, as R (a multiple of 4 words on)
+    L.R = put(false, (size_t)G * L.t1p * M_TS);
+    L.vals = put(false, (size_t)G * M_TS * L.vcp);
+    L.P = put(sums_g, r > 0 ? (size_t)G * L.erow : 0);
+    L.F = put(sums_g, fc > 0 ? (size_t)G * L.wrow : 0);
+    L.cxs = put(tables_g, nsx);
+    L.cys = put(tables_g, nsy);
+    L.offe = put(tables_g, h);
+    L.offw = put(tables_g, h);
+    L.tage = put(tables_g, L.re);
+    L.tagw = put(tables_g, L.rw);
+    L.ering = put(ring_g, (size_t)L.re * L.erow);
+    L.wring = put(ring_g, (size_t)L.rw * L.wrow);
+    L.shared_words = sh;
+    L.work_words = (gl + 3) / 4 * 4;
     return L;
 }
 
@@ -254,36 +285,39 @@ __device__ __forceinline__ void m_fill_free(uint32_t* row, const MLayout& L, con
     }
 }
 
-// grid (ceil(S / M_TS), ceil(K / T1), Z): the partial sums of a run of
-// lattice rows
+// grid (ceil(S / M_TS), the tiles, Z): the partial sums of a run of lattice
+// rows, in placement SPILL (an instance each, so that every table's place is
+// known where the code is compiled)
+template <int SPILL>
 __global__ void __launch_bounds__(M_THREADS, M_BLOCKS_PER_SM) m_phik_dense(MParams p, MBuffers b) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int K = p.K, T1 = m_t1(K);
-    const MLayout L = m_layout(p.h, p.w, p.nsx, p.nsy, K, p.r, p.fc, p.G, p.ring_global);
+    const int K = p.K, T1 = m_t1(K), T2 = m_t2(K), n2 = (K + T2 - 1) / T2;
+    const MLayout L = m_layout(p.h, p.w, p.nsx, p.nsy, K, p.r, p.fc, p.G, SPILL);
     float* smf = reinterpret_cast<float*>(smem_raw);
     uint32_t* smu = reinterpret_cast<uint32_t*>(smem_raw);
-    int* smi = reinterpret_cast<int*>(smem_raw);
-    float* cxq = smf + L.cxq;
+    const size_t block = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    uint32_t* const work = SPILL > 0 ? b.work + block * L.work_words : nullptr;
+    // a table's words in the workspace or in shared memory, as the placement has it
+    auto at = [&](bool global, size_t off) { return (global ? work : smu) + off; };
+    float* cxq = reinterpret_cast<float*>(at(SPILL >= 3, L.cxq));
     float* R = smf + L.R;
     float* vals = smf + L.vals;
-    float* P = smf + L.P;
-    uint32_t* F = smu + L.F;
-    int* cxs = smi + L.cxs;
-    int* cys = smi + L.cys;
-    int* offe = smi + L.offe;
-    int* offw = smi + L.offw;
-    int* tage = smi + L.tage;
-    int* tagw = smi + L.tagw;
-    const size_t block = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    uint32_t* ring = p.ring_global ? b.work + block * (L.ering_words + (size_t)L.rw * L.wrow)
-                                   : smu + L.ring;
-    float* ering = reinterpret_cast<float*>(ring);
-    uint32_t* wring = ring + L.ering_words;
+    float* P = reinterpret_cast<float*>(at(SPILL >= 2, L.P));
+    uint32_t* F = at(SPILL >= 2, L.F);
+    int* cxs = reinterpret_cast<int*>(at(SPILL >= 4, L.cxs));
+    int* cys = reinterpret_cast<int*>(at(SPILL >= 4, L.cys));
+    int* offe = reinterpret_cast<int*>(at(SPILL >= 4, L.offe));
+    int* offw = reinterpret_cast<int*>(at(SPILL >= 4, L.offw));
+    int* tage = reinterpret_cast<int*>(at(SPILL >= 4, L.tage));
+    int* tagw = reinterpret_cast<int*>(at(SPILL >= 4, L.tagw));
+    float* ering = reinterpret_cast<float*>(at(SPILL >= 1, L.ering));
+    uint32_t* wring = at(SPILL >= 1, L.wring);
     const int h = p.h, w = p.w, r = p.r, fc = p.fc, wp = L.wp, ww = L.ww, nsx = p.nsx;
     const int m = r > fc ? r : fc;
     const int tid = threadIdx.x;
     const int s0 = blockIdx.x * M_TS, ns = min(M_TS, p.S - s0);
-    const int a1 = blockIdx.y * T1, t1n = min(T1, K - a1), t1p = L.t1p, nq = t1p / 4;
+    const int a1 = blockIdx.y / n2 * T1, t1n = min(T1, K - a1), t1p = L.t1p, nq = t1p / 4;
+    const int b2 = blockIdx.y % n2 * T2, t2n = min(T2, K - b2);
     const size_t plane = (size_t)h * w;
     const float* data = b.data + (size_t)s0 * plane;
     const MEnt3 e3 = {m_entropy(-1.0f, p.lo, p.hi), m_entropy(0.0f, p.lo, p.hi),
@@ -293,8 +327,8 @@ __global__ void __launch_bounds__(M_THREADS, M_BLOCKS_PER_SM) m_phik_dense(MPara
     const int iy0 = blockIdx.z * per_run, iy1 = min(p.nsy, iy0 + per_run);
     // the accumulation: coefficient (k1l, k2) of scenarios [half * 8, half * 8 + 8)
     const int c = tid % M_KC, half = tid / M_KC;
-    const bool cv = c < t1n * K;
-    const int k1l = cv ? c / K : 0, k2 = cv ? c - k1l * K : 0;
+    const bool cv = c < t1n * t2n;
+    const int k1l = cv ? c / t2n : 0, k2 = cv ? b2 + c - k1l * t2n : 0;
     // the projection: row pg, scenario ps, k1 [4 pq, 4 pq + 4) of the tile
     const int ps = tid & (M_TS - 1), pq = (tid >> 4) % nq, pg = (tid >> 4) / nq;
 
@@ -498,16 +532,17 @@ __global__ void __launch_bounds__(256) m_finish(MParams p, MBuffers b) {
     b.out[o] = t > 1e-12f ? (raw / b.hk[k]) / fmaxf(t, 1e-12f) : b.fallback[k];
 }
 
-// Bytes of dynamic shared memory a block of M uses, and of its rings (the
-// workspace a block of a _global variant takes). The wrapper's smem_bytes
-// and ring_bytes mirror them; a host test holds the two against each other.
+// Bytes of dynamic shared memory a block of M uses, and of its workspace (the
+// tables placement `spill` moves out of shared memory). The wrapper's
+// smem_bytes and work_bytes mirror them; a host test holds the two against
+// each other.
 extern "C" size_t m_shared_bytes(int h, int w, int nsx, int nsy, int K, int r, int fc, int G,
-                                 int ring_global) {
-    return 4 * m_layout(h, w, nsx, nsy, K, r, fc, G, ring_global).shared_words;
+                                 int spill) {
+    return 4 * m_layout(h, w, nsx, nsy, K, r, fc, G, spill).shared_words;
 }
-extern "C" size_t m_ring_bytes(int h, int w, int r, int fc, int G) {
-    const MLayout L = m_layout(h, w, 1, 1, 1, r, fc, G, 1);
-    return 4 * (L.ering_words + (size_t)L.rw * L.wrow);
+extern "C" size_t m_work_bytes(int h, int w, int nsx, int nsy, int K, int r, int fc, int G,
+                               int spill) {
+    return 4 * m_layout(h, w, nsx, nsy, K, r, fc, G, spill).work_words;
 }
 
 // Launch M for p->S scenarios on `stream`: the runs, then m_finish. Returns
@@ -518,16 +553,23 @@ extern "C" int m_phik_dense_launch(const MParams* params, const MBuffers* buffer
     MBuffers b = *buffers;
     cudaStream_t st = (cudaStream_t)stream;
     if (p.S <= 0) return 0;
-    if (p.h < 1 || p.w < 1 || p.nsx < 1 || p.nsy < 1 || p.K < 1 || p.K > M_KMAX || p.r < 0 ||
-        p.fc < 0 || p.Z < 1 || p.Z > 65535 || p.G < 1 || p.G > M_GMAX || b.part == nullptr ||
-        (p.ring_global && (p.r > 0 || p.fc > 0) && b.work == nullptr))
+    if (p.h < 1 || p.w < 1 || p.nsx < 1 || p.nsy < 1 || p.K < 1 || m_tiles(p.K) > 65535 ||
+        p.r < 0 || p.fc < 0 || p.Z < 1 || p.Z > 65535 || p.G < 1 || p.G > M_GMAX ||
+        p.spill < 0 || p.spill >= M_SPILLS || b.part == nullptr)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = m_shared_bytes(p.h, p.w, p.nsx, p.nsy, p.K, p.r, p.fc, p.G,
-                                       p.ring_global);
-    if (smem > (size_t)M_MAX_SMEM) return (int)cudaErrorInvalidValue;
-    const int T1 = m_t1(p.K);
-    const dim3 grid((p.S + M_TS - 1) / M_TS, (p.K + T1 - 1) / T1, p.Z);
-    cudaError_t e = launch_kernel(m_phik_dense, grid, dim3(M_THREADS), smem, st, p, b);
+    const MLayout L = m_layout(p.h, p.w, p.nsx, p.nsy, p.K, p.r, p.fc, p.G, p.spill);
+    const size_t smem = 4 * L.shared_words;
+    if (smem > (size_t)M_MAX_SMEM || (L.work_words && b.work == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((p.S + M_TS - 1) / M_TS, m_tiles(p.K), p.Z), block(M_THREADS);
+    cudaError_t e;
+    switch (p.spill) {
+        case 0: e = launch_kernel(m_phik_dense<0>, grid, block, smem, st, p, b); break;
+        case 1: e = launch_kernel(m_phik_dense<1>, grid, block, smem, st, p, b); break;
+        case 2: e = launch_kernel(m_phik_dense<2>, grid, block, smem, st, p, b); break;
+        case 3: e = launch_kernel(m_phik_dense<3>, grid, block, smem, st, p, b); break;
+        default: e = launch_kernel(m_phik_dense<4>, grid, block, smem, st, p, b); break;
+    }
     if (e != cudaSuccess) return (int)e;
     const size_t outs = (size_t)p.S * p.K * p.K;
     e = launch_kernel(m_finish, dim3((unsigned)((outs + 255) / 256)), dim3(256), 0, st, p, b);

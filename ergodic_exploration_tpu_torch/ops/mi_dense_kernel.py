@@ -23,10 +23,13 @@ header says what bounds it on an H100 and what the design does about that):
 a block per 16 scenarios, a tile of the coefficients and a run of lattice
 rows (:func:`runs`), walked G rows a step (:func:`plan`); each lattice row's
 values projected on cosx, then accumulated against cosy (no D read); the
-map rows around a step in rings (in shared memory, or past its room in a
-workspace: :func:`smem_bytes`), the sampled field in shared memory only; a
-finishing kernel adds the runs' partial sums in order and normalizes. It
-takes any K <= 128, any r, fc >= 0 and any lattice. Beside it lives the plain PyTorch
+map rows around a step in rings; the rings, and past them the y sums and
+frontier words, the Cx table and the index tables, in shared memory or, as
+far as its room needs, in a workspace (the placements of :data:`SPILLS`,
+:func:`smem_bytes`, :func:`work_bytes`); the sampled field in shared memory
+only; a finishing kernel adds the runs' partial sums in order and
+normalizes. It takes what the JAX function takes: any K, any r, fc >= 0,
+any lattice and any map that fit the card. Beside it lives the plain PyTorch
 version, :func:`phik_dense_plain`, the JAX function's body (one-hot and
 count-matrix matmuls in place of the gathers, then the contraction); the CPU
 tests run it, ``chip_smoke.py`` holds the kernel against it on the card.
@@ -34,7 +37,7 @@ tests run it, ``chip_smoke.py`` holds the kernel against it on the card.
 Dispatch: :func:`phik_dense` takes the plain version only for tensors that
 lie on the CPU. For CUDA tensors it launches the kernel or raises; there is
 no fallback. ``M.launches`` counts the launches with and without the
-frontier mask, the ring in shared memory and (``_global``) in a workspace.
+frontier mask, in each placement (the suffixes of :data:`SPILLS`).
 """
 
 from __future__ import annotations
@@ -49,10 +52,15 @@ from ergodic_exploration_tpu_torch.ops import target as target_ops
 from ergodic_exploration_tpu_torch.ops.solve_kernel import (
     MAX_SMEM, _check_operands, _on_cpu, _require_cuda, _sm_count, launch_on)
 
-KMAX = 128  # the JAX package's MI kernel's limit on K, which M keeps
 # constants of csrc/mi_dense_kernel.cu that its memory layout and grid depend on
 _TS, _KC, _NV = 16, 128, 128  # scenarios, coefficients a block; lattice columns a pass of vals
 BLOCKS_PER_SM = 4  # blocks of M in flight on an SM (M_BLOCKS_PER_SM): Z aims to fill them
+# the placements of a block's tables (``m_layout``), each a variant's suffix:
+# all in shared memory; the rings in the workspace; also the y sums and
+# frontier words; also the tile's Cx table; also the lattice cells and the
+# rings' row offsets and tags (only R and vals stay: every shape fits)
+SPILLS = ("", "_global", "_global_sums", "_global_cx", "_global_tables")
+WORK_BUDGET = 2**30  # bytes of workspace the runs may take together (Z is cut to fit)
 
 
 class DenseOperands(NamedTuple):
@@ -136,7 +144,7 @@ class _Params(ctypes.Structure):
     """Mirror of ``struct MParams`` in csrc/mi_dense_kernel.cu."""
 
     _fields_ = [(n, ctypes.c_int) for n in ("S", "h", "w", "nsx", "nsy", "K", "r", "fc", "Z", "G",
-                                            "ring_global")] + [
+                                            "spill")] + [
         (n, ctypes.c_float) for n in ("thr", "lo", "hi")]
 
 
@@ -150,43 +158,48 @@ class _Buffers(ctypes.Structure):
 
 
 def tile_k1(K: int) -> int:
-    """T1, the k1 of a block's tile (``m_t1``): T1 K <= 128 coefficients."""
-    return K if K <= 11 else _KC // K
+    """T1, the k1 of a block's tile (``m_t1``): T1 K <= 128 coefficients,
+    one k1 past K = 128."""
+    return K if K <= 11 else _KC // K if K <= _KC else 1
 
 
-def _ring(h: int, w: int, r: int, fc: int, G: int):
-    """(words of the entropy ring, words of the known-free ring) for steps of
-    G lattice rows: the map rows within r of a step's rows as 16 rows of
-    entropies of an odd stride (r > 0), those within fc as 16 rows of
-    known-free words (fc > 0)."""
-    def rows(rad):
-        return min(2 * rad + G, h)
-
-    return (rows(r) * _TS * (w | 1) if r > 0 else 0,
-            rows(fc) * _TS * -(-w // 32) if fc > 0 else 0)
+def tiles(K: int) -> int:
+    """Tiles of the coefficients (``m_tiles``): of T1 k1 and every k2, or
+    past K = 128 of one k1 and at most 128 k2."""
+    return -(-K // tile_k1(K)) * -(-K // min(K, _KC))
 
 
-def ring_bytes(h: int, w: int, r: int, fc: int, G: int) -> int:
-    """Bytes of a block's rings for (h, w) maps (``m_ring_bytes``)."""
-    return 4 * sum(_ring(h, w, r, fc, G))
+def _parts(h: int, w: int, nsx: int, nsy: int, K: int, r: int, fc: int, G: int):
+    """A block's tables in ``m_layout``'s order: (words, the placement from
+    which they sit in the workspace; None: always in shared memory)."""
+    t1p = -(-tile_k1(K) // 4) * 4
+    vcp = -(-nsx // -(-nsx // _NV)) | 1
+    erow, wrow = _TS * (w | 1), _TS * -(-w // 32)
+    re, rw = ((min(2 * rad + G, h) if rad > 0 else 0) for rad in (r, fc))
+    return ((nsx * t1p, 3), (G * t1p * _TS, None), (G * _TS * vcp, None),
+            (G * erow if r > 0 else 0, 2), (G * wrow if fc > 0 else 0, 2),
+            (nsx + nsy + 2 * h + re + rw, 4), (re * erow + rw * wrow, 1))
 
 
 def smem_bytes(h: int, w: int, nsx: int, nsy: int, K: int, r: int, fc: int, G: int,
-               ring_global: bool = False) -> int:
+               spill: int = 0) -> int:
     """Dynamic shared memory of a block of M for (h, w) maps, an nsx x nsy
-    lattice and steps of G lattice rows (``m_layout`` in the source): the
-    tile's Cx table (nsx rows of T1 padded to 4), R (G rows, 16 scenarios),
-    the vals of a pass of at most 128 columns (an odd stride), the y sums
-    (r > 0) and the frontier words (fc > 0) of G rows, the lattice columns
-    and rows, the rings' row offsets and tags and, unless ``ring_global``, the
-    rings."""
-    passes = -(-nsx // _NV)
-    vcp = -(-nsx // passes) | 1
-    t1p = -(-tile_k1(K) // 4) * 4
-    re, rw = ((min(2 * rad + G, h) if rad > 0 else 0) for rad in (r, fc))
-    words = (nsx * t1p + G * t1p * _TS + G * _TS * vcp + (G * _TS * (w | 1) if r > 0 else 0)
-             + (G * _TS * -(-w // 32) if fc > 0 else 0) + nsx + nsy + 2 * h + re + rw)
-    return 4 * (words + (0 if ring_global else sum(_ring(h, w, r, fc, G))))
+    lattice and steps of G lattice rows in placement ``spill`` (``m_layout``
+    in the source): the tile's Cx table (nsx rows of T1 padded to 4), R (G
+    rows, 16 scenarios), the vals of a pass of at most 128 columns (an odd
+    stride), the y sums (r > 0) and the frontier words (fc > 0) of G rows,
+    the lattice columns and rows, the rings' row offsets and tags and the
+    rings, less what the placement moves to the workspace."""
+    return 4 * sum(n for n, at in _parts(h, w, nsx, nsy, K, r, fc, G) if at is None or spill < at)
+
+
+def work_bytes(h: int, w: int, nsx: int, nsy: int, K: int, r: int, fc: int, G: int,
+               spill: int) -> int:
+    """Bytes of a block's workspace in placement ``spill`` (``m_work_bytes``):
+    what it moves out of shared memory, rounded up to 16 bytes."""
+    words = sum(n for n, at in _parts(h, w, nsx, nsy, K, r, fc, G) if at is not None
+                and spill >= at)
+    return 16 * -(-words // 4)
 
 
 def blocks_per_sm(smem: int) -> int:
@@ -196,34 +209,40 @@ def blocks_per_sm(smem: int) -> int:
 
 
 def plan(h: int, w: int, nsx: int, nsy: int, K: int, r: int, fc: int):
-    """(G, the rings in a workspace, bytes of shared memory a block takes):
-    the lattice rows a step walks (4, 2 or 1), the most that keeps the most
-    blocks an SM, with the rings in shared memory where some G fits them
-    there, else in the workspace. None where nothing fits a block."""
-    for ring_global in (False, True):
+    """(G, the placement, bytes of shared memory a block takes): the first
+    placement of :data:`SPILLS` in which some G fits a block, and there the
+    lattice rows a step walks (4, 2 or 1), the most that keeps the most
+    blocks an SM. The last placement keeps at most 36 KB in shared memory,
+    so every shape has a plan."""
+    for spill in range(len(SPILLS)):
         best = None
         for G in (4, 2, 1):
-            smem = smem_bytes(h, w, nsx, nsy, K, r, fc, G, ring_global)
+            smem = smem_bytes(h, w, nsx, nsy, K, r, fc, G, spill)
             if smem <= MAX_SMEM and (best is None or blocks_per_sm(smem) > best[0]):
                 best = (blocks_per_sm(smem), G, smem)
         if best is not None:
-            return best[1], ring_global, best[2]
-    return None
+            return best[1], spill, best[2]
+    raise AssertionError("the last placement fits every shape")
 
 
-def runs(S: int, K: int, nsy: int, sm_count: int, smem: int, m: int = 0) -> int:
+def runs(S: int, K: int, nsy: int, sm_count: int, smem: int, m: int = 0, work: int = 0) -> int:
     """Z, the runs the nsy lattice rows are cut into (a block each per 16
-    scenarios and k1 tile), in runs of equal length, none empty: the Z that
-    takes the fewest waves of blocks (as many at a time as the SMs hold by
-    their shared memory and registers) times a block's rows, its run and the
-    2 m + 2 rows' worth a block spends before its first (its tables, its
-    rings' first rows: m = max(r, fc)); the smallest such Z."""
-    blocks = -(-S // _TS) * -(-K // tile_k1(K))
+    scenarios and coefficient tile), in runs of equal length, none empty:
+    the Z that takes the fewest waves of blocks (as many at a time as the
+    SMs hold by their shared memory and registers) times a block's rows, its
+    run and the 2 m + 2 rows' worth a block spends before its first (its
+    tables, its rings' first rows: m = max(r, fc)); the smallest such Z,
+    among those whose blocks' workspaces (``work`` bytes each) take at most
+    :data:`WORK_BUDGET` together (Z = 1 always)."""
+    blocks = -(-S // _TS) * tiles(K)
     slots = max(1, sm_count * blocks_per_sm(smem))
+    most = max(1, WORK_BUDGET // (blocks * work)) if work else nsy
     best = None
     for z in range(1, nsy + 1):
         per_run = -(-nsy // z)
         z = -(-nsy // per_run)
+        if z > most:
+            break
         cost = -(-blocks * z // slots) * (per_run + 2 * m + 2)
         if best is None or cost < best[0]:
             best = (cost, z)
@@ -235,12 +254,12 @@ class PhikDense:
     counts its launches per variant (``launches[variant]`` grows by one per
     launch of that variant, nowhere else)."""
 
-    VARIANTS = ("phik_dense_fc", "phik_dense_nofc", "phik_dense_fc_global",
-                "phik_dense_nofc_global")
+    VARIANTS = tuple(f"phik_dense_{m}{sp}" for sp in SPILLS for m in ("fc", "nofc"))
 
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
-        self.smem_limit = MAX_SMEM  # bytes a block may take; larger rings go to a workspace
+        # bytes a block may take; the placement moves tables out of shared memory until it fits
+        self.smem_limit = MAX_SMEM
         self.launches = {}
         self.reset_launches()
 
@@ -268,38 +287,32 @@ class PhikDense:
         K = ops.fallback.shape[-1]
         nsx, nsy = ops.cx.shape[0], ops.cy.shape[0]
         r, fc = int(sensor_radius_cells), int(frontier_cells)
-        if not 1 <= K <= KMAX or r < 0 or fc < 0:
-            raise ValueError(f"M supports 1 <= K <= {KMAX}, r >= 0 and fc >= 0, got K={K}, "
-                             f"r={r}, fc={fc}")
-        step = plan(h, w, nsx, nsy, K, r, fc)
-        if step is None:
-            need = smem_bytes(h, w, nsx, nsy, K, r, fc, 1, True)
-            raise ValueError(f"M keeps rows of 16 ({h}, {w}) maps and an {nsx} x {nsy} lattice in "
-                             f"a block's shared memory: {need} bytes, over the {MAX_SMEM}-byte "
-                             f"limit of a block on this architecture")
-        G, ring_global, smem = step
-        ring_global = ring_global or smem_bytes(h, w, nsx, nsy, K, r, fc, G) > self.smem_limit
+        if K < 1 or r < 0 or fc < 0:
+            raise ValueError(f"M takes K >= 1, r >= 0 and fc >= 0, got K={K}, r={r}, fc={fc}")
+        G, spill, smem = plan(h, w, nsx, nsy, K, r, fc)
+        # Z from the plan's placement: every placement sums in the same runs
+        Z = runs(S, K, nsy, _sm_count(dev), smem, max(r, fc),
+                 work_bytes(h, w, nsx, nsy, K, r, fc, G, spill))
+        while spill < len(SPILLS) - 1 and smem_bytes(h, w, nsx, nsy, K, r, fc, G,
+                                                     spill) > self.smem_limit:
+            spill += 1
         _require_cuda(dev, "M kernel")
         tensors = dict(data=data, cx=ops.cx, cy=ops.cy, cosx=ops.cosx, cosy=ops.cosy, hk=ops.hk,
                        fallback=ops.fallback)
         _check_operands("M", tensors, dict(data=(S, h, w), cx=(nsx,), cy=(nsy,), cosx=(nsx, K),
                                            cosy=(nsy, K), hk=(K, K), fallback=(K, K)),
                         dev, ints=("cx", "cy"))
-        # Z from the plan's shared memory: both variants sum in the same runs
-        Z = runs(S, K, nsy, _sm_count(dev), smem, max(r, fc))
         tensors["out"] = out = torch.empty((S, K, K), dtype=torch.float32, device=dev)
         tensors["part"] = torch.empty((S, Z, K * K), dtype=torch.float32, device=dev)
-        if ring_global and (r > 0 or fc > 0):  # the rings of each block
-            blocks = -(-S // _TS) * -(-K // tile_k1(K)) * Z
-            tensors["work"] = torch.empty((blocks, ring_bytes(h, w, r, fc, G)),
-                                          dtype=torch.uint8, device=dev)
-        params = _Params(S=S, h=h, w=w, nsx=nsx, nsy=nsy, K=K, r=r, fc=fc, Z=Z, G=G,
-                         ring_global=int(ring_global), thr=occupied_threshold, lo=eps,
-                         hi=1.0 - eps)
+        work = work_bytes(h, w, nsx, nsy, K, r, fc, G, spill)
+        if work:  # the tables of each block that the placement moves out
+            blocks = -(-S // _TS) * tiles(K) * Z
+            tensors["work"] = torch.empty((blocks, work), dtype=torch.uint8, device=dev)
+        params = _Params(S=S, h=h, w=w, nsx=nsx, nsy=nsy, K=K, r=r, fc=fc, Z=Z, G=G, spill=spill,
+                         thr=occupied_threshold, lo=eps, hi=1.0 - eps)
         bufs = _Buffers(**{n: t.data_ptr() for n, t in tensors.items()})
         err = launch_on(dev, self.build().lib.m_phik_dense_launch, params, bufs)
-        variant = ("phik_dense_fc" if fc > 0 else "phik_dense_nofc") + (
-            "_global" if ring_global else "")
+        variant = ("phik_dense_fc" if fc > 0 else "phik_dense_nofc") + SPILLS[spill]
         if err != 0:
             raise RuntimeError(f"M {variant} launch failed: CUDA error {err}")
         self.launches[variant] += 1

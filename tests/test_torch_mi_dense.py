@@ -4,7 +4,9 @@ package's ``Engine._phik_grid_batch_dense_fn`` on the same numpy beliefs:
 a non-square 24 x 32 map with a 20 x 16 lattice (it skips rows and columns
 of cells) and K = 6, for r in {0, 3} x fc in {0, 3}; scenarios of mixed
 beliefs, an all-unknown one (the uniform fallback where the frontier mask is
-on), a fully known one and a fully occupied one (the fallback). Also the
+on), a fully known one and a fully occupied one (the fallback); K = 130, past
+the 128 coefficients of the JAX package's MI kernel (which M's twin, the
+dense path, does not have), on a 5 x 4 lattice. Also the
 operands' cache: built once per geometry, built anew after an in-place change
 of the maps' origin.
 
@@ -79,6 +81,24 @@ def test_plain_dense_target_matches_jax(r, fc):
     # the fallback where nothing is left to explore, nowhere else
     assert took == [False] * UNKNOWN + [fc > 0, False, True]
     assert sum(md.M.launches.values()) == 0 and md.M.built is None  # CPU: plain only
+
+
+def test_plain_dense_target_matches_jax_past_k128():
+    """K = 130 on a 5 x 4 lattice of the 24 x 32 maps, r = fc = 1, at the
+    file's tolerance: the (N, K^2) table and contraction of both sides past
+    the JAX MI kernel's K <= 128, which the dense path never had."""
+    data, k, ns = _beliefs(), 130, (5, 4)
+    opts = dict(num_basis=k, grid_samples=ns, mi_frontier_cells=1)
+    jeng = JEngine(j_default_config("cart").replace(**opts))
+    ref = np.asarray(jeng._phik_grid_batch_dense_fn(
+        JGridMap(jnp.asarray(data), jnp.zeros((S, 2), jnp.float32),
+                 jnp.full((S,), RES, jnp.float32)), JDomain.create(*DOM), 1))
+    eng = Engine(default_config("cart").replace(**opts), device="cpu")
+    got = eng._phik_grid_batch_dense_fn(_tgrids(data), Domain.create(*DOM), 1)
+    assert got.shape == (S, k, k) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    fallback = eng._dense_ops(_tgrids(data), Domain.create(*DOM)).fallback
+    assert torch.equal(got[OCCUPIED], fallback) and not torch.equal(got[0], fallback)
 
 
 def test_dense_operands_are_built_once_per_geometry():
