@@ -50,7 +50,16 @@ REPEATS runs of REPS calls:
     rings of 1024) at S = 4096, 512 and 1, and that configuration's tick
     (``Engine._refresh_and_replan_fn``, eager) at S = 4096. Two trees whose
     kernels sum the full ring in another order give the same sums but for
-    rare one-ulp ties (float64 sums rounded once), and so the same ticks.
+    rare one-ulp ties (float64 sums rounded once), and so the same ticks;
+  - the map sizes of ``chip_smoke.py``'s phase 28: the world rebuild with the
+    free mask (``ops/edt_kernel.world_fields``) on 1400 x 1400 maps (S = 2)
+    and on 4000 x 4000 maps (S = 4), the field alone there
+    (``DistanceField.from_grid``), on ``chip_smoke.sparse_maps``; the dense MI
+    target (``Engine._phik_grid_batch_dense_fn``) at 4000 x 4000 (S = 16,
+    r = fc = 3, ``chip_smoke.ros_beliefs``), at K = 17 on path E's beliefs
+    (r = 3), at K = 130 (S = 16, 100 x 100 beliefs, r = 3) and on a 4500 x
+    4500 lattice of those beliefs (``phik_from_grid``, r = fc = 0). Their outputs
+    are saved as SHA-256 digests of their bytes (equal digests: equal bits).
 
 It prints one JSON line of those times with the card's name and power limit,
 and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
@@ -64,6 +73,7 @@ get the same inputs. Needs a CUDA device; exits 2 without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import re
@@ -112,8 +122,8 @@ def measure(root: Path, tag: str, out: Path) -> int:
     for name, built in cuda_build.build_all().items():
         fn = ""
         for line in built.log.splitlines():  # registers and spills of each kernel
-            m = re.search(r"_Z\d+((?:k\d|glue|m)_[a-z_]+|reveal_kernel|edt_kernel)(I[^E]*E)?",
-                          line)
+            m = re.search(r"_Z\d+((?:k\d|glue|m|edt)_[a-z_]+|reveal_kernel|edt_kernel)"
+                          r"(I(?:L[a-z]\d+E|[a-z])+E)?", line)
             fn = m.group(1) + (m.group(2) or "") if m else fn
             if "registers" in line or "spill" in line:
                 print(f"{tag} {name} {fn}: {line.replace('ptxas info    :', '').strip()}")
@@ -165,6 +175,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
     dense_calls(calls, smoke, dev)
     step_calls(calls, smoke, dev)
     full_calls(calls, smoke, dev, engine, sc, gmm, domain, world)
+    big = big_calls(calls, smoke, dev)
     saved, times = {}, {}
     for name, fn in calls.items():
         res = fn()
@@ -173,7 +184,11 @@ def measure(root: Path, tag: str, out: Path) -> int:
         for k, v in res.items():
             for i, t in enumerate(v if isinstance(v, tuple) else (v,)):  # the ring's three
                 if t is not None:
-                    saved[f"{name}.{k}" + (f".{i}" if isinstance(v, tuple) else "")] = t.cpu()
+                    t = t.cpu()
+                    if name in big:  # the bytes' digest
+                        t = torch.frombuffer(bytearray(hashlib.sha256(
+                            t.contiguous().numpy().tobytes()).digest()), dtype=torch.uint8)
+                    saved[f"{name}.{k}" + (f".{i}" if isinstance(v, tuple) else "")] = t
         runs = [smoke.events_ms(fn, REPS) for _ in range(REPEATS)]
         times[name] = {"ms": statistics.median(runs), "runs": runs}
     out.mkdir(parents=True, exist_ok=True)
@@ -315,6 +330,52 @@ def full_calls(calls: dict, smoke, dev, engine, sc, gmm, domain, world) -> None:
         return sc_.state.U, u, diag.ergodic_metric, diag.collision_code
 
     calls[f"tick_A_full_ring_S{S_BIG}"] = tick
+
+
+def big_calls(calls: dict, smoke, dev) -> set:
+    """Add the map sizes' calls (phase 28's shapes) of E and M; returns their
+    names, whose outputs are saved as digests."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.config import default_config
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.grid import Domain, GridMap
+    from ergodic_exploration_tpu_torch.ops import edt_kernel as ek
+    from ergodic_exploration_tpu_torch.ops.distance import DistanceField
+
+    cfg = default_config("cart").replace(use_fused_solve=True)
+    thr, gs = cfg.occupied_threshold, cfg.grid_samples
+    names = set()
+
+    def add(name, fn):
+        calls[name] = fn
+        names.add(name)
+
+    for S_, n, seed in ((2, smoke.E_MASK_CELLS, 281), (4, smoke.ROS_CELLS, 282)):
+        g = smoke.sparse_maps(S_, n, seed, dev, gs)
+        add(f"world_{n}_S{S_}", lambda g=g: ek.world_fields(g, g.domain(), thr, gs))
+        if n == smoke.ROS_CELLS:
+            add(f"edt_{n}_S{S_}", lambda g=g: tuple(DistanceField.from_grid(g, thr)[:2]))
+    n = smoke.ROS_CELLS
+    beliefs = GridMap(smoke.ros_beliefs(16, n, 283, dev), torch.zeros((16, 2), device=dev),
+                      torch.full((16,), 0.05, device=dev))
+    eng = Engine(cfg)
+    add(f"dense_{n}_S16_r3", lambda: eng._phik_grid_batch_dense_fn(beliefs, None,
+                                                                   smoke.MI_RADIUS))
+    eng_e, _, grids_e, _, _, dom_e = smoke.mi_case(S_BIG, dev)
+    grids_e = grids_e._replace(data=grids_e.data.contiguous())
+    eng_17 = Engine(eng_e.config.replace(num_basis=17))
+    add(f"dense_E_K17_S{S_BIG}", lambda: eng_17._phik_grid_batch_dense_fn(grids_e, dom_e,
+                                                                         smoke.MI_RADIUS))
+    small = GridMap(torch.from_numpy(smoke.mi_beliefs(16, 100, 100, seed=284)).to(dev),
+                    torch.zeros((16, 2), device=dev), torch.full((16,), 0.05, device=dev))
+    dom = Domain.create(0.0, 0.0, 5.0, 5.0, device=dev)
+    eng_130 = Engine(cfg.replace(num_basis=130))
+    add("dense_K130_S16", lambda: eng_130._phik_grid_batch_dense_fn(small, dom, smoke.MI_RADIUS))
+    n = smoke.LATTICE_BIG
+    eng_l = Engine(cfg.replace(grid_samples=(n, n), mi_frontier_cells=0))
+    add(f"dense_lattice{n}_S16", lambda: eng_l.phik_from_grid(small, 0, domain=dom))
+    return names
 
 
 def world_outputs(eng, belief) -> tuple:

@@ -874,8 +874,9 @@ def dense_check(name: str, data, ops, r: int, fc: int, thr: float, card: str, re
     the plain version's lattice values (the library yardstick), by CUDA
     events, and the temporaries' peak of each above the inputs. With
     ``placements`` M runs again in each placement past its plan's (the
-    rings, then the y sums and frontier words, the Cx table, the lattice
-    and offset tables in the workspace: ``mi_dense_kernel.SPILLS``, forced
+    rings, then the y sums and frontier words in the workspace, the Cx table
+    a pass's rows at a time, the lattice and offset tables in the workspace:
+    ``mi_dense_kernel.SPILLS``, forced
     by a ``smem_limit`` of that placement's bytes), each equal to the
     plan's bit for bit. Fails on a breach; returns the numbers."""
     import torch
@@ -938,6 +939,24 @@ def dense_check(name: str, data, ops, r: int, fc: int, thr: float, card: str, re
     print(f"  M {name}: {out['ms']:.4f} ms, plain version {out['plain_ms']:.4f} ms, the cuBLAS "
           f"contraction alone {out['lib_ms']:.4f} ms; temporaries' peak {peak_m / 2**20:.2f} MiB "
           f"(M) vs {peak_p / 2**20:.1f} MiB (plain) {card}", flush=True)
+    nsx, nsy = ops.cx.shape[0], ops.cy.shape[0]
+    if md.tiles(K) > 1:  # the other way to contract the values once: two float32 matmuls
+        v3 = vals.view(S_, nsx, nsy)
+        out["pair_ms"] = events_ms(lambda: torch.matmul(
+            torch.matmul(v3.transpose(1, 2), ops.cosx).transpose(1, 2), ops.cosy), reps)
+        print(f"  M {name}: the values once then a contraction a tile ({md.tiles(K)} tiles); the "
+              f"separable pair of float32 matmuls on the plain version's values alone "
+              f"{out['pair_ms']:.4f} ms {card}")
+    if md.table_width(w_, nsx, r, fc) < w_:  # the tables at the columns the lattice reads
+        md.M.compact = False
+        try:
+            every = md.M(data, *args)
+            out["every_ms"] = events_ms(lambda: md.M(data, *args), reps)
+        finally:
+            md.M.compact = True
+        print(f"  M {name}: the tables at the {md.table_width(w_, nsx, r, fc)} columns the "
+              f"lattice reads, of {w_}; with every map column {out['every_ms']:.4f} ms, equal bit "
+              f"for bit: {bool(torch.equal(every, got))} {card}", flush=True)
     return out
 
 
@@ -3645,13 +3664,14 @@ def map_kernels_phase(dev, card, entry, f_run) -> None:
         fail("phase 24: the node's map update did not go through the EDT kernel once")
 
 
-def dense_phase(dev, card, e_run: dict, f_run: dict) -> None:
+def dense_phase(dev, card, entry, kernels, e_run: dict, f_run: dict) -> None:
     """Phase 25: M against its plain version on the card (``dense_check``):
     path F's beliefs (S = 4096, r = 0, fc = 3) and their first scenario
     alone, path E's (r = 3 with fc = 3 and fc = 0), 200 x 200 beliefs at
     S = 1024 (also in every placement of its tables past the plan's), a 60 x 140 map with a
     48 x 64 lattice and K = 12 (two tiles of coefficients), K = 17 on path E's
-    beliefs (three tiles), all-unknown
+    beliefs (three tiles: the values once, then a contraction a tile; also
+    through the engine, the kernels line's entry), all-unknown
     beliefs (every scenario the fallback) and fully known maps (path F's
     true maps)."""
     import torch
@@ -3683,10 +3703,26 @@ def dense_phase(dev, card, e_run: dict, f_run: dict) -> None:
         eng_e = Engine(e_run["cfg"].replace(mi_frontier_cells=fc))
         rows[f"E, S=4096, r=3, fc={fc}"] = case(f"path E's beliefs, fc={fc}", eng_e, grids_e,
                                                 e_run["domain"], MI_RADIUS)
-    rows["E, K=17 (three tiles of k1)"] = case(
-        "path E's beliefs, K=17", Engine(e_run["cfg"].replace(num_basis=17)), grids_e,
-        e_run["domain"], MI_RADIUS, reps=5)
-    del grids_e, eng_e
+    eng_17 = Engine(e_run["cfg"].replace(num_basis=17))
+    rows["E, K=17 (three tiles of k1)"] = d17 = case(
+        "path E's beliefs, K=17", eng_17, grids_e, e_run["domain"], MI_RADIUS, reps=5)
+    # K = 17 through the engine: the values once and a contraction a tile
+    reset_counts()
+    got = eng_17._phik_grid_batch_dense_fn(grids_e, e_run["domain"], MI_RADIUS)
+    torch.cuda.synchronize()
+    path = "phase 25, the dense MI target at K = 17"
+    dense = read_dense()
+    expect_counts(path, dense, {"phik_dense_fc_tiles": 1})
+    S_e = grids_e.data.shape[0]
+    if got.shape != (S_e, 17, 17) or not torch.isfinite(got).all():
+        fail(f"{path}: non-finite or mis-shaped")
+    nsx, nsy = eng_17.config.grid_samples
+    entry("phik_dense_fc_tiles_K17", "mi_dense_kernel.cu", DENSE_REPLACES, d17["err"], d17["ms"],
+          d17["plain_ms"], dense_work(S_e, 100, 100, nsx, nsy, 17 ** 2, MI_RADIUS,
+                                      e_run["cfg"].mi_frontier_cells, d17["nnz"]))
+    kernels["phik_dense_fc_tiles_K17"].update(library_ms=d17["lib_ms"],
+                                              launches=dense["phik_dense_fc_tiles"])
+    del grids_e, eng_e, eng_17, got
     big = maps(torch.from_numpy(mi_beliefs(S_BIG, CELLS_BIG, CELLS_BIG, seed=16)).to(dev))
     dom_big = Domain.create(0.0, 0.0, 0.05 * CELLS_BIG, 0.05 * CELLS_BIG, device=dev)
     rows["200 x 200, S=1024, r=3, fc=3"] = case(f"{CELLS_BIG} x {CELLS_BIG} beliefs",
@@ -4252,17 +4288,59 @@ def ros_map_case(S: int, dev, n: int, seed: int = 28):
     return x0, truth
 
 
+def sparse_maps(S: int, n: int, seed: int, dev, grid_samples):
+    """S (n, n) maps on the card for E: scattered obstacles and walls, a third
+    of the cells unknown, known-free cells, a NaN at the first lattice
+    point's cell of the first map (a ``grid_samples`` lattice over each
+    map's extent)."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.grid import GridMap
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand((S, n, n), generator=g, device=dev)
+    data = torch.where(u < 0.33, -1.0, torch.where(u > 0.9995, 1.0, 0.2))
+    data[:, n // 3, n // 8:n // 2] = 1.0
+    data[:, n // 5:n - n // 5, 2 * n // 3] = 0.9
+    grid = GridMap(data, torch.zeros((S, 2), device=dev), torch.full((S,), 0.05, device=dev))
+    cell = grid.world_to_grid(grid.domain().sample_lattice(grid_samples))[0, 0].round().long()
+    data[0, cell[1], cell[0]] = float("nan")
+    return grid
+
+
+def ros_beliefs(S: int, n: int, seed: int, dev):
+    """S (n, n) beliefs on the card for M: a known part of random width
+    (known-free, a few walls, continuous cells), the rest unknown, a wall
+    across the middle, the last scenario fully occupied (the fallback)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ext = torch.randint(n // 10, n - n // 10, (S,), generator=g, device=dev)
+    known = torch.arange(n, device=dev)[None, None, :] < ext[:, None, None]
+    u = torch.rand((S, n, n), generator=g, device=dev)
+    data = torch.where(known, 0.0, -1.0).expand(S, n, n).clone()
+    data = torch.where(u < 0.002, 1.0, torch.where((u > 0.5) & (u < 0.53), u, data))
+    data[:, int(0.45 * n):int(0.5 * n), int(0.2 * n):int(0.8 * n)] = torch.where(
+        known[:, :, int(0.2 * n):int(0.8 * n)], 1.0, -1.0)
+    data[S - 1] = 1.0
+    return data
+
+
 def map_sizes_phase(dev, card, entry, kernels) -> None:
     """Phase 28: the map sizes the JAX package answers and the port once
-    refused. E with the free mask on 1400 x 1400 maps (S = 2; its shared
-    memory no longer grows with the map) bit for bit against ``world_plain``
-    map by map, and on gmapping's default 4000 x 4000 maps (S = 4) dist and
-    grad bit for bit against the EDT alone (the plain EDT would take 256 GB
-    a map), the mask against the plain mask; M at 4000 x 4000 (S = 16,
-    r = fc = 3: the rings, y sums and frontier words in the workspace), at
-    K = 130 (S = 16, 100 x 100 maps) and on a 4500 x 4500 lattice of 100 x
-    100 maps (``phik_from_grid`` on a shared domain: the Cx table in the
-    workspace too) against its plain version within DENSE_TOL; then the
+    refused. E's many-block form forced on 100 x 100 (S = 64 and 1) and 200 x
+    200 maps (S = 16) bit for bit against ``world_plain`` and the one-block
+    form, both forms timed; E with the free mask on 1400 x 1400 maps (S = 2,
+    the many-block form) bit for bit against ``world_plain`` map by map, and
+    on gmapping's default 4000 x 4000 maps (S = 4) dist and grad bit for bit
+    against the EDT alone (the plain EDT would take 256 GB a map), the mask
+    against the plain mask; M at 4000 x 4000 (S = 16, r = fc = 3: the tables
+    at the 700 columns the lattice reads, the rings in the workspace; also
+    with every map column), at K = 130 (S = 16, 100 x 100 maps: the values
+    once and a contraction a tile, also through ``phik_from_grid``) and on a
+    4500 x 4500 lattice of 100 x 100 maps (``phik_from_grid`` on a shared
+    domain: the Cx table a pass's rows at a time) against its plain version
+    within DENSE_TOL; then the
     mapping loop at 4000 x 4000 (``explore_mapping_fused``, S = 16, r = 3,
     fc = 3, two refreshes of 10 ticks): finite outputs, the coverage risen
     from the unknown start and never falling, every known cell the truth's,
@@ -4276,6 +4354,7 @@ def map_sizes_phase(dev, card, entry, kernels) -> None:
     from ergodic_exploration_tpu_torch.grid import Domain, GridMap
     from ergodic_exploration_tpu_torch.ops import edt_kernel as ek
     from ergodic_exploration_tpu_torch.ops import mi_dense_kernel as md
+    from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
     from ergodic_exploration_tpu_torch.ops.distance import DistanceField
 
     print(f"== 28. the map sizes the JAX package answers: E and M on {E_MASK_CELLS} x "
@@ -4289,18 +4368,7 @@ def map_sizes_phase(dev, card, entry, kernels) -> None:
     rng = np.random.default_rng(28)
 
     def e_maps(S_, n, seed):
-        """S_ (n, n) maps: scattered obstacles and walls, a third of the
-        cells unknown, known-free cells, a NaN at the first lattice point's
-        cell of the first map."""
-        g = torch.Generator(device=dev).manual_seed(seed)
-        u = torch.rand((S_, n, n), generator=g, device=dev)
-        data = torch.where(u < 0.33, -1.0, torch.where(u > 0.9995, 1.0, 0.2))
-        data[:, n // 3, n // 8:n // 2] = 1.0
-        data[:, n // 5:n - n // 5, 2 * n // 3] = 0.9
-        grid = GridMap(data, torch.zeros((S_, 2), device=dev), torch.full((S_,), 0.05, device=dev))
-        cell = grid.world_to_grid(grid.domain().sample_lattice(gs))[0, 0].round().long()
-        data[0, cell[1], cell[0]] = float("nan")
-        return grid
+        return sparse_maps(S_, n, seed, dev, gs)
 
     def world_peak(grid):
         """E with the mask on ``grid``, the temporaries' peak above its inputs."""
@@ -4310,6 +4378,41 @@ def map_sizes_phase(dev, card, entry, kernels) -> None:
         out = ek.world_fields(grid, grid.domain(), thr, gs)
         torch.cuda.synchronize()
         return out, torch.cuda.max_memory_allocated() - base
+
+    # (a0) E's many-block form forced on maps whose plane fits shared memory:
+    # 100 x 100 (S = 64, S = 1) and 200 x 200 (S = 16) against world_plain and
+    # the one-block form, bit for bit; both forms timed there and at S = 4096
+    # and S = 1024
+    for n, S_, S_t in ((100, 64, 4096), (100, 1, 1), (200, 16, 1024)):
+        grid = e_maps(S_, n, 280 + n + S_)
+        one = ek.world_fields(grid, grid.domain(), thr, gs)
+        ref = ek.world_plain(grid, grid.domain(), thr, gs)
+        ek.E.smem_limit = 0
+        try:
+            ek.E.reset_launches()
+            many = ek.world_fields(grid, grid.domain(), thr, gs)
+            again = ek.world_fields(grid, grid.domain(), thr, gs)
+            launched = dict(ek.E.launches)
+        finally:
+            ek.E.smem_limit = sk.MAX_SMEM
+        same = [torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+                for a, b, c, d in zip(many, ref, one, again)]
+        print(f"  E's many-block form forced at {n} x {n}, S={S_}: dist, grad, mask equal to "
+              f"world_plain and to the one-block form bit for bit: {same}; launches {launched}")
+        if not all(same) or launched["world_global"] != 2:
+            fail(f"phase 28: E's many-block form at {n} x {n} differs from world_plain or the "
+                 f"one-block form")
+        big = e_maps(S_t, n, 290 + n) if S_t != S_ else grid
+        t_one = events_ms(lambda: ek.world_fields(big, big.domain(), thr, gs), 20)
+        ek.E.smem_limit = 0
+        try:
+            t_many = events_ms(lambda: ek.world_fields(big, big.domain(), thr, gs), 20)
+        finally:
+            ek.E.smem_limit = sk.MAX_SMEM
+        print(f"  E with the mask at {n} x {n}, S={S_t}: the one-block form {t_one:.4f} ms, the "
+              f"many-block form {t_many:.4f} ms {card}", flush=True)
+        del grid, one, ref, many, again, big
+    torch.cuda.empty_cache()
 
     # (a) E with the mask on 1400 x 1400 maps against world_plain, map by map
     grid = e_maps(2, E_MASK_CELLS, 281)
@@ -4356,10 +4459,13 @@ def map_sizes_phase(dev, card, entry, kernels) -> None:
         fail(f"phase 28: E at {ROS_CELLS} x {ROS_CELLS} disagrees with the EDT alone or the mask")
     del dist, grad, free, field
     w_ms = events_ms(lambda: ek.world_fields(grid, grid.domain(), thr, gs), 3)
+    e_ms = events_ms(lambda: DistanceField.from_grid(grid, thr), 3)
     work = edt_work(4, ROS_CELLS, ROS_CELLS, gs[0] * gs[1])
-    print(f"  E with the mask at {ROS_CELLS} x {ROS_CELLS}, S=4: {w_ms:.2f} ms, bound "
-          f"{bound(*work)[0]:.4f} ms ({work[1] / 1e6:.0f} MB); temporaries' peak "
-          f"{peak / 2**20:.0f} MiB (the plane and stack in the workspace) {card}", flush=True)
+    work_e = edt_work(4, ROS_CELLS, ROS_CELLS)
+    print(f"  E with the mask at {ROS_CELLS} x {ROS_CELLS}, S=4: {w_ms:.4f} ms, bound "
+          f"{bound(*work)[0]:.4f} ms ({work[1] / 1e6:.0f} MB); the field alone (edt_global) "
+          f"{e_ms:.4f} ms, bound {bound(*work_e)[0]:.4f} ms; temporaries' peak "
+          f"{peak / 2**20:.0f} MiB (the planes and stacks in the workspace) {card}", flush=True)
     del grid
     torch.cuda.empty_cache()
 
@@ -4378,17 +4484,8 @@ def map_sizes_phase(dev, card, entry, kernels) -> None:
         return d, work_
 
     # (c) M at 4000 x 4000, S = 16, r = fc = 3
-    g = torch.Generator(device=dev).manual_seed(283)
     n = ROS_CELLS
-    ext = torch.randint(n // 10, n - n // 10, (16,), generator=g, device=dev)
-    known = torch.arange(n, device=dev)[None, None, :] < ext[:, None, None]
-    u = torch.rand((16, n, n), generator=g, device=dev)
-    data = torch.where(known, 0.0, -1.0).expand(16, n, n).clone()
-    data = torch.where(u < 0.002, 1.0, torch.where((u > 0.5) & (u < 0.53), u, data))
-    data[:, int(0.45 * n):int(0.5 * n), int(0.2 * n):int(0.8 * n)] = torch.where(
-        known[:, :, int(0.2 * n):int(0.8 * n)], 1.0, -1.0)
-    data[15] = 1.0  # the fallback
-    del u, known
+    data = ros_beliefs(16, n, 283, dev)
     eng = Engine(cfg)
     grid = GridMap(data, torch.zeros((16, 2), device=dev), torch.full((16,), 0.05, device=dev))
     m_case(f"{n} x {n} beliefs, S=16, r=3, fc=3", data, eng._dense_ops(grid, None), 3, 3, reps=5,
@@ -4401,9 +4498,22 @@ def map_sizes_phase(dev, card, entry, kernels) -> None:
     small = GridMap(torch.from_numpy(mi_beliefs(16, 100, 100, seed=284)).to(dev),
                     torch.zeros((16, 2), device=dev), torch.full((16,), 0.05, device=dev))
     dom_small = Domain.create(0.0, 0.0, 5.0, 5.0, device=dev)
-    m_case("K=130, 100 x 100 beliefs, S=16, r=3, fc=3", small.data,
-           eng_k._dense_ops(small, dom_small), 3, 3, reps=5, plain_reps=2, placements=True)
-    del eng_k
+    d, work = m_case("K=130, 100 x 100 beliefs, S=16, r=3, fc=3", small.data,
+                     eng_k._dense_ops(small, dom_small), 3, 3, reps=5, plain_reps=2,
+                     placements=True)
+    reset_counts()
+    got = eng_k.phik_from_grid(small, 3, domain=dom_small)
+    torch.cuda.synchronize()
+    path = "phase 28, phik_from_grid at K = 130"
+    dense = read_dense()
+    expect_counts(path, dense, {"phik_dense_fc_tiles": 1})
+    if got.shape != (16, 130, 130) or not torch.isfinite(got).all():
+        fail(f"{path}: non-finite or mis-shaped")
+    entry("phik_dense_fc_tiles_K130", "mi_dense_kernel.cu", DENSE_REPLACES, d["err"], d["ms"],
+          d["plain_ms"], work)
+    kernels["phik_dense_fc_tiles_K130"].update(library_ms=d["lib_ms"],
+                                               launches=dense["phik_dense_fc_tiles"])
+    del eng_k, got
 
     # (e) M through phik_from_grid on a shared domain with a 4500 x 4500 lattice
     eng_l = Engine(cfg.replace(grid_samples=(LATTICE_BIG, LATTICE_BIG), mi_frontier_cells=0))
@@ -4447,7 +4557,9 @@ def map_sizes_phase(dev, card, entry, kernels) -> None:
                    "coverage": ROS_REFRESHES})
     note_launches(path, maps)
     dense = read_dense()
-    expect_counts(f"{path}, M", dense, {"phik_dense_fc_global_sums": ROS_REFRESHES})
+    m_variant = "phik_dense_fc" + md.SPILLS[md.plan(n, n, *gs, cfg.num_basis, MI_RADIUS,
+                                                   cfg.mi_frontier_cells)[1]]
+    expect_counts(f"{path}, M", dense, {m_variant: ROS_REFRESHES})
     note_launches(path, dense)
     cov_l = cov.tolist()
     moved = (traj[-1, -1, :, :2] - torch.as_tensor(x0[:, :2], device=dev)).norm(dim=1)
@@ -4469,9 +4581,8 @@ def map_sizes_phase(dev, card, entry, kernels) -> None:
     d, work = m_case(f"the mapping loop's beliefs at {n} x {n}, S=16, r=3, fc=3", belief.data,
                      eng._dense_ops(truth, None), MI_RADIUS, cfg.mi_frontier_cells, reps=5,
                      plain_reps=2)
-    entry("phik_dense_fc_global_sums", "mi_dense_kernel.cu", DENSE_REPLACES, d["err"], d["ms"],
-          d["plain_ms"], work)
-    kernels["phik_dense_fc_global_sums"]["library_ms"] = d["lib_ms"]
+    entry(m_variant, "mi_dense_kernel.cu", DENSE_REPLACES, d["err"], d["ms"], d["plain_ms"], work)
+    kernels[m_variant]["library_ms"] = d["lib_ms"]
     ms = events_ms(lambda: eng.explore_mapping_fused(
         sc, truth, n_refreshes=1, refresh_every=MAP_EVERY, sensor_range=1.5,
         sensor_radius_cells=MI_RADIUS), 2)
@@ -5529,7 +5640,7 @@ def run(dev) -> int:
     at(24)
     map_kernels_phase(dev, card, entry, f_run)
     at(25)
-    dense_phase(dev, card, e_run, f_run)
+    dense_phase(dev, card, entry, kernels, e_run, f_run)
     at(26)
     states = default_step_phase(dev, card)["states"]
     at(27)

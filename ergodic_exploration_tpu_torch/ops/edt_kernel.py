@@ -19,7 +19,9 @@ plain versions only for tensors that lie on the CPU. For CUDA tensors they
 launch the kernel or raise; there is no fallback. ``E.launches`` counts the
 launches of each variant: ``edt`` and ``world`` (without and with the mask;
 a map's working plane in shared memory) and ``edt_global`` and
-``world_global`` (maps over ``smem_limit`` bytes of plane, in a workspace).
+``world_global`` (maps over ``smem_limit`` bytes of plane: the many-block
+form, three kernels over many blocks a map, the plane in a workspace; one
+launch of the wrapper all the same).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ def world_fields(grids: GridMap, dom: Domain, occupied_threshold: float, grid_sa
 class _Params(ctypes.Structure):
     """Mirror of ``struct EdtParams`` in csrc/edt_kernel.cu."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("S", "h", "w", "plane_global", "nsx", "nsy")] + [
+    _fields_ = [(n, ctypes.c_int) for n in ("S", "h", "w", "many_blocks", "nsx", "nsy")] + [
         (n, ctypes.c_float) for n in ("thr", "far")]
 
 
@@ -97,7 +99,9 @@ class EdtField:
 
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
-        self.smem_limit = MAX_SMEM  # bytes of plane and stack a block keeps in shared memory
+        # bytes of plane and stack a block may keep in shared memory; past
+        # them a map takes the many-block form
+        self.smem_limit = MAX_SMEM
         self.launches = {}
         self.reset_launches()
 
@@ -117,11 +121,19 @@ class EdtField:
 
     def smem_bytes(self, h: int, w: int, nsx: int, nsy: int, plane_shared: bool) -> int:
         """Bytes of shared memory a block takes for (h, w) maps and an nsx x
-        nsy mask (0 x 0 without), with the plane and stack where
-        ``plane_shared`` (the source's ``edt_smem_bytes``)."""
+        nsy mask (0 x 0 without): the one-block form's, the plane and stack
+        in shared memory, where ``plane_shared``; else the many-block form's,
+        none (the source's ``edt_smem_bytes``)."""
         fn = self.build().lib.edt_smem_bytes
         fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
         return fn(h, w, nsx, nsy, int(plane_shared))
+
+    def work_bytes(self, h: int, w: int) -> int:
+        """Bytes of workspace an (h, w) map takes in the many-block form: its
+        plane and its stacks (the source's ``edt_work_bytes``)."""
+        fn = self.build().lib.edt_work_bytes
+        fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+        return fn(h, w)
 
     def __call__(self, data, res, occupied_threshold: float):
         """(dist (S, h, w), grad (S, h, w, 2)) of the maps ``data`` (S, h, w)
@@ -154,19 +166,18 @@ class EdtField:
             shapes.update(map_origin=(S, 2), dom_origin=(S, 2), dom_lengths=(S, 2), fx=(nsx,),
                           fy=(nsy,))
         _check_operands("EDT kernel", ops, shapes, dev)
-        plane_global = self.smem_bytes(h, w, nsx, nsy, True) > self.smem_limit
-        if plane_global:  # a map's plane and stack in a workspace
-            plane = self.smem_bytes(h, w, 0, 0, True) - self.smem_bytes(h, w, 0, 0, False)
-            ops["work"] = torch.empty((S, plane), dtype=torch.uint8, device=dev)
+        many_blocks = self.smem_bytes(h, w, nsx, nsy, True) > self.smem_limit
+        if many_blocks:  # the many-block form: a map's plane and stacks in a workspace
+            ops["work"] = torch.empty((S, self.work_bytes(h, w)), dtype=torch.uint8, device=dev)
         ops["dist"] = dist = torch.empty_like(data)
         ops["grad"] = grad = torch.empty((S, h, w, 2), dtype=torch.float32, device=dev)
         if mask is not None:
             ops["free"] = torch.empty((S, nsx * nsy), dtype=torch.float32, device=dev)
-        params = _Params(S=S, h=h, w=w, plane_global=int(plane_global), nsx=nsx, nsy=nsy,
+        params = _Params(S=S, h=h, w=w, many_blocks=int(many_blocks), nsx=nsx, nsy=nsy,
                          thr=occupied_threshold, far=FAR)
         bufs = _Buffers(**{n: t.data_ptr() for n, t in ops.items()})
         err = launch_on(dev, self.build().lib.edt_field, params, bufs)
-        variant = ("edt" if mask is None else "world") + ("_global" if plane_global else "")
+        variant = ("edt" if mask is None else "world") + ("_global" if many_blocks else "")
         if err != 0:
             raise RuntimeError(f"{variant} launch failed: CUDA error {err}")
         self.launches[variant] += 1

@@ -1,6 +1,6 @@
 // Host stand-in for the CUDA runtime, for tests only: lets the package's
 // .cu sources compile as host C++ (g++ -std=c++20) and run a launch as one
-// std::thread per CUDA thread, block after block, with std::barrier for
+// std::thread per CUDA thread of a block, block after block, with std::barrier for
 // __syncthreads / __syncwarp and a per-warp exchange buffer for shuffles,
 // ballots and the float64 tensor cores' fragments.
 // It exists to check a kernel's indexing and arithmetic where there is no
@@ -49,8 +49,12 @@ struct alignas(16) float4 {
 struct alignas(16) double2 {
     double x, y;
 };
+struct alignas(16) uint4 {
+    unsigned x, y, z, w;
+};
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -76,36 +80,40 @@ inline thread_local std::barrier<>* block_bar = nullptr;
 inline thread_local std::atomic<int>* block_or = nullptr;  // __syncthreads_or's accumulator
 inline thread_local Warp* warp = nullptr;
 
-// Run `body` once per thread of every block of the grid, blocks in sequence.
-// Dynamic shared memory starts as NaN bit patterns so that a read of a cell
+// Run `body` once per thread of every block of the grid, blocks in sequence:
+// one std::thread per thread of a block, each walking the blocks in turn,
+// all of them done with a block before the next starts. Dynamic shared
+// memory starts each block as NaN bit patterns so that a read of a cell
 // nobody wrote shows up in the result.
 template <class F>
 void run(dim3 grid, dim3 block, size_t smem, F body) {
-    const unsigned nthreads = block.x * block.y * block.z;
-    for (unsigned b = 0; b < grid.x * grid.y * grid.z; ++b) {
-        const unsigned bx = b % grid.x, by = (b / grid.x) % grid.y, bz = b / (grid.x * grid.y);
-        std::vector<float4> mem(smem / sizeof(float4) + 2);
-        memset(mem.data(), 0xFF, mem.size() * sizeof(float4));
-        std::barrier<> bar(nthreads);
-        std::atomic<int> any(0);
-        std::vector<std::unique_ptr<Warp>> warps;
-        for (unsigned w = 0; w * 32 < nthreads; ++w)
-            warps.push_back(std::make_unique<Warp>((int)std::min(32u, nthreads - w * 32)));
-        std::vector<std::thread> threads;
-        for (unsigned t = 0; t < nthreads; ++t)
-            threads.emplace_back([&, t] {
-                threadIdx = uint3{t % block.x, (t / block.x) % block.y, t / (block.x * block.y)};
-                blockIdx = uint3{bx, by, bz};
-                blockDim = block;
-                gridDim = grid;
-                dyn_smem = reinterpret_cast<unsigned char*>(mem.data());
-                block_bar = &bar;
-                block_or = &any;
-                warp = warps[t / 32].get();
+    const unsigned nthreads = block.x * block.y * block.z, nblocks = grid.x * grid.y * grid.z;
+    std::vector<float4> mem(smem / sizeof(float4) + 2);
+    auto fresh = [&]() noexcept { memset(mem.data(), 0xFF, mem.size() * sizeof(float4)); };
+    fresh();
+    std::barrier<> bar(nthreads);
+    std::barrier<decltype(fresh)> between(nthreads, fresh);
+    std::atomic<int> any(0);
+    std::vector<std::unique_ptr<Warp>> warps;
+    for (unsigned w = 0; w * 32 < nthreads; ++w)
+        warps.push_back(std::make_unique<Warp>((int)std::min(32u, nthreads - w * 32)));
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < nthreads; ++t)
+        threads.emplace_back([&, t] {
+            threadIdx = uint3{t % block.x, (t / block.x) % block.y, t / (block.x * block.y)};
+            blockDim = block;
+            gridDim = grid;
+            dyn_smem = reinterpret_cast<unsigned char*>(mem.data());
+            block_bar = &bar;
+            block_or = &any;
+            warp = warps[t / 32].get();
+            for (unsigned b = 0; b < nblocks; ++b) {
+                blockIdx = uint3{b % grid.x, (b / grid.x) % grid.y, b / (grid.x * grid.y)};
                 body();
-            });
-        for (auto& th : threads) th.join();
-    }
+                between.arrive_and_wait();
+            }
+        });
+    for (auto& th : threads) th.join();
 }
 
 }  // namespace host_stub
