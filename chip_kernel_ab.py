@@ -59,7 +59,14 @@ REPEATS runs of REPS calls:
     r = fc = 3, ``chip_smoke.ros_beliefs``), at K = 17 on path E's beliefs
     (r = 3), at K = 130 (S = 16, 100 x 100 beliefs, r = 3) and on a 4500 x
     4500 lattice of those beliefs (``phik_from_grid``, r = fc = 0). Their outputs
-    are saved as SHA-256 digests of their bytes (equal digests: equal bits).
+    are saved as SHA-256 digests of their bytes (equal digests: equal bits);
+  - ``k1_solve`` (K1 with phi_k given) at the wide shapes of phase 21,
+    (K, H) = (17, 65), (20, 80), (32, 128), (40, 256): path A's inputs at
+    S = 4096 after one ``replan_refresh`` tick, phi_k the plain refresh's;
+    and at (40, 256) on 512 distinct maps with 100 drawn history positions a
+    scenario, after 5 ``explore`` ticks. Each tree runs the layout its own
+    plan takes (a tree without the block form, its global tables); outputs
+    as digests.
 
 It prints one JSON line of those times with the card's name and power limit,
 and saves every output it timed to ``<dir>/<name>.pt``. The second form fails
@@ -175,7 +182,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
     dense_calls(calls, smoke, dev)
     step_calls(calls, smoke, dev)
     full_calls(calls, smoke, dev, engine, sc, gmm, domain, world)
-    big = big_calls(calls, smoke, dev)
+    big = big_calls(calls, smoke, dev) | wide_calls(calls, smoke, dev)
     saved, times = {}, {}
     for name, fn in calls.items():
         res = fn()
@@ -376,6 +383,35 @@ def big_calls(calls: dict, smoke, dev) -> set:
     eng_l = Engine(cfg.replace(grid_samples=(n, n), mi_frontier_cells=0))
     add(f"dense_lattice{n}_S16", lambda: eng_l.phik_from_grid(small, 0, domain=dom))
     return names
+
+
+def wide_calls(calls: dict, smoke, dev) -> set:
+    """Add ``k1_solve`` at phase 21's wide shapes (path A's inputs, S = 4096,
+    phi_k given; 512 distinct maps with drawn history at the largest);
+    returns their names, whose outputs are saved as digests."""
+    from ergodic_exploration_tpu_torch.engine import Engine
+    from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
+
+    names = set()
+    for K, H in smoke.WIDE_SHAPES:
+        engine, sc, world, gmm, domain = smoke.wide_case(S_BIG, dev, K, H)
+        cfg = engine.config
+        sc, u, _ = engine.replan_refresh(sc, gmm, domain, world)
+        sc = smoke.advance(engine, sc, u)
+        inp, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
+        inp = inp._replace(refresh=None, phik=sk.refresh_plain(inp.refresh, inp.dlen))
+        names.add(f"k1_solve_A_K{K}_H{H}")
+        calls[f"k1_solve_A_K{K}_H{H}"] = lambda cfg=cfg, inp=inp: sk.K1(cfg, inp)
+    K, H = smoke.WIDE_SHAPES[-1]
+    cfg, x0, grids, gmm, dom = smoke.distinct_case(smoke.WIDE_S, dev, num_basis=K, horizon=H)
+    eng = Engine(cfg)
+    world = eng.prepare_world(grids)
+    phik = eng.phik_from_gmm(gmm, dom, world)
+    sc = eng.explore(eng.init_scenarios(x0), phik, world, smoke.WIDE_TICKS).scenarios
+    inp, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, phik, world)
+    name = f"k1_solve_maps_K{K}_H{H}_S{smoke.WIDE_S}"
+    calls[name] = lambda: sk.K1(cfg, inp)
+    return names | {name}
 
 
 def world_outputs(eng, belief) -> tuple:

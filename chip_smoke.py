@@ -987,6 +987,31 @@ def solve_work(cfg, S, P, safety: bool, dwa_probes: float = 0.0, map_cells: int 
     return flops, nbytes
 
 
+def contraction_library_ms(cfg, inp, reps: int = 10) -> float:
+    """The library yardstick of k1_solve's contractions on its inputs: cuBLAS
+    bmm (TF32 off) of c_k's (S, K, H) @ (S, H, K), the gradient's two
+    (S, H, K) @ (S, K, K) and, with drawn history, its (S, K, nb) @ (S, nb,
+    K), on the cos tables of the rollout's knots (and of the drawn
+    positions), phi_k standing in for Wh. Timed here, never called by the
+    port."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.grid import Domain
+    from ergodic_exploration_tpu_torch.models import make_model
+    from ergodic_exploration_tpu_torch.ops import basis
+    from ergodic_exploration_tpu_torch.ops.integrator import rollout
+
+    K, dom = cfg.num_basis, Domain(inp.dorigin, inp.dlen)
+    knots = rollout(make_model(cfg), inp.x, inp.U, cfg.dt)[:, :cfg.horizon, :2]
+    Cx, Cy = basis.cos_tables(knots, K, dom)
+    Wh = inp.phik.view(-1, K, K)
+    mats = [(Cx.transpose(1, 2), Cy), (Cy, Wh.transpose(1, 2)), (Cx, Wh)]
+    if inp.hist.dim() == 3:
+        Hx, Hy = basis.cos_tables(inp.hist, K, dom)
+        mats.append((Hx.transpose(1, 2), Hy))
+    return events_ms(lambda: [torch.bmm(a, b) for a, b in mats], reps)
+
+
 def safety_work(cfg, S, Pc, dwa_probes: float):
     """(flops, bytes) of the standalone safety stage."""
     C = int(np.prod(cfg.dwa.samples))
@@ -2163,13 +2188,13 @@ def wide_phase(dev, card, entry, kernels) -> None:
     k2_at = "ergodic_exploration_tpu/ops/pallas_kernels.py:121"
     print(f"== 21. K1 and K2 past K = 16, H = 64: (K, H) in {WIDE_SHAPES}, J in {WIDE_J}",
           flush=True)
-    optin = sk.K1.smem_optin(dev)
-    plans = {(K, H): (sk.global_tables(K, H, 0, optin), sk.global_tables(K, H, 100, optin))
-             for K, H in WIDE_SHAPES}
-    print(f"  opt-in shared memory a block {optin} bytes; k1_solve's tables global (not in "
-          f"shared memory) with the history as sums / as 100 drawn positions: {plans}; refresh "
-          f"slabs {[sk.slab_blocks(K * K) for K, _ in WIDE_SHAPES]}")
-    if not all(all(v) for v in plans.values()):
+    optin, sms = sk.K1.smem_optin(dev), torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {(K, H): (sk.solve_layout(K, H, 0, optin, S_MAIN, sms),
+                      sk.solve_layout(K, H, 100, optin, WIDE_S, sms)) for K, H in WIDE_SHAPES}
+    print(f"  opt-in shared memory a block {optin} bytes; k1_solve's layout with the history "
+          f"as sums (S={S_MAIN}) / as 100 drawn positions (S={WIDE_S}): {plans}; refresh slabs "
+          f"{[sk.slab_blocks(K * K) for K, _ in WIDE_SHAPES]}")
+    if not all(lay.form == "block" for v in plans.values() for lay in v):
         fail("phase 21: k1_solve's layouts are not the planned ones")
 
     def ticks_of(fn, n):
@@ -2188,23 +2213,46 @@ def wide_phase(dev, card, entry, kernels) -> None:
             min(cfg.safety_patch_cells, P_))
         return P_, dwa_probes_needed(cfg, eng.model, sc_.x, sc_.vb, world.domain, crop)
 
-    def time_layouts(tag, cfg, inp, ref, S_):
-        """k1_solve on ``inp`` with its tables in shared memory and in the
-        global workspace, in turns, each equal to ``ref`` bit for bit."""
-        plan, t = sk.global_tables, {}
-        for g in (False, True, True, False):
-            sk.global_tables = lambda *a, g=g: g
+    def time_layouts(tag, cfg, inp, ref, S_, safety=True):
+        """k1_solve on ``inp`` in the planned layout, the global tables (a warp
+        a scenario, its tables in the global workspace), the warp form with
+        shared tables where four warps' fit a block and the block form where
+        the plan does not take it, in turns (a, b, ..., b, a), each equal to
+        ``ref`` bit for bit; prints the ms of each (findings: no switch) and
+        returns the least of each form's."""
+        K, H = cfg.num_basis, cfg.horizon
+        nb = inp.hist.shape[1] if inp.hist.dim() == 3 else 0
+        planned = sk.solve_layout(K, H, nb, optin, S_, sms)
+        others = [sk.SolveLayout("global"), sk.block_layout(K, H, nb, optin, S_, sms)]
+        if sk.SOLVE_WARPS * 4 * sk.solve_warp_floats(K, H, nb) <= optin:  # four warps' tables fit
+            others.append(sk.SolveLayout("warp"))
+        forms = [planned] + [lay for lay in others if lay is not None and lay != planned]
+        plan, t = sk.solve_layout, {}
+        for lay in forms + forms[::-1]:
+            sk.solve_layout = lambda *a, lay=lay: lay
             try:
-                got = sk.K1(cfg, inp)
+                got = sk.K1(cfg, inp, enable_safety=safety)
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(got, ref) if a is not None):
-                    fail(f"phase 21: k1_solve with global tables {g} differs from its planned "
+                    fail(f"phase 21: k1_solve in the layout {lay} differs from its planned "
                          f"layout at {tag}")
-                t.setdefault(g, []).append(events_ms(lambda: sk.K1(cfg, inp), 10))
+                t.setdefault(lay, []).append(
+                    events_ms(lambda: sk.K1(cfg, inp, enable_safety=safety), 10))
             finally:
-                sk.global_tables = plan
-        print(f"  K1 at {tag}, S={S_}: ms with the tables in shared memory {t[False]}, in the "
-              f"global workspace {t[True]}, equal bit for bit {card}")
+                sk.solve_layout = plan
+        print(f"  k1_solve at {tag}, S={S_}, safety {safety}: ms in the planned layout {planned} "
+              + "; ".join(f"{lay} {ms}" for lay, ms in t.items())
+              + f"; equal bit for bit {card}", flush=True)
+        return {lay.form: min(ms) for lay, ms in t.items()}
+
+    def wide_vs_global(tag, ms):
+        """Fail where the planned block form is slower than the global tables
+        (a warp a scenario, its tables in the global workspace) at a wide
+        shape: the plan takes the block form only where it is the faster."""
+        print(f"  k1_solve at {tag}: the block form {ms['block']:.4f} ms, the global tables "
+              f"{ms['global']:.4f} ms ({ms['global'] / ms['block']:.2f} x) {card}", flush=True)
+        if ms["block"] >= ms["global"]:
+            fail(f"phase 21, {tag}: the block form is not faster than the global tables")
 
     def check_refresh(tag, r, dlen):
         """The refresh alone vs plain, two launches bit for bit: within
@@ -2245,14 +2293,15 @@ def wide_phase(dev, card, entry, kernels) -> None:
             return u_, dg
 
         tick_ms, (u, dg) = ticks_of(tick, WIDE_TICKS)
-        counts = read_counts()
+        counts, forms = read_counts(), dict(sk.K1.forms.launches)
         expect_counts(f"phase 21, replan_refresh at {tag} (S={S_MAIN})", counts,
                       {"fused_solve_safety": WIDE_TICKS})
+        expect_counts(f"phase 21, replan_refresh at {tag}, k1_solve by layout", forms,
+                      {"block": WIDE_TICKS})
         if (u.shape != (S_MAIN, cfg.nu) or not torch.isfinite(u).all()
                 or not torch.isfinite(dg.ergodic_metric).all() or not torch.isfinite(sc.x).all()):
             fail(f"phase 21, path A at {tag}: non-finite or mis-shaped outputs")
         inp2, _ = sk.fused_tick_inputs(cfg, sc.state, sc.x, sc.vb, None, world, gmm, domain)
-        inp0 = inp2._replace(refresh=None, phik=sk.refresh_plain(inp2.refresh, inp2.dlen))
         # the refresh against its plain version; the solve against the plain
         # version fed the kernel's phi_k: the plain refresh (a float32 matmul)
         # is 4.8e-6 from the float64 one at K = 32, the kernel's 1e-7, and
@@ -2281,7 +2330,7 @@ def wide_phase(dev, card, entry, kernels) -> None:
         k1_ms = events_ms(lambda: sk.K1(cfg, inp2), 10)
         plain_ms = events_ms(lambda: sk.fused_solve_safety_plain(cfg, inp2), 2)
         r_ms = events_ms(lambda: sk.K1.refresh(inp2.refresh, inp2.dlen), 10)
-        s_ms = events_ms(lambda: sk.K1(cfg, inp0), 10)
+        s_ms = events_ms(lambda: sk.K1(cfg, inp_k), 10)
         N, KK = int(np.prod(cfg.grid_samples)), K * K
         P, probes = probes_of(cfg, engine, sc, world)
         rf, rb = refresh_work(S_MAIN, N, KK, 2)
@@ -2289,17 +2338,23 @@ def wide_phase(dev, card, entry, kernels) -> None:
         print(f"  path A at {tag}: replan_refresh tick {tick_ms:.4f} ms ({int(diverged.sum())} "
               f"scenarios diverged); the refresh (k1_refresh + k1_finish, "
               f"{sk.slab_blocks(KK)} slab blocks) {r_ms:.4f} ms, max |refresh - plain| "
-              f"{e_r:.3e}; k1_solve (global tables) {s_ms:.4f} ms; refresh "
+              f"{e_r:.3e}; k1_solve ({plans[K, H][0]}) {s_ms:.4f} ms; refresh "
               f"bound {bound(rf, rb)[0]:.5f} ms, solve bound {bound(sf, sb)[0]:.5f} ms {card}")
         entry(f"fused_solve_safety_{tag}", "solve_kernel.cu", f"{k1_at}:602", err, k1_ms,
               plain_ms, (rf + sf, rb + sb))
         kernels[f"fused_solve_safety_{tag}"]["launches"] = counts["fused_solve_safety"]
-        if (K, H) == (20, 80):  # the largest of these shapes where 4 warps' tables fit a block
-            time_layouts(f"{tag}, path A, phi_k given", cfg, inp_k, k0, S_MAIN)
-        del engine, sc, world, inp0, inp2, k, p, rev, bad
+        # k1_solve alone (the block form) on the same state, phi_k given
+        name = f"k1_solve_block_{tag}"
+        entry(name, "solve_kernel.cu", f"{k1_at}:602", err, s_ms,
+              events_ms(lambda: sk.fused_solve_safety_plain(cfg, inp_k), 2), (sf, sb))
+        kernels[name].update(launches=forms["block"],
+                             library_ms=contraction_library_ms(cfg, inp_k))
+        wide_vs_global(tag, time_layouts(f"{tag}, path A, phi_k given", cfg, inp_k, k0, S_MAIN))
+        del engine, sc, world, inp2, inp_k, k, k0, p, rev, bad
         torch.cuda.empty_cache()
 
-    # k1_solve's two layouts where four warps' tables fit shared memory
+    # k1_solve's layouts where four warps' tables fit shared memory (the
+    # plan's warp form) and just past that (the block form)
     for K, H in LAYOUT_SHAPES:
         engine, sc, world, gmm, domain = wide_case(S_MAIN, dev, K, H)
         cfg = engine.config
@@ -2308,6 +2363,16 @@ def wide_phase(dev, card, entry, kernels) -> None:
         time_layouts(f"K{K}_H{H} ({4 * 4 * sk.solve_warp_floats(K, H, 0)} bytes of tables a "
                      f"block of 4), path A, phi_k given", cfg, inp_k, sk.K1(cfg, inp_k), S_MAIN)
         del engine, sc, world, inp2, inp_k
+    cfg_c, x0_c, grids_c, gmm_c, dom_c = distinct_case(WIDE_S, dev)  # path C's shape
+    eng = Engine(cfg_c)
+    world_c = eng.prepare_world(grids_c)
+    phik_c = eng.phik_from_gmm(gmm_c, dom_c, world_c)
+    sc_c = eng.explore(eng.init_scenarios(x0_c), phik_c, world_c, WIDE_TICKS).scenarios
+    inp, _ = sk.fused_tick_inputs(cfg_c, sc_c.state, sc_c.x, sc_c.vb, phik_c, world_c)
+    time_layouts(f"K10_H20, path C's shape ({WIDE_S} distinct maps, {cfg_c.buffer_batch} drawn "
+                 f"positions, safety off)", cfg_c, inp, sk.K1(cfg_c, inp, enable_safety=False),
+                 WIDE_S, safety=False)
+    del eng, world_c, phik_c, sc_c, inp
     torch.cuda.empty_cache()
 
     # (b) distinct maps: phik_from_gmm (K2 masked), explore (graph replays),
@@ -2321,9 +2386,11 @@ def wide_phase(dev, card, entry, kernels) -> None:
         phik_b = eng.phik_from_gmm(gmm_b, dom_b, world_b)
         out = eng.explore(eng.init_scenarios(x0_b), phik_b, world_b, WIDE_TICKS)
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts, forms = read_counts(), dict(sk.K1.forms.launches)
         expect_counts(f"phase 21, phik_from_gmm + explore at {tag} (S={WIDE_S})", counts,
                       {"phik_from_gmm_masked": 1, "fused_solve_safety_map_h0_nb": WIDE_TICKS})
+        expect_counts(f"phase 21, explore at {tag}, k1_solve by layout", forms,
+                      {"block": WIDE_TICKS})
         if not (torch.isfinite(out.controls).all() and torch.isfinite(out.trajectory).all()
                 and torch.isfinite(phik_b).all()):
             fail(f"phase 21, explore at {tag}: non-finite outputs")
@@ -2342,7 +2409,11 @@ def wide_phase(dev, card, entry, kernels) -> None:
               events_ms(lambda: sk.fused_solve_safety_plain(cfg_b, inp), 2),
               solve_work(cfg_b, WIDE_S, P, True, probes, map_cells=WIDE_S * P * P,
                          nb=cfg_b.buffer_batch))
-        kernels[name]["launches"] = counts["fused_solve_safety_map_h0_nb"]
+        kernels[name].update(launches=counts["fused_solve_safety_map_h0_nb"],
+                             library_ms=contraction_library_ms(cfg_b, inp))
+        wide_vs_global(f"{tag}, {WIDE_S} distinct maps",
+                     time_layouts(f"{tag}, {WIDE_S} distinct maps, {cfg_b.buffer_batch} drawn "
+                                  f"positions", cfg_b, inp, k, WIDE_S))
         del eng, world_b, phik_b, out, sc_b, inp, k, p, rev
         torch.cuda.empty_cache()
 

@@ -53,13 +53,14 @@
 //               candidate and dwa_horizon steps.
 //               A warp's tables (solve_warp_floats: 6.5 KB at K = 10,
 //               H = 20) live in shared memory, 4 warps a block, where four
-//               such blocks share an SM (56 KB a block); past that (K = 16,
-//               H = 64 takes 121 KB a block) in a global workspace of
-//               S x solve_warp_floats floats, carved in the same way
-//               (k1_solve<true>, 4 warps a block, 126 registers: four blocks
-//               an SM, the tables cached in L1 / L2), which measured faster
-//               than fewer blocks an SM with shared tables
-//               (ops/solve_kernel.py::global_tables).
+//               such blocks share an SM (56 KB a block). Past that (K = 16,
+//               H = 64 takes 121 KB a block) k1_solve_block takes the
+//               scenarios; a global workspace of S x solve_warp_floats
+//               floats, carved in the same way (k1_solve<true>, the global
+//               tables), stays for shapes whose tables exceed even one
+//               block's shared memory (ops/solve_kernel.py::solve_layout).
+//   k1_solve_block  the same stages, a block of 32, 64 or 128 threads a
+//               scenario (the wide form; see below).
 //   k1_safety   one warp per scenario: that last stage alone, on a crop
 //               given as data or read from the map.
 //
@@ -113,6 +114,49 @@
 // one lane runs while 31 idle. k1_safety: 64 registers, no shared memory.
 // k1_refresh: 128 registers, no spills, two blocks an SM.
 //
+// The wide form, k1_solve_block. Past (K, H) = (10, 40) a warp's tables
+// (4 H K cos / sin values, 2 H K of contraction scratch, K^2 of Wh) no
+// longer fit four warps a block in shared memory. In the global workspace
+// they took 264 KB a scenario at (40, 256), 558 MB for the warps an H100
+// holds against its 50 MB of L2, so every pass over them went to HBM (two
+// table loads a multiply-add in c_k, four for two in the gradient): 8.1 ms
+// at S = 4096 (H100 80GB HBM3, 700 W). The block form keeps every table in
+// shared memory and reuses what it loads from registers:
+//   - a block a scenario (no ragged block: every thread reaches every
+//     barrier) of 32, 64 or 128 threads, the fewest that give each tile of
+//     c_k's outputs a thread and the card 16 warps an SM
+//     (ops/solve_kernel.py::block_threads);
+//   - the x and y cos tables of `chunk` knots at a time, knot-minor (a k's
+//     row holds its knots, read as float4), rows whose stride puts 8
+//     neighbouring rows in distinct banks; the whole horizon's where that
+//     keeps the most blocks an SM, else 64, 32 or 16 knots' at a time,
+//     built again for the gradient (block_layout: at (40, 256) 53 KB a
+//     block, four an SM, as many as the registers allow);
+//   - sin is evaluated where the gradient's sum over k1 reads it (the same
+//     sinf of the same angle, so the same bits): no sin table, and no
+//     contraction scratch, as that sum takes each P value when it is made;
+//   - c_k and the history sums: a thread a TILE x TILE tile of (k1, k2), a
+//     float4 of four knots from each of its 8 rows for 16 multiplies and 16
+//     adds a knot; the gradient: a thread a (knot, axis), GRAD_TILE values
+//     of k1 from one pass over k2 (a knot's value and two float4 of Wh or
+//     its transpose, the same for the whole warp, for 16 operations);
+//   - the serial stretches (heading, position, co-state, the ordered sums)
+//     stay on one thread and read each step's operands before its store;
+//     the blocks an SM (4 to 17) overlap one scenario's chains with
+//     another's contractions; the safety stage runs on the first warp.
+// No tensor cores: TF32 alone moves the outputs past the port's budget
+// (ops/pallas_kernels.py:23-25 of the JAX package), and a split of float32
+// into TF32 parts would change the sums' rounding, so their bits. Every
+// output keeps k1_solve's expressions and sum orders (c_k and the history
+// ascending in t and j, the contractions in k2, then k1), so the forms give
+// the same bits (phase 21 of chip_smoke.py and the host tests hold them).
+// What bounds it on an H100 (119 registers a thread, no spills): the issue
+// of FP32 instructions (with -fmad=false a multiply and an add for each of
+// the 3 H K^2 terms of c_k and the gradient) and of the accurate sin / cos
+// (6 H K values where the tables come in chunks); at the smaller shapes the
+// serial stretches and the safety stage, whose latency the blocks an SM
+// hide in part.
+//
 // Rounding contract: built with -fmad=false, so each multiply and add rounds
 // on its own as in PyTorch's elementwise ops. The safety stage evaluates the
 // plain version's expressions in the plain version's order (ops/integrator.py
@@ -161,6 +205,36 @@ __host__ __device__ inline int solve_warp_floats(int K, int H, int nb) {
            NUMAX;
 }
 
+// k1_solve_block: a thread's c_k (and history) outputs are a TILE x TILE
+// set of (k1, k2); a gradient pass gives a knot GRAD_TILE values of k1
+constexpr int TILE = 4;
+constexpr int GRAD_TILE = 8;
+constexpr int BLOCK_SERIES = 12;  // per-step arrays of k1_solve_block (six of them aliased)
+
+// row stride of a table of n values: a multiple of 4 (16-byte rows) whose
+// quarter is odd, so that 8 lanes reading 16 bytes each of 8 neighbouring
+// rows hit 8 distinct groups of banks
+__host__ __device__ inline int block_row_stride(int n) {
+    const int s = (n + 3) / 4 * 4;
+    return (s / 4) % 2 ? s : s + 4;
+}
+
+// row stride of k1_solve_block's cos tables: a chunk of knots, or a chunk
+// of drawn history positions, which share their place
+__host__ __device__ inline int block_table_stride(int nb, int chunk) {
+    const int s = block_row_stride(chunk);
+    return nb > 0 && s < block_row_stride(HIST_CHUNK) ? block_row_stride(HIST_CHUNK) : s;
+}
+
+// floats of shared memory one block (one scenario) of k1_solve_block uses:
+// the x and y cos tables of `chunk` knots (K rows each), Wh and its
+// transpose (K rows of K rounded up to 8), BLOCK_SERIES arrays of H, the
+// first controls, the history sums / metric terms (K^2), the knot-0 tables
+__host__ __device__ inline int block_floats(int K, int H, int nb, int chunk) {
+    return 2 * K * block_table_stride(nb, chunk) + 2 * K * ((K + 7) / 8 * 8) + BLOCK_SERIES * H +
+           NUMAX + K * K + 2 * K;
+}
+
 }  // namespace k1
 
 using namespace k1;
@@ -174,6 +248,8 @@ struct K1Params {
     int nb;          // > 0: hist holds (S, nb, 2) drawn positions, not (S, K^2) sums
     int nsplit, chunks_per_split;  // lattice splits of the refresh (J > 0)
     int global_tables;  // 1: k1_solve's tables in solve_ws; 0: in shared memory
+    int block_threads;  // > 0: k1_solve_block, a block of this many threads a scenario
+    int chunk;          // k1_solve_block: knots whose cos tables are held at a time
     int crop_from_map;  // k1_safety: the crop read from dist (map_h x map_w maps), not given
     int crop_offset;    // k1_safety from the map: crop cell (0, 0) is pstart + crop_offset
     float dt, half_dt, dt6, gamma, beta, b_eps, b_weight, b_weight2, o_weight, o_weight_m2;
@@ -754,6 +830,391 @@ __global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_solve(K1Params p, K1Buffe
 }
 
 // ---------------------------------------------------------------------------
+// solve, the block form: a block of NT threads a scenario
+// ---------------------------------------------------------------------------
+
+// acc[i][j] = acc[i][j] + (A[ra[i] + x] * wgt) * B[rb[j] + x] for x = 0 .. n - 1
+// in ascending order (WEIGHT; else A * B): each output's own sum, in the
+// warp form's order, over rows of 16-byte aligned tables read 4 values at a time
+template <bool WEIGHT>
+__device__ __forceinline__ void tile_sums(float (&acc)[TILE][TILE], const float* A,
+                                          const float* B, const int (&ra)[TILE],
+                                          const int (&rb)[TILE], int n, float wgt) {
+    int x = 0;
+    for (; x + 4 <= n; x += 4) {
+        float a[TILE][4], c[TILE][4];
+#pragma unroll
+        for (int i = 0; i < TILE; ++i) {
+            const float4 va = *reinterpret_cast<const float4*>(A + ra[i] + x);
+            const float4 vc = *reinterpret_cast<const float4*>(B + rb[i] + x);
+            a[i][0] = va.x; a[i][1] = va.y; a[i][2] = va.z; a[i][3] = va.w;
+            c[i][0] = vc.x; c[i][1] = vc.y; c[i][2] = vc.z; c[i][3] = vc.w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int i = 0; i < TILE; ++i) {
+                const float av = WEIGHT ? a[i][u] * wgt : a[i][u];
+#pragma unroll
+                for (int j = 0; j < TILE; ++j) acc[i][j] = acc[i][j] + av * c[j][u];
+            }
+    }
+    for (; x < n; ++x)
+#pragma unroll
+        for (int i = 0; i < TILE; ++i) {
+            const float av = WEIGHT ? A[ra[i] + x] * wgt : A[ra[i] + x];
+#pragma unroll
+            for (int j = 0; j < TILE; ++j) acc[i][j] = acc[i][j] + av * B[rb[j] + x];
+        }
+}
+
+// f(r, c) for each cell of a rows x n table whose index r n + c is tid,
+// tid + NT, ...: a thread's share of the cells, stepped without an integer
+// division (one costs about as much as a cosf)
+template <int NT, class F>
+__device__ __forceinline__ void for_cells(int tid, int rows, int n, F f) {
+    if (n < 1) return;
+    const int dr = NT / n, dc = NT - dr * n;
+    int r = tid / n, c = tid - r * n;
+    while (r < rows) {
+        f(r, c);
+        r += dr;
+        c += dc;
+        if (c >= n) {
+            c -= n;
+            ++r;
+        }
+    }
+}
+
+// The tile of outputs `tile` of kq x kq: k1 = r + i kq, k2 = c + j kq (i, j <
+// TILE); the offsets of those rows in tables of stride `stride` (a row past
+// K reads row K - 1: its outputs are dropped). Returns r and c.
+__device__ __forceinline__ void tile_rows(int tile, int kq, int K, int stride, int (&ra)[TILE],
+                                          int (&rb)[TILE], int* r, int* c) {
+    *r = tile / kq;
+    *c = tile - *r * kq;
+#pragma unroll
+    for (int i = 0; i < TILE; ++i) {
+        ra[i] = min(*r + i * kq, K - 1) * stride;
+        rb[i] = min(*c + i * kq, K - 1) * stride;
+    }
+}
+
+// The warp form's k1_solve with a scenario's work spread over a block of NT
+// threads and every table in shared memory (see the header): the same
+// expressions and the same order of every sum, so the same bits. `p.chunk`
+// knots' cos tables are held at a time; where that covers the horizon they
+// are built once, else again for each chunk of c_k and of the gradient.
+template <int NT>
+__global__ void __launch_bounds__(NT, 512 / NT) k1_solve_block(K1Params p, K1Buffers b) {
+    extern __shared__ __align__(16) float bsm[];
+    const int tid = threadIdx.x, s = blockIdx.x;  // a block per scenario: no ragged block
+    const int H = p.H, K = p.K, KK = K * K, nu = p.nu;
+    const int ts = block_table_stride(p.nb, p.chunk), kw = (K + 7) / 8 * 8;
+    const bool whole = p.chunk >= H;  // the tables of every knot at once
+
+    float* TX = bsm;          // cos tables, knot- (or position-) minor: TX[k ts + t]
+    float* TY = TX + K * ts;  // (the history's tables in the same place, before c_k's)
+    float* W = TY + K * ts;   // W[k1 kw + k2] = Wh[k1 K + k2] (first phi_k)
+    float* WT = W + K * kw;   // WT[k2 kw + k1] = Wh[k1 K + k2] (first the running sums)
+    float* KX = WT + K * kw;  // BLOCK_SERIES arrays of H
+    float *KY = KX + H, *CT = KY + H, *ST = CT + H, *A13 = ST + H, *A23 = A13 + H;
+    float *VX = A23 + H, *VY = VX + H, *WW = VY + H, *KTH = WW + H, *DX = KTH + H, *DY = DX + H;
+    float *G1 = VX, *G2 = VY, *BV = WW, *R1 = KTH, *R2 = DX, *R3 = DY;  // once the rollout's are dead
+    float* U0 = DY + H;        // NUMAX
+    float* SCR = U0 + NUMAX;   // the history sums (drawn or given), then the metric terms
+    float* CX0 = SCR + KK;     // knot 0's cos tables (the ck_sum append)
+    float* CY0 = CX0 + K;
+
+    const float x0 = b.x[s * 3 + 0], y0 = b.x[s * 3 + 1], th0 = b.x[s * 3 + 2];
+    const float dox = b.dorigin[s * 2 + 0], doy = b.dorigin[s * 2 + 1];
+    const float Lx = b.dlen[s * 2 + 0], Ly = b.dlen[s * 2 + 1];
+    const float pox = b.porigin[s * 2 + 0], poy = b.porigin[s * 2 + 1];
+    const float res = b.pres[s];
+    const float* dmap = b.dist + (size_t)s * p.map_stride;
+    const MapView map{dmap, p.map_h, p.map_w, b.pstart[s * 2 + 0], b.pstart[s * 2 + 1]};
+    const float* U = b.U + (size_t)s * H * nu;
+    const float* phik = (p.J > 0 ? b.phik_buf : b.phik) + (size_t)s * KK;
+    const float* hist = b.hist + (size_t)s * (p.nb > 0 ? 2 * p.nb : KK);
+
+    // ---- 1. RK4 rollout, as k1_solve's
+    for (int t = tid; t < H; t += NT) model_twist(p, U + t * nu, VX + t, VY + t, WW + t);
+    if (tid < NUMAX) U0[tid] = 0.0f;
+    for_cells<NT>(tid, K, kw - K, [&](int r, int c) {  // Wh's padding columns: read, never kept
+        W[r * kw + K + c] = 0.0f;
+        WT[r * kw + K + c] = 0.0f;
+    });
+    __syncthreads();
+    if (tid == 0) {  // each step's operand read before the step's store (no wait on it)
+        float th = th0, w = WW[0];
+        for (int t = 0; t < H; ++t) {
+            const float wn = WW[min(t + 1, H - 1)];
+            KTH[t] = th;
+            th = wrap_angle(th + p.dt6 * (w + 2.0f * w + 2.0f * w + w), p.two_pi);
+            w = wn;
+        }
+    }
+    __syncthreads();
+    for (int t = tid; t < H; t += NT) {
+        const float th = KTH[t], vx = VX[t], vy = VY[t], w = WW[t];
+        const float c1 = cosf(th), s1 = sinf(th);
+        const float a2 = th + p.half_dt * w, a4 = th + p.dt * w;
+        const float c2 = cosf(a2), s2 = sinf(a2), c4 = cosf(a4), s4 = sinf(a4);
+        const float d1x = vx * c1 - vy * s1, d1y = vx * s1 + vy * c1;
+        const float d2x = vx * c2 - vy * s2, d2y = vx * s2 + vy * c2;
+        const float d4x = vx * c4 - vy * s4, d4y = vx * s4 + vy * c4;
+        DX[t] = p.dt6 * (d1x + 2.0f * d2x + 2.0f * d2x + d4x);
+        DY[t] = p.dt6 * (d1y + 2.0f * d2y + 2.0f * d2y + d4y);
+        CT[t] = c1;
+        ST[t] = s1;
+        A13[t] = -vx * s1 - vy * c1;
+        A23[t] = vx * c1 - vy * s1;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        float px = x0, py = y0, dx = DX[0], dy = DY[0];
+        for (int t = 0; t < H; ++t) {
+            const float dxn = DX[min(t + 1, H - 1)], dyn = DY[min(t + 1, H - 1)];
+            KX[t] = px;
+            KY[t] = py;
+            px = px + dx;
+            py = py + dy;
+            dx = dxn;
+            dy = dyn;
+        }
+    }
+    __syncthreads();
+
+    // ---- 2-3. the history sums, then c_k, in tiles of outputs over the block
+    const float ax = (1.0f / Lx) * PI_F, ay = (1.0f / Ly) * PI_F;
+    for (int k = tid; k < K; k += NT) {
+        CX0[k] = cosf((KX[0] - dox) * ((float)k * ax));
+        CY0[k] = cosf((KY[0] - doy) * ((float)k * ay));
+    }
+    // the tables of knots t0 .. t0 + n - 1 (k1_solve's CXT / CYT, knot-minor)
+    auto knot_tables = [&](int t0, int n) {
+        for_cells<NT>(tid, K, n, [&](int k, int t) {
+            TX[k * ts + t] = cosf((KX[t0 + t] - dox) * ((float)k * ax));
+            TY[k * ts + t] = cosf((KY[t0 + t] - doy) * ((float)k * ay));
+        });
+    };
+    const int kq = (K + TILE - 1) / TILE, tiles = kq * kq;
+    if (p.nb > 0) {
+        const float wgt = b.nh[s] > 0.0f ? 1.0f : 0.0f;
+        for (int tile = tid; tile - tid < tiles; tile += NT) {  // rounds of NT tiles
+            int ra[TILE], rb[TILE], r, c;
+            tile_rows(tile, kq, K, ts, ra, rb, &r, &c);
+            float acc[TILE][TILE] = {};
+            for (int j0 = 0; j0 < p.nb; j0 += HIST_CHUNK) {
+                const int cnt = min(HIST_CHUNK, p.nb - j0);
+                for_cells<NT>(tid, K, cnt, [&](int k, int j) {
+                    TX[k * ts + j] = cosf((hist[2 * (j0 + j) + 0] - dox) * ((float)k * ax));
+                    TY[k * ts + j] = cosf((hist[2 * (j0 + j) + 1] - doy) * ((float)k * ay));
+                });
+                __syncthreads();
+                if (tile < tiles) tile_sums<true>(acc, TX, TY, ra, rb, cnt, wgt);
+                __syncthreads();
+            }
+            if (tile >= tiles) continue;
+#pragma unroll
+            for (int i = 0; i < TILE; ++i)
+#pragma unroll
+                for (int j = 0; j < TILE; ++j)
+                    if (r + i * kq < K && c + j * kq < K)
+                        SCR[(r + i * kq) * K + c + j * kq] = acc[i][j];
+        }
+    }
+    // phi_k, the running sums and (nb = 0) the history sums, read once with
+    // neighbouring threads on neighbouring addresses, into the places of
+    // the outputs that replace them (each read and then written by the
+    // thread that owns its coefficient)
+    for_cells<NT>(tid, K, K, [&](int k1, int k2) {
+        const int k = k1 * K + k2;
+        W[k1 * kw + k2] = phik[k];
+        WT[k2 * kw + k1] = b.cks[(size_t)s * KK + k];
+        if (p.nb == 0) SCR[k] = hist[k];
+    });
+    if (whole) knot_tables(0, H);
+    __syncthreads();
+    const float area = Lx * Ly;
+    const float M = b.nh[s] + (float)H;
+    for (int tile = tid; tile - tid < tiles; tile += NT) {
+        int ra[TILE], rb[TILE], r, c;
+        tile_rows(tile, kq, K, ts, ra, rb, &r, &c);
+        float acc[TILE][TILE] = {};
+        for (int t0 = 0; t0 < H; t0 += p.chunk) {
+            const int n = min(p.chunk, H - t0);
+            if (!whole) {
+                knot_tables(t0, n);
+                __syncthreads();
+            }
+            if (tile < tiles) tile_sums<false>(acc, TX, TY, ra, rb, n, 1.0f);
+            if (!whole) __syncthreads();
+        }
+        if (tile >= tiles) continue;
+#pragma unroll
+        for (int i = 0; i < TILE; ++i)
+#pragma unroll
+            for (int j = 0; j < TILE; ++j) {
+                const int k1 = r + i * kq, k2 = c + j * kq, k = k1 * K + k2;
+                if (k1 >= K || k2 >= K) continue;
+                const float hk = hk_norm(area, k1, k2);
+                const float lam = powf(1.0f + (float)(k1 * k1) + (float)(k2 * k2), -1.5f);
+                const float hs = p.nb > 0 ? SCR[k] / hk : SCR[k];
+                const float ck = (hs + acc[i][j] / hk) / M;
+                const float dkk = ck - W[k1 * kw + k2];
+                const float cks = WT[k2 * kw + k1];
+                SCR[k] = lam * dkk * dkk;
+                const float wh = lam * dkk / hk;
+                W[k1 * kw + k2] = wh;
+                WT[k2 * kw + k1] = wh;
+                b.ck_out[(size_t)s * KK + k] = cks + CX0[k1] * CY0[k2] / hk;
+            }
+    }
+    __syncthreads();
+    if (tid < 32) {
+        const float metric = warp_sum(SCR, KK, tid);
+        if (tid == 0) b.metric[s] = metric;
+    }
+
+    // ---- 4. the ergodic gradient: a thread a (knot, axis), its sum over k1
+    // in ascending order, GRAD_TILE values of k1 from one pass over k2
+    const float scale = (1.0f / M) * 2.0f;
+    for (int t0 = 0; t0 < H; t0 += p.chunk) {
+        const int n = min(p.chunk, H - t0);
+        if (!whole) knot_tables(t0, n);
+        __syncthreads();
+        for (int job = tid; job < 2 * n; job += NT) {
+            const bool yaxis = job >= n;  // x: (Cy @ Wh^T) against sin x; y: (Cx @ Wh) against sin y
+            const int t = job - (yaxis ? n : 0);
+            const float* C = (yaxis ? TX : TY) + t;
+            const float* Wr = yaxis ? W : WT;
+            const float a = yaxis ? ay : ax;
+            const float rel = yaxis ? KY[t0 + t] - doy : KX[t0 + t] - dox;
+            float e = 0.0f;
+            for (int k1b = 0; k1b < K; k1b += GRAD_TILE) {
+                float pp[GRAD_TILE] = {};
+                for (int k2 = 0; k2 < K; ++k2) {
+                    const float cv = C[k2 * ts];
+                    const float4 w0 = *reinterpret_cast<const float4*>(Wr + k2 * kw + k1b);
+                    const float4 w1 = *reinterpret_cast<const float4*>(Wr + k2 * kw + k1b + 4);
+                    pp[0] = pp[0] + cv * w0.x;
+                    pp[1] = pp[1] + cv * w0.y;
+                    pp[2] = pp[2] + cv * w0.z;
+                    pp[3] = pp[3] + cv * w0.w;
+                    pp[4] = pp[4] + cv * w1.x;
+                    pp[5] = pp[5] + cv * w1.y;
+                    pp[6] = pp[6] + cv * w1.z;
+                    pp[7] = pp[7] + cv * w1.w;
+                }
+#pragma unroll
+                for (int i = 0; i < GRAD_TILE; ++i) {
+                    const int k1 = k1b + i;
+                    if (k1 < K) e = e + sinf(rel * ((float)k1 * a)) * ((float)k1 * a) * pp[i];
+                }
+            }
+            (yaxis ? G2 : G1)[t0 + t] = -scale * e;
+        }
+        __syncthreads();
+    }
+
+    // ---- 5. walls and obstacle at each knot, as k1_solve's
+    const float lox = dox + p.b_eps, hix = dox + Lx - p.b_eps;
+    const float loy = doy + p.b_eps, hiy = doy + Ly - p.b_eps;
+    const float sxf = (float)map.sx, syf = (float)map.sy;
+    for (int t = tid; t < H; t += NT) {
+        const float kx = KX[t], ky = KY[t], ex = G1[t], ey = G2[t];
+        const float ovx = fmaxf(kx - hix, 0.0f), unx = fmaxf(lox - kx, 0.0f);
+        const float ovy = fmaxf(ky - hiy, 0.0f), uny = fmaxf(loy - ky, 0.0f);
+        float bval = p.b_weight * ((ovx * ovx + unx * unx) + (ovy * ovy + uny * uny));
+        float bgx = p.b_weight2 * (ovx - unx);
+        float bgy = p.b_weight2 * (ovy - uny);
+        float fx = fminf(fmaxf((kx - pox) / res - 0.5f - sxf, 0.0f), p.patch_hi);
+        float fy = fminf(fmaxf((ky - poy) / res - 0.5f - syf, 0.0f), p.patch_hi);
+        const float x0f = floorf(fx), y0f = floorf(fy);
+        const int ix = (int)x0f, iy = (int)y0f;
+        const float wx0 = 1.0f - (fx - x0f), wx1 = 1.0f - ((x0f + 1.0f) - fx);
+        const float wy0 = 1.0f - (fy - y0f), wy1 = 1.0f - ((y0f + 1.0f) - fy);
+        const float dv = (wy0 * map.at(iy, ix) + wy1 * map.at(iy + 1, ix)) * wx0 +
+                         (wy0 * map.at(iy, ix + 1) + wy1 * map.at(iy + 1, ix + 1)) * wx1;
+        float g00x, g00y, g10x, g10y, g01x, g01y, g11x, g11y;
+        patch_grad(map, p.P, res, iy, ix, &g00x, &g00y);
+        patch_grad(map, p.P, res, iy + 1, ix, &g10x, &g10y);
+        patch_grad(map, p.P, res, iy, ix + 1, &g01x, &g01y);
+        patch_grad(map, p.P, res, iy + 1, ix + 1, &g11x, &g11y);
+        const float gvx = (wy0 * g00x + wy1 * g10x) * wx0 + (wy0 * g01x + wy1 * g11x) * wx1;
+        const float gvy = (wy0 * g00y + wy1 * g10y) * wx0 + (wy0 * g01y + wy1 * g11y) * wx1;
+        const float d = fmaxf(dv - p.b_radius, p.d_min);
+        if (d < p.d_safe) {
+            const float diff = 1.0f / d - p.inv_d_safe;
+            bval = bval + p.o_weight * (diff * diff);
+            const float dvdd = p.o_weight_m2 * diff / (d * d);
+            bgx = bgx + dvdd * gvx;
+            bgy = bgy + dvdd * gvy;
+        }
+        BV[t] = bval;
+        G1[t] = p.gamma * ex + p.beta * bgx;
+        G2[t] = p.gamma * ey + p.beta * bgy;
+    }
+    __syncthreads();
+
+    // ---- 6. backward co-state and u, as k1_solve's
+    if (tid < 32) {
+        const float bsum = warp_sum(BV, H, tid);
+        if (tid == 0) {
+            b.bcost[s] = bsum / (float)H;
+            float r1 = 0.0f, r2 = 0.0f, r3 = 0.0f;
+            float na13 = A13[H - 1], na23 = A23[H - 1], nj1 = G1[H - 1], nj2 = G2[H - 1];
+            for (int t = H - 1; t >= 0; --t) {
+                const float a13 = na13, a23 = na23, j1 = nj1, j2 = nj2;
+                const int tn = max(t - 1, 0);
+                na13 = A13[tn];
+                na23 = A23[tn];
+                nj1 = G1[tn];
+                nj2 = G2[tn];
+                const float k1 = a13 * r1 + a23 * r2;
+                const float k2 = a13 * (r1 + p.half_dt * j1) + a23 * (r2 + p.half_dt * j2);
+                const float k4 = a13 * (r1 + p.dt * j1) + a23 * (r2 + p.dt * j2);
+                r1 = r1 + p.dt6 * (j1 + 2.0f * j1 + 2.0f * j1 + j1);
+                r2 = r2 + p.dt6 * (j2 + 2.0f * j2 + 2.0f * j2 + j2);
+                r3 = r3 + p.dt6 * (k1 + 2.0f * k2 + 2.0f * k2 + k4);
+                R1[t] = r1;
+                R2[t] = r2;
+                R3[t] = r3;
+            }
+        }
+    }
+    __syncthreads();
+    float* Un = b.U_new + (size_t)s * H * nu;
+    for (int i = tid; i < H * nu; i += NT) {
+        const int t = i / nu, c = i - t * nu;
+        float b0, b1, b2;
+        model_B_col(p, CT[t], ST[t], c, &b0, &b1, &b2);
+        const float bt = b0 * R1[t] + b1 * R2[t] + b2 * R3[t];
+        const float un = fminf(fmaxf(-bt * pick4(p.r_inv, c), pick4(p.u_min, c)),
+                               pick4(p.u_max, c));
+        Un[i] = un;
+        if (t == 0) U0[c] = un;
+    }
+    __syncthreads();
+
+    // ---- 7. safety on the central crop: the first warp, as k1_solve's
+    if (!p.safety || tid >= 32) return;
+    const int o = (p.P - p.Pc) / 2;
+    Crop g;
+    g.m = MapView{dmap, p.map_h, p.map_w, map.sx + o, map.sy + o};
+    g.sxf = (float)(map.sx + o);
+    g.syf = (float)(map.sy + o);
+    g.pox = pox; g.poy = poy; g.res = res; g.dox = dox; g.doy = doy; g.Lx = Lx; g.Ly = Ly;
+    g.hi = p.crop_hi; g.b_radius = p.b_radius; g.d_safe = p.d_safe;
+    const Pose0 pose{x0, y0, cosf(th0), sinf(th0)};
+    const float u0[NUMAX] = {U0[0], U0[1], U0[2], U0[3]};
+    safety_stage(p, g, pose, u0, b.vb + s * 3, tid, b.code + s, b.u_dwa + (size_t)s * nu,
+                 b.feasible + s);
+}
+
+// ---------------------------------------------------------------------------
 // safety alone, on a crop given as data
 // ---------------------------------------------------------------------------
 
@@ -823,19 +1284,27 @@ extern "C" int k1_fused_solve_safety(const K1Params* params, const K1Buffers* bu
     K1Buffers b = *buffers;
     cudaStream_t st = (cudaStream_t)stream;
     if (p.S <= 0) return 0;
+    const int bt = p.block_threads;
+    void (*kernel)(K1Params, K1Buffers) =
+        bt == 0 ? (p.global_tables ? k1_solve<true> : k1_solve<false>)
+        : bt == 32 ? k1_solve_block<32> : bt == 64 ? k1_solve_block<64>
+        : bt == 128 ? k1_solve_block<128> : nullptr;
     const size_t smem =
-        p.global_tables ? 0 : (size_t)SOLVE_WARPS * solve_warp_floats(p.K, p.H, p.nb) * sizeof(float);
-    if (p.K < 1 || p.H < 1 || p.nu < 1 || p.nu > NUMAX || p.nb < 0 ||
-        (p.global_tables && b.solve_ws == nullptr) || smem > (size_t)max_dynamic_smem())
+        bt > 0 ? (size_t)block_floats(p.K, p.H, p.nb, p.chunk) * sizeof(float)
+        : p.global_tables ? 0
+        : (size_t)SOLVE_WARPS * solve_warp_floats(p.K, p.H, p.nb) * sizeof(float);
+    if (p.K < 1 || p.H < 1 || p.nu < 1 || p.nu > NUMAX || p.nb < 0 || kernel == nullptr ||
+        (bt > 0 && p.chunk < 1) || (bt == 0 && p.global_tables && b.solve_ws == nullptr) ||
+        smem > (size_t)max_dynamic_smem())
         return (int)cudaErrorInvalidValue;
     cudaError_t e;
     if (p.J > 0) {
         e = launch_refresh(p, b, st);
         if (e != cudaSuccess) return (int)e;
     }
-    e = launch_kernel(p.global_tables ? k1_solve<true> : k1_solve<false>,
-                      dim3((p.S + SOLVE_WARPS - 1) / SOLVE_WARPS), dim3(32 * SOLVE_WARPS), smem,
-                      st, p, b);
+    e = bt > 0 ? launch_kernel(kernel, dim3(p.S), dim3(bt), smem, st, p, b)
+               : launch_kernel(kernel, dim3((p.S + SOLVE_WARPS - 1) / SOLVE_WARPS),
+                               dim3(32 * SOLVE_WARPS), smem, st, p, b);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
@@ -847,6 +1316,12 @@ extern "C" int k1_smem_optin(void) { return max_dynamic_smem(); }
 // Floats of one warp's tables of k1_solve (mirrored by
 // ops/solve_kernel.py::solve_warp_floats; the tests hold the two equal).
 extern "C" int k1_solve_warp_floats(int K, int H, int nb) { return solve_warp_floats(K, H, nb); }
+
+// Floats of one block's shared memory of k1_solve_block (mirrored by
+// ops/solve_kernel.py::block_floats; the tests hold the two equal).
+extern "C" int k1_solve_block_floats(int K, int H, int nb, int chunk) {
+    return block_floats(K, H, nb, chunk);
+}
 
 // Launch the refresh alone (k1_refresh + k1_finish): phik_buf (S, K^2) from
 // the mixtures, for timing and checking it apart from k1_solve. Returns the

@@ -60,6 +60,13 @@ TILE_S = 64  # scenarios per block of the refresh (RT_S in csrc/gmm_refresh.cuh)
 SLAB = 256  # coefficients a block of the refresh contracts in one pass (RT_SLAB)
 SOLVE_WARPS = 4  # warps (scenarios) a block of k1_solve holds
 HIST_CHUNK, SERIES = 32, 18  # k1_solve: drawn positions a chunk; per-step arrays of a warp
+BLOCK_SERIES, TILE = 12, 4  # k1_solve_block: per-step arrays; a thread's c_k outputs, TILE^2
+BLOCK_THREADS = (32, 64, 128)  # k1_solve_block's instances: threads a block (one scenario)
+BLOCK_CHUNKS = (64, 32, 16)  # k1_solve_block: knots a chunk of its tables, past the whole horizon
+# warps of k1_solve_block an SM holds by its registers (ptxas: 119 a thread,
+# allocated in eights: 65536 // (120 * 32)); blocks an SM holds at most;
+# the shared memory of an SM, of which each block's hardware reserve is 1 KB
+BLOCK_REG_WARPS, SM_BLOCKS, SM_SMEM = 17, 32, 233472
 MAX_SMEM = 232448  # dynamic shared memory one block can have on sm_90 (227 KB)
 # what each of n blocks on one SM can have: the SM's 228 KB split n ways, less
 # the 1 KB the hardware reserves for every block
@@ -306,8 +313,8 @@ class _Params(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "S", "H", "K", "nu", "P", "Pc", "J", "Npad", "map_h", "map_w", "masked", "model",
         "cost_twist", "val_horizon", "dwa_horizon", "nvx", "nvy", "nw", "map_stride",
-        "safety", "nb", "nsplit", "chunks_per_split", "global_tables", "crop_from_map",
-        "crop_offset")] + [
+        "safety", "nb", "nsplit", "chunks_per_split", "global_tables", "block_threads",
+        "chunk", "crop_from_map", "crop_offset")] + [
         (n, ctypes.c_float) for n in (
             "dt", "half_dt", "dt6", "gamma", "beta", "b_eps", "b_weight", "b_weight2",
             "o_weight", "o_weight_m2", "b_radius", "d_safe", "inv_d_safe", "d_min",
@@ -362,24 +369,91 @@ def solve_warp_floats(K: int, H: int, nb: int) -> int:
     return K * K * (2 if nb > 0 else 1) + 4 * H * K + scratch + SERIES * H + NUMAX
 
 
-def global_tables(K: int, H: int, nb: int, max_smem: int = MAX_SMEM) -> bool:
-    """Whether k1_solve keeps its warps' tables for (K, H, nb) in a global
-    workspace of S x solve_warp_floats floats (True) or in shared memory
-    (False). Shared memory where the tables of a block of SOLVE_WARPS fit
-    four such blocks on an SM (QUAD_SMEM, and within ``max_smem``); past
-    that the global tables, whose blocks share an SM four at a time by
-    their registers. Phase 21 of chip_smoke.py times both layouts on an
-    H100 (PERF.md section 6): shared memory was the faster up to that fit,
-    the global tables beyond it, and also faster than blocks of 2 or 1
-    warps with shared tables."""
-    return SOLVE_WARPS * 4 * solve_warp_floats(K, H, nb) > min(max_smem, QUAD_SMEM)
+def block_row_stride(n: int) -> int:
+    """Row stride of k1_solve_block's tables of n values (``block_row_stride``
+    in csrc/solve_kernel.cu): a multiple of 4 whose quarter is odd."""
+    s = -(-n // 4) * 4
+    return s if (s // 4) % 2 else s + 4
+
+
+def block_floats(K: int, H: int, nb: int, chunk: int) -> int:
+    """Floats of one block's shared memory of k1_solve_block (``block_floats``
+    in csrc/solve_kernel.cu): the x and y cos tables of ``chunk`` knots (or
+    of a chunk of drawn positions, in the same place), Wh and its transpose
+    (rows of K rounded up to 8), BLOCK_SERIES arrays of H, the first controls,
+    the history sums / metric terms (K^2) and the knot-0 tables."""
+    ts = block_row_stride(chunk)
+    if nb > 0:
+        ts = max(ts, block_row_stride(HIST_CHUNK))
+    return 2 * K * ts + 2 * K * (-(-K // 8) * 8) + BLOCK_SERIES * H + NUMAX + K * K + 2 * K
+
+
+class SolveLayout(NamedTuple):
+    """Where k1_solve holds a scenario's tables: ``"warp"``, a warp a
+    scenario with its tables in shared memory (``k1_solve<false>``);
+    ``"block"``, a block of ``threads`` a scenario with the cos tables of
+    ``chunk`` knots at a time in shared memory (``k1_solve_block``);
+    ``"global"``, a warp a scenario with its tables in a global workspace
+    (``k1_solve<true>``)."""
+
+    form: str
+    threads: int = 0
+    chunk: int = 0
+
+
+def block_threads(K: int, S: int, sm_count: int) -> int:
+    """Threads of k1_solve_block's block for K coefficients a side and S
+    scenarios: the fewest of BLOCK_THREADS that give every tile of c_k's
+    outputs a thread and the card 16 warps an SM."""
+    want = max((-(-K // TILE)) ** 2, 16 * 32 * sm_count // max(S, 1))
+    return next((n for n in BLOCK_THREADS if n >= want), BLOCK_THREADS[-1])
+
+
+def block_occupancy(threads: int, nbytes: int) -> int:
+    """Blocks of k1_solve_block an SM holds: by registers, by shared memory
+    (``nbytes`` a block) and by the hardware's limit."""
+    return min(SM_BLOCKS, BLOCK_REG_WARPS // (threads // 32), SM_SMEM // (nbytes + 1024))
+
+
+def block_layout(K: int, H: int, nb: int, max_smem: int, S: int,
+                 sm_count: int) -> Optional[SolveLayout]:
+    """The block form within ``max_smem`` bytes a block: of the whole
+    horizon and the BLOCK_CHUNKS that give every thread a job of the
+    gradient (two a knot), the largest chunk of knots whose tables let an SM
+    hold as many blocks as any of them (a chunk short of the horizon builds
+    the tables again for the gradient; a block more an SM hides more of the
+    serial stretches); None where no chunk fits."""
+    threads = block_threads(K, S, sm_count)
+    fits = [(c, block_occupancy(threads, 4 * block_floats(K, H, nb, c)))
+            for c in dict.fromkeys(min(c, H) for c in (H,) + BLOCK_CHUNKS)
+            if (c == H or 2 * c >= threads) and 4 * block_floats(K, H, nb, c) <= max_smem]
+    if not fits:
+        return None
+    most = max(n for _, n in fits)
+    return SolveLayout("block", threads, next(c for c, n in fits if n == most))
+
+
+def solve_layout(K: int, H: int, nb: int, max_smem: int = MAX_SMEM, S: int = 4096,
+                 sm_count: int = 132) -> SolveLayout:
+    """k1_solve's layout for (K, H, nb) and S scenarios on a device of
+    ``sm_count`` SMs whose blocks may opt in to ``max_smem`` bytes of shared
+    memory. The warp form where the tables of a block of SOLVE_WARPS fit four
+    such blocks on an SM (QUAD_SMEM); past that the block form
+    (:func:`block_layout`); past a block's shared memory the global tables.
+    Phase 21 of chip_smoke.py times the three on an H100 (PERF.md section
+    6): at every shape past the warp form that it drives, the block form
+    was the fastest."""
+    if SOLVE_WARPS * 4 * solve_warp_floats(K, H, nb) <= min(max_smem, QUAD_SMEM):
+        return SolveLayout("warp")
+    return block_layout(K, H, nb, max_smem, S, sm_count) or SolveLayout("global")
 
 
 def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int,
               safety: bool = True, nb: int = 0, split=(1, 0),
-              tables_global: bool = False) -> _Params:
+              tables_global: bool = False, block=(0, 0)) -> _Params:
     """``split``: (lattice splits, chunks per split) of the refresh's grid;
-    ``tables_global``: k1_solve's tables in the global workspace."""
+    ``tables_global``: k1_solve's tables in the global workspace; ``block``:
+    (threads, chunk) of k1_solve_block, (0, 0) for the warp forms."""
     p = _Params()
     ints = dict(S=S, H=sp.H, K=sp.K, nu=sp.nu, P=sp.P, Pc=sps.Pc, J=sp.J, Npad=Npad,
                 map_h=sp.map_h, map_w=sp.map_w, masked=int(sp.masked_refresh),
@@ -389,7 +463,8 @@ def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int,
                 nw=sps.samples[2],
                 map_stride=sp.map_h * sp.map_w if sp.per_scenario_maps else 0,
                 safety=int(safety), nb=nb, nsplit=split[0],
-                chunks_per_split=split[1], global_tables=int(tables_global))
+                chunks_per_split=split[1], global_tables=int(tables_global),
+                block_threads=block[0], chunk=block[1])
     floats = dict(
         dt=sp.dt, half_dt=0.5 * sp.dt, dt6=sp.dt / 6.0, gamma=sp.gamma, beta=sp.beta,
         b_eps=sp.b_eps, b_weight=sp.b_weight, b_weight2=2.0 * sp.b_weight,
@@ -449,6 +524,20 @@ def launch_on(dev, fn, params, bufs) -> int:
         return fn(ctypes.byref(params), ctypes.byref(bufs), _stream_of(dev))
 
 
+class FormLaunches:
+    """k1_solve's launches by layout (``launches[SolveLayout.form]``), kept
+    apart from the counts by variant, which stay as they were; graph replays
+    add to them as to those (``utils/graphs.kernel_wrappers``)."""
+
+    FORMS = ("warp", "block", "global")
+
+    def __init__(self):
+        self.reset_launches()
+
+    def reset_launches(self) -> None:
+        self.launches = {f: 0 for f in self.FORMS}
+
+
 class FusedSolveSafety:
     """The K1 wrapper: builds ``csrc/solve_kernel.cu`` on first use and
     counts its launches per variant (``launches[variant]`` grows by one per
@@ -462,6 +551,7 @@ class FusedSolveSafety:
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
         self.launches = {}
+        self.forms = FormLaunches()  # k1_solve's launches by layout
         self._scratch = {}  # (device, nsplit, S, K^2) -> the refresh's partial sums
         self._workspace = {}  # (device, floats) -> k1_solve's global tables
         self._optin = {}  # device -> bytes of shared memory a block may opt in to
@@ -469,6 +559,7 @@ class FusedSolveSafety:
 
     def reset_launches(self) -> None:
         self.launches = {v: 0 for v in self.VARIANTS}
+        self.forms.reset_launches()
 
     def refresh_scratch(self, dev, nsplit: int, S: int, KK: int):
         """(part_acc (nsplit, S, K^2), part_tot (nsplit, S)): scratch of the
@@ -484,7 +575,7 @@ class FusedSolveSafety:
 
     def solve_workspace(self, dev, n: int) -> torch.Tensor:
         """``n`` floats for k1_solve's tables in global memory (where
-        :func:`global_tables` says so), allocated once per size and reused by every later launch,
+        :func:`solve_layout` says so), allocated once per size and reused by every later launch,
         as the refresh's scratch is (a captured graph keeps its pointer)."""
         key = (dev, n)
         if key not in self._workspace:
@@ -606,14 +697,16 @@ class FusedSolveSafety:
         if r is not None:
             r_ops, split = self._refresh_operands(r, inp.dlen, K, dev)
             ops.update(r_ops)
-        tables_global = global_tables(K, H, nb, self.smem_optin(dev))
-        if tables_global:
+        layout = solve_layout(K, H, nb, self.smem_optin(dev), S, _sm_count(dev))
+        if layout.form == "global":
             ops["solve_ws"] = self.solve_workspace(dev, S * solve_warp_floats(K, H, nb))
         ops.update(U_new=out.U_new, metric=out.metric, bcost=out.barrier, ck_out=out.ck_sum,
                    code=out.code, u_dwa=out.u_dwa, feasible=out.feasible, phik_buf=phik_buf)
         self._launch("k1_fused_solve_safety", k1_variant(enable_safety, per_scenario, nb > 0),
-                     _c_params(sp, sps, S, Npad, enable_safety, nb, split, tables_global), ops,
+                     _c_params(sp, sps, S, Npad, enable_safety, nb, split,
+                               layout.form == "global", (layout.threads, layout.chunk)), ops,
                      dev)
+        self.forms.launches[layout.form] += 1
         return out
 
     def safety(self, cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen):

@@ -178,7 +178,8 @@ class Static:
 
 
 def kernel_wrappers() -> list:
-    """The kernel wrappers whose ``launches`` dicts count launches."""
+    """The kernel wrappers whose ``launches`` dicts count launches (and K1's
+    count by layout)."""
     from ergodic_exploration_tpu_torch.ops.edt_kernel import E
     from ergodic_exploration_tpu_torch.ops.gmm_kernel import K2
     from ergodic_exploration_tpu_torch.ops.mi_dense_kernel import M
@@ -187,7 +188,7 @@ def kernel_wrappers() -> list:
     from ergodic_exploration_tpu_torch.ops.solve_kernel import K1
     from ergodic_exploration_tpu_torch.ops.tick_glue import G
 
-    return [K1, K2, K3, G, R, E, M]
+    return [K1, K1.forms, K2, K3, G, R, E, M]
 
 
 def count_captured(fn: Callable, wrappers: Sequence):
