@@ -86,6 +86,7 @@ from ergodic_exploration_tpu_torch.ops import target as target_ops
 from ergodic_exploration_tpu_torch.ops.distance import DistanceField
 from ergodic_exploration_tpu_torch.utils import graphs, prng
 from ergodic_exploration_tpu_torch.utils.device import resolve_device
+from ergodic_exploration_tpu_torch.utils.profiling import COUNTS, spanned
 
 # dtypes of the StepDiagnostics leaves, in field order
 _DIAG_DTYPES = (torch.float32, torch.float32, torch.int32, torch.bool, torch.bool,
@@ -504,6 +505,7 @@ class Engine:
         key = (tuple((t.data_ptr(), t._version) for t in held), grids.shape)
         hit = cache.get(key)
         if hit is None:
+            COUNTS["operand_builds"] += 1
             if len(cache) >= 16:
                 cache.clear()
             if domain is None:
@@ -611,6 +613,7 @@ class Engine:
                                               ring_in_place=ring_in_place)
         return Scenarios(state=state, x=sc.x, vb=sc.vb), u, diag
 
+    @spanned("ee.replan")
     def replan(self, sc: Scenarios, phik, world: World):
         """One batched replan tick: (S,) solves -> (S, nu) controls. Does not
         advance the poses (the caller owns the plant). On the card a replay
@@ -639,6 +642,7 @@ class Engine:
         key = tuple((t.data_ptr(), t._version) for t in held)
         hit = self._lattices.get(key)
         if hit is None:
+            COUNTS["operand_builds"] += 1
             if len(self._lattices) >= 16:
                 self._lattices.clear()
             # the tensors are kept with the entry, so their storage is not
@@ -668,6 +672,7 @@ class Engine:
         phik = self._phik_from_gmm_fn(gmm, domain, world.free_mask)
         return self._replan_fn(sc, phik, world, ring_in_place)
 
+    @spanned("ee.replan_refresh")
     def replan_refresh(self, sc: Scenarios, gmm, domain: Domain, world: World):
         """One batched tick including the per-tick GMM target refresh (the
         tick ``bench.py`` times in the JAX package). Under a mesh ``gmm`` is
@@ -710,6 +715,7 @@ class Engine:
             phik = self._phik_grid_one(grids, sensor_radius_cells)
         return self._replan_fn(sc, phik, world, ring_in_place)
 
+    @spanned("ee.replan_refresh_mi")
     def replan_refresh_mi(self, sc: Scenarios, grids: GridMap, world: World,
                           sensor_radius_cells: int = 0, domain: Optional[Domain] = None,
                           use_mi_kernel: bool = False):
@@ -752,10 +758,9 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _on_graphs(self, collective: bool = False) -> bool:
-        """Whether a single-tick entry point replays its graph: on the card,
-        unless the tick is ``collective`` (a refresh, whose target a
-        populated ``sample`` dim combines with two ``all_reduce``) on such a
-        mesh."""
+        """Whether an entry point replays graphs: on the card, unless it is
+        a ``collective`` tick (a refresh, whose target a populated
+        ``sample`` dim combines with two ``all_reduce``) on such a mesh."""
         return self.device.type == "cuda" and not (collective and self._sample_ranks() > 1)
 
     def _graph_tick(self, name: str, body, ins: tuple, static: tuple):
@@ -774,7 +779,8 @@ class Engine:
         the eager function returns them. The state copied out is recorded as
         what the static state holds, so a chain of ticks copies no state in.
         The graph is made by :meth:`_make_graph` (a test substitutes it)."""
-        entry = self._tick_graphs.static((name, self.config, graphs.signature(ins), static), ins)
+        entry = self._tick_graphs.entry((name, self.config, static), ins)
+        entry.load(ins)
         st = entry.buffers
         st_state = st[0].state
         entry.holds(st_state)  # written below
@@ -784,8 +790,8 @@ class Engine:
             graphs.copy_into(st_state, out_sc.state)  # the ring is already there
             return u, diag
 
-        u, diag = entry.graph(1, fn, self._make_graph)()
-        state, u, diag = graphs.clone((st_state, u, diag))
+        u, diag = entry.run(1, fn, self._make_graph)
+        state, u, diag = entry.clone_out("tick", (st_state, u, diag))
         entry.holds(st_state, state)
         sc = ins[0]
         return Scenarios(state=state, x=sc.x, vb=sc.vb), u, diag
@@ -832,6 +838,7 @@ class Engine:
         loops' and the single-tick entry points' (their warm-ups excluded)."""
         return self._graphs.capture_s + self._tick_graphs.capture_s
 
+    @spanned("ee.explore")
     def explore(self, sc: Scenarios, phik, world: World, n_ticks: int) -> ExploreOutput:
         """Closed-loop batched exploration on the engine's device: each tick
         replans and applies the emitted control for one dt. On the card the
@@ -839,7 +846,7 @@ class Engine:
         as the JAX package runs them in one ``lax.scan``; on the CPU they are
         the plain loop, :meth:`_explore_loop`."""
         self._check_local(sc, phik=phik, world=world)
-        if self.device.type == "cuda":
+        if self._on_graphs():
             return self._explore_graphs(sc, phik, world, n_ticks, self._make_graph)
         return self._explore_loop(sc, phik, world, n_ticks)
 
@@ -864,7 +871,8 @@ class Engine:
         if n_ticks == 0:
             return ExploreOutput(sc, traj, ctrl, diags)
         ins = (sc, phik, world)
-        entry = self._graphs.static(("explore", self.config, graphs.signature(ins)), ins)
+        entry = self._graphs.entry(("explore", self.config), ins)
+        entry.load(ins)
         st_sc, st_phik, st_world = entry.buffers
         entry.holds(st_sc)  # the graphs advance it
 
@@ -877,11 +885,11 @@ class Engine:
 
         B, t = self.GRAPH_BLOCK, 0
         for n in [B] * (n_ticks // B) + [1] * (n_ticks % B):
-            got = entry.graph(n, block(n), make_graph)()
+            got = entry.run(n, block(n), make_graph)
             rows = (traj[t:t + n], ctrl[t:t + n], StepDiagnostics(*(d[t:t + n] for d in diags)))
-            graphs.copy_into(rows, got)
+            entry.copy_out(n, rows, got)
             t += n
-        out_sc = graphs.clone(st_sc)
+        out_sc = entry.clone_out("state", st_sc)
         entry.holds(st_sc, out_sc)
         return ExploreOutput(out_sc, traj, ctrl, diags)
 
@@ -929,6 +937,7 @@ class Engine:
             coverage.append(sensor.fraction_known(belief))
         return out, belief, torch.stack(coverage)
 
+    @spanned("ee.explore_mapping_fused")
     def explore_mapping_fused(self, sc: Scenarios, truth: GridMap, n_refreshes: int,
                               refresh_every: int = 10, sensor_range: float = 1.5,
                               sensor_radius_cells: int = 0):
@@ -947,7 +956,7 @@ class Engine:
         refresh's CURRENT target). Under a mesh ``truth`` is this rank's rows.
         """
         args = (n_refreshes, refresh_every, sensor_range, sensor_radius_cells)
-        if self.device.type == "cuda":
+        if self._on_graphs():
             return self._mapping_graphs(sc, truth, *args, make_graph=self._make_graph)
         return self._explore_mapping_fused_loop(sc, truth, *args)
 
@@ -1011,9 +1020,9 @@ class Engine:
         :meth:`_explore_graphs`."""
         truth, win = self._mapping_setup(sc, truth, sensor_range)
         ins = (sc, torch.full_like(truth.data, -1.0), truth, self._dense_ops(truth, None))
-        key = ("mapping", self.config, graphs.signature(ins), win, refresh_every, sensor_range,
-               sensor_radius_cells)
-        entry = self._graphs.static(key, ins)
+        key = ("mapping", self.config, win, refresh_every, sensor_range, sensor_radius_cells)
+        entry = self._graphs.entry(key, ins)
+        entry.load(ins)
         st_sc, st_belief, st_truth, st_ops = entry.buffers
         entry.holds((st_sc, st_belief))  # the graph advances them
 
@@ -1030,9 +1039,9 @@ class Engine:
         traj = torch.empty((n_refreshes, refresh_every, S, 3), **kw)
         metric = torch.empty((n_refreshes, refresh_every, S), **kw)
         for i in range(n_refreshes):
-            got = entry.graph(refresh_every, refresh, make_graph)()
-            graphs.copy_into((coverage[i], traj[i], metric[i]), got)
-        out_sc, belief = graphs.clone((st_sc, st_belief))
+            got = entry.run(refresh_every, refresh, make_graph)
+            entry.copy_out("refresh", (coverage[i], traj[i], metric[i]), got)
+        out_sc, belief = entry.clone_out("state", (st_sc, st_belief))
         entry.holds((st_sc, st_belief), (out_sc, belief))
         return out_sc, truth._replace(data=belief), coverage, traj, metric
 

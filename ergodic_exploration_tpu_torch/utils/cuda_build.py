@@ -25,6 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, NamedTuple, Sequence
 
+from ergodic_exploration_tpu_torch.utils.profiling import COUNTS
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 BUILD_DIR = DEFAULT_BUILD_DIR  # where build() writes and looks for libraries
@@ -67,7 +69,9 @@ def _nvcc() -> str:
 
 def build(name: str, source: str, flags: Sequence[str] = NVCC_FLAGS) -> Built:
     """Compile ``csrc/<source>`` into ``<BUILD_DIR>/<name>-<hash>.so``
-    (unless that file exists) and load it."""
+    (unless that file exists) and load it (counted as ``libraries_loaded``,
+    utils/profiling.py)."""
+    COUNTS["libraries_loaded"] += 1
     h = hashlib.sha256("\0".join(flags).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())

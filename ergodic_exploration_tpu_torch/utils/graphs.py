@@ -33,6 +33,17 @@ copied on every call. A leaf that a graph writes (the state a tick advances)
 is recorded by :meth:`Static.holds` as what was last copied out of it. The
 leaves that change are copied with one ``torch._foreach_copy_`` a dtype
 (:func:`copy_leaves`), so a call costs a few launches, not one a leaf.
+
+Spans and counts (``utils/profiling.py``): :meth:`GraphCache.entry` is the
+span ``ee.graph.lookup`` (the inputs' signature, the key's hash, the
+lookup); :meth:`Static.load` is ``ee.graph.copy_in`` and counts the bytes
+it copies (``copy_in_bytes``); :meth:`Static.run` counts a graph it makes
+(``graphs_made``) and calls the graph as ``ee.graph.capture`` (its first
+call: the warm-up and the capture) or ``ee.graph.replay``;
+:meth:`Static.copy_out` and :meth:`Static.clone_out` hand a call's results
+out as ``ee.graph.copy_out`` and count their bytes (``copy_out_bytes``,
+computed once per entry and key). With no profiler recording a span
+costs one flag check.
 """
 
 from __future__ import annotations
@@ -43,6 +54,9 @@ from collections import OrderedDict
 from typing import Callable, Optional, Sequence
 
 import torch
+
+from ergodic_exploration_tpu_torch.utils import profiling
+from ergodic_exploration_tpu_torch.utils.profiling import COUNTS, recording, spanned
 
 
 def _children(tree):
@@ -114,6 +128,11 @@ def clone(tree):
     return new
 
 
+def nbytes(tree) -> int:
+    """The bytes of every tensor leaf of ``tree``."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
 def _version(t):
     """``t._version``, or None for a tensor that keeps no version (an
     inference tensor): such a source is copied on every load."""
@@ -131,14 +150,17 @@ class Static:
     def __init__(self, inputs):
         self.buffers = _empty_like(inputs)
         self._leaves = leaves(self.buffers)
+        self._nbytes = [t.numel() * t.element_size() for t in self._leaves]
         self._index = {id(t): i for i, t in enumerate(self._leaves)}
         self._held = [None] * len(self._leaves)  # (weakref to the source, its version)
+        self._out_bytes = {}  # copy-out key -> bytes
         self.graphs = {}  # block length -> Graph
 
+    @spanned("ee.graph.copy_in")
     def load(self, inputs) -> int:
         """Copy the leaves of ``inputs`` that are not what their buffer
         holds; returns how many were copied."""
-        dsts, srcs = [], []
+        dsts, srcs, n = [], [], 0
         for i, (d, s) in enumerate(zip(self._leaves, leaves(inputs), strict=True)):
             if d is s:
                 continue
@@ -147,9 +169,11 @@ class Static:
                 continue
             dsts.append(d)
             srcs.append(s)
+            n += self._nbytes[i]
             self._held[i] = (weakref.ref(s), v)
         if dsts:
             copy_leaves(dsts, srcs)
+            COUNTS["copy_in_bytes"] += n
         return len(dsts)
 
     def holds(self, buffers, sources=None) -> None:
@@ -163,13 +187,43 @@ class Static:
             v = None if s is None else _version(s)
             self._held[self._index[id(d)]] = None if v is None else (weakref.ref(s), v)
 
-    def graph(self, length: int, fn: Callable, make_graph: Callable):
-        """The graph of ``length`` over these buffers: on a miss,
-        ``make_graph(fn)``, which captures ``fn`` on its first call."""
+    def run(self, length: int, fn: Callable, make_graph: Callable):
+        """Call the graph of ``length`` over these buffers and return its
+        outputs: on a miss the graph is ``make_graph(fn)``, whose first call
+        captures ``fn``."""
         g = self.graphs.get(length)
         if g is None:
+            COUNTS["graphs_made"] += 1
             g = self.graphs[length] = make_graph(fn)
-        return g
+            name = "ee.graph.capture"
+        else:
+            name = "ee.graph.replay"
+        if recording():
+            with profiling.record_span(name):
+                return g()
+        return g()
+
+    @spanned("ee.graph.copy_out")
+    def copy_out(self, key, dst, src) -> None:
+        """:func:`copy_into` (``dst``, ``src``): a replay's outputs into the
+        caller's; ``key`` names the copy, whose bytes are counted once per
+        entry."""
+        copy_into(dst, src)
+        self._count_out(key, src)
+
+    @spanned("ee.graph.copy_out")
+    def clone_out(self, key, tree):
+        """:func:`clone` of ``tree`` (buffers or outputs of a graph) as a
+        call's results; ``key`` as for :meth:`copy_out`."""
+        out = clone(tree)
+        self._count_out(key, tree)
+        return out
+
+    def _count_out(self, key, tree) -> None:
+        n = self._out_bytes.get(key)
+        if n is None:
+            n = self._out_bytes[key] = nbytes(tree)
+        COUNTS["copy_out_bytes"] += n
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +234,11 @@ class Static:
 def kernel_wrappers() -> list:
     """The kernel wrappers whose ``launches`` dicts count launches (and K1's
     count by layout)."""
+    return list(named_kernel_wrappers().values())
+
+
+def named_kernel_wrappers() -> dict:
+    """:func:`kernel_wrappers` by name."""
     from ergodic_exploration_tpu_torch.ops.edt_kernel import E
     from ergodic_exploration_tpu_torch.ops.gmm_kernel import K2
     from ergodic_exploration_tpu_torch.ops.mi_dense_kernel import M
@@ -188,7 +247,8 @@ def kernel_wrappers() -> list:
     from ergodic_exploration_tpu_torch.ops.solve_kernel import K1
     from ergodic_exploration_tpu_torch.ops.tick_glue import G
 
-    return [K1, K1.forms, K2, K3, G, R, E, M]
+    return {"K1": K1, "K1.forms": K1.forms, "K2": K2, "K3": K3, "G": G, "R": R, "E": E,
+            "M": M}
 
 
 def count_captured(fn: Callable, wrappers: Sequence):
@@ -286,14 +346,16 @@ class GraphCache:
         """Seconds spent capturing every graph this cache has held."""
         return self._evicted_s + sum(_captured_s(e) for e in self._entries.values())
 
-    def static(self, key, inputs) -> Static:
-        """The entry of ``key`` (made over ``inputs`` on a miss), with
-        ``inputs`` loaded into its buffers."""
+    @spanned("ee.graph.lookup")
+    def entry(self, key: tuple, inputs) -> Static:
+        """The entry of ``key`` and the :func:`signature` of ``inputs``,
+        made over ``inputs`` on a miss (the caller loads them:
+        :meth:`Static.load`)."""
+        key = key + (signature(inputs),)
         entry = self._entries.get(key)
         if entry is None:
             entry = self._entries[key] = Static(inputs)
             while len(self._entries) > self.maxsize:
                 self._evicted_s += _captured_s(self._entries.popitem(last=False)[1])
         self._entries.move_to_end(key)
-        entry.load(inputs)
         return entry

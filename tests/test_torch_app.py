@@ -132,8 +132,6 @@ def test_profiling_times_a_chain_on_the_cpu(tmp_path):
     assert profiling.force_completion((x0, None)) == pytest.approx(float(x0.sum()))
     t = profiling.time_chained(step, (x0, a), iters=5)
     assert 0.0 < t < 1.0
-    p50 = profiling.latency_p50(step, (x0, a), n=4, reps=3)
-    assert np.isfinite(p50) and p50 < 1.0
     with profiling.trace(str(tmp_path / "tr")) as prof:
         step(x0, a)
     assert prof is not None and (tmp_path / "tr" / "trace.json").stat().st_size > 0

@@ -228,11 +228,13 @@ def test_graph_counts_the_warm_up_once_and_every_replay(monkeypatch):
 def test_the_cache_is_bounded_and_keyed_on_the_signature():
     cache = graphs.GraphCache(maxsize=2)
     a = (torch.zeros(3), None)
-    entries = [cache.static(("k", graphs.signature(x)), x)
+    entries = [cache.entry(("k",), x)
                for x in (a, (torch.zeros(4), None), (torch.zeros(3), torch.zeros(1)))]
     assert len(cache) == 2 and len({id(e) for e in entries}) == 3
     assert graphs.signature(a) != graphs.signature((torch.zeros(3, dtype=torch.int32), None))
-    e = cache.static(("k", graphs.signature(a)), (torch.ones(3), None))
-    assert e is not entries[0] and torch.equal(e.buffers[0], torch.ones(3))
-    assert cache.static(("k", graphs.signature(a)), (torch.full((3,), 2.0), None)) is e
+    ones = (torch.ones(3), None)
+    e = cache.entry(("k",), ones)
+    assert e is not entries[0] and e.load(ones) == 1 and torch.equal(e.buffers[0], torch.ones(3))
+    twos = (torch.full((3,), 2.0), None)
+    assert cache.entry(("k",), twos) is e and e.load(twos) == 1
     assert torch.equal(e.buffers[0], torch.full((3,), 2.0)) and e.buffers[1] is None
