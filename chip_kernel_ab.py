@@ -14,6 +14,11 @@ REPEATS runs of REPS calls:
 
   - the refresh alone (``k1_refresh`` + ``k1_finish``) and ``k1_solve`` (K1
     with phi_k given) on the state reached, and the whole K1 tick kernel;
+    the refresh also for the first scenario alone (S = 1) and on path A's
+    inputs at the four wide shapes of phase 21 (S = 4096, J = 2, masked),
+    each held to ``refresh_plain`` as phase 21 of ``chip_smoke.py`` holds it
+    (``refresh_errors``: ``within`` in the JSON line); two trees' refreshes
+    differ by rounding where their kernels sum in another order;
   - K2 unmasked at S = 512 (path C's size) and masked at S = 4096 (path B's),
     on ``chip_smoke.distinct_case``'s mixtures and free masks;
   - G on the state reached: ``glue_pre`` on the shared draw (path A) and
@@ -93,6 +98,7 @@ HERE = Path(__file__).resolve().parent
 S_BIG, S_SMALL = 4096, 512
 WARM_TICKS = 20
 REPS, REPEATS = 20, 5
+REFRESH_ATOL = 2.2e-6  # the JAX package's budget for its refresh (ops/pallas_kernels.py)
 
 
 def _smoke():
@@ -160,6 +166,7 @@ def measure(root: Path, tag: str, out: Path) -> int:
         "k2_unmasked_S512": lambda: gk.K2(*g_small, pts, D, None),
         "k2_masked_S4096": lambda: gk.K2(*g_big, pts, D, free),
     }
+    operands = {"refresh": (r, inp2.dlen)}  # a refresh's name -> its operands
     U_new = sk.K1(cfg, inp2)
     pre_a, post_a = glue_operands(tg, cfg, sc, world, U_new)
     eng_b = Engine(cfg_b)
@@ -182,11 +189,13 @@ def measure(root: Path, tag: str, out: Path) -> int:
     dense_calls(calls, smoke, dev)
     step_calls(calls, smoke, dev)
     full_calls(calls, smoke, dev, engine, sc, gmm, domain, world)
-    big = big_calls(calls, smoke, dev) | wide_calls(calls, smoke, dev)
+    big = (big_calls(calls, smoke, dev) | wide_calls(calls, smoke, dev)
+           | refresh_calls(calls, operands, smoke, dev, r, inp2.dlen))
     saved, times = {}, {}
     for name, fn in calls.items():
         res = fn()
         torch.cuda.synchronize()
+        err = refresh_errors(sk, res, *operands[name]) if name in operands else None
         res = res._asdict() if hasattr(res, "_asdict") else {"out": res}
         for k, v in res.items():
             for i, t in enumerate(v if isinstance(v, tuple) else (v,)):  # the ring's three
@@ -198,6 +207,8 @@ def measure(root: Path, tag: str, out: Path) -> int:
                     saved[f"{name}.{k}" + (f".{i}" if isinstance(v, tuple) else "")] = t
         runs = [smoke.events_ms(fn, REPS) for _ in range(REPEATS)]
         times[name] = {"ms": statistics.median(runs), "runs": runs}
+        if err is not None:
+            times[name].update(err)
     out.mkdir(parents=True, exist_ok=True)
     torch.save(saved, out / f"{tag}.pt")
     print(json.dumps({"tag": tag, "root": str(root), "card": card, "times": times,
@@ -412,6 +423,51 @@ def wide_calls(calls: dict, smoke, dev) -> set:
     name = f"k1_solve_maps_K{K}_H{H}_S{smoke.WIDE_S}"
     calls[name] = lambda: sk.K1(cfg, inp)
     return names | {name}
+
+
+def refresh_errors(sk, a, r, dlen) -> dict:
+    """The refresh ``a`` of operands ``r`` against ``refresh_plain`` in
+    float32 and in float64, held as phase 21 of ``chip_smoke.py`` holds it:
+    within REFRESH_ATOL of the float32 plain version, or within it of the
+    float64 one and no further from that than the float32 plain version is
+    (at K = 32 the plain version's own float32 sums are 4.8e-6 from it)."""
+    import torch
+
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+
+    ref = sk.refresh_plain(r, dlen)
+    exact = sk.refresh_plain(r._replace(gmm=GaussianMixture(*(t.double() for t in r.gmm)),
+                                        pts=r.pts.double(), D=r.D.double(),
+                                        mask_ck=r.mask_ck.double()), dlen.double())
+    torch.cuda.synchronize()
+    e = (a - ref).abs().max().item()
+    e_k, e_p = (a - exact).abs().max().item(), (ref - exact).abs().max().item()
+    return {"err_plain": e, "err_float64": e_k, "plain_err_float64": e_p,
+            "within": e <= REFRESH_ATOL or (e_k <= REFRESH_ATOL and e_k <= e_p)}
+
+
+def refresh_calls(calls: dict, operands: dict, smoke, dev, r, dlen) -> set:
+    """Add K1's refresh alone for the first scenario of path A's state
+    (S = 1) and on path A's inputs at the wide shapes (S = 4096), each with
+    its operands in ``operands``; returns the wide ones' names, whose
+    outputs are saved as digests."""
+    from ergodic_exploration_tpu_torch.ops import solve_kernel as sk
+    from ergodic_exploration_tpu_torch.ops.target import GaussianMixture
+
+    r1 = r._replace(gmm=GaussianMixture(*(t[:1].contiguous() for t in r.gmm)))
+    d1 = dlen[:1].contiguous()
+    calls["refresh_S1"] = lambda: sk.K1.refresh(r1, d1)
+    operands["refresh_S1"] = (r1, d1)
+    names = set()
+    for K, H in smoke.WIDE_SHAPES:
+        engine, sc, world, gmm, domain = smoke.wide_case(S_BIG, dev, K, H)
+        inp, _ = sk.fused_tick_inputs(engine.config, sc.state, sc.x, sc.vb, None, world, gmm,
+                                      domain)
+        name = f"refresh_K{K}_S{S_BIG}"
+        calls[name] = lambda inp=inp: sk.K1.refresh(inp.refresh, inp.dlen)
+        operands[name] = (inp.refresh, inp.dlen)
+        names.add(name)
+    return names
 
 
 def world_outputs(eng, belief) -> tuple:

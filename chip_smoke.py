@@ -129,8 +129,8 @@ Phases:
 21  K1 and K2 past K = 16, H = 64 and the mixture sizes of the other phases,
     (K, H) in (17, 65), (20, 80), (32, 128), (40, 256), each with its
     warps' tables in the global workspace: ``replan_refresh`` on path
-    A's inputs (S = 4096, the refresh inside K1 in slabs of 256
-    coefficients), then K1 vs plain with safety on and off (the solve fed
+    A's inputs (S = 4096, the refresh inside K1 on the lattice's row bands),
+    then K1 vs plain with safety on and off (the solve fed
     the kernel's own refresh, equal bit for bit to the tick with it inside;
     U within 5e-5 of plain, or no further from it than plain with its sums
     reversed is, a kernel fed phi_k in bfloat16 rejected by that budget)
@@ -822,6 +822,20 @@ def refresh_work(S, N, KK, J, masked=False, n_degenerate=0):
     return flops, nbytes
 
 
+def k1_refresh_work(S, ns, K, J):
+    """(flops, bytes) of K1's refresh from the algorithm, as
+    ``eebench/work/k1_refresh.py`` counts it: per (scenario, point) 14 a
+    component for the density, the mass and mask products and the y
+    cosines' 2 K; per lattice row the x cosines' 2 K^2; the normalization.
+    Bytes: the mixtures, the samples, the mask, the cosine tables, h_k, the
+    fallback and the result once."""
+    nsx, nsy = ns
+    N, KK = nsx * nsy, K * K
+    flops = S * (N * (14 * J + 2 + 2 * K) + nsy * 2 * KK + 2 * KK)
+    nbytes = 4 * (S * J * 7 + nsx + nsy + N + (nsx + nsy) * K + 2 * KK + S * KK)
+    return flops, nbytes
+
+
 def mi_work(S, h, w, K, r, fc):
     """(flops, bytes) of K3: per cell two logs and ~8 operations for the
     entropy and the masks, two clamped sums of 2r+1 terms (and two integer
@@ -1490,7 +1504,7 @@ def _leg_a(tmp, card):
     P = min(cfg.patch_cells, 100)
     crop = extract_patch(world_m.dist, sc_m.x[:, :2], P).center_crop(cfg.safety_patch_cells)
     probes = dwa_probes_needed(cfg, eng_m.model, sc_m.x, sc_m.vb, world_m.domain, crop)
-    rf, rb = refresh_work(S_MAIN, int(np.prod(cfg.grid_samples)), cfg.num_basis ** 2, 2)
+    rf, rb = k1_refresh_work(S_MAIN, cfg.grid_samples, cfg.num_basis, 2)
     sf, sb = solve_work(cfg, S_MAIN, P, True, probes, map_cells=100 * 100)
     res["k1"] = dict(err=err, ms=events_ms(lambda: sk.K1(cfg, inp), 20),
                      plain_ms=events_ms(lambda: sk.fused_solve_safety_plain(cfg, inp), 3),
@@ -2192,8 +2206,8 @@ def wide_phase(dev, card, entry, kernels) -> None:
     plans = {(K, H): (sk.solve_layout(K, H, 0, optin, S_MAIN, sms),
                       sk.solve_layout(K, H, 100, optin, WIDE_S, sms)) for K, H in WIDE_SHAPES}
     print(f"  opt-in shared memory a block {optin} bytes; k1_solve's layout with the history "
-          f"as sums (S={S_MAIN}) / as 100 drawn positions (S={WIDE_S}): {plans}; refresh slabs "
-          f"{[sk.slab_blocks(K * K) for K, _ in WIDE_SHAPES]}")
+          f"as sums (S={S_MAIN}) / as 100 drawn positions (S={WIDE_S}): {plans}; the "
+          f"refresh's plan {sk.refresh_plan(S_MAIN, 100, sms)}")
     if not all(lay.form == "block" for v in plans.values() for lay in v):
         fail("phase 21: k1_solve's layouts are not the planned ones")
 
@@ -2260,9 +2274,9 @@ def wide_phase(dev, card, entry, kernels) -> None:
         no further from it than the plain version is. Returns the error
         against plain."""
         a, again, ref = sk.K1.refresh(r, dlen), sk.K1.refresh(r, dlen), sk.refresh_plain(r, dlen)
-        exact = sk.refresh_plain(sk.Refresh(GaussianMixture(*(t.double() for t in r.gmm)),
-                                            r.pts.double(), r.D.double(), r.mask_ck.double(),
-                                            r.masked), dlen.double())
+        exact = sk.refresh_plain(r._replace(gmm=GaussianMixture(*(t.double() for t in r.gmm)),
+                                            pts=r.pts.double(), D=r.D.double(),
+                                            mask_ck=r.mask_ck.double()), dlen.double())
         torch.cuda.synchronize()
         e = (a - ref).abs().max().item()
         e_k, e_p = (a - exact).abs().max().item(), (ref - exact).abs().max().item()
@@ -2274,7 +2288,7 @@ def wide_phase(dev, card, entry, kernels) -> None:
                  f"launches differ")
         return e
 
-    # (a) path A's inputs at full width: replan_refresh, the refresh in slabs inside K1
+    # (a) path A's inputs at full width: replan_refresh, the refresh inside K1
     for K, H in WIDE_SHAPES:
         tag = f"K{K}_H{H}"
         engine, sc, world, gmm, domain = wide_case(S_MAIN, dev, K, H)
@@ -2333,11 +2347,11 @@ def wide_phase(dev, card, entry, kernels) -> None:
         s_ms = events_ms(lambda: sk.K1(cfg, inp_k), 10)
         N, KK = int(np.prod(cfg.grid_samples)), K * K
         P, probes = probes_of(cfg, engine, sc, world)
-        rf, rb = refresh_work(S_MAIN, N, KK, 2)
+        rf, rb = k1_refresh_work(S_MAIN, cfg.grid_samples, K, 2)
         sf, sb = solve_work(cfg, S_MAIN, P, True, probes, map_cells=100 * 100)
         print(f"  path A at {tag}: replan_refresh tick {tick_ms:.4f} ms ({int(diverged.sum())} "
-              f"scenarios diverged); the refresh (k1_refresh + k1_finish, "
-              f"{sk.slab_blocks(KK)} slab blocks) {r_ms:.4f} ms, max |refresh - plain| "
+              f"scenarios diverged); the refresh (k1_refresh + k1_finish) "
+              f"{r_ms:.4f} ms, max |refresh - plain| "
               f"{e_r:.3e}; k1_solve ({plans[K, H][0]}) {s_ms:.4f} ms; refresh "
               f"bound {bound(rf, rb)[0]:.5f} ms, solve bound {bound(sf, sb)[0]:.5f} ms {card}")
         entry(f"fused_solve_safety_{tag}", "solve_kernel.cu", f"{k1_at}:602", err, k1_ms,
@@ -4776,24 +4790,23 @@ def run(dev) -> int:
         ref = sk.refresh_plain(r, inp_j2.dlen)
         torch.cuda.synchronize()
         e = (a - ref).abs().max().item()
-        split = sk.lattice_split(S_, r.pts.shape[0] // sk.LATTICE_CHUNK,
-                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+        plan = sk.refresh_plan(S_, r.xs.shape[0],
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
         r_ms = events_ms(lambda: sk.K1.refresh(r, inp_j2.dlen), reps)
         s_ms = events_ms(lambda: sk.K1(cfg, inp_j0), reps)
         rp_ms = events_ms(lambda: sk.refresh_plain(r, inp_j2.dlen), 5)
-        b_ms, by = bound(*refresh_work(S_, int(np.prod(cfg.grid_samples)), KK, 2))
-        print(f"{tag}: refresh (k1_refresh + k1_finish) {r_ms:.4f} ms, {split[0]} lattice splits "
-              f"of {split[1]} chunks, max |refresh - plain| {e:.3e} (atol {REFRESH_ATOL}), plain "
+        b_ms, by = bound(*k1_refresh_work(S_, cfg.grid_samples, cfg.num_basis, 2))
+        print(f"{tag}: refresh (k1_refresh + k1_finish) {r_ms:.4f} ms, {plan}, max "
+              f"|refresh - plain| {e:.3e} (atol {REFRESH_ATOL}), plain "
               f"version {rp_ms:.4f} ms, bound {b_ms:.5f} ms by {by}; k1_solve {s_ms:.4f} ms {card}")
         if e > REFRESH_ATOL or not torch.equal(a, again):
             fail(f"{tag}: the refresh is outside tolerance or two launches differ")
 
-    KK = cfg.num_basis ** 2
     refresh_and_solve(f"S={S_MAIN}", inp2, inp0, 20)
     P = min(cfg.patch_cells, 100)
     crop = extract_patch(world.dist, sc.x[:, :2], P).center_crop(cfg.safety_patch_cells)
     probes = dwa_probes_needed(cfg, engine.model, sc.x, sc.vb, world.domain, crop)
-    rf, rb = refresh_work(S_MAIN, int(np.prod(cfg.grid_samples)), KK, 2)  # unpadded lattice
+    rf, rb = k1_refresh_work(S_MAIN, cfg.grid_samples, cfg.num_basis, 2)
     sf, sb = solve_work(cfg, S_MAIN, P, True, probes, map_cells=100 * 100)
     entry("fused_solve_safety", "solve_kernel.cu",
           "ergodic_exploration_tpu/ops/solve_kernel.py:602", err, k1_ms, plain_ms,
@@ -4879,6 +4892,8 @@ def run(dev) -> int:
         if bool(diag.diverged.any()) or not bool(torch.isfinite(u).all()):
             fail("S=1 tick diverged or produced non-finite controls")
     expect_counts("path A, S=1", read_counts(), {"fused_solve_safety": LATENCY_TICKS})
+    expect_counts("path A, S=1, the refresh (graph replays)", dict(sk.K1.refreshes.launches),
+                  {"tick": LATENCY_TICKS})
     expect_counts("path A, S=1, the glue", read_glue(),
                   glue_want(cfg, LATENCY_TICKS, in_place=True))
     print(f"S=1 replan latency over {LATENCY_TICKS} ticks: p50 {np.percentile(lat, 50):.4f} ms, "

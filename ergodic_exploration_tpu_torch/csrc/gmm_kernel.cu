@@ -27,8 +27,8 @@
 //               across a sequential grid axis; here blocks run in no order,
 //               so every split writes its partial (acc, tot) to scratch. The
 //               split count is chosen by the wrapper
-//               (ops/solve_kernel.py::lattice_split, shared with K1's
-//               refresh) so that small batches still fill the card (S=1 would
+//               (ops/solve_kernel.py::lattice_split) so that small
+//               batches still fill the card (S=1 would
 //               otherwise be one block walking all 157 chunks of a 100 x 100 lattice).
 //   k2_finish   one block per scenario adds the partial sums in split order
 //               (no atomics: two runs give the same bits), normalizes, and
@@ -38,9 +38,8 @@
 //               to have the fallback ready.
 //
 // Built with K1's flags (utils/cuda_build.py, -fmad=false): K2's own parity
-// budget (2e-5) does not need them, but gmm_refresh.cuh is shared with K1,
-// whose rounding contract does, and one set of flags keeps the shared code
-// one build configuration.
+// budget (2e-5) does not need them, but one set of flags keeps every library
+// one build configuration, and its phi the bits of K1's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

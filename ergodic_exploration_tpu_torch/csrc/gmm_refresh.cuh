@@ -1,18 +1,21 @@
 // GMM target refresh over a shared sample lattice, for a tile of scenarios
-// and a part of the lattice.
+// and a part of the lattice: K2's dense tile.
 //
 // Device half of the batched phi_k reduction that the JAX package runs in
-// Pallas twice: inside K1 (ops/solve_kernel.py::_make_kernel, "in-kernel
-// target refresh") and as K2 (ops/pallas_kernels.py::phik_from_gmm_pallas).
+// Pallas as K2 (ops/pallas_kernels.py::phik_from_gmm_pallas). K1's in-kernel
+// refresh takes the separable form of lattice_refresh.cuh instead, and K2
+// could too: its per-scenario mask multiplies phi_s(p_n), not the basis, so
+// the sums still factor over the lattice's rows and columns, and only the
+// mask's load changes (a lane's own row in place of a broadcast one).
 // One block evaluates the Gaussian mixtures of RT_S = 64 scenarios at the
 // lattice points n_begin <= n < n_end and accumulates
 //
 //     acc[s, k] = sum_n phi_s(p_n) D[n, k]      tot[s] = sum_n phi_s(p_n)
 //
 // over RT_N-point chunks, then writes both sums to the caller's scratch as
-// one part of the lattice split: K1 (k1_refresh) and K2 (k2_partial) launch
-// it over (scenario tiles) x (lattice splits) and add the parts in split
-// order in their own finishing kernels. With a free mask (S, mask_n),
+// one part of the lattice split: K2 (k2_partial) launches it over (scenario
+// tiles) x (lattice splits) and adds the parts in split order in its own
+// finishing kernel. With a free mask (S, mask_n),
 // phi_s(p_n) is multiplied by mask[s, n] before both sums; points n >= mask_n
 // (the lattice's padding) count as masked out, so the caller need not pad the
 // mask.

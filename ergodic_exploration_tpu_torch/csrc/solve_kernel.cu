@@ -27,21 +27,21 @@
 // entry points at the end of this file from ops/solve_kernel.py.
 //
 // Launches on the caller's stream:
-//   k1_refresh  (J > 0) grid (scenario tiles of 64) x (lattice splits) x
-//               (slabs of 256 coefficients): a block contracts its share of
-//               the padded lattice with its slab of the basis table
-//               (gmm_refresh.cuh) and writes its partial (acc, tot) to the
-//               wrapper's scratch. The splits are chosen as K2's are
-//               (ops/solve_kernel.py::lattice_split), so S = 1 is a block per
-//               chunk (157 at a 100 x 100 lattice), not one block walking
-//               them all.
-//   k1_finish   (J > 0) a block per scenario adds the partials in split
-//               order (no atomics: two launches give the same bits) and
-//               normalizes as ops/solve_kernel.py::refresh_plain does (the
-//               masked normalizer h00 acc_00, the precomputed fallback). It
-//               is a launch of its own, not the head of k1_solve: one warp
-//               would add 157 partials for each of its 4 coefficients a lane
-//               at S = 1, and k1_solve keeps one form for J = 0 and J > 0.
+//   k1_refresh  (J > 0) a warp a block, grid (groups of 32 scenarios) x
+//               (row bands of the lattice): a lane evaluates its
+//               scenario's mixture at its rows' points and sums each row
+//               against the y cosines (lattice_refresh.cuh, the separable
+//               form), writing each row's sums and its tot to the wrapper's
+//               scratch. The bands are chosen by
+//               ops/solve_kernel.py::refresh_plan.
+//   k1_finish   (J > 0) 4 warps a block, grid (groups of 32 scenarios) x
+//               (four k2 at a time): the rows' sums against the x cosines
+//               in 4 parts of the rows, a warp each, each in row order, the
+//               parts in order (no atomics: two launches give the same bits),
+//               then the normalization as ops/solve_kernel.py::refresh_plain
+//               does it (the masked normalizer h00 acc_00, the precomputed
+//               fallback). It is a launch of its own, not the head of
+//               k1_solve: k1_solve keeps one form for J = 0 and J > 0.
 //   k1_solve    ONE WARP PER SCENARIO, everything else, in this order: RK4
 //               rollout; cos/sin basis tables; (nb > 0) the history sums over
 //               the drawn positions; c_k, metric and ergodic gradient;
@@ -99,11 +99,11 @@
 // step windows (queries clamp to the full crop, which gives the same cells
 // by the config contract) and lazy_dwa (the sweep always runs).
 //
-// What bounds it on an H100: the refresh does K^2 * Npad multiply-adds and
-// J * Npad expf per scenario (4.1 G multiply-adds at S=4096, Npad=10,048, K=10):
-// float32 arithmetic fed from shared memory, bound by the shared-memory pipe
-// (gmm_refresh.cuh). The solve is bound by instruction issue: at S = 4096
-// an SM holds 20 warps (4 a block, 8 measured no faster; ptxas gives k1_solve
+// What bounds it on an H100: the refresh is the mixture's density, J expf
+// and about 16 J operations per scenario and lattice point, then K
+// multiply-adds (lattice_refresh.cuh): instruction issue. The solve is bound
+// by instruction issue too: at S = 4096 an SM holds 20 warps (4 a block, 8
+// measured no faster; ptxas gives k1_solve
 // 96 registers, 32 bytes of stack and no spills, and a warp 6.6 KB of shared
 // memory at K = 10, H = 20: 122 KB a block at K = 16, H = 64 with nb > 0),
 // which hide each other's latencies; what remains is the
@@ -112,7 +112,6 @@
 // multiply-adds of c_k over 32 lanes, and the serial stretches (heading,
 // position and co-state recurrences, the metric's <= 256 ordered adds), which
 // one lane runs while 31 idle. k1_safety: 64 registers, no shared memory.
-// k1_refresh: 128 registers, no spills, two blocks an SM.
 //
 // The wide form, k1_solve_block. Past (K, H) = (10, 40) a warp's tables
 // (4 H K cos / sin values, 2 H K of contraction scratch, K^2 of Wh) no
@@ -175,7 +174,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "gmm_refresh.cuh"
+#include "lattice_refresh.cuh"
 #include "launch.cuh"
 
 namespace k1 {
@@ -185,7 +184,6 @@ constexpr int SOLVE_WARPS = 4;  // warps (scenarios) per block of k1_solve / k1_
 constexpr int HIST_CHUNK = 32;      // drawn positions whose cos tables are held at a time
 constexpr int SERIES = 18;          // per-step arrays of a warp (see k1_solve)
 constexpr int SERIAL_SUM = 256;     // most terms lane 0 adds alone (warp_sum)
-constexpr int FIN_THREADS = 128;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float FAR = 1.0e6f;
@@ -241,12 +239,12 @@ using namespace k1;
 
 // Mirror of ops/solve_kernel.py::_Params (same field order).
 struct K1Params {
-    int S, H, K, nu, P, Pc, J, Npad, map_h, map_w, masked, model, cost_twist;
+    int S, H, K, nu, P, Pc, J, nsx, nsy, map_h, map_w, masked, model, cost_twist;
     int val_horizon, dwa_horizon, nvx, nvy, nw;
     int map_stride;  // floats between two scenarios' maps (0: one shared map)
     int safety;      // 0: k1_solve stops before validation + DWA (fused_solve)
     int nb;          // > 0: hist holds (S, nb, 2) drawn positions, not (S, K^2) sums
-    int nsplit, chunks_per_split;  // lattice splits of the refresh (J > 0)
+    int nband, band_rows;  // the refresh (J > 0): row bands of the lattice, rows a band
     int global_tables;  // 1: k1_solve's tables in solve_ws; 0: in shared memory
     int block_threads;  // > 0: k1_solve_block, a block of this many threads a scenario
     int chunk;          // k1_solve_block: knots whose cos tables are held at a time
@@ -261,7 +259,8 @@ struct K1Params {
 
 // Mirror of ops/solve_kernel.py::_Buffers (device pointers, same order).
 struct K1Buffers {
-    const float *x, *U, *hist, *nh, *phik, *means, *covs, *weights, *pts, *D, *mask_ck;
+    const float *x, *U, *hist, *nh, *phik, *means, *covs, *weights;
+    const float *xs, *ys, *cx, *cy, *hk, *mask, *mask_ck;  // the refresh's lattice (Lattice)
     const float* dist;
     const int* pstart;
     const float *porigin, *pres, *dorigin, *dlen, *cks, *vb;
@@ -270,51 +269,29 @@ struct K1Buffers {
     float* u_dwa;
     int* feasible;
     float* phik_buf;
-    float *part_acc, *part_tot;  // (nsplit, S, K^2), (nsplit, S) partial sums of the refresh
-    float* solve_ws;             // (S, solve_warp_floats) tables of k1_solve (global_tables)
+    float* row_sums;  // the refresh's (groups of 32, nsx, K + 1, 32) row sums
+    float* solve_ws;  // (S, solve_warp_floats) tables of k1_solve (global_tables)
 };
 
 // ---------------------------------------------------------------------------
 // refresh
 // ---------------------------------------------------------------------------
 
-template <int TILES, bool CUT>
-__global__ void __launch_bounds__(RT_THREADS, TILES == 1 ? RT_MIN_BLOCKS : 1)
-k1_refresh(K1Params p, K1Buffers b) {
+// a warp a block: the 32 scenarios of group blockIdx.x on row band blockIdx.y
+__global__ void __launch_bounds__(32, LR_SM_WARPS) k1_refresh(K1Params p, K1Buffers b) {
     extern __shared__ __align__(16) float rsm[];
-    const int KK = p.K * p.K;
-    const int sp = blockIdx.y;
-    const int n_begin = sp * p.chunks_per_split * RT_N;
-    const int n_end = min(p.Npad, n_begin + p.chunks_per_split * RT_N);
-    gmm_refresh_part<TILES, CUT>(blockIdx.x * RT_S, p.S, p.J, KK, blockIdx.z, n_begin, n_end,
-                                 b.means, b.covs, b.weights, b.pts, b.D, nullptr, 0, rsm,
-                                 b.part_acc + (size_t)sp * p.S * KK,
-                                 b.part_tot + (size_t)sp * p.S);
+    const int ix0 = blockIdx.y * p.band_rows, ix1 = min(p.nsx, ix0 + p.band_rows);
+    lattice_rows(blockIdx.x, p.S, p.J, p.K, p.nsy, ix0, ix1, b.means, b.covs, b.weights, b.xs,
+                 b.ys, b.cy, p.masked ? b.mask : nullptr, rsm,
+                 b.row_sums + blockIdx.x * lr_group_floats(p.nsx, p.K));
 }
 
-__global__ void __launch_bounds__(FIN_THREADS) k1_finish(K1Params p, K1Buffers b) {
-    const int s = blockIdx.x;
-    const int KK = p.K * p.K;
-    float t = 0.0f, a0 = 0.0f;
-    for (int sp = 0; sp < p.nsplit; ++sp) {
-        t += b.part_tot[(size_t)sp * p.S + s];
-        a0 += b.part_acc[((size_t)sp * p.S + s) * KK];
-    }
-    for (int k = threadIdx.x; k < KK; k += FIN_THREADS) {
-        float a = 0.0f;
-        for (int sp = 0; sp < p.nsplit; ++sp) a += b.part_acc[((size_t)sp * p.S + s) * KK + k];
-        float out;
-        if (p.masked) {
-            // ck = acc / (h00 acc_00): the free-mask fold's normalizer
-            const float h00 = sqrtf(b.dlen[s * 2 + 0] * b.dlen[s * 2 + 1]);
-            const float a00 = h00 * a0;
-            const bool ok = (t > 1e-12f) && (a00 / fmaxf(t, 1e-12f) > 1e-12f);
-            out = ok ? a / fmaxf(a00, 1e-30f) : b.mask_ck[k];
-        } else {
-            out = t > 1e-12f ? a / fmaxf(t, 1e-12f) : b.mask_ck[k];
-        }
-        b.phik_buf[(size_t)s * KK + k] = out;
-    }
+// LF_PARTS warps a block: the 32 scenarios of group blockIdx.x, k2 from
+// blockIdx.y LF_NC
+__global__ void __launch_bounds__(32 * LF_PARTS) k1_finish(K1Params p, K1Buffers b) {
+    extern __shared__ __align__(16) float fsm[];
+    lattice_finish(blockIdx.x, p.S, p.K, blockIdx.y * LF_NC, p.nsx, p.masked, b.row_sums, b.cx,
+                   b.hk, b.mask_ck, b.dlen, fsm, b.phik_buf);
 }
 
 // ---------------------------------------------------------------------------
@@ -1259,20 +1236,16 @@ __global__ void __launch_bounds__(32 * SOLVE_WARPS) k1_safety(K1Params p, K1Buff
 
 // k1_refresh + k1_finish for p.S scenarios: phik_buf (S, K^2) from the mixtures.
 static cudaError_t launch_refresh(K1Params& p, K1Buffers& b, cudaStream_t st) {
-    const int KK = p.K * p.K;
-    const size_t smem = refresh_smem_floats(KK, p.J) * sizeof(float);
-    if (p.K < 1 || p.J < 1 || p.Npad % RT_N || p.nsplit < 1 || p.nsplit > 65535 ||
-        p.nsplit * p.chunks_per_split * RT_N < p.Npad || refresh_slabs(KK) > 65535 ||
-        smem > (size_t)max_dynamic_smem())
+    const size_t smem = (size_t)lr_smem_floats(p.K, p.J) * sizeof(float);
+    if (p.K < 1 || p.J < 1 || p.nsx < 1 || p.nsy < LR_YC || p.nsy % LR_YC || p.nband < 1 ||
+        p.nband > 65535 || p.band_rows < 1 || p.nband * p.band_rows < p.nsx ||
+        (p.masked && b.mask == nullptr) || smem > (size_t)max_dynamic_smem())
         return cudaErrorInvalidValue;
-    const dim3 grid((p.S + RT_S - 1) / RT_S, p.nsplit, refresh_slabs(KK));
-    const bool cut = refresh_cut(KK, p.J);
-    cudaError_t e = launch_kernel(
-        refresh_tiles(KK) == 1 ? (cut ? k1_refresh<1, true> : k1_refresh<1, false>)
-                               : (cut ? k1_refresh<2, true> : k1_refresh<2, false>),
-        grid, dim3(RT_THREADS), smem, st, p, b);
+    const int groups = (p.S + 31) / 32;
+    cudaError_t e = launch_kernel(k1_refresh, dim3(groups, p.nband), dim3(32), smem, st, p, b);
     if (e != cudaSuccess) return e;
-    return launch_kernel(k1_finish, dim3(p.S), dim3(FIN_THREADS), 0, st, p, b);
+    return launch_kernel(k1_finish, dim3(groups, (p.K + LF_NC - 1) / LF_NC),
+                         dim3(32 * LF_PARTS), LF_SMEM_FLOATS * sizeof(float), st, p, b);
 }
 
 // Launch K1 for p->S scenarios on `stream` (fused_solve_safety, or fused_solve

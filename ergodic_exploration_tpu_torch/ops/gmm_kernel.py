@@ -12,10 +12,11 @@ mass, and fall back to a uniform target where the mass underflows:
     tot <= 1e-12, unmasked  -> colsum(D) / N
 
 The CUDA source is ``csrc/gmm_kernel.cu`` (its header says what bounds it on
-an H100 and what the design does about that); it shares the device code of
-the mixture-times-table reduction, ``csrc/gmm_refresh.cuh``, with K1's
-in-kernel refresh. Beside it lives the plain PyTorch version,
-:func:`phik_from_gmm_plain`, with the same inputs and outputs; the CPU tests
+an H100 and what the design does about that); the device code of its
+mixture-times-table reduction is ``csrc/gmm_refresh.cuh`` (K1's in-kernel
+refresh takes the separable form of ``csrc/lattice_refresh.cuh`` instead,
+which would serve K2's per-scenario masks too). Beside it lives the plain
+PyTorch version, :func:`phik_from_gmm_plain`, with the same inputs and outputs; the CPU tests
 run it, ``chip_smoke.py`` holds the kernel against it on the card.
 
 Dispatch: :func:`phik_from_gmm` takes the plain version only for tensors

@@ -48,6 +48,7 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ergodic_exploration_tpu_torch.grid import Domain
 from ergodic_exploration_tpu_torch.ops import basis
@@ -55,9 +56,13 @@ from ergodic_exploration_tpu_torch.ops.patch import gather_patch
 from ergodic_exploration_tpu_torch.ops.target import GaussianMixture, gmm_eval
 
 NUMAX = 4  # controls the CUDA kernel holds (both models have at most 4)
-LATTICE_CHUNK = 64  # lattice points per refresh step; N is padded to it
-TILE_S = 64  # scenarios per block of the refresh (RT_S in csrc/gmm_refresh.cuh)
-SLAB = 256  # coefficients a block of the refresh contracts in one pass (RT_SLAB)
+ROW_CHUNK = 20  # K1's refresh: points of a lattice row a lane takes at a time (LR_YC in
+#                 csrc/lattice_refresh.cuh); the rows' y samples are padded to it
+REFRESH_WARPS = 16  # K1's refresh: warps (one a block) refresh_plan gives every SM
+FINISH_K1 = 16  # k1_finish: k1 a lane sums at a time (LF_KT); cx's columns are padded to it
+LATTICE_CHUNK = 64  # K2: lattice points per step of its tile; N is padded to it
+TILE_S = 64  # K2: scenarios per block of its tile (RT_S in csrc/gmm_refresh.cuh)
+SLAB = 256  # K2: coefficients a block of its tile contracts in one pass (RT_SLAB)
 SOLVE_WARPS = 4  # warps (scenarios) a block of k1_solve holds
 HIST_CHUNK, SERIES = 32, 18  # k1_solve: drawn positions a chunk; per-step arrays of a warp
 BLOCK_SERIES, TILE = 12, 4  # k1_solve_block: per-step arrays; a thread's c_k outputs, TILE^2
@@ -71,8 +76,8 @@ MAX_SMEM = 232448  # dynamic shared memory one block can have on sm_90 (227 KB)
 # what each of n blocks on one SM can have: the SM's 228 KB split n ways, less
 # the 1 KB the hardware reserves for every block
 QUAD_SMEM, PAIR_SMEM = (233472 // n - 1024 for n in (4, 2))
-BLOCKS_PER_SM = 2  # blocks of the refresh that share an SM (its registers and shared memory)
-MAX_RUN = 32  # most chunks one block of the refresh adds up before its sums go to scratch
+BLOCKS_PER_SM = 2  # K2: blocks of its tile that share an SM (registers and shared memory)
+MAX_RUN = 32  # K2: most chunks one block of its tile adds up before its sums go to scratch
 PAD_POINT = 1.0e6  # pad points sit far away: phi underflows to exactly 0
 
 
@@ -168,12 +173,20 @@ def safety_params_from_config(cfg, crop_cells: int) -> SafetyParams:
 
 
 class Refresh(NamedTuple):
-    """Operands of the in-kernel GMM target refresh (J > 0)."""
+    """Operands of the in-kernel GMM target refresh (J > 0): the mixtures
+    and the :class:`Lattice`'s fields. The kernel reads the separable ones
+    (xs to mask); the plain version reads pts and D."""
 
     gmm: GaussianMixture  # means (S, J, 2), covs (S, J, 2, 2), weights (S, J)
     pts: torch.Tensor  # (Npad, 2) shared lattice, padded with PAD_POINT
     D: torch.Tensor  # (Npad, K^2) dense basis table, mask folded, pad rows 0
     mask_ck: torch.Tensor  # (K^2,) degenerate-target fallback
+    xs: torch.Tensor  # (nsx,) x samples: the lattice's rows
+    ys: torch.Tensor  # (nsy,) y samples padded to ROW_CHUNK with PAD_POINT
+    cx: torch.Tensor  # (nsx, finish_cx_cols(K)) x cosines, pad columns 0
+    cy: torch.Tensor  # (K rounded up to 2, nsy) y cosines by coefficient, pads 0
+    hk: torch.Tensor  # (K^2,) h_k
+    mask: Optional[torch.Tensor]  # (nsx, nsy) shared free mask, pad columns 0; or None
     masked: bool  # free mask folded into D (renormalize by k = (0, 0))
 
 
@@ -311,9 +324,9 @@ class _Params(ctypes.Structure):
     scalar ops round them."""
 
     _fields_ = [(n, ctypes.c_int) for n in (
-        "S", "H", "K", "nu", "P", "Pc", "J", "Npad", "map_h", "map_w", "masked", "model",
+        "S", "H", "K", "nu", "P", "Pc", "J", "nsx", "nsy", "map_h", "map_w", "masked", "model",
         "cost_twist", "val_horizon", "dwa_horizon", "nvx", "nvy", "nw", "map_stride",
-        "safety", "nb", "nsplit", "chunks_per_split", "global_tables", "block_threads",
+        "safety", "nb", "nband", "band_rows", "global_tables", "block_threads",
         "chunk", "crop_from_map", "crop_offset")] + [
         (n, ctypes.c_float) for n in (
             "dt", "half_dt", "dt6", "gamma", "beta", "b_eps", "b_weight", "b_weight2",
@@ -323,10 +336,10 @@ class _Params(ctypes.Structure):
         ("r_inv", _F4), ("u_min", _F4), ("u_max", _F4), ("acc_dt", _F3), ("vel_lim", _F3)]
 
 
-_BUFFERS = ("x", "U", "hist", "nh", "phik", "means", "covs", "weights", "pts", "D",
-            "mask_ck", "dist", "pstart", "porigin", "pres", "dorigin", "dlen", "cks", "vb",
-            "U_new", "metric", "bcost", "ck_out", "code", "u_dwa", "feasible", "phik_buf",
-            "part_acc", "part_tot", "solve_ws")
+_BUFFERS = ("x", "U", "hist", "nh", "phik", "means", "covs", "weights", "xs", "ys", "cx",
+            "cy", "hk", "mask", "mask_ck", "dist", "pstart", "porigin", "pres", "dorigin",
+            "dlen", "cks", "vb", "U_new", "metric", "bcost", "ck_out", "code", "u_dwa",
+            "feasible", "phik_buf", "row_sums", "solve_ws")
 
 
 class _Buffers(ctypes.Structure):
@@ -336,8 +349,8 @@ class _Buffers(ctypes.Structure):
 
 
 def lattice_split(S: int, n_chunks: int, sm_count: int, slabs: int = 1):
-    """(number of lattice splits, chunks per split) of the refresh's grid, for
-    K1's refresh and for K2. The grid is ceil(S / TILE_S) scenario tiles x
+    """(number of lattice splits, chunks per split) of K2's grid (it lives
+    here beside K1's :func:`refresh_plan`). The grid is ceil(S / TILE_S) scenario tiles x
     splits x ``slabs`` blocks, of which BLOCKS_PER_SM * sm_count run at a
     time: the splits fill whole rounds of those (one scenario would otherwise
     be one block walking every chunk, and a round that is partly filled costs
@@ -353,10 +366,39 @@ def lattice_split(S: int, n_chunks: int, sm_count: int, slabs: int = 1):
 
 
 def slab_blocks(KK: int) -> int:
-    """Blocks on the z axis of the refresh's grid (K1's and K2's) for
-    K^2 = KK: one per slab of SLAB coefficients (``refresh_slabs`` in
-    csrc/gmm_refresh.cuh)."""
+    """Blocks on the z axis of K2's grid for K^2 = KK: one per slab of SLAB
+    coefficients (``refresh_slabs`` in csrc/gmm_refresh.cuh)."""
     return -(-KK // SLAB)
+
+
+def finish_cx_cols(K: int) -> int:
+    """Columns of the refresh's cx table: K rounded up to the FINISH_K1 k1
+    that a lane of k1_finish sums at a time (``lf_cx_cols`` in
+    csrc/lattice_refresh.cuh)."""
+    return -(-K // FINISH_K1) * FINISH_K1
+
+
+class RefreshPlan(NamedTuple):
+    """How K1's refresh shares out its work: ``nband`` bands of
+    ``band_rows`` of the lattice's rows (the last may be shorter), a warp of
+    ``k1_refresh`` a band of 32 scenarios. (``k1_finish`` takes its 4
+    parts of the rows a warp each, whatever S is.)"""
+
+    nband: int
+    band_rows: int
+
+
+def refresh_plan(S: int, nsx: int, sm_count: int) -> RefreshPlan:
+    """How K1's refresh shares out S scenarios on a lattice of ``nsx`` rows
+    on a card of ``sm_count`` SMs: the fewest row bands that give every SM
+    ``REFRESH_WARPS`` warps, cut into near-equal parts, and at most a band a
+    row (S = 4096 on 100 rows takes 17 bands of 6, S = 1 a band a row). It
+    moves no bit of the result: a row's sums have one order whatever band
+    takes it."""
+    groups = -(-S // 32)
+    nband = min(nsx, -(-REFRESH_WARPS * sm_count // groups))
+    rows = -(-nsx // nband)
+    return RefreshPlan(-(-nsx // rows), rows)
 
 
 def solve_warp_floats(K: int, H: int, nb: int) -> int:
@@ -448,22 +490,23 @@ def solve_layout(K: int, H: int, nb: int, max_smem: int = MAX_SMEM, S: int = 409
     return block_layout(K, H, nb, max_smem, S, sm_count) or SolveLayout("global")
 
 
-def _c_params(sp: SolveParams, sps: SafetyParams, S: int, Npad: int,
-              safety: bool = True, nb: int = 0, split=(1, 0),
+def _c_params(sp: SolveParams, sps: SafetyParams, S: int, lattice=(0, 0),
+              safety: bool = True, nb: int = 0, plan=RefreshPlan(1, 0),
               tables_global: bool = False, block=(0, 0)) -> _Params:
-    """``split``: (lattice splits, chunks per split) of the refresh's grid;
-    ``tables_global``: k1_solve's tables in the global workspace; ``block``:
-    (threads, chunk) of k1_solve_block, (0, 0) for the warp forms."""
+    """``lattice``: (rows, padded columns) of the refresh's lattice; ``plan``:
+    its :class:`RefreshPlan`; ``tables_global``: k1_solve's tables in the
+    global workspace; ``block``: (threads, chunk) of k1_solve_block, (0, 0)
+    for the warp forms."""
     p = _Params()
-    ints = dict(S=S, H=sp.H, K=sp.K, nu=sp.nu, P=sp.P, Pc=sps.Pc, J=sp.J, Npad=Npad,
+    ints = dict(S=S, H=sp.H, K=sp.K, nu=sp.nu, P=sp.P, Pc=sps.Pc, J=sp.J, nsx=lattice[0],
+                nsy=lattice[1],
                 map_h=sp.map_h, map_w=sp.map_w, masked=int(sp.masked_refresh),
                 model=0 if sps.model == "cart" else 1,
                 cost_twist=int(sps.cost_space == "twist"), val_horizon=sps.val_horizon,
                 dwa_horizon=sps.dwa_horizon, nvx=sps.samples[0], nvy=sps.samples[1],
                 nw=sps.samples[2],
                 map_stride=sp.map_h * sp.map_w if sp.per_scenario_maps else 0,
-                safety=int(safety), nb=nb, nsplit=split[0],
-                chunks_per_split=split[1], global_tables=int(tables_global),
+                safety=int(safety), nb=nb, **plan._asdict(), global_tables=int(tables_global),
                 block_threads=block[0], chunk=block[1])
     floats = dict(
         dt=sp.dt, half_dt=0.5 * sp.dt, dt6=sp.dt / 6.0, gamma=sp.gamma, beta=sp.beta,
@@ -524,18 +567,17 @@ def launch_on(dev, fn, params, bufs) -> int:
         return fn(ctypes.byref(params), ctypes.byref(bufs), _stream_of(dev))
 
 
-class FormLaunches:
-    """k1_solve's launches by layout (``launches[SolveLayout.form]``), kept
-    apart from the counts by variant, which stay as they were; graph replays
-    add to them as to those (``utils/graphs.kernel_wrappers``)."""
+class SubLaunches:
+    """Launches of a part of K1 by kind (``launches[kind]``), kept apart from
+    the counts by variant, which stay as they were; graph replays add to
+    them as to those (``utils/graphs.kernel_wrappers``)."""
 
-    FORMS = ("warp", "block", "global")
-
-    def __init__(self):
+    def __init__(self, kinds):
+        self.kinds = tuple(kinds)
         self.reset_launches()
 
     def reset_launches(self) -> None:
-        self.launches = {f: 0 for f in self.FORMS}
+        self.launches = {k: 0 for k in self.kinds}
 
 
 class FusedSolveSafety:
@@ -551,8 +593,10 @@ class FusedSolveSafety:
     def __init__(self):
         self.built = None  # utils.cuda_build.Built once compiled
         self.launches = {}
-        self.forms = FormLaunches()  # k1_solve's launches by layout
-        self._scratch = {}  # (device, nsplit, S, K^2) -> the refresh's partial sums
+        self.forms = SubLaunches(("warp", "block", "global"))  # k1_solve's by layout
+        # the refresh's (k1_refresh + k1_finish), in a tick (J > 0) or alone (refresh())
+        self.refreshes = SubLaunches(("tick", "alone"))
+        self._scratch = {}  # (device, nsx, K, S) -> the refresh's scratch
         self._workspace = {}  # (device, floats) -> k1_solve's global tables
         self._optin = {}  # device -> bytes of shared memory a block may opt in to
         self.reset_launches()
@@ -560,17 +604,18 @@ class FusedSolveSafety:
     def reset_launches(self) -> None:
         self.launches = {v: 0 for v in self.VARIANTS}
         self.forms.reset_launches()
+        self.refreshes.reset_launches()
 
-    def refresh_scratch(self, dev, nsplit: int, S: int, KK: int):
-        """(part_acc (nsplit, S, K^2), part_tot (nsplit, S)): scratch of the
-        split refresh, allocated once per shape and reused by every later
-        launch (launches on one stream run in order; callers that launch K1
-        from several streams at once need a wrapper each)."""
-        key = (dev, nsplit, S, KK)
+    def refresh_scratch(self, dev, nsx: int, K: int, S: int) -> torch.Tensor:
+        """The refresh's scratch, (groups of 32 scenarios, nsx, K + 1, 32):
+        the K y sums and the tot of every row, a column a scenario
+        (csrc/lattice_refresh.cuh), allocated once per shape and reused by
+        every later launch (launches on one stream run in order; callers that
+        launch K1 from several streams at once need a wrapper each)."""
+        key = (dev, nsx, K, S)
         if key not in self._scratch:
-            self._scratch[key] = (
-                torch.empty((nsplit, S, KK), dtype=torch.float32, device=dev),
-                torch.empty((nsplit, S), dtype=torch.float32, device=dev))
+            self._scratch[key] = torch.empty((-(-S // 32), nsx, K + 1, 32), dtype=torch.float32,
+                                             device=dev)
         return self._scratch[key]
 
     def solve_workspace(self, dev, n: int) -> torch.Tensor:
@@ -617,36 +662,41 @@ class FusedSolveSafety:
             self.launches[variant] += 1
 
     def _refresh_operands(self, r: Refresh, dlen, K: int, dev):
-        """Checked operands of the refresh with its scratch, and its lattice
-        split: (splits, chunks per split)."""
+        """Checked operands of the refresh with its scratch, the lattice's
+        (rows, padded columns) and its :class:`RefreshPlan`."""
         S, J = r.gmm.weights.shape
-        Npad = r.pts.shape[0]
-        if Npad % LATTICE_CHUNK:
-            raise ValueError(f"lattice of {Npad} points is not padded to {LATTICE_CHUNK}")
-        ops = dict(means=r.gmm.means, covs=r.gmm.covs, weights=r.gmm.weights, pts=r.pts, D=r.D,
-                   mask_ck=r.mask_ck, dlen=dlen)
-        _check_operands("K1", ops, dict(means=(S, J, 2), covs=(S, J, 2, 2), weights=(S, J),
-                                        pts=(Npad, 2), D=(Npad, K * K), mask_ck=(K * K,),
-                                        dlen=(S, 2)), dev)
-        split = lattice_split(S, Npad // LATTICE_CHUNK, _sm_count(dev), slab_blocks(K * K))
-        ops["part_acc"], ops["part_tot"] = self.refresh_scratch(dev, split[0], S, K * K)
-        return ops, split
+        nsx, nsy = r.xs.shape[0], r.ys.shape[0]
+        if nsy % ROW_CHUNK:
+            raise ValueError(f"lattice rows of {nsy} points are not padded to {ROW_CHUNK}")
+        if r.masked != (r.mask is not None):
+            raise ValueError("the refresh is masked exactly where it has a mask")
+        ops = dict(means=r.gmm.means, covs=r.gmm.covs, weights=r.gmm.weights, xs=r.xs, ys=r.ys,
+                   cx=r.cx, cy=r.cy, hk=r.hk, mask_ck=r.mask_ck, dlen=dlen)
+        shapes = dict(means=(S, J, 2), covs=(S, J, 2, 2), weights=(S, J), xs=(nsx,), ys=(nsy,),
+                      cx=(nsx, finish_cx_cols(K)), cy=(-(-K // 2) * 2, nsy), hk=(K * K,),
+                      mask_ck=(K * K,), dlen=(S, 2))
+        if r.mask is not None:
+            ops["mask"], shapes["mask"] = r.mask, (nsx, nsy)
+        _check_operands("K1", ops, shapes, dev)
+        plan = refresh_plan(S, nsx, _sm_count(dev))
+        ops["row_sums"] = self.refresh_scratch(dev, nsx, K, S)
+        return ops, (nsx, nsy), plan
 
     def refresh(self, r: Refresh, dlen: torch.Tensor) -> torch.Tensor:
         """The in-kernel refresh alone (``k1_refresh`` + ``k1_finish``):
         phi_k (S, K^2) as :func:`refresh_plain` defines it. Not a variant of
         the tick: it exists to time and check the refresh apart from the
-        solve, and is not counted as a launch."""
+        solve, and is counted apart (``refreshes.launches["alone"]``)."""
         dev = dlen.device
         _require_cuda(dev, "K1 refresh")
-        KK = r.D.shape[1]
+        KK = r.hk.shape[0]
         K = math.isqrt(KK)
-        ops, split = self._refresh_operands(r, dlen, K, dev)
+        ops, (nsx, nsy), plan = self._refresh_operands(r, dlen, K, dev)
         S, J = r.gmm.weights.shape
         ops["phik_buf"] = out = torch.empty((S, KK), dtype=torch.float32, device=dev)
-        p = _Params(S=S, K=K, J=J, Npad=r.pts.shape[0], masked=int(r.masked), nsplit=split[0],
-                    chunks_per_split=split[1])
+        p = _Params(S=S, K=K, J=J, nsx=nsx, nsy=nsy, masked=int(r.masked), **plan._asdict())
         self._launch("k1_refresh_phik", None, p, ops, dev)
+        self.refreshes.launches["alone"] += 1
         return out
 
     def __call__(self, cfg, inp: K1Inputs, enable_safety: bool = True) -> K1Outputs:
@@ -668,7 +718,6 @@ class FusedSolveSafety:
         P = min(cfg.patch_cells, mh, mw)
         r = inp.refresh
         J = 0 if r is None else r.gmm.means.shape[1]
-        Npad = 0 if r is None else r.pts.shape[0]
         sp = params_from_config(cfg, P, (mh, mw), J, bool(r is not None and r.masked),
                                 per_scenario)
         sps = safety_params_from_config(cfg, min(cfg.safety_patch_cells, P))
@@ -690,12 +739,12 @@ class FusedSolveSafety:
                       pstart=(S, 2), porigin=(S, 2), pres=(S,), dorigin=(S, 2),
                       dlen=(S, 2), cks=(S, K * K), vb=(S, 3))
         ops = {n: getattr(inp, n) for n in shapes}
-        split = (1, 0)
+        lattice, plan = (0, 0), RefreshPlan(1, 0)
         if r is None:
             shapes["phik"], ops["phik"] = (S, K * K), inp.phik
         _check_operands("K1", ops, shapes, dev)
         if r is not None:
-            r_ops, split = self._refresh_operands(r, inp.dlen, K, dev)
+            r_ops, lattice, plan = self._refresh_operands(r, inp.dlen, K, dev)
             ops.update(r_ops)
         layout = solve_layout(K, H, nb, self.smem_optin(dev), S, _sm_count(dev))
         if layout.form == "global":
@@ -703,10 +752,12 @@ class FusedSolveSafety:
         ops.update(U_new=out.U_new, metric=out.metric, bcost=out.barrier, ck_out=out.ck_sum,
                    code=out.code, u_dwa=out.u_dwa, feasible=out.feasible, phik_buf=phik_buf)
         self._launch("k1_fused_solve_safety", k1_variant(enable_safety, per_scenario, nb > 0),
-                     _c_params(sp, sps, S, Npad, enable_safety, nb, split,
+                     _c_params(sp, sps, S, lattice, enable_safety, nb, plan,
                                layout.form == "global", (layout.threads, layout.chunk)), ops,
                      dev)
         self.forms.launches[layout.form] += 1
+        if r is not None:
+            self.refreshes.launches["tick"] += 1
         return out
 
     def safety(self, cfg, x, vb, u0, crop, pstart, porigin, pres, dorigin, dlen):
@@ -728,7 +779,7 @@ class FusedSolveSafety:
         ops.update(code=code, u_dwa=u_dwa, feasible=feasible)
         sp = params_from_config(cfg, Pc, (Pc, Pc), per_scenario_maps=True)
         self._launch("k1_fused_safety", "fused_safety",
-                     _c_params(sp, safety_params_from_config(cfg, Pc), S, 0), ops, dev)
+                     _c_params(sp, safety_params_from_config(cfg, Pc), S), ops, dev)
         return code, u_dwa, feasible
 
     def safety_map(self, cfg, x, vb, U_new, dist, pstart, porigin, pres, dorigin, dlen):
@@ -756,7 +807,7 @@ class FusedSolveSafety:
         feasible = torch.empty((S,), dtype=torch.int32, device=dev)
         ops.update(code=code, u_dwa=u_dwa, feasible=feasible)
         params = _c_params(params_from_config(cfg, P, (mh, mw), per_scenario_maps=per_scenario),
-                           safety_params_from_config(cfg, Pc), S, 0)
+                           safety_params_from_config(cfg, Pc), S)
         params.H, params.crop_from_map, params.crop_offset = H, 1, (P - Pc) // 2
         self._launch("k1_fused_safety", "fused_safety_map", params, ops, dev)
         return code, u_dwa, feasible
@@ -840,35 +891,59 @@ def pad_lattice(pts: torch.Tensor, D: torch.Tensor):
 
 
 class Lattice(NamedTuple):
-    """The refresh's operands that depend on the geometry alone: the shared
-    lattice, the mask-folded dense basis table and the degenerate-target
-    fallback (the fields of :class:`Refresh` after its mixture)."""
+    """The refresh's operands that depend on the geometry alone (the fields
+    of :class:`Refresh` after its mixture): the shared lattice, the
+    mask-folded dense basis table and the degenerate-target fallback, which
+    the plain version reads, and the separable ones the kernel reads: the
+    lattice's x and y samples, the per-axis cosines and h_k, the mask by
+    rows."""
 
     pts: torch.Tensor  # (Npad, 2)
     D: torch.Tensor  # (Npad, K^2)
     mask_ck: torch.Tensor  # (K^2,)
+    xs: torch.Tensor  # (nsx,)
+    ys: torch.Tensor  # (nsy,) padded to ROW_CHUNK
+    cx: torch.Tensor  # (nsx, finish_cx_cols(K))
+    cy: torch.Tensor  # (K rounded up to 2, nsy)
+    hk: torch.Tensor  # (K^2,)
+    mask: Optional[torch.Tensor]  # (nsx, nsy) or None
 
 
 def lattice_operands(cfg, domain: Domain, free_mask) -> Lattice:
     """The shared lattice, the mask-folded dense basis table and the fallback
     of the in-kernel refresh on the unbatched ``domain`` (with row 0 of
     ``free_mask`` folded in, or none); the lattice is padded to LATTICE_CHUNK
-    with far-away points whose D rows are zero. They depend on (domain, free
-    mask, K, grid_samples) alone: the engine builds them once for those,
-    outside any graph (``Engine._lattice_ops``), as the JAX package's jit
-    builds them inside its trace."""
+    with far-away points whose D rows are zero. Beside them the separable
+    form the kernel reads: the x samples and the y samples (padded to
+    ROW_CHUNK with far-away points), as ``pts`` holds them; the x and y
+    cosines (D's own values: D is their outer product over h_k, times the
+    mask), zero past K; h_k; the mask as (rows, padded columns). They depend
+    on (domain, free mask, K, grid_samples) alone: the engine builds them
+    once for those, outside any graph (``Engine._lattice_ops``), as the JAX
+    package's jit builds them inside its trace."""
     K = cfg.num_basis
-    pts = domain.sample_lattice(cfg.grid_samples)  # (N, 2)
+    nsx, nsy = cfg.grid_samples
+    pts = domain.sample_lattice(cfg.grid_samples)  # (N, 2), x-major
     N = pts.shape[0]
-    D = basis.dense_table(basis.tables(pts, K, domain), basis.hk_norm(K, domain.lengths))
+    tbl = basis.tables(pts, K, domain)
+    hk = basis.hk_norm(K, domain.lengths)
+    D = basis.dense_table(tbl, hk)
+    m1 = None
     if free_mask is not None:
-        m1 = free_mask[0] if free_mask.dim() == 2 else free_mask  # one shared mask
-        D = D * m1.to(D.dtype)[:, None]
+        m1 = (free_mask[0] if free_mask.dim() == 2 else free_mask).to(D.dtype)  # one shared mask
+        D = D * m1[:, None]
         mask_ck = D.sum(dim=0) / torch.clamp(m1.sum(), min=1.0)
     else:
         mask_ck = D.sum(dim=0) / float(N)
+    pad = (-nsy) % ROW_CHUNK
+    xs = pts.view(nsx, nsy, 2)[:, 0, 0]
+    ys = F.pad(pts.view(nsx, nsy, 2)[0, :, 1], (0, pad), value=PAD_POINT)
+    cx = F.pad(tbl.Cx.view(nsx, nsy, K)[:, 0], (0, finish_cx_cols(K) - K))
+    cy = F.pad(tbl.Cy.view(nsx, nsy, K)[0].T, (0, pad, 0, K % 2))
+    mask = None if m1 is None else F.pad(m1.view(nsx, nsy), (0, pad)).contiguous()
     pts, D = pad_lattice(pts, D)
-    return Lattice(pts, D, mask_ck.contiguous())
+    return Lattice(pts, D, mask_ck.contiguous(), xs.contiguous(), ys.contiguous(),
+                   cx.contiguous(), cy.contiguous(), hk.reshape(K * K).contiguous(), mask)
 
 
 def refresh_operands(cfg, gmm: GaussianMixture, domain: Domain, free_mask,

@@ -233,7 +233,7 @@ class Static:
 
 def kernel_wrappers() -> list:
     """The kernel wrappers whose ``launches`` dicts count launches (and K1's
-    count by layout)."""
+    counts by layout and of its refresh)."""
     return list(named_kernel_wrappers().values())
 
 
@@ -247,8 +247,8 @@ def named_kernel_wrappers() -> dict:
     from ergodic_exploration_tpu_torch.ops.solve_kernel import K1
     from ergodic_exploration_tpu_torch.ops.tick_glue import G
 
-    return {"K1": K1, "K1.forms": K1.forms, "K2": K2, "K3": K3, "G": G, "R": R, "E": E,
-            "M": M}
+    return {"K1": K1, "K1.forms": K1.forms, "K1.refresh": K1.refreshes, "K2": K2, "K3": K3,
+            "G": G, "R": R, "E": E, "M": M}
 
 
 def count_captured(fn: Callable, wrappers: Sequence):

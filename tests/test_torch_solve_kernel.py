@@ -8,6 +8,8 @@ builds cos(k theta) by Chebyshev recurrence, the port directly), codes and
 DWA flags exact.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -146,17 +148,18 @@ def test_kernel_params_mirror_the_c_struct():
     cfg = default_config("omni")
     sp = sk.params_from_config(cfg, 40, (100, 100), 2, True)
     sps = sk.safety_params_from_config(cfg, 16)
-    p = sk._c_params(sp, sps, S=7, Npad=10240)
+    p = sk._c_params(sp, sps, S=7, lattice=(100, 100))
     assert (p.S, p.K, p.nu, p.P, p.Pc, p.J, p.masked, p.model) == (7, 10, 4, 40, 16, 2, 1, 1)
     assert p.patch_hi == np.float32(40 - 1.001) and p.crop_hi == np.float32(16 - 1.001)
     assert p.tw_b == np.float32(0.25 * cfg.omni.wheel_radius / (cfg.omni.lx + cfg.omni.ly))
     assert list(p.r_inv) == [np.float32(1.0) / np.float32(0.001)] * 4
-    assert (p.safety, p.nb) == (1, 0) and sk._c_params(sp, sps, 7, 0, False, 24).nb == 24
-    assert (p.nsplit, p.chunks_per_split) == (1, 0)
-    q = sk._c_params(sp, sps, 7, 10240, split=(6, 27))
-    assert (q.nsplit, q.chunks_per_split) == (6, 27)
+    assert (p.safety, p.nb) == (1, 0) and sk._c_params(sp, sps, 7, (0, 0), False, 24).nb == 24
+    assert (p.nsx, p.nsy, p.nband, p.band_rows) == (100, 100, 1, 0)
+    q = sk._c_params(sp, sps, 7, (100, 100), plan=sk.RefreshPlan(17, 6))
+    assert (q.nband, q.band_rows) == (17, 6)
     assert p.global_tables == 0
-    assert sk._c_params(sp, sps, 7, 10240, split=(6, 27), tables_global=True).global_tables == 1
+    assert sk._c_params(sp, sps, 7, (100, 100), plan=sk.RefreshPlan(17, 6),
+                        tables_global=True).global_tables == 1
     assert [f[0] for f in sk._Buffers._fields_] == list(sk._BUFFERS)
     # the struct in the source lists the same fields in the same order
     src = open(sk.__file__.replace("ops/solve_kernel.py", "csrc/solve_kernel.cu")).read()
@@ -226,12 +229,10 @@ def test_lattice_split_is_shared_by_k1_and_k2(S_, want):
 def test_refresh_scratch_is_allocated_once_per_shape():
     k1 = sk.FusedSolveSafety()
     cpu = torch.device("cpu")
-    acc, tot = k1.refresh_scratch(cpu, 8, 4096, 100)
-    assert acc.shape == (8, 4096, 100) and tot.shape == (8, 4096)
-    assert acc.dtype == tot.dtype == torch.float32
-    again = k1.refresh_scratch(cpu, 8, 4096, 100)
-    assert again[0] is acc and again[1] is tot  # not per tick
-    assert k1.refresh_scratch(cpu, 157, 1, 100)[0].shape == (157, 1, 100)
+    rows = k1.refresh_scratch(cpu, 100, 10, 4096)
+    assert rows.shape == (128, 100, 11, 32) and rows.dtype == torch.float32
+    assert k1.refresh_scratch(cpu, 100, 10, 4096) is rows  # not per tick
+    assert k1.refresh_scratch(cpu, 100, 10, 1).shape == (1, 100, 11, 32)
 
 
 def test_solve_workspace_is_allocated_once_per_size():
@@ -258,23 +259,36 @@ def test_lattice_split_counts_the_slabs(S_, slabs):
     assert sk.slab_blocks(100) == 1 and sk.slab_blocks(257) == 2 and sk.slab_blocks(1600) == 7
 
 
-def _refresh_split_and_finish(r, dlen, split):
+def _refresh_split_and_finish(r, dlen, plan):
     """The refresh as k1_refresh + k1_finish compute it, in plain PyTorch:
-    (acc, tot) per lattice split, added in split order, then K1's epilogue."""
+    each band's rows, each row's y sums and tot (the bands only share the
+    rows out among warps: every row's sums go to the scratch), then the x
+    sums and the tot over each of k1_finish's 4 parts of the rows (LF_PARTS
+    in csrc/lattice_refresh.cuh), the parts added in order; A_00 is the
+    masked mass; then K1's epilogue."""
     from ergodic_exploration_tpu_torch.ops.target import gmm_eval
 
-    nsplit, per = split
-    phi = gmm_eval(r.pts, r.gmm)  # (S, Npad)
-    acc = torch.zeros(phi.shape[0], r.D.shape[1])
-    tot = torch.zeros(phi.shape[0])
-    for sp in range(nsplit):
-        lo, hi = sp * per * sk.LATTICE_CHUNK, min(r.pts.shape[0], (sp + 1) * per * sk.LATTICE_CHUNK)
-        acc = acc + torch.matmul(phi[:, lo:hi], r.D[lo:hi])
-        tot = tot + phi[:, lo:hi].sum(dim=-1)
-    t = tot[:, None]
+    nsx, K = r.cx.shape[0], math.isqrt(r.hk.shape[0])
+    nsy = int((r.ys < sk.PAD_POINT).sum())
+    S_ = r.gmm.weights.shape[0]
+    phi = gmm_eval(r.pts[:nsx * nsy], r.gmm).view(S_, nsx, nsy)
+    m = r.mask[:, :nsy] if r.mask is not None else torch.ones(nsx, nsy)
+    rows = torch.zeros(S_, nsx, K)
+    tots = torch.zeros(S_, nsx)
+    for b in range(plan.nband):
+        x = slice(b * plan.band_rows, (b + 1) * plan.band_rows)
+        rows[:, x] = torch.matmul(phi[:, x] * m[x], r.cy[:K, :nsy].T)
+        tots[:, x] = phi[:, x].sum(dim=-1)
+    per = -(-nsx // 4)
+    A, t = torch.zeros(S_, K, K), torch.zeros(S_, 1)
+    for q in range(4):
+        x = slice(q * per, (q + 1) * per)
+        A = A + torch.einsum("xa,sxb->sab", r.cx[x, :K], rows[:, x])
+        t = t + tots[:, x].sum(dim=-1, keepdim=True)
+    acc = A.reshape(S_, K * K) / r.hk
     if r.masked:
         h00 = torch.sqrt(dlen[:, 0:1] * dlen[:, 1:2])
-        a00 = h00 * acc[:, 0:1]
+        a00 = h00 * (A[:, 0, 0:1] / r.hk[0])
         ok = (t > 1e-12) & (a00 / torch.clamp(t, min=1e-12) > 1e-12)
         ck = acc / torch.clamp(a00, min=1e-30)
     else:
@@ -287,7 +301,8 @@ def _refresh_split_and_finish(r, dlen, split):
 @pytest.mark.parametrize("S_", [1, 5])
 def test_split_and_finish_of_the_refresh_equals_refresh_plain(masked, S_):
     """2.2e-6: the JAX package's own budget for its refresh; the sums are
-    the plain version's, cut at the split boundaries."""
+    the plain version's, factored over the lattice's rows and columns and
+    shared out in row bands."""
     rng = np.random.default_rng(11)
     cfg = default_config("cart").replace(grid_samples=(50, 40), num_basis=6)
     dom = Domain.create(0.0, 0.0, 3.0, 3.0)
@@ -299,11 +314,60 @@ def test_split_and_finish_of_the_refresh_equals_refresh_plain(masked, S_):
     r = sk.refresh_operands(cfg, g, dom, mask)
     dlen = torch.full((S_, 2), 3.0)
     ref = sk.refresh_plain(r, dlen)
-    n_chunks = r.pts.shape[0] // sk.LATTICE_CHUNK
-    for split in (sk.lattice_split(S_, n_chunks, 132), (3, 11), (1, n_chunks)):
-        got = _refresh_split_and_finish(r, dlen, split)
+    for plan in (sk.refresh_plan(S_, 50, 132), sk.RefreshPlan(7, 8), sk.RefreshPlan(1, 50)):
+        got = _refresh_split_and_finish(r, dlen, plan)
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0.0, atol=2.2e-6)
         np.testing.assert_array_equal(got[S_ - 1].numpy(), r.mask_ck.numpy())
+
+
+@pytest.mark.parametrize("ns,K,masked", [((50, 40), 6, True), ((17, 19), 5, False),
+                                         ((100, 100), 10, True), ((20, 16), 17, True)])
+def test_lattice_operands_rebuild_the_dense_table(ns, K, masked):
+    """The separable operands are the dense table's factors: cx (x) cy / h_k
+    times the mask is D within float32 rounding, the samples are the
+    lattice's points, and the padding (columns past nsy, coefficients past
+    K) is far away or zero."""
+    rng = np.random.default_rng(5)
+    nsx, nsy = ns
+    cfg = default_config("cart").replace(grid_samples=ns, num_basis=K)
+    dom = Domain.create(0.5, -1.0, 4.0, 3.0)
+    mask = (torch.from_numpy((rng.uniform(0, 1, (2, nsx * nsy)) > 0.3).astype(np.float32))
+            if masked else None)
+    lat = sk.lattice_operands(cfg, dom, mask)
+    N = nsx * nsy
+    grid = torch.stack(torch.broadcast_tensors(lat.xs[:, None], lat.ys[None, :nsy]), -1)
+    assert torch.equal(grid.reshape(N, 2), lat.pts[:N])
+    m = lat.mask[:, :nsy] if masked else torch.ones(nsx, nsy)
+    assert masked == (lat.mask is not None) and (not masked or torch.equal(m.reshape(N), mask[0]))
+    cx, cy = lat.cx[:, :K], lat.cy[:K, :nsy].T  # (nsx, K), (nsy, K)
+    D = (cx[:, None, :, None] * cy[None, :, None, :] / lat.hk.view(K, K)
+         * m[:, :, None, None]).reshape(N, K * K)
+    np.testing.assert_allclose(D.numpy(), lat.D[:N].numpy(), rtol=0.0, atol=2.0 ** -23)
+    assert (lat.ys[nsy:] == sk.PAD_POINT).all() and lat.ys.shape[0] % sk.ROW_CHUNK == 0
+    assert lat.cx.shape == (nsx, sk.finish_cx_cols(K)) and lat.cy.shape[0] == K + K % 2
+    assert (lat.cx[:, K:] == 0).all() and (lat.cy[K:] == 0).all() and (lat.cy[:, nsy:] == 0).all()
+    assert not masked or (lat.mask[:, nsy:] == 0).all()
+    assert torch.equal(lat.hk, sk.basis.hk_norm(K, dom.lengths).reshape(K * K))
+
+
+@pytest.mark.parametrize("S_,nsx", [(1, 100), (4096, 100), (100, 100), (70, 17), (1, 3),
+                                    (33, 250), (4096, 7)])
+def test_refresh_plan_counts_every_row_once_and_fills_the_card(S_, nsx):
+    """The bands cover the lattice's rows, each once (the last band may be
+    short, none is empty); a small batch takes a band a row, as many warps as
+    the lattice has rows, and a large one gives every SM about REFRESH_WARPS
+    warps (132 SMs: an H100)."""
+    plan = sk.refresh_plan(S_, nsx, 132)
+    rows = [range(b * plan.band_rows, min(nsx, (b + 1) * plan.band_rows))
+            for b in range(plan.nband)]
+    assert sorted(i for r_ in rows for i in r_) == list(range(nsx)) and all(rows)
+    warps, want = -(-S_ // 32) * plan.nband, sk.REFRESH_WARPS * 132
+    if S_ == 1:  # one scenario: a row a warp
+        assert plan == sk.RefreshPlan(nsx, 1)
+    if (S_, nsx) == (4096, 100):  # 128 groups: 17 bands of 6 rows, 16.5 warps an SM
+        assert plan == sk.RefreshPlan(17, 6) and want <= warps < 1.1 * want
+    # a band a row, or enough bands to fill the card
+    assert plan.nband == nsx or warps >= want
 
 
 def _warp_winner(cost):
