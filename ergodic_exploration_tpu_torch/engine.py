@@ -1008,6 +1008,13 @@ class Engine:
             metric.append(m)
         return sc, belief, torch.stack(coverage), torch.stack(traj), torch.stack(metric)
 
+    @spanned("ee.mapping.inputs")
+    def _mapping_inputs(self, sc: Scenarios, truth: GridMap):
+        """The per-call inputs of :meth:`_mapping_graphs`: the scenarios, a
+        fresh belief of -1 (as large as the truth), the truth and M's
+        operands (:meth:`_dense_ops`)."""
+        return sc, torch.full_like(truth.data, -1.0), truth, self._dense_ops(truth, None)
+
     def _mapping_graphs(self, sc: Scenarios, truth: GridMap, n_refreshes: int,
                         refresh_every: int, sensor_range: float, sensor_radius_cells: int,
                         make_graph):
@@ -1019,7 +1026,7 @@ class Engine:
         and copied in with the inputs. ``make_graph`` as for
         :meth:`_explore_graphs`."""
         truth, win = self._mapping_setup(sc, truth, sensor_range)
-        ins = (sc, torch.full_like(truth.data, -1.0), truth, self._dense_ops(truth, None))
+        ins = self._mapping_inputs(sc, truth)
         key = ("mapping", self.config, win, refresh_every, sensor_range, sensor_radius_cells)
         entry = self._graphs.entry(key, ins)
         entry.load(ins)

@@ -9,9 +9,10 @@ CPU by the host clock, after one warm-up call and ending with the device
 synchronised.
 
 Spans: :func:`spanned` decorates a function whose every call is a span (the
-engine's entry calls, and inside them the graph cache's lookup, copy-in and
-copy-out); :meth:`~ergodic_exploration_tpu_torch.utils.graphs.Static.run`
-enters its capture or replay span itself, behind the same check. A span
+engine's entry calls, and inside them the mapping loop's per-call inputs and
+the graph cache's lookup, copy-in and copy-out);
+:meth:`~ergodic_exploration_tpu_torch.utils.graphs.Static.run` enters its
+capture or replay span itself, behind the same check. A span
 names a stretch of host work for a ``torch.profiler`` that is recording;
 with none recording it costs one flag check (:func:`recording`). A span is
 a host event of the profiler, on the clock of its CUDA trace, and its parent
@@ -26,7 +27,8 @@ wrap a capture or a replay from the host. No span name starts with ``cu``
 Counters: :data:`COUNTS`, always on, counts graphs made, operand sets
 built, kernel libraries loaded and the bytes the graphs' buffers copy in and
 out (its users add to it in place); :func:`counters` returns them with the
-kernel wrappers' launch totals, one snapshot to difference around a window.
+kernel wrappers' launches, summed and by variant, one snapshot to difference
+around a window.
 """
 
 from __future__ import annotations
@@ -157,11 +159,14 @@ COUNTS = {"graphs_made": 0, "operand_builds": 0, "libraries_loaded": 0,
 
 
 def counters() -> dict:
-    """A snapshot of :data:`COUNTS` and of each kernel wrapper's launches
-    (``launches.<wrapper>``, its variants summed)."""
+    """A snapshot of :data:`COUNTS` and of each kernel wrapper's launches:
+    ``launches.<wrapper>``, its variants summed, and
+    ``launches.<wrapper>.<variant>`` for each variant (the form a launch
+    took: E's one-block or many-block form, M's placement)."""
     from ergodic_exploration_tpu_torch.utils.graphs import named_kernel_wrappers
 
     out = dict(COUNTS)
     for name, w in named_kernel_wrappers().items():
         out[f"launches.{name}"] = sum(w.launches.values())
+        out.update({f"launches.{name}.{v}": n for v, n in w.launches.items()})
     return out

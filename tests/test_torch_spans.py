@@ -7,20 +7,26 @@ small size, each of the five entry points sent down its graph route with
     the spans use is there under this torch;
 (b) under ``torch.profiler`` (CPU), each call's ``ee.*`` spans form the tree
     the entry point promises, in order: ``ee.graph.capture`` on the first
-    call of a graph and ``ee.graph.replay`` afterwards; no ``ee.*`` span
-    lies under a capture or a replay, and none outside an entry span;
+    call of a graph and ``ee.graph.replay`` afterwards, and ahead of the
+    mapping loop's lookup ``ee.mapping.inputs``; no ``ee.*`` span lies
+    under a capture or a replay, and none outside an entry span;
 (c) the counters over two chained ``replan_refresh`` calls: the first makes
     the graph and the lattice operands, the second neither, copies in only
     the poses and twists, and copies out the state, u and diagnostics;
 (d) ``chip_spans.py``'s rehearsal on the CPU (a benchmark cell's traced
     window at 4 scenarios): its spans and counters are read and every idle
-    gap is named.
+    gap is named;
+(e) every wrapper's launches by variant in the counters, summing to its
+    total; E's and M's launch paths run on CPU tensors with their library
+    and the card stubbed out, a launch of each form, and a graph replay's
+    launches.
 """
 
 import json
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -44,6 +50,7 @@ ENTRIES = ("ee.replan", "ee.replan_refresh", "ee.replan_refresh_mi", "ee.explore
            "ee.explore_mapping_fused")
 LOOKUP, COPY_IN, COPY_OUT = "ee.graph.lookup", "ee.graph.copy_in", "ee.graph.copy_out"
 CAPTURE, REPLAY = "ee.graph.capture", "ee.graph.replay"
+INPUTS = "ee.mapping.inputs"
 
 
 class Case:
@@ -98,9 +105,10 @@ def _children(first: bool) -> dict:
     return {"ee.replan": tick, "ee.replan_refresh": tick, "ee.replan_refresh_mi": tick,
             # a block of GRAPH_BLOCK ticks, a 1-tick tail, the final state
             "ee.explore": [LOOKUP, COPY_IN, g, COPY_OUT, g, COPY_OUT, COPY_OUT],
-            # two refreshes of one graph, the final state and beliefs
-            "ee.explore_mapping_fused": [LOOKUP, COPY_IN, g, COPY_OUT, REPLAY, COPY_OUT,
-                                         COPY_OUT]}
+            # the fresh belief and M's operands, two refreshes of one graph, the
+            # final state and beliefs
+            "ee.explore_mapping_fused": [INPUTS, LOOKUP, COPY_IN, g, COPY_OUT, REPLAY,
+                                         COPY_OUT, COPY_OUT]}
 
 
 def _span_tree(prof) -> list:
@@ -205,3 +213,82 @@ def test_chip_spans_rehearses_a_traced_window_on_the_cpu():
     assert prog["entry_self_ms"] > 0 and prog["replay_ms"] == prog["copy_out_ms"] == 0
     assert prog["rebuilds_in_window"] == 0 and prog["copy_in_kb_per_tick"] == 0
     assert got["idle_named_s"] == pytest.approx(got["idle_s"], rel=1e-6)
+
+
+def _stub_launches(monkeypatch):
+    """E and M launching nothing: no card, no library, the launcher's
+    return code 0; their counts restored afterwards. Returns the params of
+    each launch, in order."""
+    from ergodic_exploration_tpu_torch.ops import edt_kernel, mi_dense_kernel
+
+    seen = []
+    stub = SimpleNamespace(lib=SimpleNamespace(edt_field=None, m_phik_dense_launch=None))
+    for mod in (edt_kernel, mi_dense_kernel):
+        monkeypatch.setattr(mod, "_require_cuda", lambda dev, what: None)
+        monkeypatch.setattr(mod, "launch_on", lambda dev, fn, params, bufs: seen.append(params)
+                            or 0)
+    monkeypatch.setattr(mi_dense_kernel, "_sm_count", lambda dev: 132)
+    for w in (edt_kernel.E, mi_dense_kernel.M):
+        monkeypatch.setattr(w, "build", lambda: stub)
+        monkeypatch.setattr(w, "launches", dict(w.launches))
+    return seen
+
+
+def _grown(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def test_counters_report_every_wrapper_by_variant():
+    """(e) Each wrapper's ``launches.<wrapper>.<variant>``, one key a
+    variant, summing to ``launches.<wrapper>``."""
+    c = profiling.counters()
+    for name, w in graphs.named_kernel_wrappers().items():
+        assert {f"launches.{name}.{v}" for v in w.launches} <= set(c)
+        assert c[f"launches.{name}"] == sum(c[f"launches.{name}.{v}"] for v in w.launches)
+
+
+def test_counters_report_e_by_variant(monkeypatch):
+    """(e) A 16 x 16 map takes the one-block form, a 40 x 40 one the
+    many-block form (its plane past ``smem_limit``); a replay adds its
+    captured launches by variant."""
+    from ergodic_exploration_tpu_torch.ops.edt_kernel import E
+
+    _stub_launches(monkeypatch)
+    monkeypatch.setattr(E, "smem_bytes", lambda h, w, nsx, nsy, shared: h * w)
+    monkeypatch.setattr(E, "work_bytes", lambda h, w: 6 * h * w)
+    monkeypatch.setattr(E, "smem_limit", 1000)
+    c0 = profiling.counters()
+    assert {f"launches.E.{v}" for v in E.VARIANTS} <= set(c0)
+    E(torch.zeros((2, 16, 16)), torch.full((2,), RES), 0.65)
+    c1 = profiling.counters()
+    assert _grown(c0, c1) == {"launches.E": 1, "launches.E.edt": 1}
+    z2 = torch.zeros((2, 2))
+    E.world(torch.zeros((2, 40, 40)), torch.full((2,), RES), 0.65, z2, z2, torch.ones((2, 2)),
+            torch.linspace(0.1, 0.9, 5), torch.linspace(0.1, 0.9, 4))
+    c2 = profiling.counters()
+    assert _grown(c1, c2) == {"launches.E": 1, "launches.E.world_global": 1}
+    graphs.add_launches([{"world_global": 1}], [E])
+    assert _grown(c2, profiling.counters()) == {"launches.E": 1, "launches.E.world_global": 1}
+
+
+def test_counters_report_m_by_variant(monkeypatch):
+    """(e) 64 x 64 beliefs on an 8 x 8 lattice, r = fc = 1: the tables at
+    the lattice's 24 columns, all in shared memory, then with
+    ``smem_limit`` cut to nothing in the last placement."""
+    from ergodic_exploration_tpu_torch.ops import mi_dense_kernel as mdk
+    from ergodic_exploration_tpu_torch.ops.mi_dense_kernel import M, dense_operands
+
+    seen = _stub_launches(monkeypatch)
+    S, h, w, K, r = 3, 64, 64, 4, 1
+    g0 = GridMap(torch.zeros((h, w)), torch.zeros(2), torch.tensor(RES))
+    ops = dense_operands(g0, Domain.create(0.0, 0.0, w * RES, h * RES), K, (8, 8))
+    beliefs = torch.full((S, h, w), -1.0)
+    c0 = profiling.counters()
+    assert {f"launches.M.{v}" for v in M.VARIANTS} <= set(c0)
+    for limit, variant in ((mdk.MAX_SMEM, "phik_dense_fc"), (0, "phik_dense_fc_global_tables")):
+        monkeypatch.setattr(M, "smem_limit", limit)
+        M(beliefs, ops, r, r)
+        c1, p = profiling.counters(), seen[-1]
+        assert p.wc == 24 < w and mdk.SPILLS[p.spill] == variant[len("phik_dense_fc"):]
+        assert _grown(c0, c1) == {"launches.M": 1, f"launches.M.{variant}": 1}
+        c0 = c1
